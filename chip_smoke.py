@@ -10,20 +10,27 @@ the script exits non-zero:
                power limit (nvidia-smi), torch and CUDA versions.
 2. build     - builds the CUDA kernels of ecrad_torch/csrc from this
                checkout.
-3. kernels   - each kernel (generator_scan, lw_fused, sw_fused) against
-               its plain torch version on the card, on the inputs the main
-               path builds for a random atmospheric state (numpy seed) at
-               137 levels and 2048 and 2049 columns, in float64 and
-               rounded to float32; kernel and plain median times.
-4. slice_f64 - the flagship step (ecrad_torch.flagship) on the 32-column
-               meridian slice in float64 against the JAX package's float64
-               fluxes (tests/data/torch_flagship_meridian32.npz).
+3. kernels   - each kernel (generator_scan, lw_fused, sw_fused of the
+               McICA path; tripleclouds_lw, tripleclouds_sw of the
+               Tripleclouds path) against its plain torch version on the
+               card, on the inputs the main path builds for a random
+               atmospheric state (numpy seed) at 137 levels and 2048 and
+               2049 columns, in float64 and rounded to float32; kernel and
+               plain median times.
+4. slice_f64 - the flagship (McICA) step (ecrad_torch.flagship) on the
+               32-column meridian slice in float64 against the JAX package's
+               float64 fluxes (tests/data/torch_flagship_meridian32.npz).
 5. slice_f32 - (a) interface.radiation in float32 fed the JAX float32
                stochastic sample, against the JAX float32 fluxes;
-               (b) the main path at full size: radiation_blocked over 6144
-               columns in blocks of 2048, float32, timed.  The kernels'
-               launch counters are reset just before (b) and read just
-               after it.
+               (b) the McICA main path at full size: radiation_blocked over
+               6144 columns in blocks of 2048, float32, timed.
+6. slice_tc_f64, slice_tc_f32 - the tripleclouds_rrtmg step on the 32
+               meridian columns in float64 and float32 against the JAX
+               package's fluxes (tests/data/torch_tripleclouds_meridian32
+               .npz); the path is deterministic, so no sample is fed.
+7. slice_tc_full - the Tripleclouds main path at full size, as 5(b).
+The kernels' launch counters are reset just before each main path (5b, 7)
+and read just after it.
 
 Then one JSON line with the per-kernel results, the nvidia-smi line, and
 as the last line {"ok": true, "device": {...}}.
@@ -39,13 +46,16 @@ import numpy as np
 import torch
 
 from ecrad_torch import constants, flagship, kernels, pipeline
+from ecrad_torch.config import Solver
 from ecrad_torch.interface import _optical_properties, radiation
 from ecrad_torch.solvers import cloud_generator, cuda_generator, cuda_mcica
-from ecrad_torch.solvers import mcica
+from ecrad_torch.solvers import cuda_tripleclouds, mcica, tripleclouds
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 REFERENCE = os.path.join(HERE, "tests", "data",
                          "torch_flagship_meridian32.npz")
+REFERENCE_TC = os.path.join(HERE, "tests", "data",
+                            "torch_tripleclouds_meridian32.npz")
 NLEV = 137
 SHAPES = (2048, 2049)         # the bench block, and a ragged column count
 FULL_NCOL, FULL_BLOCK = 6144, 2048
@@ -89,7 +99,19 @@ KERNELS = {
         wrapper=cuda_mcica.sw_fused, plain=cuda_mcica.sw_fused_plain,
         source="ecrad_torch/csrc/sw_fused.cu",
         replaces="ecrad_tpu/solvers/pallas_mcica.py:546"),
+    "tripleclouds_lw": dict(
+        wrapper=cuda_tripleclouds.lw_fused,
+        plain=cuda_tripleclouds.lw_fused_plain,
+        source="ecrad_torch/csrc/tripleclouds_lw.cu",
+        replaces="ecrad_tpu/solvers/pallas_tripleclouds.py:303"),
+    "tripleclouds_sw": dict(
+        wrapper=cuda_tripleclouds.sw_fused,
+        plain=cuda_tripleclouds.sw_fused_plain,
+        source="ecrad_torch/csrc/tripleclouds_sw.cu",
+        replaces="ecrad_tpu/solvers/pallas_tripleclouds.py:625"),
 }
+MCICA_KERNELS = ("generator_scan", "lw_fused", "sw_fused")
+TC_KERNELS = ("tripleclouds_lw", "tripleclouds_sw")
 
 
 def phase(name, **fields):
@@ -103,6 +125,13 @@ def reset_counts():
 
 def counts():
     return {n: k["wrapper"].launches for n, k in KERNELS.items()}
+
+
+def expect_counts(got, what, **nonzero):
+    """Fail unless the launch counts are `nonzero` and 0 elsewhere."""
+    want = {n: nonzero.get(n, 0) for n in KERNELS}
+    if got != want:
+        raise AssertionError(f"{what}: launch counts {got}, expected {want}")
 
 
 def median_ms(fn, reps=5):
@@ -127,7 +156,8 @@ def kernel_inputs(ncol, dtype, seed):
     slice tiled to ncol columns with a random state per column from a
     numpy seed: solar zenith (night included), skin temperature,
     humidity scaling, cloud-fraction scaling and generator seeds.
-    Returns {kernel: [argument tuples]}."""
+    Returns {kernel: [argument tuples]}: the McICA kernels' and, from the
+    same optical properties, the Tripleclouds kernels'."""
     rng = np.random.default_rng(seed)
     step, args = flagship.build(ncol=ncol, dtype=dtype, device=DEV)
     config, tables = step.config, step.tables
@@ -165,7 +195,20 @@ def kernel_inputs(ncol, dtype, seed):
         cloud["od_scaling_sw"], op["frac"], go.incoming_sw, kw["cos_sza"],
         op["sw_albedo_diffuse_g"], op["sw_albedo_direct_g"], thr,
         config.do_sw_delta_scaling_with_gases)
-    return {"generator_scan": gen, "lw_fused": [lw], "sw_fused": [sw]}
+    tc = config.replace(sw_solver=Solver.TRIPLECLOUDS,
+                        lw_solver=Solver.TRIPLECLOUDS)
+    tc_lw, _ = tripleclouds.lw_fused_args(
+        tc, op["od_lw"], cl["od_lw"], cl["ssa_lw"], cl["g_lw"],
+        tables.band_from_g_lw, op["frac"], cloud["fractional_std"],
+        cloud["overlap_param"], go.planck_hl,
+        go.lw_emission * (1.0 - op["lw_albedo_g"]), op["lw_albedo_g"])
+    tc_sw, _ = tripleclouds.sw_fused_args(
+        tc, op["od_sw"], op["ssa_sw"], op["g_sw_arr"], cl["od_sw"],
+        cl["ssa_sw"], cl["g_sw"], tables.band_from_g_sw, op["frac"],
+        cloud["fractional_std"], cloud["overlap_param"], go.incoming_sw,
+        kw["cos_sza"], op["sw_albedo_diffuse_g"], op["sw_albedo_direct_g"])
+    return {"generator_scan": gen, "lw_fused": [lw], "sw_fused": [sw],
+            "tripleclouds_lw": [tc_lw], "tripleclouds_sw": [tc_sw]}
 
 
 # --- phases -----------------------------------------------------------------
@@ -187,7 +230,7 @@ def build_phase():
     info = kernels.build()
     kernels.library()
     regs = [line.strip() for line in info["log"].splitlines()
-            if "registers" in line]
+            if "entry function" in line or "registers" in line]
     phase("build", seconds=info["seconds"], library=info["path"],
           ptxas_registers=regs)
 
@@ -297,8 +340,8 @@ def slice_f64_phase(ref):
     flux = step(*args)
     torch.cuda.synchronize()
     n = counts()
-    if n != {"generator_scan": 2, "lw_fused": 1, "sw_fused": 1}:
-        raise AssertionError(f"launch counts of one f64 step: {n}")
+    expect_counts(n, "one f64 step", generator_scan=2, lw_fused=1,
+                  sw_fused=1)
     worst = _check_slice(flux, ref, "f64/", SLICE_F64_ATOL,
                          SLICE_F64_ATOL_DIMLESS)
     phase("slice_f64", max_abs_err=worst, launches=n)
@@ -330,9 +373,20 @@ def slice_f32_phase(ref, smi):
     first_s = time.perf_counter() - t0
     main_counts = counts()
     nblocks = FULL_NCOL // FULL_BLOCK
-    if main_counts != {"generator_scan": 2 * nblocks, "lw_fused": nblocks,
-                       "sw_fused": nblocks}:
-        raise AssertionError(f"main-path launch counts: {main_counts}")
+    expect_counts(main_counts, "McICA main path",
+                  generator_scan=2 * nblocks, lw_fused=nblocks,
+                  sw_fused=nblocks)
+    steps = check_and_time(step, args, flux)
+    step_s = statistics.median(steps)
+    phase("slice_f32_full", ncol=FULL_NCOL, block=FULL_BLOCK,
+          first_step_s=first_s, step_s=step_s, step_s_all=steps,
+          cols_per_s=FULL_NCOL / step_s, launches=main_counts, card=smi)
+    return main_counts
+
+
+def check_and_time(step, args, flux):
+    """Check a full-size main-path result (shape, finite, sw_up within the
+    incoming flux) and time three more steps; returns their seconds."""
     for name, v in flux.fields().items():
         if v.shape[0] != FULL_NCOL or not bool(torch.isfinite(v).all()):
             raise AssertionError(f"{name}: bad shape or non-finite values")
@@ -345,8 +399,44 @@ def slice_f32_phase(ref, smi):
         step(*args)
         torch.cuda.synchronize()
         steps.append(time.perf_counter() - t0)
+    return steps
+
+
+def slice_tc_phases(ref, smi):
+    """The Tripleclouds path: f64 and f32 slices against JAX, then its
+    main path at full size."""
+    for dtype, prefix, atol, atol_dimless, name in (
+            (torch.float64, "f64/", SLICE_F64_ATOL, SLICE_F64_ATOL_DIMLESS,
+             "slice_tc_f64"),
+            (torch.float32, "f32/", SLICE_F32_ATOL, SLICE_F32_ATOL_DIMLESS,
+             "slice_tc_f32")):
+        step, args = flagship.build(ncol=32, dtype=dtype, device=DEV,
+                                    config_name="tripleclouds_rrtmg")
+        reset_counts()
+        flux = step(*args)
+        torch.cuda.synchronize()
+        n = counts()
+        expect_counts(n, f"one {name} step", tripleclouds_lw=1,
+                      tripleclouds_sw=1)
+        worst = _check_slice(flux, ref, prefix, atol, atol_dimless)
+        phase(name, max_abs_err=worst, launches=n)
+
+    step, args = flagship.build(ncol=FULL_NCOL, dtype=torch.float32,
+                                device=DEV, block_size=FULL_BLOCK,
+                                config_name="tripleclouds_rrtmg")
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    flux = step(*args)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    main_counts = counts()
+    nblocks = FULL_NCOL // FULL_BLOCK
+    expect_counts(main_counts, "Tripleclouds main path",
+                  tripleclouds_lw=nblocks, tripleclouds_sw=nblocks)
+    steps = check_and_time(step, args, flux)
     step_s = statistics.median(steps)
-    phase("slice_f32_full", ncol=FULL_NCOL, block=FULL_BLOCK,
+    phase("slice_tc_full", ncol=FULL_NCOL, block=FULL_BLOCK,
           first_step_s=first_s, step_s=step_s, step_s_all=steps,
           cols_per_s=FULL_NCOL / step_s, launches=main_counts, card=smi)
     return main_counts
@@ -361,7 +451,13 @@ def main():
     with np.load(REFERENCE) as z:
         ref = {k: z[k] for k in z.files}
     slice_f64_phase(ref)
-    main_counts = slice_f32_phase(ref, smi)
+    mcica_counts = slice_f32_phase(ref, smi)
+    with np.load(REFERENCE_TC) as z:
+        ref_tc = {k: z[k] for k in z.files}
+    tc_counts = slice_tc_phases(ref_tc, smi)
+    # each kernel's launches in the main path that runs it
+    main_counts = {n: (tc_counts if n in TC_KERNELS else mcica_counts)[n]
+                   for n in KERNELS}
     line = {"kernels": [
         {"name": n, "route": "cuda", "source": k["source"],
          "replaces": k["replaces"], "launches": main_counts[n],

@@ -187,6 +187,71 @@ __device__ __forceinline__ void merge_sw(T od, T ssa, T g, T odc, T ssac,
   g_t = scat > T(0) ? gscat / d_max(scat, Limits<T>::tiny()) : T(0);
 }
 
+// --- Tripleclouds: per-level overlap data and the interface mixes ---------
+// The overlap matrices are stored per interface as 9 entries, k = 3*i + j
+// (interface j lies above layer j; interface nlev is the surface).
+template <typename T> struct TcLevel {
+  T u[9], v[9];  // overlap matrices at the interface the sweep mixes at
+  T rf[3];       // region fractions of the layer
+  T scal[2];     // od scalings of the two cloudy regions
+  int clear;     // the layer is clear (cloud fraction <= 0)
+  int skip;      // ... and so is its neighbour across that interface
+};
+
+// Stage one level's per-column data in shared memory: the same for every
+// g-point, so a few threads load it once and the block reads it after the
+// barrier.  u9/rf3 may be null (the SW sweeps do not read them).  `other`
+// is the neighbouring layer across the mixing interface; layers outside
+// 0..nlev-1 count as clear.  The caller must not overwrite `s` before every
+// thread is done reading the previous level (a block_sum or a barrier).
+template <typename T>
+__device__ __forceinline__ void tc_stage(TcLevel<T> &s, const T *u9,
+                                         const T *v9, const T *rf3,
+                                         const T *scal2,
+                                         const unsigned char *clear, int col,
+                                         int nlev, int l, int iface,
+                                         int other) {
+  const int t = threadIdx.x;
+  const size_t ifo = ((size_t)col * (nlev + 1) + iface) * 9;
+  const size_t lo = (size_t)col * nlev + l;
+  if (t < 9) {
+    if (u9 != nullptr) s.u[t] = u9[ifo + t];
+    s.v[t] = v9[ifo + t];
+  } else if (t < 12) {
+    if (rf3 != nullptr) s.rf[t - 9] = rf3[lo * 3 + (t - 9)];
+  } else if (t < 14) {
+    s.scal[t - 12] = scal2[lo * 2 + (t - 12)];
+  } else if (t == 14) {
+    const bool c = clear[lo] != 0;
+    const bool o = (other < 0 || other >= nlev)
+                       ? true
+                       : clear[(size_t)col * nlev + other] != 0;
+    s.clear = c;
+    s.skip = c && o;
+  }
+  __syncthreads();
+}
+
+// out[r] = sum_l m[3l + r] x[l]: the v-matrix mix of the up sweeps
+// (pallas_tripleclouds._mix_v).
+template <typename T>
+__device__ __forceinline__ void mix_cols(const T *m, const T (&x)[3],
+                                         T (&out)[3]) {
+#pragma unroll
+  for (int r = 0; r < 3; ++r)
+    out[r] = m[r] * x[0] + m[3 + r] * x[1] + m[6 + r] * x[2];
+}
+
+// out[i] = sum_j m[3i + j] x[j]: the v-matrix mix of the down sweeps and
+// the u-matrix mix of sources and derivatives (_mix_v_dn, _mix_u).
+template <typename T>
+__device__ __forceinline__ void mix_rows(const T *m, const T (&x)[3],
+                                         T (&out)[3]) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+    out[i] = m[3 * i] * x[0] + m[3 * i + 1] * x[1] + m[3 * i + 2] * x[2];
+}
+
 // Deterministic sum of NV values over the threads of a block (at most
 // 1024 threads): a fixed shuffle tree within each warp, then thread 0
 // adds the warp partials in warp order.  Every thread of the block must

@@ -2,10 +2,14 @@
 McICA SW and LW, IFS general aerosols with RH growth, SOCRATES liquid
 and Fu ice, LW derivatives and canopy fluxes, absorption-only LW
 aerosols (the CY49R1 operational setup), on the bundled 32-column,
-137-level meridian slice tiled to any column count.
+137-level meridian slice tiled to any column count.  The named
+configuration ``tripleclouds_rrtmg`` is the same with Tripleclouds SW
+and LW solvers.
 
 Mirrors ``__graft_entry__._build`` of the JAX package: the same Config
-overrides, driver settings and tiling.
+overrides, cloud-separation settings and tiling (for
+``tripleclouds_rrtmg``, the overrides of ``tools/bench_matrix.py``
+CONFIGS["tripleclouds_rrtmg"]).
 """
 
 from __future__ import annotations
@@ -14,7 +18,7 @@ import numpy as np
 import torch
 
 from ecrad_torch import pipeline
-from ecrad_torch.config import Config, IceModel, LiquidModel
+from ecrad_torch.config import Config, IceModel, LiquidModel, Solver
 from ecrad_torch.data import DATA_DIR, MERIDIAN_INPUT
 from ecrad_torch.interface import setup_radiation
 from ecrad_torch.io.input import DriverConfig, read_input
@@ -24,8 +28,21 @@ ARG_ORDER = ("pressure_hl", "temperature_hl", "gas_mmr", "cos_sza",
              "lw_emissivity", "cloud", "aerosol")
 
 
-def flagship_config(dtype_name: str) -> Config:
-    """The flagship Config before setup (__graft_entry__._build)."""
+# Named configurations: Config fields over the flagship's
+CONFIGS = {
+    "mcica_rrtmg": {},
+    "tripleclouds_rrtmg": dict(sw_solver=Solver.TRIPLECLOUDS,
+                               lw_solver=Solver.TRIPLECLOUDS),
+}
+
+
+def flagship_config(dtype_name: str,
+                    config_name: str = "mcica_rrtmg") -> Config:
+    """The Config of a named configuration before setup
+    (__graft_entry__._build with that configuration's overrides)."""
+    if config_name not in CONFIGS:
+        raise ValueError(f"unknown configuration {config_name!r}; "
+                         f"known: {sorted(CONFIGS)}")
     return Config(
         liquid_model=LiquidModel.SOCRATES, ice_model=IceModel.FU,
         # the CY49R1 operational namelist runs absorption-only LW
@@ -41,11 +58,13 @@ def flagship_config(dtype_name: str) -> Config:
         use_aerosols=True, n_aerosol_types=12,
         i_aerosol_type_map=(-1, -2, -3, 7, 8, 9, -4, 10, 11, 11, -5, 14),
         use_general_cloud_optics=False,
-        dtype_name=dtype_name)
+        dtype_name=dtype_name, **CONFIGS[config_name])
 
 
-def build(ncol=32, dtype=torch.float32, device="cpu", block_size=None):
-    """Build the step and its example inputs.
+def build(ncol=32, dtype=torch.float32, device="cpu", block_size=None,
+          config_name="mcica_rrtmg"):
+    """Build the step of a named configuration (CONFIGS) and its example
+    inputs.
 
     Returns ``(step, args)``: ``step(*args)`` runs
     ``pipeline.radiation_step`` (or ``radiation_blocked`` when
@@ -54,8 +73,9 @@ def build(ncol=32, dtype=torch.float32, device="cpu", block_size=None):
     ``step.tables`` and ``step.solar`` carry the consolidated setup."""
     device = torch.device(device)
     dtype_name = "float64" if dtype == torch.float64 else "float32"
-    config, tables = setup_radiation(flagship_config(dtype_name), device,
-                                     dtype, data_dir=DATA_DIR)
+    config, tables = setup_radiation(
+        flagship_config(dtype_name, config_name), device, dtype,
+        data_dir=DATA_DIR)
     dc = DriverConfig(cloud_separation_scale_toa=14000.0,
                       cloud_separation_scale_surface=2500.0,
                       cloud_separation_scale_power=3.5,

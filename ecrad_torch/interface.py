@@ -1,11 +1,11 @@
 """Radiation scheme orchestration (port of ``ecrad_tpu/interface.py``
-for the RRTMG + McICA configurations).
+for the RRTMG configurations with McICA and Tripleclouds solvers).
 
 Equivalent of radiation/radiation_interface.F90: ``setup_radiation``
 (host-side: loads the LUTs, computes the spectral mappings, and returns
 the consolidated Config plus a :class:`Tables` of torch tensors on one
-device) and ``radiation`` (gas optics, aerosol, cloud optics, McICA
-solvers).  Configurations outside the port's slice raise
+device) and ``radiation`` (gas optics, aerosol, cloud optics, McICA and
+Tripleclouds solvers).  Configurations outside the port's slice raise
 NotImplementedError.
 """
 
@@ -23,7 +23,7 @@ from ecrad_torch.data import find_data_file
 from ecrad_torch.optics import aerosol as aerosol_mod
 from ecrad_torch.optics import cloud as cloud_optics_mod
 from ecrad_torch.optics import rrtmg, rrtmg_data
-from ecrad_torch.solvers import mcica
+from ecrad_torch.solvers import mcica, tripleclouds
 from ecrad_torch.solvers.cloud_generator import fit_pdf_cheb
 
 
@@ -80,9 +80,11 @@ def _check_supported(config: Config):
     if (config.gas_model_sw != GasModel.RRTMG
             or config.gas_model_lw != GasModel.RRTMG):
         raise NotImplementedError("the port has RRTMG gas optics only")
-    if (config.do_sw and config.sw_solver != Solver.MCICA) or (
-            config.do_lw and config.lw_solver != Solver.MCICA):
-        raise NotImplementedError("the port has the McICA solvers only")
+    ported = (Solver.MCICA, Solver.TRIPLECLOUDS)
+    if (config.do_sw and config.sw_solver not in ported) or (
+            config.do_lw and config.lw_solver not in ported):
+        raise NotImplementedError(
+            "the port has the McICA and Tripleclouds solvers only")
     if config.use_general_cloud_optics:
         raise NotImplementedError("general cloud optics are not ported")
     for flag in ("use_spectral_solar_scaling", "use_spectral_solar_cycle",
@@ -308,12 +310,14 @@ def radiation(config: Config, tables: Tables, *,
               cos_sza, skin_temperature, sw_albedo, sw_albedo_direct,
               lw_emissivity, solar_irradiance,
               cloud=None, aerosol=None) -> Flux:
-    """The hot path (radiation_interface.F90:200-517) for the McICA
-    configurations.
+    """The hot path (radiation_interface.F90:200-517) for the McICA and
+    Tripleclouds configurations.
 
     gas_mmr: (ncol, nlev, NUM_GASES) mass mixing ratios in
-    constants.GAS_NAMES order.  cloud must carry the stochastic sample
-    (od_scaling_*, total_cloud_cover_*; see pipeline.add_cloud_sample).
+    constants.GAS_NAMES order.  For a McICA solver cloud must carry the
+    stochastic sample (od_scaling_*, total_cloud_cover_*; see
+    pipeline.add_cloud_sample); Tripleclouds reads fractional_std and
+    overlap_param.
     """
     op = _optical_properties(
         config, tables, pressure_hl=pressure_hl,
@@ -330,16 +334,24 @@ def radiation(config: Config, tables: Tables, *,
     if config.do_lw:
         lw_albedo_g = op["lw_albedo_g"]
         lw_emission = go.lw_emission * (1.0 - lw_albedo_g)
-        lw = mcica.solver_mcica_lw(
-            op["od_lw"], op["ssa_lw"], op["g_lw_arr"],
-            cl["od_lw"], cl["ssa_lw"], cl["g_lw"],
-            tables.band_from_g_lw,
-            cloud["od_scaling_lw"], cloud["total_cloud_cover_lw"],
-            frac, go.planck_hl, lw_emission, lw_albedo_g,
-            cloud_fraction_threshold=config.cloud_fraction_threshold,
-            do_lw_cloud_scattering=config.do_lw_cloud_scattering,
-            do_lw_aerosol_scattering=config.do_lw_aerosol_scattering,
-            do_lw_derivatives=config.do_lw_derivatives)
+        if config.lw_solver == Solver.TRIPLECLOUDS:
+            lw = tripleclouds.solver_tripleclouds_lw(
+                config, op["od_lw"], op["ssa_lw"], op["g_lw_arr"],
+                cl["od_lw"], cl["ssa_lw"], cl["g_lw"],
+                tables.band_from_g_lw, frac, cloud["fractional_std"],
+                cloud["overlap_param"], go.planck_hl, lw_emission,
+                lw_albedo_g)
+        else:
+            lw = mcica.solver_mcica_lw(
+                op["od_lw"], op["ssa_lw"], op["g_lw_arr"],
+                cl["od_lw"], cl["ssa_lw"], cl["g_lw"],
+                tables.band_from_g_lw,
+                cloud["od_scaling_lw"], cloud["total_cloud_cover_lw"],
+                frac, go.planck_hl, lw_emission, lw_albedo_g,
+                cloud_fraction_threshold=config.cloud_fraction_threshold,
+                do_lw_cloud_scattering=config.do_lw_cloud_scattering,
+                do_lw_aerosol_scattering=config.do_lw_aerosol_scattering,
+                do_lw_derivatives=config.do_lw_derivatives)
         flux_kw.update(
             lw_up=lw.flux_up, lw_dn=lw.flux_dn,
             lw_up_clear=lw.flux_up_clear, lw_dn_clear=lw.flux_dn_clear,
@@ -361,16 +373,25 @@ def radiation(config: Config, tables: Tables, *,
                     lw_dn_band @ tables.lw_emiss_weights.T
 
     if config.do_sw:
-        sw = mcica.solver_mcica_sw(
-            op["od_sw"], op["ssa_sw"], op["g_sw_arr"],
-            cl["od_sw"], cl["ssa_sw"], cl["g_sw"],
-            tables.band_from_g_sw,
-            cloud["od_scaling_sw"], cloud["total_cloud_cover_sw"],
-            frac, go.incoming_sw, cos_sza,
-            op["sw_albedo_diffuse_g"], op["sw_albedo_direct_g"],
-            cloud_fraction_threshold=config.cloud_fraction_threshold,
-            do_sw_delta_scaling_with_gases=(
-                config.do_sw_delta_scaling_with_gases))
+        if config.sw_solver == Solver.TRIPLECLOUDS:
+            # Tripleclouds sets the cloud cover of night columns too
+            sw = tripleclouds.solver_tripleclouds_sw(
+                config, op["od_sw"], op["ssa_sw"], op["g_sw_arr"],
+                cl["od_sw"], cl["ssa_sw"], cl["g_sw"],
+                tables.band_from_g_sw, frac, cloud["fractional_std"],
+                cloud["overlap_param"], go.incoming_sw, cos_sza,
+                op["sw_albedo_diffuse_g"], op["sw_albedo_direct_g"])
+        else:
+            sw = mcica.solver_mcica_sw(
+                op["od_sw"], op["ssa_sw"], op["g_sw_arr"],
+                cl["od_sw"], cl["ssa_sw"], cl["g_sw"],
+                tables.band_from_g_sw,
+                cloud["od_scaling_sw"], cloud["total_cloud_cover_sw"],
+                frac, go.incoming_sw, cos_sza,
+                op["sw_albedo_diffuse_g"], op["sw_albedo_direct_g"],
+                cloud_fraction_threshold=config.cloud_fraction_threshold,
+                do_sw_delta_scaling_with_gases=(
+                    config.do_sw_delta_scaling_with_gases))
         flux_kw.update(
             sw_up=sw.flux_up, sw_dn=sw.flux_dn,
             sw_dn_direct=sw.flux_dn_direct,

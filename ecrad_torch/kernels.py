@@ -1,7 +1,8 @@
 """Build and load the package's CUDA kernels (``ecrad_torch/csrc``).
 
-All ``csrc/*.cu`` files compile with ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, loaded with ``ctypes``.  The
+Each ``csrc/*.cu`` file compiles with its own ``nvcc`` for ``sm_90a``,
+all started together, and the objects link into one shared library with a
+plain C interface, loaded with ``ctypes``.  The
 library is built at first use into ``build/ecrad_torch/`` under the
 repository root, named by a hash of the sources and flags, so a checkout
 builds everything itself and a changed source is never served a stale
@@ -26,7 +27,7 @@ from ecrad_torch.data import REPO_ROOT
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(REPO_ROOT, "build", "ecrad_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -34,6 +35,8 @@ _SIGNATURES = {
     "ecrad_generator_scan": [_P] * 6 + [_I] * 4 + [_P],
     "ecrad_lw_fused": [_P] + [_I] * 4 + [_P],
     "ecrad_sw_fused": [_P] + [_I] * 5 + [_P],
+    "ecrad_tripleclouds_lw": [_P] + [_I] * 4 + [_P],
+    "ecrad_tripleclouds_sw": [_P] + [_I] * 5 + [_P],
 }
 
 
@@ -61,21 +64,39 @@ def library_path() -> str:
 
 def build() -> dict:
     """Compile the kernels unless the library for the current sources
-    exists.  Returns {"path", "seconds" (0 when cached), "log"}."""
+    exists: one nvcc per source, run in parallel, then one link.  Returns
+    {"path", "seconds" (0 when cached), "log"}."""
     path = library_path()
     if os.path.exists(path):
         return {"path": path, "seconds": 0.0, "log": ""}
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[s for s in _sources() if s.endswith(".cu")]]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+    objs, procs = [], []
+    for src in (s for s in _sources() if s.endswith(".cu")):
+        obj = f"{tmp}.{os.path.basename(src)}.o"
+        objs.append(obj)
+        procs.append(subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs = [p.communicate()[0] for p in procs]
+    log = "".join(logs)
+    try:
+        failed = [p.args[-1] for p in procs if p.returncode != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed for {failed}:\n{log}")
+        res = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                               f"{res.stderr}")
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     os.replace(tmp, path)
-    return {"path": path, "seconds": time.perf_counter() - t0,
-            "log": res.stdout + res.stderr}
+    return {"path": path, "seconds": time.perf_counter() - t0, "log": log}
 
 
 @functools.lru_cache(maxsize=None)

@@ -26,6 +26,7 @@ before = set(sys.modules)
 sys.path.insert(0, {repo!r})
 import ecrad_torch, ecrad_torch.flagship, ecrad_torch.pipeline
 import ecrad_torch.kernels, ecrad_torch.solvers.cuda_mcica
+import ecrad_torch.solvers.tripleclouds, ecrad_torch.solvers.cuda_tripleclouds
 import chip_smoke
 new = set(sys.modules) - before
 bad = sorted(m for m in new
