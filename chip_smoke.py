@@ -13,12 +13,16 @@ the script exits non-zero:
 3. kernels   - each kernel (generator_scan, lw_fused, sw_fused of the
                McICA path; tripleclouds_lw, tripleclouds_sw of the
                Tripleclouds path; lw_noscat_sweeps, scat_sweeps, sw_sweeps,
-               the adding sweeps of the Cloudless and Homogeneous paths)
-               against its plain torch version on the card, on the inputs
-               the main path builds for a random atmospheric state (numpy
-               seed) at 137 levels and 2048 and 2049 columns, in float64
-               and rounded to float32; kernel and plain median times, and
-               the least time the card could take for the same work.
+               the adding sweeps of the Cloudless and Homogeneous paths;
+               spartacus_sw, spartacus_lw of the SPARTACUS path, in
+               Explicit entrapment without LW multilayer effects as the
+               path runs them, and again in Maximum and Edge-only
+               entrapment with them) against its plain torch version on
+               the card, on the inputs the main path builds for a random
+               atmospheric state (numpy seed) at 137 levels and 2048 and
+               2049 columns, in float64 and rounded to float32; kernel and
+               plain median times, and the least time the card could take
+               for the same work.
 4. slice_f64 - the flagship (McICA) step (ecrad_torch.flagship) on the
                32-column meridian slice in float64 against the JAX package's
                float64 fluxes (tests/data/torch_flagship_meridian32.npz).
@@ -35,6 +39,9 @@ the script exits non-zero:
                (tests/data/torch_cloudless_meridian32.npz).
 8. slice_hom_* - the same three for homogeneous_rrtmg
                (tests/data/torch_homogeneous_meridian32.npz).
+9. slice_sp_*  - the same three for spartacus_3d
+               (tests/data/torch_spartacus_meridian32.npz); its full phase
+               also reports the peak device memory of the run.
 The kernels' launch counters are reset just before each main path (5b and
 the *_full phases) and read just after it.
 
@@ -52,11 +59,12 @@ import numpy as np
 import torch
 
 from ecrad_torch import constants, flagship, kernels, pipeline
-from ecrad_torch.config import Solver
-from ecrad_torch.interface import _optical_properties, radiation
+from ecrad_torch.config import Entrapment, Solver
+from ecrad_torch.interface import (_optical_properties, radiation,
+                                   spartacus_lw_inputs, spartacus_sw_inputs)
 from ecrad_torch.solvers import cloud_generator, cuda_adding, cuda_generator
-from ecrad_torch.solvers import cuda_mcica, cuda_tripleclouds, mcica
-from ecrad_torch.solvers import tripleclouds, two_stream
+from ecrad_torch.solvers import cuda_mcica, cuda_spartacus, cuda_tripleclouds
+from ecrad_torch.solvers import mcica, spartacus, tripleclouds, two_stream
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 DATA = os.path.join(HERE, "tests", "data")
@@ -64,7 +72,8 @@ REFERENCE = os.path.join(DATA, "torch_flagship_meridian32.npz")
 # the deterministic configurations: (phase tag, reference file)
 SLICES = {"tripleclouds_rrtmg": ("tc", "torch_tripleclouds_meridian32.npz"),
           "cloudless_rrtmg": ("cl", "torch_cloudless_meridian32.npz"),
-          "homogeneous_rrtmg": ("hom", "torch_homogeneous_meridian32.npz")}
+          "homogeneous_rrtmg": ("hom", "torch_homogeneous_meridian32.npz"),
+          "spartacus_3d": ("sp", "torch_spartacus_meridian32.npz")}
 NLEV = 137
 SHAPES = (2048, 2049)         # the bench block, and a ragged column count
 FULL_NCOL, FULL_BLOCK = 6144, 2048
@@ -92,6 +101,13 @@ SLICE_F64_ATOL, SLICE_F64_ATOL_DIMLESS = 1e-6, 1e-10
 # 0.5 W m-2 for LW and SW fluxes (tests/test_tpu_smoke.py); the
 # dimensionless fields to 1e-4.
 SLICE_F32_ATOL, SLICE_F32_ATOL_DIMLESS = 0.5, 1e-4
+# ... except where the JAX float32 run (on the CPU, as the reference file
+# holds it) is itself further than that from the JAX float64 one: in
+# spartacus_3d by 8 W m-2 in lw_dn (the 6x6 LW exponential's sources in
+# single precision, which the port computes in float64).  There the
+# float32 slice is held to the float64 fluxes at the same bar, and its
+# distance to the JAX float32 fluxes is only reported.
+F32_HELD_TO = {"spartacus_3d": "f64/"}
 DIMLESS = ("lw_derivatives", "cloud_cover_lw", "cloud_cover_sw")
 
 KERNELS = {
@@ -131,6 +147,16 @@ KERNELS = {
         wrapper=cuda_adding.sw_sweeps, plain=cuda_adding.sw_sweeps_plain,
         source="ecrad_torch/csrc/adding_sweeps.cu",
         replaces="ecrad_tpu/solvers/pallas_adding.py:314"),
+    "spartacus_sw": dict(
+        wrapper=cuda_spartacus.sw_sweeps,
+        plain=cuda_spartacus.sw_sweeps_plain,
+        source="ecrad_torch/csrc/spartacus_sw.cu",
+        replaces="ecrad_tpu/solvers/pallas_spartacus.py:179"),
+    "spartacus_lw": dict(
+        wrapper=cuda_spartacus.lw_sweeps,
+        plain=cuda_spartacus.lw_sweeps_plain,
+        source="ecrad_torch/csrc/spartacus_lw.cu",
+        replaces="ecrad_tpu/solvers/pallas_spartacus.py:346"),
 }
 # Each main path's launches per 2048-column block (all others 0); a
 # kernel's reported launches are those of the first path listed here that
@@ -140,6 +166,7 @@ MAIN_PATHS = {
     "tripleclouds_rrtmg": dict(tripleclouds_lw=1, tripleclouds_sw=1),
     "cloudless_rrtmg": dict(lw_noscat_sweeps=1, sw_sweeps=1),
     "homogeneous_rrtmg": dict(scat_sweeps=2, sw_fused=1),
+    "spartacus_3d": dict(spartacus_sw=1, spartacus_lw=1),
 }
 
 # The least time of a kernel's work on one H100 SXM (NVIDIA's published
@@ -176,6 +203,12 @@ OPS = {
     "lw_noscat_sweeps": lambda args, f: 6,
     "scat_sweeps": lambda args, f: 24,
     "sw_sweeps": lambda args, f: 29,
+    # the SPARTACUS 3x3 region adding: about 700 (SW: matrix products, a
+    # 3x3 LU and solves, the overlap and entrapment mixes, the clear-sky
+    # sweeps) and 400 (LW) operations, which even five times over stay
+    # below the bytes of the 50 (SW) and 24 (LW) layer planes
+    "spartacus_sw": lambda args, f: 700,
+    "spartacus_lw": lambda args, f: 400,
 }
 
 
@@ -216,17 +249,14 @@ def median_ms(fn, reps=5):
 
 # --- inputs -----------------------------------------------------------------
 
-def kernel_inputs(ncol, dtype, seed):
-    """Each kernel's inputs as the main path builds them, for the meridian
-    slice tiled to ncol columns with a random state per column from a
-    numpy seed: solar zenith (night included), skin temperature,
-    humidity scaling, cloud-fraction scaling and generator seeds.
-    Returns {kernel: [argument tuples]}: the McICA kernels' and, from the
-    same optical properties, the Tripleclouds kernels' and the adding
-    sweeps' (on the clear-sky two-stream coefficients)."""
+def random_state(ncol, dtype, seed, config_name="mcica_rrtmg"):
+    """A configuration's step for the meridian slice tiled to ncol columns,
+    with a random state per column from a numpy seed: solar zenith (night
+    included), skin temperature, humidity scaling, cloud-fraction scaling
+    and generator seeds.  Returns (step, inputs without the cloud, cloud)."""
     rng = np.random.default_rng(seed)
-    step, args = flagship.build(ncol=ncol, dtype=dtype, device=DEV)
-    config, tables = step.config, step.tables
+    step, args = flagship.build(ncol=ncol, dtype=dtype, device=DEV,
+                                config_name=config_name)
     kw = dict(zip(flagship.ARG_ORDER, args))
     t = lambda x: torch.as_tensor(x, dtype=dtype, device=DEV)
     kw["cos_sza"] = t(rng.uniform(-0.2, 1.0, ncol))
@@ -241,6 +271,39 @@ def kernel_inputs(ncol, dtype, seed):
                                                           (ncol, 1)))
     cloud["iseed"] = torch.as_tensor(rng.integers(1, 2**31 - 1, ncol),
                                      device=DEV)
+    return step, kw, cloud
+
+
+def spartacus_inputs(ncol, dtype, seed):
+    """The SPARTACUS sweeps' inputs as the spartacus_3d path builds them
+    for the random state of random_state: [SW in Explicit (the path's),
+    Maximum and Edge-only entrapment], [LW without (the path's) and with
+    multilayer effects]."""
+    step, kw, cloud = random_state(ncol, dtype, seed, "spartacus_3d")
+    config, tables = step.config, step.tables
+    op = _optical_properties(config, tables, solar_irradiance=step.solar,
+                             cloud=cloud, **kw)
+    levels = (kw["pressure_hl"], kw["temperature_hl"])
+    sw_opts, sw, _ = spartacus.sw_sweep_args(*spartacus_sw_inputs(
+        config, tables, op, cloud, *levels, kw["cos_sza"])[1])
+    lw_opts, lw, _ = spartacus.lw_sweep_args(*spartacus_lw_inputs(
+        config, tables, op, cloud, *levels)[1])
+    if sw_opts.mode != Entrapment.EXPLICIT or lw_opts.multilayer:
+        raise AssertionError(f"spartacus_3d runs {sw_opts}, {lw_opts}")
+    return ([(sw_opts._replace(mode=m), *sw)
+             for m in (Entrapment.EXPLICIT, Entrapment.MAXIMUM,
+                       Entrapment.EDGE_ONLY)],
+            [(lw_opts, *lw), (lw_opts._replace(multilayer=True), *lw)])
+
+
+def kernel_inputs(ncol, dtype, seed):
+    """Each kernel's inputs as the main path builds them, for the random
+    state of random_state.  Returns {kernel: [argument tuples]}: the McICA
+    kernels' and, from the same optical properties, the Tripleclouds
+    kernels' and the adding sweeps' (on the clear-sky two-stream
+    coefficients); the SPARTACUS sweeps' from spartacus_inputs."""
+    step, kw, cloud = random_state(ncol, dtype, seed)
+    config, tables = step.config, step.tables
     gen = [cloud_generator.scan_inputs(config, cloud["iseed"],
                                        cloud["fraction"],
                                        cloud["overlap_param"], ng)[:6]
@@ -286,10 +349,12 @@ def kernel_inputs(ncol, dtype, seed):
                                          op["ssa_sw"], op["g_sw_arr"])
                  + (go.incoming_sw, op["sw_albedo_diffuse_g"],
                     op["sw_albedo_direct_g"] * mu0))
+    sp_sw, sp_lw = spartacus_inputs(ncol, dtype, seed)
     return {"generator_scan": gen, "lw_fused": [lw], "sw_fused": [sw],
             "tripleclouds_lw": [tc_lw], "tripleclouds_sw": [tc_sw],
             "lw_noscat_sweeps": [noscat], "scat_sweeps": [scat],
-            "sw_sweeps": [sw_clear]}
+            "sw_sweeps": [sw_clear], "spartacus_sw": sp_sw,
+            "spartacus_lw": sp_lw}
 
 
 # --- phases -----------------------------------------------------------------
@@ -311,13 +376,23 @@ def build_phase():
     info = kernels.build()
     kernels.library()
     regs = [line.strip() for line in info["log"].splitlines()
-            if "entry function" in line or "registers" in line]
+            if "entry function" in line or "registers" in line
+            or "spill" in line]
     phase("build", seconds=info["seconds"], library=info["path"],
           ptxas_registers=regs)
 
 
-def _outputs(x):
-    return x if isinstance(x, dict) else {"out": x}
+def _outputs(x, key="out"):
+    """A kernel's outputs as {name: tensor}; nested tuples are flattened
+    with their positions as names."""
+    if isinstance(x, dict):
+        return x
+    if isinstance(x, (tuple, list)):
+        out = {}
+        for i, v in enumerate(x):
+            out.update(_outputs(v, f"{key}[{i}]"))
+        return out
+    return {key: x}
 
 
 def _compare_f64(got, ref):
@@ -362,7 +437,8 @@ def _compare_f32(got, ref, ref64):
 
 def _f32(args):
     return tuple(a.float() if torch.is_tensor(a) and a.is_floating_point()
-                 else a for a in args)
+                 else _f32(a) if isinstance(a, tuple) and not hasattr(
+                     a, "_fields") else a for a in args)
 
 
 def bound(name, args, out):
@@ -371,9 +447,12 @@ def bound(name, args, out):
     output tensor over the memory rate, or the operations (OPS, with the
     cloudy fraction of these inputs) over the float32 rate."""
     nbytes = sum(t.numel() * t.element_size()
-                 for t in (*args, *_outputs(out).values())
+                 for t in (*_outputs(args).values(), *_outputs(out).values())
                  if torch.is_tensor(t))
-    ncol, nlev, ng = args[0].shape
+    if name.startswith("spartacus"):      # (opts, (nlev, 9, ncol, ng), ...)
+        nlev, _, ncol, ng = args[1].shape
+    else:
+        ncol, nlev, ng = args[0].shape
     ops = OPS[name](args, lambda m: float(m.float().mean())) * ncol * nlev * ng
     t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_F32_OPS_S
     return dict(bound_ms=1e3 * max(t_bytes, t_ops),
@@ -517,26 +596,37 @@ def slice_phases(config_name, ref, smi):
         torch.cuda.synchronize()
         n = counts()
         expect_counts(n, f"one {name} step", **per_block(config_name))
-        worst = _check_slice(flux, ref, prefix, atol, atol_dimless)
-        phase(name, max_abs_err=worst, launches=n)
+        held_to = prefix
+        if dtype == torch.float32:
+            held_to = F32_HELD_TO.get(config_name, prefix)
+        worst = _check_slice(flux, ref, held_to, atol, atol_dimless)
+        extra = {}
+        if held_to != prefix:           # reported, not checked
+            extra["held_to"] = held_to
+            extra["max_abs_err_vs_" + prefix[:3]] = _check_slice(
+                flux, ref, prefix, float("inf"), float("inf"))
+        phase(name, max_abs_err=worst, launches=n, **extra)
 
     step, args = flagship.build(ncol=FULL_NCOL, dtype=torch.float32,
                                 device=DEV, block_size=FULL_BLOCK,
                                 config_name=config_name)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
     flux = step(*args)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     main_counts = counts()
+    peak = torch.cuda.max_memory_allocated()
     expect_counts(main_counts, f"{config_name} main path",
                   **per_block(config_name, FULL_NCOL // FULL_BLOCK))
     steps = check_and_time(step, args, flux)
     step_s = statistics.median(steps)
     phase(f"slice_{tag}_full", ncol=FULL_NCOL, block=FULL_BLOCK,
           first_step_s=first_s, step_s=step_s, step_s_all=steps,
-          cols_per_s=FULL_NCOL / step_s, launches=main_counts, card=smi)
+          cols_per_s=FULL_NCOL / step_s, launches=main_counts,
+          peak_memory_bytes=peak, card=smi)
     return main_counts
 
 

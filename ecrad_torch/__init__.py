@@ -1,17 +1,18 @@
 """ecrad_torch: the PyTorch/CUDA port of ecrad_tpu.
 
 RRTMG gas optics, IFS general aerosols, SOCRATES liquid and Fu ice, LW
-derivatives and canopy fluxes with the Cloudless, Homogeneous, McICA and
-Tripleclouds solvers run as plain torch on tensors of any device, with
-eight hand-written CUDA kernels (``csrc/``): the McICA cloud-generator
-level scan, the fused LW/SW McICA and Tripleclouds sweeps, and the generic
-LW/SW adding sweeps behind Cloudless, Homogeneous LW and the unfused
-paths.  On CPU tensors each kernel's wrapper runs its plain torch version
-instead.
+derivatives and canopy fluxes with the Cloudless, Homogeneous, McICA,
+Tripleclouds and SPARTACUS solvers run as plain torch on tensors of any
+device, with ten hand-written CUDA kernels (``csrc/``): the McICA
+cloud-generator level scan, the fused LW/SW McICA and Tripleclouds sweeps,
+the generic LW/SW adding sweeps behind Cloudless, Homogeneous LW and the
+unfused paths, and the SPARTACUS LW/SW adding sweeps.  On CPU tensors each
+kernel's wrapper runs its plain torch version instead.
 
 Entry point: :func:`ecrad_torch.flagship.build`, on the card by default,
 with the named configurations ``mcica_rrtmg`` (the flagship),
-``tripleclouds_rrtmg``, ``cloudless_rrtmg`` and ``homogeneous_rrtmg``.
+``tripleclouds_rrtmg``, ``cloudless_rrtmg``, ``homogeneous_rrtmg`` and
+``spartacus_3d``.
 The JAX package ``ecrad_tpu`` is the reference; this package imports
 nothing of it.
 """

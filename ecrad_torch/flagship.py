@@ -8,12 +8,15 @@ configurations change the solvers:
 * ``tripleclouds_rrtmg``: Tripleclouds SW and LW;
 * ``cloudless_rrtmg``: Cloudless SW and LW (no cloud optics, no sample);
 * ``homogeneous_rrtmg``: Homogeneous SW and LW with LW aerosol scattering
-  on (ecRad's default), so LW takes the unfused adding sweeps.
+  on (ecRad's default), so LW takes the unfused adding sweeps;
+* ``spartacus_3d``: SPARTACUS SW and LW with 3D effects (Explicit
+  entrapment, LW side emissivity) and no SW delta scaling with gases.
 
 Mirrors ``__graft_entry__._build`` of the JAX package with the same
 ``nam_overrides``: the same Config, cloud-separation settings and tiling
-(for ``tripleclouds_rrtmg``, the overrides of ``tools/bench_matrix.py``
-CONFIGS["tripleclouds_rrtmg"]).
+(for ``tripleclouds_rrtmg`` and ``spartacus_3d``, the overrides of
+``tools/bench_matrix.py`` CONFIGS), including the cloud sizes that
+SPARTACUS reads.
 """
 
 from __future__ import annotations
@@ -42,6 +45,9 @@ CONFIGS = {
     "homogeneous_rrtmg": dict(sw_solver=Solver.HOMOGENEOUS,
                               lw_solver=Solver.HOMOGENEOUS,
                               do_lw_aerosol_scattering=True),
+    "spartacus_3d": dict(sw_solver=Solver.SPARTACUS,
+                         lw_solver=Solver.SPARTACUS, do_3d_effects=True,
+                         do_sw_delta_scaling_with_gases=False),
 }
 
 
@@ -109,6 +115,12 @@ def build(ncol=32, dtype=torch.float32, device="cuda", block_size=None,
         "fractional_std": tile(inp.fractional_std),
         "iseed": tile(inp.iseed, torch.int64),
     }
+    if inp.inv_cloud_effective_size is not None:
+        # SPARTACUS 3D geometry inputs (separation-eta chain)
+        cloud["inv_cloud_effective_size"] = tile(inp.inv_cloud_effective_size)
+        if inp.inv_inhom_effective_size is not None:
+            cloud["inv_inhom_effective_size"] = tile(
+                inp.inv_inhom_effective_size)
     inputs = dict(
         pressure_hl=tile(inp.thermodynamics.pressure_hl),
         temperature_hl=tile(inp.thermodynamics.temperature_hl),

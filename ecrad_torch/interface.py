@@ -1,11 +1,12 @@
 """Radiation scheme orchestration (port of ``ecrad_tpu/interface.py``
-for the RRTMG configurations with the Cloudless, Homogeneous, McICA and
-Tripleclouds solvers).
+for the RRTMG configurations with the Cloudless, Homogeneous, McICA,
+Tripleclouds and SPARTACUS solvers).
 
 Equivalent of radiation/radiation_interface.F90: ``setup_radiation``
 (host-side: loads the LUTs, computes the spectral mappings, and returns
 the consolidated Config plus a :class:`Tables` of torch tensors on one
-device) and ``radiation`` (gas optics, aerosol, cloud optics, the solvers).  Configurations outside the port's slice raise
+device) and ``radiation`` (gas optics, aerosol, cloud optics, the
+solvers).  Configurations outside the port's slice raise
 NotImplementedError.
 """
 
@@ -23,7 +24,7 @@ from ecrad_torch.data import find_data_file
 from ecrad_torch.optics import aerosol as aerosol_mod
 from ecrad_torch.optics import cloud as cloud_optics_mod
 from ecrad_torch.optics import rrtmg, rrtmg_data
-from ecrad_torch.solvers import cloudless, mcica, tripleclouds
+from ecrad_torch.solvers import cloudless, mcica, spartacus, tripleclouds
 from ecrad_torch.solvers.cloud_generator import fit_pdf_cheb
 
 
@@ -81,12 +82,16 @@ def _check_supported(config: Config):
             or config.gas_model_lw != GasModel.RRTMG):
         raise NotImplementedError("the port has RRTMG gas optics only")
     ported = (Solver.CLOUDLESS, Solver.HOMOGENEOUS, Solver.MCICA,
-              Solver.TRIPLECLOUDS)
+              Solver.TRIPLECLOUDS, Solver.SPARTACUS)
     if (config.do_sw and config.sw_solver not in ported) or (
             config.do_lw and config.lw_solver not in ported):
         raise NotImplementedError(
-            "the port has the Cloudless, Homogeneous, McICA and "
-            "Tripleclouds solvers only")
+            "the port has the Cloudless, Homogeneous, McICA, Tripleclouds "
+            "and SPARTACUS solvers only")
+    if Solver.SPARTACUS in (config.sw_solver, config.lw_solver) \
+            and config.nregions != 3:
+        raise NotImplementedError("the port's SPARTACUS solvers take three "
+                                  "regions only")
     if config.use_general_cloud_optics:
         raise NotImplementedError("general cloud optics are not ported")
     for flag in ("use_spectral_solar_scaling", "use_spectral_solar_cycle",
@@ -317,6 +322,68 @@ def _optical_properties(config: Config, tables: Tables, *,
         do_clouds=do_clouds, frac=frac, cl=cl)
 
 
+def _spartacus_perm(config: Config, is_sw: bool) -> np.ndarray:
+    """G-point permutation for SPARTACUS: RRTMG g-points reordered by
+    approximately increasing optical depth (radiation_ifs_rrtm.F90:117-134)."""
+    return (rrtmg_data.RRTM_GPOINT_REORDERING_SW if is_sw
+            else rrtmg_data.RRTM_GPOINT_REORDERING_LW)
+
+
+def _unpermute_g_fields(out, perm: np.ndarray):
+    """Restore natural g order in a solver output's *_g fields so the
+    generic band/canopy post-processing applies unchanged."""
+    inv = None
+    rep = {}
+    for f in out._fields:
+        v = getattr(out, f)
+        if v is not None and f.endswith("_g"):
+            if inv is None:
+                inv = torch.as_tensor(np.argsort(perm), device=v.device)
+            rep[f] = v[..., inv]
+    return out._replace(**rep)
+
+
+def _spartacus_common(config, tables, is_sw, op, cloud):
+    """The g permutation, a function applying it to the last axis, and the
+    arguments that the two SPARTACUS solvers share (gas and cloud optics,
+    permuted band map, cloud geometry) for one band."""
+    perm = _spartacus_perm(config, is_sw)
+    band = tables.band_from_g_sw if is_sw else tables.band_from_g_lw
+    pj = torch.as_tensor(perm, device=band.device)
+    take = lambda a: a[..., pj]  # noqa: E731
+    b = "sw" if is_sw else "lw"
+    cl = op["cl"]
+    return perm, take, (
+        take(op[f"od_{b}"]), take(op[f"ssa_{b}"]), take(op[f"g_{b}_arr"]),
+        cl[f"od_{b}"], cl[f"ssa_{b}"], cl[f"g_{b}"], band[pj], op["frac"],
+        cloud["fractional_std"], cloud["overlap_param"],
+        cloud["inv_cloud_effective_size"],
+        cloud.get("inv_inhom_effective_size"))
+
+
+def spartacus_lw_inputs(config, tables, op, cloud, pressure_hl,
+                        temperature_hl):
+    """(g permutation, the arguments of spartacus.solver_spartacus_lw in
+    SPARTACUS g order) from _optical_properties' output."""
+    perm, take, args = _spartacus_common(config, tables, False, op, cloud)
+    lw_albedo_g = op["lw_albedo_g"]
+    lw_emission = op["go"].lw_emission * (1.0 - lw_albedo_g)
+    return perm, (config, *args, pressure_hl, temperature_hl,
+                  take(op["go"].planck_hl), take(lw_emission),
+                  take(lw_albedo_g))
+
+
+def spartacus_sw_inputs(config, tables, op, cloud, pressure_hl,
+                        temperature_hl, cos_sza):
+    """(g permutation, the arguments of spartacus.solver_spartacus_sw in
+    SPARTACUS g order) from _optical_properties' output."""
+    perm, take, args = _spartacus_common(config, tables, True, op, cloud)
+    return perm, (config, *args, pressure_hl, temperature_hl,
+                  take(op["go"].incoming_sw), cos_sza,
+                  take(op["sw_albedo_diffuse_g"]),
+                  take(op["sw_albedo_direct_g"]))
+
+
 def homogeneous_sample(config: Config, frac, od):
     """What the Homogeneous solvers give the McICA solvers in place of a
     stochastic sample: od_scaling 1, and a total cloud cover of 1 for a
@@ -337,10 +404,11 @@ def radiation(config: Config, tables: Tables, *,
     constants.GAS_NAMES order.  For a McICA solver cloud must carry the
     stochastic sample (od_scaling_*, total_cloud_cover_*; see
     pipeline.add_cloud_sample); Tripleclouds reads fractional_std and
-    overlap_param.  Without clouds (do_clouds off, or cloud None) both
-    bands take the Cloudless solvers; Homogeneous runs McICA with
-    od_scaling 1 and the cloud cover of any cloudy layer, and reports a
-    cloud cover of -1.
+    overlap_param, SPARTACUS also inv_cloud_effective_size (and
+    inv_inhom_effective_size where given).  Without clouds (do_clouds off,
+    or cloud None) both bands take the Cloudless solvers; Homogeneous runs
+    McICA with od_scaling 1 and the cloud cover of any cloudy layer, and
+    reports a cloud cover of -1.
     """
     op = _optical_properties(
         config, tables, pressure_hl=pressure_hl,
@@ -381,6 +449,11 @@ def radiation(config: Config, tables: Tables, *,
                 tables.band_from_g_lw, frac, cloud["fractional_std"],
                 cloud["overlap_param"], go.planck_hl, lw_emission,
                 lw_albedo_g)
+        elif config.lw_solver == Solver.SPARTACUS:
+            perm, args = spartacus_lw_inputs(config, tables, op, cloud,
+                                             pressure_hl, temperature_hl)
+            lw = _unpermute_g_fields(spartacus.solver_spartacus_lw(*args),
+                                     perm)
         else:
             lw = mcica.solver_mcica_lw(
                 op["od_lw"], op["ssa_lw"], op["g_lw_arr"],
@@ -440,6 +513,12 @@ def radiation(config: Config, tables: Tables, *,
                 tables.band_from_g_sw, frac, cloud["fractional_std"],
                 cloud["overlap_param"], go.incoming_sw, cos_sza,
                 op["sw_albedo_diffuse_g"], op["sw_albedo_direct_g"])
+        elif config.sw_solver == Solver.SPARTACUS:
+            perm, args = spartacus_sw_inputs(config, tables, op, cloud,
+                                             pressure_hl, temperature_hl,
+                                             cos_sza)
+            sw = _unpermute_g_fields(spartacus.solver_spartacus_sw(*args),
+                                     perm)
         else:
             sw = mcica.solver_mcica_sw(
                 op["od_sw"], op["ssa_sw"], op["g_sw_arr"],

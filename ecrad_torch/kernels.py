@@ -31,6 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_D = ctypes.c_double
 _SIGNATURES = {
     "ecrad_generator_scan": [_P] * 6 + [_I] * 4 + [_P],
     "ecrad_lw_fused": [_P] + [_I] * 4 + [_P],
@@ -40,6 +41,8 @@ _SIGNATURES = {
     "ecrad_lw_noscat_sweeps": [_P] + [_I] * 3 + [_P],
     "ecrad_scat_sweeps": [_P] + [_I] * 3 + [_P],
     "ecrad_sw_sweeps": [_P] + [_I] * 3 + [_P],
+    "ecrad_spartacus_sw": [_P] + [_I] * 5 + [_D] * 3 + [_P],
+    "ecrad_spartacus_lw": [_P] + [_I] * 4 + [_P],
 }
 
 

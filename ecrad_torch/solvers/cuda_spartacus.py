@@ -1,0 +1,197 @@
+"""The SPARTACUS adding sweeps: CUDA kernel wrappers and their plain torch
+versions.
+
+Replaces ``ecrad_tpu/solvers/pallas_spartacus.py`` (``sw_sweeps``,
+``lw_sweeps``, two ``pallas_call``s each); the kernels are
+``ecrad_torch/csrc/spartacus_sw.cu`` and ``spartacus_lw.cu``, one launch
+per function.  Arguments and results are those of the TPU functions, in
+their layout: layer matrices ``(nlev, 9, ncol, ng)`` (k = 3*i + j) or
+``(nlev, 3, ncol, ng)``, clear-sky planes ``(nlev, ncol, ng)``, per-column
+data ``(nlev, ncol, K)`` (interface matrices, 0/1 masks, the 13
+entrapment scalars), surface planes ``(9|3, ncol, ng)`` and ``(ncol, ng)``.
+
+The plain versions loop over levels and call the step cores of
+``solvers/spartacus.py``, as the JAX package's ``lax.scan`` path does;
+the kernels do the same arithmetic per (column, g-point) thread.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ecrad_torch import kernels
+from ecrad_torch.solvers import spartacus as sp
+
+NREG = 3
+
+
+def _b(x):
+    """(ncol, K) per-column values -> (K, ncol, 1), broadcast-ready."""
+    return x.T[..., None]
+
+
+def _sw_mats(mats, l):
+    return tuple(sp._m3(x[l]) for x in mats)
+
+
+def sw_sweeps_plain(opts, Rs, Ts, Rds, Tdds, Tdirs, cl5, u9c, v9top, v9bot,
+                    msk_up, msk_dn, ent13, alb0, albd0, albc0, albdc0, ddn0,
+                    incoming):
+    """Both SW sweeps as torch loops over levels.  Returns (albd_f (9,
+    ncol, ng), alb_c_f, albd_c_f, (fup, fdn, fdir, fup_c, fdn_c, fdir_c)
+    each (nlev, ncol, ng))."""
+    nlev, _, ncol, ng = Rs.shape
+    mats = (Rs, Ts, Rds, Tdds, Tdirs)
+    zero3 = alb0.new_zeros((NREG, ncol, ng))
+    carry = (sp._m3(alb0), sp._m3(albd0), albc0, albdc0, zero3, zero3)
+    below = [None] * nlev
+    for l in range(nlev - 1, -1, -1):
+        below[l] = carry[:4]
+        m = msk_up[l] != 0.0
+        e = ent13[l]
+        ent = (_b(e[:, 0:3]), _b(e[:, 3:6]), _b(e[:, 6:9]), e[:, 9, None],
+               e[:, 10, None], e[:, 11, None], e[:, 12, None])
+        carry = sp._sw_up_core(
+            carry, _sw_mats(mats, l), tuple(c[l] for c in cl5), _b(u9c[l]),
+            _b(v9top[l]), tuple(m[:, k, None] for k in range(4)), ent, opts)
+    albd_f, alb_c_f, albd_c_f = carry[1:4]
+
+    state = (zero3, ddn0, torch.zeros_like(incoming), incoming)
+    ys = []
+    for l in range(nlev):
+        m = msk_dn[l] != 0.0
+        state, y = sp._sw_dn_core(
+            state, _sw_mats(mats, l), tuple(c[l] for c in cl5), below[l],
+            _b(v9bot[l]), (m[:, 0, None], m[:, 1, None]))
+        ys.append(y)
+    dn = tuple(torch.stack(x) for x in zip(*ys))
+    return albd_f.reshape(NREG * NREG, ncol, ng), alb_c_f, albd_c_f, dn
+
+
+def lw_sweeps_plain(opts, Rs, Ts, SUs, SDs, cl4, u9c, v9top, v9bot, msk_up,
+                    msk_dn, alb0, src0, albc0, srcc0):
+    """Both LW sweeps as torch loops over levels.  Returns (src_f (3,
+    ncol, ng), src_c_f (ncol, ng), (fup, fdn, fup_c, fdn_c) each (nlev,
+    ncol, ng))."""
+    nlev, _, ncol, ng = Rs.shape
+
+    def lmats(l):
+        return sp._m3(Rs[l]), sp._m3(Ts[l]), SUs[l], SDs[l]
+
+    carry = (sp._m3(alb0), src0, albc0, srcc0)
+    below = [None] * nlev
+    for l in range(nlev - 1, -1, -1):
+        alb, src, alb_c, src_c = carry
+        below[l] = (src, alb, src_c, alb_c)
+        m = msk_up[l] != 0.0
+        carry = sp._lw_up_core(
+            carry, lmats(l), tuple(c[l] for c in cl4), _b(u9c[l]),
+            _b(v9top[l]), (m[:, 0, None], m[:, 1, None]), opts)
+    src_f, src_c_f = carry[1], carry[3]
+
+    state = (src0.new_zeros((NREG, ncol, ng)), torch.zeros_like(srcc0))
+    ys = []
+    for l in range(nlev):
+        m = msk_dn[l] != 0.0
+        state, y = sp._lw_dn_core(
+            state, lmats(l), tuple(c[l] for c in cl4), below[l],
+            _b(v9bot[l]), (m[:, 0, None], m[:, 1, None]))
+        ys.append(y)
+    return src_f, src_c_f, tuple(torch.stack(x) for x in zip(*ys))
+
+
+def _launch(fn_name, ref, tensors, *params):
+    """Launch ``ecrad_<fn_name>_{f32,f64}`` on the tensors' pointers."""
+    nlev, _, ncol, ng = ref.shape
+    lib = kernels.library()
+    fn = getattr(lib, f"ecrad_{fn_name}_"
+                 + ("f32" if ref.dtype == torch.float32 else "f64"))
+    with torch.cuda.device(ref.device):
+        code = fn(kernels.pointer_array(tensors), ncol, nlev, ng, *params,
+                  kernels.stream_of(ref))
+    kernels.check(code, fn_name)
+
+
+def sw_sweeps(opts, Rs, Ts, Rds, Tdds, Tdirs, cl5, u9c, v9top, v9bot,
+              msk_up, msk_dn, ent13, alb0, albd0, albc0, albdc0, ddn0,
+              incoming):
+    """Both SPARTACUS SW sweeps.  CPU tensors run sw_sweeps_plain; CUDA
+    tensors launch the kernel (csrc/spartacus_sw.cu) or raise."""
+    if Rs.device.type == "cpu":
+        return sw_sweeps_plain(opts, Rs, Ts, Rds, Tdds, Tdirs, cl5, u9c,
+                               v9top, v9bot, msk_up, msk_dn, ent13, alb0,
+                               albd0, albc0, albdc0, ddn0, incoming)
+    nlev, _, ncol, ng = Rs.shape
+    mat, lev, sfc = (nlev, 9, ncol, ng), (nlev, ncol, ng), (ncol, ng)
+    specs = {f"mats[{i}]": (t, mat)
+             for i, t in enumerate((Rs, Ts, Rds, Tdds, Tdirs))}
+    specs.update({f"cl5[{i}]": (t, lev) for i, t in enumerate(cl5)})
+    specs.update(
+        u9c=(u9c, (nlev, ncol, 9)), v9top=(v9top, (nlev, ncol, 9)),
+        v9bot=(v9bot, (nlev, ncol, 9)), msk_up=(msk_up, (nlev, ncol, 4)),
+        msk_dn=(msk_dn, (nlev, ncol, 2)), ent13=(ent13, (nlev, ncol, 13)),
+        alb0=(alb0, (9, ncol, ng)), albd0=(albd0, (9, ncol, ng)),
+        albc0=(albc0, sfc), albdc0=(albdc0, sfc),
+        ddn0=(ddn0, (NREG, ncol, ng)), incoming=(incoming, sfc))
+    kernels.check_inputs("spartacus sw_sweeps", Rs, specs)
+    e = lambda *shape: Rs.new_empty(shape)  # noqa: E731
+    albd_f, alb_c_f, albd_c_f = e(9, ncol, ng), e(*sfc), e(*sfc)
+    dn = tuple(e(*lev) for _ in range(6))
+    if ncol == 0:
+        return albd_f, alb_c_f, albd_c_f, dn
+    # the entry carry of the up sweep at each level: the diffuse and
+    # direct albedos below each layer, regions and clear sky
+    scratch = (e(*mat), e(*mat), e(*lev), e(*lev))
+    _launch("spartacus_sw", Rs,
+            (Rs, Ts, Rds, Tdds, Tdirs, *cl5, u9c, v9top, v9bot, msk_up,
+             msk_dn, ent13, alb0, albd0, albc0, albdc0, ddn0, incoming,
+             albd_f, alb_c_f, albd_c_f, *dn, *scratch),
+            int(opts.mode), int(bool(opts.do_3d)),
+            float(opts.overhang_factor),
+            float(opts.cloud_fraction_threshold), float(opts.max_cloud_od))
+    sw_sweeps.launches += 1
+    return albd_f, alb_c_f, albd_c_f, dn
+
+
+sw_sweeps.launches = 0
+
+
+def lw_sweeps(opts, Rs, Ts, SUs, SDs, cl4, u9c, v9top, v9bot, msk_up,
+              msk_dn, alb0, src0, albc0, srcc0):
+    """Both SPARTACUS LW sweeps.  CPU tensors run lw_sweeps_plain; CUDA
+    tensors launch the kernel (csrc/spartacus_lw.cu) or raise."""
+    if Rs.device.type == "cpu":
+        return lw_sweeps_plain(opts, Rs, Ts, SUs, SDs, cl4, u9c, v9top,
+                               v9bot, msk_up, msk_dn, alb0, src0, albc0,
+                               srcc0)
+    nlev, _, ncol, ng = Rs.shape
+    lev, sfc = (nlev, ncol, ng), (ncol, ng)
+    specs = {"Rs": (Rs, (nlev, 9, ncol, ng)), "Ts": (Ts, (nlev, 9, ncol, ng)),
+             "SUs": (SUs, (nlev, NREG, ncol, ng)),
+             "SDs": (SDs, (nlev, NREG, ncol, ng))}
+    specs.update({f"cl4[{i}]": (t, lev) for i, t in enumerate(cl4)})
+    specs.update(
+        u9c=(u9c, (nlev, ncol, 9)), v9top=(v9top, (nlev, ncol, 9)),
+        v9bot=(v9bot, (nlev, ncol, 9)), msk_up=(msk_up, (nlev, ncol, 2)),
+        msk_dn=(msk_dn, (nlev, ncol, 2)), alb0=(alb0, (9, ncol, ng)),
+        src0=(src0, (NREG, ncol, ng)), albc0=(albc0, sfc),
+        srcc0=(srcc0, sfc))
+    kernels.check_inputs("spartacus lw_sweeps", Rs, specs)
+    e = lambda *shape: Rs.new_empty(shape)  # noqa: E731
+    src_f, src_c_f = e(NREG, ncol, ng), e(*sfc)
+    dn = tuple(e(*lev) for _ in range(4))
+    if ncol == 0:
+        return src_f, src_c_f, dn
+    # the entry carry of the up sweep at each level: albedo and source of
+    # the atmosphere below each layer, regions and clear sky
+    scratch = (e(nlev, 9, ncol, ng), e(nlev, NREG, ncol, ng), e(*lev),
+               e(*lev))
+    _launch("spartacus_lw", Rs,
+            (Rs, Ts, SUs, SDs, *cl4, u9c, v9top, v9bot, msk_up, msk_dn,
+             alb0, src0, albc0, srcc0, src_f, src_c_f, *dn, *scratch),
+            int(bool(opts.multilayer)))
+    lw_sweeps.launches += 1
+    return src_f, src_c_f, dn
+
+
+lw_sweeps.launches = 0

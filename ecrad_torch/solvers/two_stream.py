@@ -38,6 +38,16 @@ def lw_gammas(ssa, g):
     return gamma1, gamma2
 
 
+def sw_gammas(mu0, ssa, g):
+    """SW Zdunkowski PIFM gammas (radiation_two_stream.F90:96-140); mu0
+    broadcasts against ssa/g."""
+    factor = 0.75 * g
+    gamma1 = 2.0 - ssa * (1.25 + factor)
+    gamma2 = ssa * (0.75 - factor)
+    gamma3 = 0.5 - mu0 * factor
+    return gamma1, gamma2, gamma3
+
+
 def lw_ref_trans(od, ssa, g, planck_top, planck_bot):
     """LW diffuse reflectance/transmittance + linear-in-tau Planck sources
     (radiation_two_stream.F90:246-334 calc_ref_trans_lw).

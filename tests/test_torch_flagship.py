@@ -85,6 +85,23 @@ def test_reference_file_matches_jax(jax_f64):
             assert sample.dtype == np.float32 and sample.shape[:2] == (32, 137)
 
 
+def test_cloud_carries_effective_sizes():
+    """The cloud inputs carry the cloud and inhomogeneity effective sizes
+    that SPARTACUS reads (the separation-eta chain of the input reader),
+    tiled like the other fields, as the JAX package's _build has them."""
+    ncol = 40                                  # tiled past the 32 columns
+    _, jargs = __graft_entry__._build(ncol=ncol, dtype="float64")
+    _, args = flagship.build(ncol=ncol, dtype=torch.float64, device="cpu")
+    ref = dict(zip(flagship.ARG_ORDER, jargs))["cloud"]
+    got = dict(zip(flagship.ARG_ORDER, args))["cloud"]
+    for key in ("inv_cloud_effective_size", "inv_inhom_effective_size"):
+        assert key in ref and key in got, key
+        assert got[key].shape == (ncol, 137), key
+        np.testing.assert_array_equal(got[key].numpy(), np.asarray(ref[key]),
+                                      err_msg=key)
+    assert float(got["inv_cloud_effective_size"].max()) > 0.0
+
+
 def test_build_runs_on_the_card_by_default():
     """The entry point's device is the card unless the caller asks for the
     CPU, as the CPU tests here do."""

@@ -28,6 +28,8 @@ import ecrad_torch, ecrad_torch.flagship, ecrad_torch.pipeline
 import ecrad_torch.kernels, ecrad_torch.solvers.cuda_mcica
 import ecrad_torch.solvers.tripleclouds, ecrad_torch.solvers.cuda_tripleclouds
 import ecrad_torch.solvers.cuda_adding, ecrad_torch.solvers.cloudless
+import ecrad_torch.solvers.matrix, ecrad_torch.solvers.spartacus
+import ecrad_torch.solvers.cuda_spartacus
 import chip_smoke
 new = set(sys.modules) - before
 bad = sorted(m for m in new

@@ -22,13 +22,18 @@ commit of the tree:
 * ``cloudless_rrtmg`` (Cloudless SW and LW) to
   ``tests/data/torch_cloudless_meridian32.npz``;
 * ``homogeneous_rrtmg`` (Homogeneous SW and LW, LW aerosol scattering on)
-  to ``tests/data/torch_homogeneous_meridian32.npz``.
+  to ``tests/data/torch_homogeneous_meridian32.npz``;
+* ``spartacus_3d`` (SPARTACUS SW and LW with 3D effects and no SW delta
+  scaling with gases, ``tools/bench_matrix.py`` CONFIGS) to
+  ``tests/data/torch_spartacus_meridian32.npz``.
 
 ``tools/bench_matrix.py`` names only the McICA, Tripleclouds and
 SPARTACUS solvers, so the solvers are given here by the name of the JAX
 package's ``Solver`` member.
 
-    python tools/make_torch_reference.py
+    python tools/make_torch_reference.py [configuration ...]
+
+writes every file, or only those of the configurations named.
 """
 
 import os
@@ -50,6 +55,10 @@ OUTPUTS = {
                                lw_solver="HOMOGENEOUS",
                                do_lw_aerosol_scattering=True),
                           "torch_homogeneous_meridian32.npz"),
+    "spartacus_3d": (dict(sw_solver_name="SPARTACUS",
+                          lw_solver_name="SPARTACUS", do_3d_effects=True,
+                          do_sw_delta_scaling_with_gases=False),
+                     "torch_spartacus_meridian32.npz"),
 }
 NCOL = 32
 SAMPLE_KEYS = ("od_scaling_sw", "od_scaling_lw", "total_cloud_cover_sw",
@@ -121,5 +130,5 @@ if __name__ == "__main__":
         import numpy as np
         np.savez(sys.argv[4], **run_jax(sys.argv[2], sys.argv[3]))
     else:
-        for name in OUTPUTS:
+        for name in sys.argv[1:] or OUTPUTS:
             write(name)

@@ -1,7 +1,8 @@
 """Where the time of one step of the PyTorch port goes, on a GPU.
 
     python3 tools/profile_torch_step.py [ncol] [float32|float64] \
-        [mcica_rrtmg|tripleclouds_rrtmg|cloudless_rrtmg|homogeneous_rrtmg]
+        [mcica_rrtmg|tripleclouds_rrtmg|cloudless_rrtmg|homogeneous_rrtmg|
+         spartacus_3d]
 
 Builds the step of a named configuration (ecrad_torch.flagship, default
 the McICA flagship) at ncol columns (default 2048, the bench block) on the
@@ -11,13 +12,17 @@ first CUDA device, warms up, then:
   calls: cloud generator (both samples; nothing for the other
   configurations), optical properties, for Tripleclouds the region and
   overlap preparation of one solver, LW solver, SW solver, and the whole
-  step;
+  step; for SPARTACUS also, inside each solver, the region preparation,
+  the layer matrices, the sweeps (kernel launch and wait) and the rest
+  (argument assembly, for LW the derivative loop), each synchronised;
+* the peak device memory of one step;
 * traces one step with torch.profiler and prints the 25 ops with the
   most device time, and device-busy time against the step's wall time.
 
 Prints the card's name and power limit first.  Needs a CUDA device.
 """
 
+import functools
 import subprocess
 import sys
 import time
@@ -29,9 +34,11 @@ sys.path.insert(0, __import__("os").path.dirname(
 
 from ecrad_torch import flagship, pipeline  # noqa: E402
 from ecrad_torch.interface import (  # noqa: E402
-    _optical_properties, homogeneous_sample)
+    _optical_properties, homogeneous_sample, spartacus_lw_inputs,
+    spartacus_sw_inputs)
 from ecrad_torch.config import Solver  # noqa: E402
-from ecrad_torch.solvers import cloudless, mcica, tripleclouds  # noqa: E402
+from ecrad_torch.solvers import (  # noqa: E402
+    cloudless, cuda_spartacus, mcica, spartacus, tripleclouds)
 
 
 def timed(fn):
@@ -42,10 +49,43 @@ def timed(fn):
     return out, time.perf_counter() - t0
 
 
-def solver_stages(cfg, tab, op, cloud, cos_sza):
+# the SPARTACUS solvers' inner stages: (module, function name, stage)
+SPARTACUS_STAGES = (
+    (spartacus, "_prep", "prep"),
+    (spartacus, "_sw_layer_mats", "layer matrices"),
+    (spartacus, "_lw_layer_mats", "layer matrices"),
+    (cuda_spartacus, "sw_sweeps", "sweeps"),
+    (cuda_spartacus, "lw_sweeps", "sweeps"))
+
+
+def time_inner_stages(record):
+    """Replace the SPARTACUS inner stages by synchronised timers that add
+    their seconds to record[stage]; returns a function that restores
+    them."""
+    saved = [(module, name, getattr(module, name))
+             for module, name, _ in SPARTACUS_STAGES]
+    for (module, name, fn), (_, _, stage) in zip(saved, SPARTACUS_STAGES):
+        # wraps() copies the launch counter that a kernel wrapper updates
+        @functools.wraps(fn)
+        def wrapped(*a, fn=fn, stage=stage):
+            out, t = timed(lambda: fn(*a))
+            record[stage] = record.get(stage, 0.0) + t
+            return out
+        setattr(module, name, wrapped)
+    return lambda: [setattr(m, n, fn) for m, n, fn in saved]
+
+
+def solver_stages(cfg, tab, op, cloud, kw):
     """{stage: thunk} for the solvers of the configuration."""
     go, cl = op["go"], op["cl"]
+    cos_sza = kw["cos_sza"]
     lw_emission = go.lw_emission * (1.0 - op["lw_albedo_g"])
+    if cfg.sw_solver == Solver.SPARTACUS:
+        levels = (kw["pressure_hl"], kw["temperature_hl"])
+        lw = spartacus_lw_inputs(cfg, tab, op, cloud, *levels)[1]
+        sw = spartacus_sw_inputs(cfg, tab, op, cloud, *levels, cos_sza)[1]
+        return {"lw solver": lambda: spartacus.solver_spartacus_lw(*lw),
+                "sw solver": lambda: spartacus.solver_spartacus_sw(*sw)}
     if cfg.sw_solver == Solver.TRIPLECLOUDS:
         return {
             "region prep": lambda: tripleclouds.fused_prep(
@@ -120,12 +160,26 @@ def main(ncol=2048, dtype_name="float32", config_name="mcica_rrtmg"):
     op, t_op = timed(lambda: _optical_properties(
         cfg, tab, solar_irradiance=step.solar, cloud=cloud, **rest))
     stages = {name: timed(fn)[1] for name, fn in solver_stages(
-        cfg, tab, op, cloud, kw["cos_sza"]).items()}
+        cfg, tab, op, cloud, kw).items()}
+    torch.cuda.reset_peak_memory_stats()
     _, t_step = timed(lambda: step(*args))
+    peak = torch.cuda.max_memory_allocated()
     print(f"{config_name} ncol={ncol} {dtype_name}: step "
           f"{t_step * 1e3:.1f} ms; generator {t_gen * 1e3:.1f}, optics "
           f"{t_op * 1e3:.1f}, " + ", ".join(
-              f"{k} {v * 1e3:.1f}" for k, v in stages.items()) + " ms")
+              f"{k} {v * 1e3:.1f}" for k, v in stages.items()) + " ms; "
+          f"peak device memory {peak / 1e9:.2f} GB")
+    if cfg.sw_solver == Solver.SPARTACUS:
+        for name, fn in solver_stages(cfg, tab, op, cloud, kw).items():
+            record = {}
+            restore = time_inner_stages(record)
+            try:
+                _, t = timed(fn)
+            finally:
+                restore()
+            record["rest"] = t - sum(record.values())
+            print(f"  {name} {t * 1e3:.1f} ms: " + ", ".join(
+                f"{k} {v * 1e3:.1f}" for k, v in record.items()) + " ms")
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
