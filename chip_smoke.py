@@ -17,12 +17,15 @@ the script exits non-zero:
                spartacus_sw, spartacus_lw of the SPARTACUS path, in
                Explicit entrapment without LW multilayer effects as the
                path runs them, and again in Maximum and Edge-only
-               entrapment with them) against its plain torch version on
-               the card, on the inputs the main path builds for a random
-               atmospheric state (numpy seed) at 137 levels and 2048 and
-               2049 columns, in float64 and rounded to float32; kernel and
-               plain median times, and the least time the card could take
-               for the same work.
+               entrapment with them; tripleclouds_sw also with
+               delta-Eddington scaling of the gases) against its plain
+               torch version on the card, on the inputs the main path
+               builds for a random atmospheric state (numpy seed) at 137
+               levels and 2048 and 2049 columns, and for spartacus_sw and
+               tripleclouds_sw also on the same state with every layer
+               cloudy, in float64 and rounded to float32; kernel and plain
+               median times (the kernel's on each input set), and the least
+               time the card could take for the same work.
 4. slice_f64 - the flagship (McICA) step (ecrad_torch.flagship) on the
                32-column meridian slice in float64 against the JAX package's
                float64 fluxes (tests/data/torch_flagship_meridian32.npz).
@@ -249,11 +252,14 @@ def median_ms(fn, reps=5):
 
 # --- inputs -----------------------------------------------------------------
 
-def random_state(ncol, dtype, seed, config_name="mcica_rrtmg"):
+def random_state(ncol, dtype, seed, config_name="mcica_rrtmg",
+                 min_cloud=0.0):
     """A configuration's step for the meridian slice tiled to ncol columns,
     with a random state per column from a numpy seed: solar zenith (night
     included), skin temperature, humidity scaling, cloud-fraction scaling
-    and generator seeds.  Returns (step, inputs without the cloud, cloud)."""
+    (the fraction raised to min_cloud everywhere, and then the liquid water
+    to 1e-6 kg/kg: 0.2 makes every layer cloudy) and generator seeds.
+    Returns (step, inputs without the cloud, cloud)."""
     rng = np.random.default_rng(seed)
     step, args = flagship.build(ncol=ncol, dtype=dtype, device=DEV,
                                 config_name=config_name)
@@ -267,19 +273,23 @@ def random_state(ncol, dtype, seed, config_name="mcica_rrtmg"):
                                                             (ncol, 1)))
     kw["gas_mmr"] = gas
     cloud = dict(kw.pop("cloud"))
-    cloud["fraction"] = cloud["fraction"] * t(rng.uniform(0.5, 1.0,
-                                                          (ncol, 1)))
+    cloud["fraction"] = torch.clamp(
+        cloud["fraction"] * t(rng.uniform(0.5, 1.0, (ncol, 1))),
+        min=min_cloud)
+    if min_cloud > 0.0:   # condensate too, or the optics clear the layer
+        cloud["q_liq"] = torch.clamp(cloud["q_liq"], min=1e-6)
     cloud["iseed"] = torch.as_tensor(rng.integers(1, 2**31 - 1, ncol),
                                      device=DEV)
     return step, kw, cloud
 
 
-def spartacus_inputs(ncol, dtype, seed):
+def spartacus_inputs(ncol, dtype, seed, min_cloud=0.0):
     """The SPARTACUS sweeps' inputs as the spartacus_3d path builds them
     for the random state of random_state: [SW in Explicit (the path's),
     Maximum and Edge-only entrapment], [LW without (the path's) and with
-    multilayer effects]."""
-    step, kw, cloud = random_state(ncol, dtype, seed, "spartacus_3d")
+    multilayer effects], each (label, arguments)."""
+    step, kw, cloud = random_state(ncol, dtype, seed, "spartacus_3d",
+                                   min_cloud)
     config, tables = step.config, step.tables
     op = _optical_properties(config, tables, solar_irradiance=step.solar,
                              cloud=cloud, **kw)
@@ -290,18 +300,59 @@ def spartacus_inputs(ncol, dtype, seed):
         config, tables, op, cloud, *levels)[1])
     if sw_opts.mode != Entrapment.EXPLICIT or lw_opts.multilayer:
         raise AssertionError(f"spartacus_3d runs {sw_opts}, {lw_opts}")
-    return ([(sw_opts._replace(mode=m), *sw)
+    return ([(m.name.lower(), (sw_opts._replace(mode=m), *sw))
              for m in (Entrapment.EXPLICIT, Entrapment.MAXIMUM,
                        Entrapment.EDGE_ONLY)],
-            [(lw_opts, *lw), (lw_opts._replace(multilayer=True), *lw)])
+            [("meridian", (lw_opts, *lw)),
+             ("multilayer", (lw_opts._replace(multilayer=True), *lw))])
+
+
+def tripleclouds_sw_inputs(step, kw, cloud, op):
+    """The Tripleclouds SW kernel's arguments for a McICA step's state and
+    optical properties."""
+    config, tables = step.config, step.tables
+    cl, go = op["cl"], op["go"]
+    tc = config.replace(sw_solver=Solver.TRIPLECLOUDS,
+                        lw_solver=Solver.TRIPLECLOUDS)
+    return tripleclouds.sw_fused_args(
+        tc, op["od_sw"], op["ssa_sw"], op["g_sw_arr"], cl["od_sw"],
+        cl["ssa_sw"], cl["g_sw"], tables.band_from_g_sw, op["frac"],
+        cloud["fractional_std"], cloud["overlap_param"], go.incoming_sw,
+        kw["cos_sza"], op["sw_albedo_diffuse_g"],
+        op["sw_albedo_direct_g"])[0]
+
+
+def sw_inputs(ncol, dtype, seed, min_cloud=0.0):
+    """The spartacus_sw (Explicit entrapment, the path's) and
+    tripleclouds_sw arguments for the random state of random_state; with
+    min_cloud 0.2 every layer is cloudy ("all_cloudy")."""
+    step, kw, cloud = random_state(ncol, dtype, seed, min_cloud=min_cloud)
+    cloud = pipeline.add_cloud_sample(step.config, step.tables, cloud)
+    op = _optical_properties(step.config, step.tables,
+                             solar_irradiance=step.solar, cloud=cloud, **kw)
+    tc_sw = tripleclouds_sw_inputs(step, kw, cloud, op)
+    sp_sw = spartacus_inputs(ncol, dtype, seed, min_cloud)[0][0][1]
+    if min_cloud > 0.0 and (bool(tc_sw[7].any())
+                            or bool((sp_sw[11][..., 0] != 0).any())):
+        raise AssertionError("the all-cloudy inputs have clear layers")
+    return {"tripleclouds_sw": tc_sw, "spartacus_sw": sp_sw}
+
+
+def all_cloudy_inputs(ncol, dtype, seed):
+    """{kernel: [("all_cloudy", arguments)]} for spartacus_sw and
+    tripleclouds_sw (sw_inputs with every layer cloudy)."""
+    return {name: [("all_cloudy", args)]
+            for name, args in sw_inputs(ncol, dtype, seed, 0.2).items()}
 
 
 def kernel_inputs(ncol, dtype, seed):
     """Each kernel's inputs as the main path builds them, for the random
-    state of random_state.  Returns {kernel: [argument tuples]}: the McICA
-    kernels' and, from the same optical properties, the Tripleclouds
-    kernels' and the adding sweeps' (on the clear-sky two-stream
-    coefficients); the SPARTACUS sweeps' from spartacus_inputs."""
+    state of random_state.  Returns {kernel: [(label, arguments)]}, the
+    main path's first: the McICA kernels' and, from the same optical
+    properties, the Tripleclouds kernels' (tripleclouds_sw also with
+    delta-Eddington scaling of the gases) and the adding sweeps' (on the
+    clear-sky two-stream coefficients); the SPARTACUS sweeps' from
+    spartacus_inputs."""
     step, kw, cloud = random_state(ncol, dtype, seed)
     config, tables = step.config, step.tables
     gen = [cloud_generator.scan_inputs(config, cloud["iseed"],
@@ -331,11 +382,7 @@ def kernel_inputs(ncol, dtype, seed):
         tables.band_from_g_lw, op["frac"], cloud["fractional_std"],
         cloud["overlap_param"], go.planck_hl,
         go.lw_emission * (1.0 - op["lw_albedo_g"]), op["lw_albedo_g"])
-    tc_sw, _ = tripleclouds.sw_fused_args(
-        tc, op["od_sw"], op["ssa_sw"], op["g_sw_arr"], cl["od_sw"],
-        cl["ssa_sw"], cl["g_sw"], tables.band_from_g_sw, op["frac"],
-        cloud["fractional_std"], cloud["overlap_param"], go.incoming_sw,
-        kw["cos_sza"], op["sw_albedo_diffuse_g"], op["sw_albedo_direct_g"])
+    tc_sw = tripleclouds_sw_inputs(step, kw, cloud, op)
     c = lambda xs: tuple(x.contiguous() for x in xs)
     ptop, pbot = go.planck_hl[:, :-1], go.planck_hl[:, 1:]
     emission = go.lw_emission * (1.0 - op["lw_albedo_g"])
@@ -350,10 +397,14 @@ def kernel_inputs(ncol, dtype, seed):
                  + (go.incoming_sw, op["sw_albedo_diffuse_g"],
                     op["sw_albedo_direct_g"] * mu0))
     sp_sw, sp_lw = spartacus_inputs(ncol, dtype, seed)
-    return {"generator_scan": gen, "lw_fused": [lw], "sw_fused": [sw],
-            "tripleclouds_lw": [tc_lw], "tripleclouds_sw": [tc_sw],
-            "lw_noscat_sweeps": [noscat], "scat_sweeps": [scat],
-            "sw_sweeps": [sw_clear], "spartacus_sw": sp_sw,
+    one = lambda args: [("meridian", args)]  # noqa: E731
+    return {"generator_scan": list(zip(("lw", "sw", "exp_exp"), gen)),
+            "lw_fused": one(lw), "sw_fused": one(sw),
+            "tripleclouds_lw": one(tc_lw),
+            "tripleclouds_sw": [("meridian", tc_sw),
+                                ("delta_gases", tc_sw[:-1] + (True,))],
+            "lw_noscat_sweeps": one(noscat), "scat_sweeps": one(scat),
+            "sw_sweeps": one(sw_clear), "spartacus_sw": sp_sw,
             "spartacus_lw": sp_lw}
 
 
@@ -443,12 +494,18 @@ def _f32(args):
 
 def bound(name, args, out):
     """The least time (ms) the card could take for a kernel's work on
-    these inputs, and which side bounds it: the bytes of every input and
-    output tensor over the memory rate, or the operations (OPS, with the
-    cloudy fraction of these inputs) over the float32 rate."""
-    nbytes = sum(t.numel() * t.element_size()
-                 for t in (*_outputs(args).values(), *_outputs(out).values())
-                 if torch.is_tensor(t))
+    these inputs, and which side bounds it: the bytes it must move (every
+    input and output tensor once; for spartacus_sw only the layer-matrix
+    entries clear layers use, cuda_spartacus.sw_needed_bytes) over the
+    memory rate, or the operations (OPS, with the cloudy fraction of these
+    inputs) over the float32 rate.  bytes_all_tensors counts every byte of
+    every tensor."""
+    every = sum(t.numel() * t.element_size()
+                for t in (*_outputs(args).values(), *_outputs(out).values())
+                if torch.is_tensor(t))
+    nbytes = every
+    if name == "spartacus_sw":
+        nbytes = cuda_spartacus.sw_needed_bytes(*args)
     if name.startswith("spartacus"):      # (opts, (nlev, 9, ncol, ng), ...)
         nlev, _, ncol, ng = args[1].shape
     else:
@@ -457,42 +514,79 @@ def bound(name, args, out):
     t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_F32_OPS_S
     return dict(bound_ms=1e3 * max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
-                bytes=nbytes, operations=ops)
+                bytes=nbytes, bytes_all_tensors=every,
+                bound_ms_all_tensors=1e3 * max(every / PEAK_BYTES_S, t_ops),
+                operations=ops)
+
+
+# Input sets timed besides the main path's (the first of kernel_inputs)
+TIMED = {"spartacus_sw": ("all_cloudy",), "tripleclouds_sw": ("all_cloudy",)}
+
+
+def check_kernel(name, inputs, ncol, err, checked):
+    """Hold a kernel against its plain version on each input set, in
+    float64 and rounded to float32; the worst errors go into err (by dtype,
+    shape and comparison)."""
+    k = KERNELS[name]
+    for label, args in inputs:
+        ref64 = k["plain"](*args)
+        err64 = _compare_f64(k["wrapper"](*args), ref64)
+        args32 = _f32(args)
+        got32, ref32 = k["wrapper"](*args32), k["plain"](*args32)
+        torch.cuda.synchronize()
+        if name == "generator_scan" and (
+                err64 != 0.0 or not torch.equal(got32, ref32)):
+            raise AssertionError("generator_scan is not exact")
+        err32 = _compare_f32(got32, ref32, ref64)
+        for key, v in ((f"float64/{ncol}", err64),
+                       *((f"float32/{ncol}/{n}", e)
+                         for n, e in err32.items())):
+            err[key] = max(err.get(key, 0.0), v)
+        checked.add(label)
+
+
+def time_kernel(name, inputs, res, main):
+    """A kernel's f32 times, each with its bound, into res["variants"]: on
+    the main path's inputs (the first set, when main), which also give
+    res its ms, bound and plain version's time, and on the sets TIMED
+    names."""
+    k = KERNELS[name]
+    for i, (label, args) in enumerate(inputs):
+        if not (main and i == 0) and label not in TIMED.get(name, ()):
+            continue
+        a = _f32(args)
+        times = dict(ms=median_ms(lambda: k["wrapper"](*a)),
+                     **bound(name, a, k["wrapper"](*a)))
+        res["variants"][label] = times
+        if main and i == 0:
+            res.update(times, plain_ms=median_ms(lambda: k["plain"](*a)))
 
 
 def kernels_phase(smi):
-    results = {name: {"max_abs_err": {}, "ms": None, "plain_ms": None}
+    """Check each kernel on its input sets at each of SHAPES, and time it
+    at the first; the all-cloudy sets are built once the main path's are
+    freed, which keeps the float64 inputs within the card's memory."""
+    results = {name: {"max_abs_err": {}, "checked": set(), "variants": {}}
                for name in KERNELS}
     for ncol in SHAPES:
-        inputs = kernel_inputs(ncol, torch.float64, seed=ncol)
-        for name, k in KERNELS.items():
-            res = results[name]["max_abs_err"]
-            for args in inputs[name]:
-                ref64 = k["plain"](*args)
-                err64 = _compare_f64(k["wrapper"](*args), ref64)
-                args32 = _f32(args)
-                got32, ref32 = k["wrapper"](*args32), k["plain"](*args32)
-                torch.cuda.synchronize()
-                if name == "generator_scan" and (
-                        err64 != 0.0 or not torch.equal(got32, ref32)):
-                    raise AssertionError("generator_scan is not exact")
-                err32 = _compare_f32(got32, ref32, ref64)
-                for key, v in ((f"float64/{ncol}", err64),
-                               *((f"float32/{ncol}/{n}", e)
-                                 for n, e in err32.items())):
-                    res[key] = max(res.get(key, 0.0), v)
-            if ncol == SHAPES[0]:
-                args = _f32(inputs[name][0])
-                results[name]["ms"] = median_ms(lambda: k["wrapper"](*args))
-                results[name]["plain_ms"] = median_ms(
-                    lambda: k["plain"](*args))
-                results[name].update(bound(name, args, k["wrapper"](*args)))
-        del inputs
+        for make in (kernel_inputs, all_cloudy_inputs):
+            inputs = make(ncol, torch.float64, seed=ncol)
+            for name, sets in inputs.items():
+                res = results[name]
+                check_kernel(name, sets, ncol, res["max_abs_err"],
+                             res["checked"])
+                if ncol == SHAPES[0]:
+                    time_kernel(name, sets, res, main=make is kernel_inputs)
+            del inputs
+            torch.cuda.empty_cache()
     for name, res in results.items():
         phase("kernels", kernel=name, max_abs_err=res["max_abs_err"],
+              checked=sorted(res["checked"]),
               ms_f32_2048=res["ms"], plain_ms_f32_2048=res["plain_ms"],
               bound_ms=res["bound_ms"], bound_by=res["bound_by"],
-              bytes=res["bytes"], operations=res["operations"], card=smi)
+              bytes=res["bytes"], operations=res["operations"],
+              bound_ms_all_tensors=res["bound_ms_all_tensors"],
+              variants_f32_2048=res["variants"], card=smi)
     return results
 
 

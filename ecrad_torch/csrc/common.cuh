@@ -232,6 +232,25 @@ __device__ __forceinline__ void tc_stage(TcLevel<T> &s, const T *u9,
   __syncthreads();
 }
 
+// Stage a whole column's per-level data in shared memory once, for level
+// loops that hold no barrier: v9 at the nlev + 1 interfaces, the od
+// scalings of the nlev layers and their clear flags (as 0/1 bytes).  Every
+// thread of the block must call it; it ends with a barrier.
+template <typename T>
+__device__ __forceinline__ void tc_stage_column(T *sv, T *ssc,
+                                                unsigned char *sclr,
+                                                const T *v9, const T *scal2,
+                                                const unsigned char *clear,
+                                                int col, int nlev) {
+  for (int i = threadIdx.x; i < (nlev + 1) * 9; i += blockDim.x)
+    sv[i] = v9[(size_t)col * (nlev + 1) * 9 + i];
+  for (int i = threadIdx.x; i < nlev * 2; i += blockDim.x)
+    ssc[i] = scal2[(size_t)col * nlev * 2 + i];
+  for (int i = threadIdx.x; i < nlev; i += blockDim.x)
+    sclr[i] = clear[(size_t)col * nlev + i] != 0;
+  __syncthreads();
+}
+
 // out[r] = sum_l m[3l + r] x[l]: the v-matrix mix of the up sweeps
 // (pallas_tripleclouds._mix_v).
 template <typename T>

@@ -9,9 +9,6 @@
 
 namespace ecrad {
 
-__device__ __forceinline__ float d_pow(float x, float y) { return powf(x, y); }
-__device__ __forceinline__ double d_pow(double x, double y) { return pow(x, y); }
-
 template <typename T> struct Mat3 {
   T a[3][3];
 };

@@ -28,17 +28,43 @@
 // the albedos below it, emitting the region sums of fup, fdn and fdir and
 // their clear-sky values at each layer base.
 //
-// What bounds it on the H100: the level recurrence and its arithmetic (a
-// 3x3 LU, eight to fourteen 3x3 products per level, and for Explicit six
-// small matrix exponentials), then the bytes: 50 layer planes read by
-// each sweep, 20 written by the up sweep and read back by the down sweep.
-// One block per column with one thread per g-point keeps the carry (two
-// albedo matrices, the clear-sky pair and six migration distances) in
-// registers and the loads of a level contiguous over g; the per-column
-// data of a level is staged once in shared memory.  The up-to-down
-// hand-off goes through scratch planes that the wrapper allocates, each
-// thread reading back only its own (column, g).  One block per column
-// covers any ncol.
+// What bounds it on the H100: latency.  A clear layer does little
+// arithmetic and waits on its loads; a cloudy one waits on its 3x3 algebra
+// and, in Explicit entrapment, its exponentials (PERF.md).  The first is
+// cut by moving fewer bytes: most layers are clear (86% of the (column,
+// layer) pairs of the bundled meridian slice), and a clear layer's result
+// depends on few entries:
+// * Up: the scalar form reads R, T, Rd, Tdd, Tdir [0][0] and the carry's
+//   [0][0]; step_migrations reads the other diagonal entries only for
+//   regions 1 and 2, whose results a select drops there (region 0 fills a
+//   clear layer, so its cloud fraction is 0); the mixing reads X, which is
+//   zero off [0][0], so Explicit entrapment needs region 0's exponentials
+//   only.
+// * Down: the scalar form reads R, T [0][0], the carry's [0][0] and
+//   ddn_above = Tdir ddn, whose region sum is an output.  ddn enters a
+//   clear layer with regions 1 and 2 at 0 (the overlap matrices give them
+//   nothing, up to their roundoff of ~1e-16 of the flux), so Tdd [0][1..2]
+//   and Tdir [i][1..2] enter only times that 0, but Tdir [1][0] and
+//   [2][0] multiply ddn[0] and stay read.
+// So a clear layer reads 5 matrix entries up and 6 down instead of 45 and
+// 36, and hands 4 scalars (the [0][0] albedos and the clear-sky pair)
+// instead of 20 planes from the up sweep to the down sweep, through
+// scratch that the wrapper allocates (each thread reads back only its own
+// (column, g)).  The entries the kernel skips are 0 in clear layers as the
+// layer matrices are built (solvers/spartacus._sw_layer_mats).  The clear
+// test is a per-(level, column) mask and a block is one column, so the
+// branch never diverges.
+// Latency: one block per column with one thread per g-point (at most 128:
+// RRTMG's SW has 112) keeps the carry (two albedo matrices, the clear-sky
+// pair and six migration distances) in registers and each load contiguous
+// over g; in float, 128 registers let 4 blocks share an SM.  The
+// per-column data of every level is staged in shared memory before each
+// sweep.  The scalars every level reads are copied kAhead levels ahead
+// into a ring in shared memory (cp.async), which costs no registers; a
+// cloudy level loads the rest of its entries when it starts.  One barrier
+// per level keeps the block's warps on the same level, so that their loads
+// of a plane go out together: the kernel measured faster with it than
+// without (PERF.md).  One block per column covers any ncol.
 #include "common.cuh"
 #include "matrix3.cuh"
 
@@ -49,6 +75,13 @@ using namespace ecrad;
 // Entrapment modes (ecrad_torch/config.py Entrapment)
 constexpr int kZero = 0, kEdgeOnly = 1, kExplicit = 2, kNonFractal = 3,
               kMaximum = 4;
+// per-level values staged in shared memory: up u[9] v[9] msk[4] ent[13],
+// down v[9] msk[2]
+constexpr int kUp = 35, kDn = 11;
+constexpr int kMaxThreads = 128, kMinBlocks = 4;
+// the scalars every level reads (UpScalars, DnScalars), copied kAhead
+// levels ahead into a ring of kSlots slots of shared memory
+constexpr int kUpK = 10, kDnK = 14, kAhead = 3, kSlots = kAhead + 1;
 
 template <typename T> struct SpSwArgs {
   const T *R, *Tm, *Rd, *Tdd, *Tdir;
@@ -57,18 +90,23 @@ template <typename T> struct SpSwArgs {
   const T *alb0, *albd0, *albc0, *albdc0, *ddn0, *incoming;
   T *albd_f, *alb_c_f, *albd_c_f;
   T *fup, *fdn, *fdir, *fup_c, *fdn_c, *fdir_c;
-  // scratch: the up sweep's entry carry at each level
+  // scratch: the up sweep's entry carry at each level (only [0][0] of the
+  // matrices in a clear layer)
   T *albb, *albdb, *albcb, *albdcb;
   int ncol, nlev, ng, mode, do3d;
   T overhang, cft, max_od;
 };
 
-// Per-column data of one level, the same for every g-point.
-template <typename T> struct SwUpLevel {
-  T u[9], v[9], msk[4], ent[13];
+// What every level of the up sweep reads: the [0][0] entries of the five
+// layer matrices and the five clear-sky planes.
+template <typename T> struct UpScalars {
+  T R, Tm, Rd, Tdd, Tdir, rcl, tcl, rdcl, tddcl, tdircl;
 };
-template <typename T> struct SwDnLevel {
-  T v[9], msk[2];
+// ... and of the down sweep: R, T, Tdd [0][0], Tdir [0..2][0], four
+// clear-sky planes and the entry carry's scalars.
+template <typename T> struct DnScalars {
+  T R, Tm, Tdd, Tdir0, Tdir1, Tdir2, rcl, tcl, tddcl, tdircl;
+  T alb, albd, alb_c, albd_c;
 };
 
 // out[i] = sum_j x[j] v[j][i]
@@ -97,6 +135,73 @@ __device__ __forceinline__ Vec3<T> diag_of(const Mat3<T> &A) {
   return d;
 }
 
+// x[j] and row j of A for a j only known at run time, by selects, which
+// keep x and A in registers.
+template <typename T>
+__device__ __forceinline__ T pick(const Vec3<T> &x, int j) {
+  return j == 0 ? x.a[0] : j == 1 ? x.a[1] : x.a[2];
+}
+
+template <typename T>
+__device__ __forceinline__ Vec3<T> pick_row(const Mat3<T> &A, int j) {
+  Vec3<T> r;
+#pragma unroll
+  for (int k = 0; k < 3; ++k)
+    r.a[k] = j == 0 ? A.a[0][k] : j == 1 ? A.a[1][k] : A.a[2][k];
+  return r;
+}
+
+// A matrix of the stacked layout whose [0][0] is already in a register:
+// loads the other eight entries.
+template <typename T>
+__device__ __forceinline__ Mat3<T> m3_load_rest(T a00, const T *p,
+                                                size_t stride) {
+  Mat3<T> m;
+  m.a[0][0] = a00;
+#pragma unroll
+  for (int k = 1; k < 9; ++k) m.a[k / 3][k % 3] = p[k * stride];
+  return m;
+}
+
+// One value (4 or 8 bytes) from global into shared memory, asynchronously
+// (cp.async), and the group fences around such copies.
+template <typename T>
+__device__ __forceinline__ void cp_async(T *smem, const T *gmem) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(dst),
+               "l"(gmem), "n"(sizeof(T)));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// step_migrations (radiation_spartacus_sw.F90:966-1046) of one region
+// from its diagonal entries; act false gives 0 (a select).
+template <typename T>
+__device__ __forceinline__ void step_migration(bool act, T Rdg, T Tdg,
+                                               T Rddg, T Tddg, T Tdirg,
+                                               T Adg, T Addg, T xld, T xldir,
+                                               T &xdif, T &xdir) {
+  const T base = T(1) - Rdg * Adg;
+  const T ms = Tdg / base;
+  const T xe = T(1) / (base * d_sqrt(base));   // base^-1.5
+  const T top_alb_dir =
+      d_max(Rddg + ms * (Tddg * Adg + Tdirg * Addg), T(1.0e-8));
+  const T xdir_new =
+      d_max(xldir + ((Tddg * Adg * xe + Tdirg * Addg * (xe - T(1))) *
+                         (xdif + xld) +
+                     Tdirg * Addg * (xdir + xldir)) *
+                        Tdg / top_alb_dir,
+            T(0));
+  const T top_alb = d_max(Rdg + ms * Tdg * Adg, T(1.0e-8));
+  const T xdif_new = xld + xe * Adg * Tdg * Tdg * (xdif + xld) / top_alb;
+  xdir = act ? xdir_new : T(0);
+  xdif = act ? xdif_new : T(0);
+}
+
 // Explicit entrapment of one source region j2 (spartacus._sw_up_core):
 // the exchange exponential of the migration distance xj.
 template <typename T>
@@ -117,10 +222,103 @@ __device__ __forceinline__ Mat3<T> entrap(const SpSwArgs<T> &a, T tr01,
                               e12 * scale);
 }
 
+// Where value k of UpScalars (DnScalars) lies for the level at matrix
+// offset m and plane offset v; k is a constant after unrolling.
 template <typename T>
-__global__ void spartacus_sw_kernel(SpSwArgs<T> a) {
-  __shared__ SwUpLevel<T> su;
-  __shared__ SwDnLevel<T> sd;
+__device__ __forceinline__ const T *up_src(const SpSwArgs<T> &a, size_t m,
+                                           size_t v, int k) {
+  switch (k) {
+    case 0: return a.R + m;
+    case 1: return a.Tm + m;
+    case 2: return a.Rd + m;
+    case 3: return a.Tdd + m;
+    case 4: return a.Tdir + m;
+    case 5: return a.rcl + v;
+    case 6: return a.tcl + v;
+    case 7: return a.rdcl + v;
+    case 8: return a.tddcl + v;
+    default: return a.tdircl + v;
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ const T *dn_src(const SpSwArgs<T> &a, size_t m,
+                                           size_t v, size_t plane, int k) {
+  switch (k) {
+    case 0: return a.R + m;
+    case 1: return a.Tm + m;
+    case 2: return a.Tdd + m;
+    case 3: return a.Tdir + m;
+    case 4: return a.Tdir + m + 3 * plane;
+    case 5: return a.Tdir + m + 6 * plane;
+    case 6: return a.rcl + v;
+    case 7: return a.tcl + v;
+    case 8: return a.tddcl + v;
+    case 9: return a.tdircl + v;
+    case 10: return a.albb + m;
+    case 11: return a.albdb + m;
+    case 12: return a.albcb + v;
+    default: return a.albdcb + v;
+  }
+}
+
+// Value k of level l in the ring: slot l % kSlots holds K values per
+// thread, value k of thread t at ring[(slot * K + k) * blockDim.x + t].
+template <int K, typename T>
+__device__ __forceinline__ T *ring_at(T *ring, int l, int k) {
+  return ring + ((size_t)((l % kSlots) * K + k)) * blockDim.x + threadIdx.x;
+}
+
+// Copy the level's scalars into the ring (none for a level outside the
+// column), as one group of cp.async.
+template <typename T>
+__device__ __forceinline__ void issue_up(const SpSwArgs<T> &a, T *ring,
+                                         int l, size_t cg, size_t plane) {
+  if (l >= 0) {
+    const size_t m = (size_t)l * 9 * plane + cg, v = (size_t)l * plane + cg;
+#pragma unroll
+    for (int k = 0; k < kUpK; ++k)
+      cp_async(ring_at<kUpK>(ring, l, k), up_src(a, m, v, k));
+  }
+  cp_async_commit();
+}
+
+template <typename T>
+__device__ __forceinline__ void issue_dn(const SpSwArgs<T> &a, T *ring,
+                                         int l, size_t cg, size_t plane) {
+  if (l < a.nlev) {
+    const size_t m = (size_t)l * 9 * plane + cg, v = (size_t)l * plane + cg;
+#pragma unroll
+    for (int k = 0; k < kDnK; ++k)
+      cp_async(ring_at<kDnK>(ring, l, k), dn_src(a, m, v, plane, k));
+  }
+  cp_async_commit();
+}
+
+// Stage one column's per-level data, K values per level gathered from the
+// (nlev, ncol, k) arrays src[] of widths w[], and wait for every thread's
+// share.
+template <typename T, int N>
+__device__ __forceinline__ void stage(T *st, const T *const (&src)[N],
+                                      const int (&w)[N], int K, int col,
+                                      int ncol, int nlev) {
+  for (int i = threadIdx.x; i < nlev * K; i += blockDim.x) {
+    const int l = i / K;
+    int k = i % K, s = 0;
+    while (k >= w[s]) k -= w[s++];
+    st[i] = src[s][((size_t)l * ncol + col) * w[s] + k];
+  }
+  __syncthreads();
+}
+
+// in float, held to 128 registers so that 4 blocks fit on an SM
+template <typename T>
+__global__ void __launch_bounds__(kMaxThreads,
+                                  sizeof(T) == 4 ? kMinBlocks : 1)
+    spartacus_sw_kernel(SpSwArgs<T> a) {
+  extern __shared__ unsigned char smem_raw[];
+  T *st = reinterpret_cast<T *>(smem_raw);
+  T *ring = st + (size_t)a.nlev * kUp;
   const int col = blockIdx.x;
   const int g = threadIdx.x;
   const bool on = g < a.ng;
@@ -140,163 +338,167 @@ __global__ void spartacus_sw_kernel(SpSwArgs<T> a) {
     albd = m3_load(a.albd0 + cg, plane);
     alb_c = a.albc0[cg];
     albd_c = a.albdc0[cg];
+    for (int d = 0; d < kAhead; ++d)
+      issue_up(a, ring, nlev - 1 - d, cg, plane);
   }
+  const T *const up_cols[4] = {a.u9, a.v9top, a.msk_up, a.ent13};
+  const int up_w[4] = {9, 9, 4, 13};
+  stage<T, 4>(st, up_cols, up_w, kUp, col, ncol, nlev);
   for (int l = nlev - 1; l >= 0; --l) {
-    const size_t lc = (size_t)l * ncol + col;
-    for (int i = threadIdx.x; i < 35; i += blockDim.x) {
-      if (i < 9) su.u[i] = a.u9[lc * 9 + i];
-      else if (i < 18) su.v[i - 9] = a.v9top[lc * 9 + i - 9];
-      else if (i < 22) su.msk[i - 18] = a.msk_up[lc * 4 + i - 18];
-      else su.ent[i - 22] = a.ent13[lc * 13 + i - 22];
-    }
+    // keeps the block's warps on one level, so that their loads of a
+    // plane arrive together
     __syncthreads();
-    if (on) {
-      // entry carry: the albedos of the atmosphere below this layer
+    if (!on) continue;
+    const T *su = st + l * kUp;
+    const T *msk = su + 18, *e = su + 22;
+    T x[kUpK];
+    cp_async_wait<kAhead - 1>();   // level l's copies have landed
+#pragma unroll
+    for (int k = 0; k < kUpK; ++k) x[k] = *ring_at<kUpK>(ring, l, k);
+    // into the slot level l + 1 used
+    issue_up(a, ring, l - kAhead, cg, plane);
+    const UpScalars<T> s = {x[0], x[1], x[2], x[3], x[4],
+                            x[5], x[6], x[7], x[8], x[9]};
+    const bool cm = msk[0] != T(0);
+    const bool above_clear = msk[1] != T(0);
+    const bool mm = msk[2] != T(0);
+    const bool ntop = msk[3] != T(0);
+    const Mat3<T> u = m3_shared(su), v = m3_shared(su + 9);
+
+    // clear-sky scalar adding
+    const T inv_d = T(1) / (T(1) - alb_c * s.rcl);
+    const T alb_c_new = s.rcl + s.tcl * s.tcl * alb_c * inv_d;
+    const T albd_c_new = s.rdcl + (s.tdircl * albd_c + s.tddcl * alb_c) *
+                                      s.tcl * inv_d;
+
+    // entry carry: the albedos of the atmosphere below this layer
+    a.albcb[lev(l)] = alb_c;
+    a.albdcb[lev(l)] = albd_c;
+    Mat3<T> X, Xd;
+    if (cm) {
+      // a clear layer: the region-0 scalar form
+      a.albb[mat(l)] = alb.a[0][0];
+      a.albdb[mat(l)] = albd.a[0][0];
+      const T a00 = alb.a[0][0], ad00 = albd.a[0][0];
+      const T inv_s = T(1) / (T(1) - a00 * s.R);
+      X = m3_embed00(s.R + s.Tm * s.Tm * a00 * inv_s);
+      Xd = m3_embed00(s.Rd + (s.Tdir * ad00 + s.Tdd * a00) * s.Tm * inv_s);
+      if (explicit_mode && mm) {
+        const T cf = T(1) - e[0];
+        step_migration(cf < T(1), s.R, s.Tm, s.Rd, s.Tdd, s.Tdir,
+                       alb.a[0][0], albd.a[0][0], e[11], e[12], xdif.a[0],
+                       xdir.a[0]);
+        // regions 1 and 2, with their zero layer entries: a select
+        // drops them, as cf is 0 in a clear layer
+#pragma unroll
+        for (int r = 1; r < 3; ++r) {
+          if (cf > T(0)) {
+            step_migration(true, T(0), T(0), T(0), T(0), T(0),
+                           alb.a[r][r], albd.a[r][r], e[11], e[12],
+                           xdif.a[r], xdir.a[r]);
+          } else {
+            xdif.a[r] = xdir.a[r] = T(0);
+          }
+        }
+      }
+    } else {
       m3_store(alb, a.albb + mat(l), plane);
       m3_store(albd, a.albdb + mat(l), plane);
-      a.albcb[lev(l)] = alb_c;
-      a.albdcb[lev(l)] = albd_c;
-
-      const Mat3<T> R = m3_load(a.R + mat(l), plane);
-      const Mat3<T> Tm = m3_load(a.Tm + mat(l), plane);
-      const Mat3<T> Rd = m3_load(a.Rd + mat(l), plane);
-      const Mat3<T> Tdd = m3_load(a.Tdd + mat(l), plane);
-      const Mat3<T> Tdir = m3_load(a.Tdir + mat(l), plane);
-      const T rcl = a.rcl[lev(l)], tcl = a.tcl[lev(l)];
-      const T rdcl = a.rdcl[lev(l)], tddcl = a.tddcl[lev(l)];
-      const T tdircl = a.tdircl[lev(l)];
-      const bool cm = su.msk[0] != T(0);
-      const bool above_clear = su.msk[1] != T(0);
-      const bool mm = su.msk[2] != T(0);
-      const bool ntop = su.msk[3] != T(0);
-      const T *e = su.ent;
-      const Mat3<T> u = m3_shared(su.u), v = m3_shared(su.v);
-
-      // clear-sky scalar adding
-      const T inv_d = T(1) / (T(1) - alb_c * rcl);
-      const T alb_c_new = rcl + tcl * tcl * alb_c * inv_d;
-      const T albd_c_new = rdcl + (tdircl * albd_c + tddcl * alb_c) * tcl *
-                                      inv_d;
-
-      // layer adding: the region-0 scalar form in a clear layer
-      Mat3<T> X, Xd;
-      if (cm) {
-        const T a00 = alb.a[0][0], ad00 = albd.a[0][0];
-        const T R00 = R.a[0][0], T00 = Tm.a[0][0];
-        const T inv_s = T(1) / (T(1) - a00 * R00);
-        X = m3_embed00(R00 + T00 * T00 * a00 * inv_s);
-        Xd = m3_embed00(Rd.a[0][0] + (Tdir.a[0][0] * ad00 +
-                                      Tdd.a[0][0] * a00) * T00 * inv_s);
-      } else {
-        const Mat3<T> LU = m3_lu(m3_eye_minus(m3_mul(alb, R)));
-        X = m3_add(R, m3_mul(Tm, m3_lu_solve(LU, m3_mul(alb, Tm))));
-        const Mat3<T> srcm = m3_add(m3_mul(albd, Tdir), m3_mul(alb, Tdd));
-        Xd = m3_add(Rd, m3_mul(Tm, m3_lu_solve(LU, srcm)));
-      }
-
-      // step_migrations (radiation_spartacus_sw.F90:966-1046)
+      const Mat3<T> R = m3_load_rest(s.R, a.R + mat(l), plane);
+      const Mat3<T> Tm = m3_load_rest(s.Tm, a.Tm + mat(l), plane);
+      const Mat3<T> Rd = m3_load_rest(s.Rd, a.Rd + mat(l), plane);
+      const Mat3<T> Tdd = m3_load_rest(s.Tdd, a.Tdd + mat(l), plane);
+      const Mat3<T> Tdir = m3_load_rest(s.Tdir, a.Tdir + mat(l), plane);
+      const Mat3<T> LU = m3_lu(m3_eye_minus(m3_mul(alb, R)));
+      X = m3_add(R, m3_mul(Tm, m3_lu_solve(LU, m3_mul(alb, Tm))));
+      const Mat3<T> srcm = m3_add(m3_mul(albd, Tdir), m3_mul(alb, Tdd));
+      Xd = m3_add(Rd, m3_mul(Tm, m3_lu_solve(LU, srcm)));
       if (explicit_mode && mm) {
-        const T xld = e[11], xldir = e[12];
         const T cf = T(1) - e[0];
 #pragma unroll
-        for (int r = 0; r < 3; ++r) {
-          const bool act = r == 0 ? cf < T(1) : cf > T(0);
-          const T Rdg = R.a[r][r], Tdg = Tm.a[r][r];
-          const T Rddg = Rd.a[r][r], Tddg = Tdd.a[r][r];
-          const T Tdirg = Tdir.a[r][r];
-          const T Adg = alb.a[r][r], Addg = albd.a[r][r];
-          const T ms = Tdg / (T(1) - Rdg * Adg);
-          const T xe = d_pow(T(1) - Rdg * Adg, T(-1.5));
-          const T top_alb_dir =
-              d_max(Rddg + ms * (Tddg * Adg + Tdirg * Addg), T(1.0e-8));
-          const T xdir_new = d_max(
-              xldir + ((Tddg * Adg * xe + Tdirg * Addg * (xe - T(1))) *
-                           (xdif.a[r] + xld) +
-                       Tdirg * Addg * (xdir.a[r] + xldir)) *
-                          Tdg / top_alb_dir,
-              T(0));
-          const T top_alb = d_max(Rdg + ms * Tdg * Adg, T(1.0e-8));
-          const T xdif_new =
-              xld + xe * Adg * Tdg * Tdg * (xdif.a[r] + xld) / top_alb;
-          xdir.a[r] = act ? xdir_new : T(0);
-          xdif.a[r] = act ? xdif_new : T(0);
-        }
+        for (int r = 0; r < 3; ++r)
+          step_migration(r == 0 ? cf < T(1) : cf > T(0), R.a[r][r],
+                         Tm.a[r][r], Rd.a[r][r], Tdd.a[r][r],
+                         Tdir.a[r][r], alb.a[r][r], albd.a[r][r], e[11],
+                         e[12], xdif.a[r], xdir.a[r]);
       }
-
-      // overlap / entrapment mixing (radiation_spartacus_sw.F90:510-760)
-      Mat3<T> alb_new, albd_new;
-      if (cm && above_clear) {
-        alb_new = m3_embed00(X.a[0][0]);
-        albd_new = m3_embed00(Xd.a[0][0]);
-      } else if (a.mode == kMaximum || above_clear) {
-        alb_new = m3_mul(m3_mul(u, X), v);
-        albd_new = m3_mul(m3_mul(u, Xd), v);
-      } else if (a.mode == kZero) {
-        Vec3<T> cs, csd;
-#pragma unroll
-        for (int j = 0; j < 3; ++j) {
-          cs.a[j] = X.a[0][j] + X.a[1][j] + X.a[2][j];
-          csd.a[j] = Xd.a[0][j] + Xd.a[1][j] + Xd.a[2][j];
-        }
-        alb_new = diag_embed(vmix(cs, v));
-        albd_new = diag_embed(vmix(csd, v));
-      } else {
-        Mat3<T> Xo = X, Xdo = Xd;
-#pragma unroll
-        for (int r = 0; r < 3; ++r) Xo.a[r][r] = Xdo.a[r][r] = T(0);
-        alb_new = m3_mul(m3_mul(u, Xo), v);
-        albd_new = m3_mul(m3_mul(u, Xdo), v);
-        if (a.mode == kEdgeOnly || !a.do3d) {
-          const Vec3<T> d = vmix(diag_of(X), v), dd = vmix(diag_of(Xd), v);
-#pragma unroll
-          for (int r = 0; r < 3; ++r) {
-            alb_new.a[r][r] = alb_new.a[r][r] + d.a[r];
-            albd_new.a[r][r] = albd_new.a[r][r] + dd.a[r];
-          }
-        } else {
-          // Explicit entrapment (radiation_spartacus_sw.F90:586-760)
-          Mat3<T> acc = m3_zero<T>(), accd = m3_zero<T>();
-          const T opp = e[10], invszp = e[9];
-#pragma unroll 1
-          for (int j2 = 0; j2 < 3; ++j2) {
-            T ts = T(1) - (T(1) - a.overhang) * opp * d_min(e[j2], e[6 + j2]) /
-                              d_max(e[j2], a.cft);
-            if (!ntop) ts = T(0);
-            const T tr01 = ts * e[3] / d_max(su.u[j2], T(1.0e-5));
-            const T tr10 = ts * e[3] / d_max(su.u[3 + j2], T(1.0e-5));
-            const T tr12 = ts * e[4] / d_max(su.u[3 + j2], T(1.0e-5));
-            const T tr21 = ts * e[4] / d_max(su.u[6 + j2], T(1.0e-5));
-            const Mat3<T> Pm =
-                entrap(a, tr01, tr10, tr12, tr21, xdif.a[j2], invszp);
-            const Mat3<T> Pmd =
-                entrap(a, tr01, tr10, tr12, tr21, xdir.a[j2], invszp);
-#pragma unroll
-            for (int i = 0; i < 3; ++i)
-#pragma unroll
-              for (int j = 0; j < 3; ++j) {
-                acc.a[i][j] = acc.a[i][j] + Pm.a[i][j] * v.a[j2][j] * X.a[j2][j2];
-                accd.a[i][j] =
-                    accd.a[i][j] + Pmd.a[i][j] * v.a[j2][j] * Xd.a[j2][j2];
-              }
-          }
-          alb_new = m3_add(alb_new, acc);
-          albd_new = m3_add(albd_new, accd);
-        }
-      }
-
-      // migrate the distances through the interface (L758-777)
-      if (explicit_mode && !(cm && above_clear)) {
-        Vec3<T> xa = xdif, xb = xdir;
-        if (cm) xa.a[1] = xa.a[2] = xb.a[1] = xb.a[2] = T(0);
-        xdif = vmix(xa, v);
-        xdir = vmix(xb, v);
-      }
-      alb = alb_new;
-      albd = albd_new;
-      alb_c = alb_c_new;
-      albd_c = albd_c_new;
     }
-    __syncthreads();  // every thread has read `su` before the next stage
+
+    // overlap / entrapment mixing (radiation_spartacus_sw.F90:510-760)
+    Mat3<T> alb_new, albd_new;
+    if (cm && above_clear) {
+      alb_new = m3_embed00(X.a[0][0]);
+      albd_new = m3_embed00(Xd.a[0][0]);
+    } else if (a.mode == kMaximum || above_clear) {
+      alb_new = m3_mul(m3_mul(u, X), v);
+      albd_new = m3_mul(m3_mul(u, Xd), v);
+    } else if (a.mode == kZero) {
+      Vec3<T> cs, csd;
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        cs.a[j] = X.a[0][j] + X.a[1][j] + X.a[2][j];
+        csd.a[j] = Xd.a[0][j] + Xd.a[1][j] + Xd.a[2][j];
+      }
+      alb_new = diag_embed(vmix(cs, v));
+      albd_new = diag_embed(vmix(csd, v));
+    } else {
+      Mat3<T> Xo = X, Xdo = Xd;
+#pragma unroll
+      for (int r = 0; r < 3; ++r) Xo.a[r][r] = Xdo.a[r][r] = T(0);
+      alb_new = m3_mul(m3_mul(u, Xo), v);
+      albd_new = m3_mul(m3_mul(u, Xdo), v);
+      if (a.mode == kEdgeOnly || !a.do3d) {
+        const Vec3<T> d = vmix(diag_of(X), v), dd = vmix(diag_of(Xd), v);
+#pragma unroll
+        for (int r = 0; r < 3; ++r) {
+          alb_new.a[r][r] = alb_new.a[r][r] + d.a[r];
+          albd_new.a[r][r] = albd_new.a[r][r] + dd.a[r];
+        }
+      } else {
+        // Explicit entrapment (radiation_spartacus_sw.F90:586-760); in
+        // a clear layer X is zero off [0][0], so only region 0 adds
+        Mat3<T> acc = m3_zero<T>(), accd = m3_zero<T>();
+        const T opp = e[10], invszp = e[9];
+        const int nj2 = cm ? 1 : 3;
+#pragma unroll 1
+        for (int j2 = 0; j2 < nj2; ++j2) {
+          T ts = T(1) - (T(1) - a.overhang) * opp * d_min(e[j2], e[6 + j2]) /
+                            d_max(e[j2], a.cft);
+          if (!ntop) ts = T(0);
+          const T tr01 = ts * e[3] / d_max(su[j2], T(1.0e-5));
+          const T tr10 = ts * e[3] / d_max(su[3 + j2], T(1.0e-5));
+          const T tr12 = ts * e[4] / d_max(su[3 + j2], T(1.0e-5));
+          const T tr21 = ts * e[4] / d_max(su[6 + j2], T(1.0e-5));
+          const Mat3<T> Pm =
+              entrap(a, tr01, tr10, tr12, tr21, pick(xdif, j2), invszp);
+          const Mat3<T> Pmd =
+              entrap(a, tr01, tr10, tr12, tr21, pick(xdir, j2), invszp);
+          const Vec3<T> vrow = pick_row(v, j2);
+          const T xjj = pick(diag_of(X), j2), xdjj = pick(diag_of(Xd), j2);
+#pragma unroll
+          for (int i = 0; i < 3; ++i)
+#pragma unroll
+            for (int j = 0; j < 3; ++j) {
+              acc.a[i][j] = acc.a[i][j] + Pm.a[i][j] * vrow.a[j] * xjj;
+              accd.a[i][j] = accd.a[i][j] + Pmd.a[i][j] * vrow.a[j] * xdjj;
+            }
+        }
+        alb_new = m3_add(alb_new, acc);
+        albd_new = m3_add(albd_new, accd);
+      }
+    }
+
+    // migrate the distances through the interface (L758-777)
+    if (explicit_mode && !(cm && above_clear)) {
+      Vec3<T> xa = xdif, xb = xdir;
+      if (cm) xa.a[1] = xa.a[2] = xb.a[1] = xb.a[2] = T(0);
+      xdif = vmix(xa, v);
+      xdir = vmix(xb, v);
+    }
+    alb = alb_new;
+    albd = albd_new;
+    alb_c = alb_c_new;
+    albd_c = albd_c_new;
   }
   if (on) {
     m3_store(albd, a.albd_f + cg, plane);
@@ -311,70 +513,77 @@ __global__ void spartacus_sw_kernel(SpSwArgs<T> a) {
 #pragma unroll
     for (int r = 0; r < 3; ++r) ddn.a[r] = a.ddn0[r * plane + cg];
     ddn_c = a.incoming[cg];
+    cp_async_wait<0>();
+    __threadfence_block();   // the up sweep's scratch, read by cp.async
+    for (int d = 0; d < kAhead; ++d) issue_dn(a, ring, d, cg, plane);
   }
+  const T *const dn_cols[2] = {a.v9bot, a.msk_dn};
+  const int dn_w[2] = {9, 2};
+  __syncthreads();  // every thread is done with the up sweep's staged data
+  stage<T, 2>(st, dn_cols, dn_w, kDn, col, ncol, nlev);
   for (int l = 0; l < nlev; ++l) {
-    const size_t lc = (size_t)l * ncol + col;
-    for (int i = threadIdx.x; i < 11; i += blockDim.x) {
-      if (i < 9) sd.v[i] = a.v9bot[lc * 9 + i];
-      else sd.msk[i - 9] = a.msk_dn[lc * 2 + i - 9];
-    }
-    __syncthreads();
-    if (on) {
-      const Mat3<T> R = m3_load(a.R + mat(l), plane);
-      const Mat3<T> Tm = m3_load(a.Tm + mat(l), plane);
-      const Mat3<T> Tdd = m3_load(a.Tdd + mat(l), plane);
-      const Mat3<T> Tdir = m3_load(a.Tdir + mat(l), plane);
-      const T rcl = a.rcl[lev(l)], tcl = a.tcl[lev(l)];
-      const T tddcl = a.tddcl[lev(l)], tdircl = a.tdircl[lev(l)];
-      const Mat3<T> alb_n = m3_load(a.albb + mat(l), plane);
-      const Mat3<T> albd_n = m3_load(a.albdb + mat(l), plane);
-      const T alb_cn = a.albcb[lev(l)], albd_cn = a.albdcb[lev(l)];
-      const bool cm = sd.msk[0] != T(0);
-      const bool clr_below = sd.msk[1] != T(0);
+    __syncthreads();   // the block's warps on one level, as up
+    if (!on) continue;
+    const T *sd = st + l * kDn;
+    T x[kDnK];
+    cp_async_wait<kAhead - 1>();
+#pragma unroll
+    for (int k = 0; k < kDnK; ++k) x[k] = *ring_at<kDnK>(ring, l, k);
+    issue_dn(a, ring, l + kAhead, cg, plane);
+    const DnScalars<T> s = {x[0], x[1], x[2],  x[3],  x[4],  x[5],  x[6],
+                            x[7], x[8], x[9], x[10], x[11], x[12], x[13]};
+    const bool cm = sd[9] != T(0);
+    const bool clr_below = sd[10] != T(0);
 
+    // clear-sky scalars
+    const T src_c = s.tddcl * ddn_c;
+    const T ddn_c2 = s.tdircl * ddn_c;
+    const T fdn_c2 = (s.tcl * fdn_c + s.rcl * s.albd_c * ddn_c2 + src_c) /
+                     (T(1) - s.rcl * s.alb_c);
+    const T fup_c = s.albd_c * ddn_c2 + s.alb_c * fdn_c2;
+    Vec3<T> fdn_above, fup_above, ddn_above;
+    if (cm) {
+      // a clear layer: ddn's regions 1 and 2 are 0 here, so only column
+      // 0 of Tdir and Tdd[0][0] act on it
+      const T src0 = s.Tdd * ddn.a[0];
+      ddn_above = {{s.Tdir0 * ddn.a[0], s.Tdir1 * ddn.a[0],
+                    s.Tdir2 * ddn.a[0]}};
+      const T f0 = (s.Tm * fdn.a[0] + s.R * s.albd * ddn_above.a[0] + src0) /
+                   (T(1) - s.R * s.alb);
+      fdn_above = {{f0, T(0), T(0)}};
+      fup_above = {{s.albd * ddn_above.a[0] + s.alb * f0, T(0), T(0)}};
+    } else {
+      const Mat3<T> R = m3_load_rest(s.R, a.R + mat(l), plane);
+      const Mat3<T> Tm = m3_load_rest(s.Tm, a.Tm + mat(l), plane);
+      const Mat3<T> Tdd = m3_load_rest(s.Tdd, a.Tdd + mat(l), plane);
+      const Mat3<T> Tdir = m3_load_rest(s.Tdir0, a.Tdir + mat(l), plane);
+      const Mat3<T> alb_n = m3_load_rest(s.alb, a.albb + mat(l), plane);
+      const Mat3<T> albd_n = m3_load_rest(s.albd, a.albdb + mat(l), plane);
       const Vec3<T> src = m3_vec(Tdd, ddn);
-      const Vec3<T> ddn_above = m3_vec(Tdir, ddn);
-      // clear-sky scalars
-      const T src_c = tddcl * ddn_c;
-      const T ddn_c2 = tdircl * ddn_c;
-      const T fdn_c2 = (tcl * fdn_c + rcl * albd_cn * ddn_c2 + src_c) /
-                       (T(1) - rcl * alb_cn);
-      const T fup_c = albd_cn * ddn_c2 + alb_cn * fdn_c2;
-      Vec3<T> fdn_above, fup_above;
-      if (cm) {
-        const T f0 = (Tm.a[0][0] * fdn.a[0] +
-                      R.a[0][0] * albd_n.a[0][0] * ddn_above.a[0] +
-                      src.a[0]) /
-                     (T(1) - R.a[0][0] * alb_n.a[0][0]);
-        fdn_above = {{f0, T(0), T(0)}};
-        fup_above = {{albd_n.a[0][0] * ddn_above.a[0] + alb_n.a[0][0] * f0,
-                      T(0), T(0)}};
-      } else {
-        const Mat3<T> LU = m3_lu(m3_eye_minus(m3_mul(R, alb_n)));
-        const Vec3<T> tsrc = m3_vec(albd_n, ddn_above);
-        const Vec3<T> rhs =
-            v3_add(v3_add(m3_vec(Tm, fdn), m3_vec(R, tsrc)), src);
-        fdn_above = m3_lu_sub(LU, rhs);
-        fup_above = v3_add(m3_vec(alb_n, fdn_above), tsrc);
-      }
-      a.fup[lev(l)] = sum3(fup_above);
-      a.fdn[lev(l)] = sum3(fdn_above);
-      a.fdir[lev(l)] = sum3(ddn_above);
-      a.fup_c[lev(l)] = fup_c;
-      a.fdn_c[lev(l)] = fdn_c2;
-      a.fdir_c[lev(l)] = ddn_c2;
-      if (cm && clr_below) {
-        fdn = fdn_above;
-        ddn = ddn_above;
-      } else {
-        const Mat3<T> v = m3_shared(sd.v);
-        fdn = m3_vec(v, fdn_above);
-        ddn = m3_vec(v, ddn_above);
-      }
-      fdn_c = fdn_c2;
-      ddn_c = ddn_c2;
+      ddn_above = m3_vec(Tdir, ddn);
+      const Mat3<T> LU = m3_lu(m3_eye_minus(m3_mul(R, alb_n)));
+      const Vec3<T> tsrc = m3_vec(albd_n, ddn_above);
+      const Vec3<T> rhs =
+          v3_add(v3_add(m3_vec(Tm, fdn), m3_vec(R, tsrc)), src);
+      fdn_above = m3_lu_sub(LU, rhs);
+      fup_above = v3_add(m3_vec(alb_n, fdn_above), tsrc);
     }
-    __syncthreads();  // every thread has read `sd` before the next stage
+    a.fup[lev(l)] = sum3(fup_above);
+    a.fdn[lev(l)] = sum3(fdn_above);
+    a.fdir[lev(l)] = sum3(ddn_above);
+    a.fup_c[lev(l)] = fup_c;
+    a.fdn_c[lev(l)] = fdn_c2;
+    a.fdir_c[lev(l)] = ddn_c2;
+    if (cm && clr_below) {
+      fdn = fdn_above;
+      ddn = ddn_above;
+    } else {
+      const Mat3<T> v = m3_shared(sd);
+      fdn = m3_vec(v, fdn_above);
+      ddn = m3_vec(v, ddn_above);
+    }
+    fdn_c = fdn_c2;
+    ddn_c = ddn_c2;
   }
 }
 
@@ -401,7 +610,18 @@ int launch(void *const *p, int ncol, int nlev, int ng, int mode, int do3d,
   a.cft = (T)cft;
   a.max_od = (T)max_od;
   const int threads = ((ng + 31) / 32) * 32;
-  spartacus_sw_kernel<T><<<ncol, threads, 0, (cudaStream_t)stream>>>(a);
+  if (threads > kMaxThreads) return (int)cudaErrorInvalidConfiguration;
+  // a whole column's per-level data (137 levels: 19 KB in float, 38 KB in
+  // double) and the ring
+  const size_t smem =
+      ((size_t)nlev * kUp + (size_t)kSlots * kDnK * threads) * sizeof(T);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        spartacus_sw_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  spartacus_sw_kernel<T><<<ncol, threads, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 

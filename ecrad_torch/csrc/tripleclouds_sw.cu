@@ -11,35 +11,46 @@
 // (region 0, no delta scaling) and two cloudy regions: gas merged with the
 // cloud at the region's od scaling, optionally delta-Eddington scaled,
 // then sw_ref_trans (expm1 form; the TPU's cubic series is not needed);
-// in a clear layer the cloudy regions' coefficients are zero.  Sweeps:
-//   S1 direct beam down for the clear scene (full incoming flux) and the
-//      3 regions (region-weighted), storing the direct flux at each layer
-//      top; the regions mix with v at the interface BELOW the layer;
-//   S2 surface -> TOA: diffuse and direct albedos of the clear scene and
-//      the 3 regions, storing both below each layer; the regions mix with
-//      v at the interface ABOVE the layer;
-//   S3 diffuse down, both scenes, mixing at the interface BELOW.
-// A mix is skipped where the layer and its neighbour across the interface
-// are both clear (layers above TOA and below the surface count as clear).
-// mu0 arrives clamped to 1e-10; the surface planes (the regions' with the
-// unclamped cos_sza and the lowest-layer mask) are prepared by the caller,
-// which also zeroes night columns.  Per-level broadband sums are
-// deterministic block reductions.
+// in a clear layer the cloudy regions' coefficients are zero.  Two passes:
+//   up   surface -> TOA: the coefficients of each layer, stored, and the
+//        diffuse and direct albedos of the clear scene and the 3 regions,
+//        stored below each layer; the regions mix with v at the interface
+//        ABOVE;
+//   down TOA -> surface: from the stored coefficients, the direct beam
+//        (transmitted by trans_dir_dir, which is sw_direct_trans bit for
+//        bit) and the diffuse flux of both scenes together, mixing at the
+//        interface BELOW; the per-level broadband sums of both.
+// The TPU's separate direct-beam pass is not needed: nothing of the up
+// pass depends on it.  A mix is skipped where the layer and its neighbour
+// across the interface are both clear (layers above TOA and below the
+// surface count as clear).  mu0 arrives clamped to 1e-10; the surface
+// planes (the regions' with the unclamped cos_sza and the lowest-layer
+// mask) are prepared by the caller, which also zeroes night columns.
 //
-// What bounds it on the H100: arithmetic (three Meador-Weaver evaluations
-// per cloudy layer, g-point and sweep in S2 and S3, each with exp, expm1,
-// sqrt and divisions) and the level recurrence.  One block per column with
-// one thread per g-point keeps the eight albedo carries in registers and
-// the loads of a level contiguous over g; the per-column overlap data of a
-// level is staged once in shared memory.  The S1 -> S2 -> S3 links (direct
-// flux at layer top, albedos below, 12 planes of (ncol, nlev, ng)) go
-// through scratch that the wrapper allocates.  One block per column covers
-// any ncol.
+// What bounds it on the H100: the latency of the level recurrence and the
+// arithmetic (one Meador-Weaver evaluation per region, with exp, expm1,
+// sqrt and divisions); the bytes are a few planes.  One
+// block per column with one thread per g-point keeps the carries in
+// registers and each load contiguous over g.  A column's overlap matrices,
+// od scalings and clear flags are staged in shared memory once, so the
+// level loops hold no barrier: each warp leaves its shuffle-tree partial
+// of the six per-level sums in shared memory, and the partials are added
+// in warp order after the down pass (deterministic, the order of a block
+// reduction).  The loads every level makes are issued one level ahead;
+// the cloudy regions' scratch of a cloudy next level is prefetched into
+// L2.  The albedos and the coefficients (refl, trans, tdd, tdir) go from
+// the up to the down pass through scratch that the wrapper allocates, only
+// the clear scene's and region 0's in a clear layer, whose cloudy regions
+// the down pass zeroes.  Reading the coefficients back measured faster
+// than computing them again, on the meridian-based inputs and with every
+// layer cloudy (PERF.md).  One block per column covers any ncol.
 #include "common.cuh"
 
 namespace {
 
 using namespace ecrad;
+
+constexpr int kSums = 6;  // dir_c, dir_t, dn_c, up_c, dn_t, up_t
 
 template <typename T> struct TcSwArgs {
   const T *od, *ssa, *g, *odc_b, *ssac_b, *gc_b, *scal2;
@@ -50,9 +61,10 @@ template <typename T> struct TcSwArgs {
   T *albd_top, *albd_top_c, *dir_bb_c, *dir_bb_t, *fdir_surf_c,
       *fdir_surf_t, *dn_bb_c, *up_bb_c, *dn_bb_t, *up_bb_t, *fdn_surf_c,
       *fdn_surf_t;
-  // scratch: direct flux at each layer top (clear (ncol, nlev, ng), regions
-  // (ncol, nlev, 3, ng)); diffuse and direct albedo below each layer
-  T *ftc, *ftt, *albb_c, *albdb_c, *albb_t, *albdb_t;
+  // scratch: diffuse and direct albedo below each layer (clear (ncol,
+  // nlev, ng), regions (ncol, nlev, 3, ng)); the layer coefficients
+  // (ncol, nlev, 3, 4, ng)
+  T *albb_c, *albdb_c, *albb_t, *albdb_t, *coef;
   int nlev, ng, nband, delta_gases;
 };
 
@@ -60,58 +72,53 @@ template <typename T> struct Coef {
   T refl, trans, rdir, tdd, tdir;  // tdd: direct->diffuse, tdir: direct
 };
 
-// Optical properties of the three regions at one (column, layer, g-point):
+// The gas optics of one (column, layer, g-point).
+template <typename T> struct Gas {
+  T od, ssa, g;
+};
+
+template <typename T>
+__device__ __forceinline__ Gas<T> load_gas(const TcSwArgs<T> &a, size_t i) {
+  return {a.od[i], a.ssa[i], a.g[i]};
+}
+
+// The coefficients of the three regions at one (column, layer, g-point):
 // region 0 the gas as given, regions 1 and 2 merged with the cloud
 // (tripleclouds._merge_regions; the 1e-300 floors behind a test of the
-// divisor, 0 in float) and optionally delta-Eddington scaled.  Returns
-// false for a clear layer, where only region 0 is set.
-template <typename T>
-__device__ __forceinline__ bool sw_region_props(
-    const TcSwArgs<T> &a, const TcLevel<T> &s, int col, int l, int g,
-    int band, T (&od)[3], T (&ssa)[3], T (&asy)[3]) {
-  const size_t lg = ((size_t)col * a.nlev + l) * a.ng + g;
-  od[0] = a.od[lg];
-  ssa[0] = a.ssa[lg];
-  asy[0] = a.g[lg];
-  if (s.clear) return false;
-  const size_t lb = ((size_t)col * a.nlev + l) * a.nband + band;
-  const T odcb = a.odc_b[lb], ssacb = a.ssac_b[lb], gcb = a.gc_b[lb];
-  const T scat_clear = ssa[0] * od[0];
-#pragma unroll
-  for (int r = 1; r < 3; ++r) {
-    const T odc = s.scal[r - 1] * odcb;
-    const T scat_cloud = ssacb * odc;
-    const T od_t = od[0] + odc;
-    const T scat = scat_clear + scat_cloud;
-    od[r] = od_t;
-    ssa[r] = od_t > T(0) ? scat / d_max(od_t, Limits<T>::tiny()) : T(0);
-    asy[r] = scat > T(0) ? (asy[0] * scat_clear + gcb * scat_cloud) /
-                               d_max(scat, Limits<T>::tiny())
-                         : T(0);
-    if (a.delta_gases) delta_eddington(od[r], ssa[r], asy[r]);
-  }
-  return true;
-}
-
+// divisor, 0 in float) and optionally delta-Eddington scaled; in a clear
+// layer the cloudy regions' coefficients are zero.
 template <typename T>
 __device__ __forceinline__ void sw_regions(const TcSwArgs<T> &a,
-                                           const TcLevel<T> &s, int col,
-                                           int l, int g, int band, T mu0,
+                                           const Gas<T> &gas, bool cloudy,
+                                           const T *scal, size_t lb, T mu0,
                                            Coef<T> (&c)[3]) {
-  T od[3], ssa[3], asy[3];
-  const bool cloudy = sw_region_props(a, s, col, l, g, band, od, ssa, asy);
+  sw_ref_trans(mu0, gas.od, gas.ssa, gas.g, c[0].refl, c[0].trans,
+               c[0].rdir, c[0].tdd, c[0].tdir);
+  if (!cloudy) {
 #pragma unroll
-  for (int r = 0; r < 3; ++r) {
-    if (r == 0 || cloudy) {
-      sw_ref_trans(mu0, od[r], ssa[r], asy[r], c[r].refl, c[r].trans,
-                   c[r].rdir, c[r].tdd, c[r].tdir);
-    } else {
+    for (int r = 1; r < 3; ++r)
       c[r].refl = c[r].trans = c[r].rdir = c[r].tdd = c[r].tdir = T(0);
-    }
+    return;
+  }
+  const T odcb = a.odc_b[lb], ssacb = a.ssac_b[lb], gcb = a.gc_b[lb];
+  const T scat_clear = gas.ssa * gas.od;
+#pragma unroll
+  for (int r = 1; r < 3; ++r) {
+    const T odc = scal[r - 1] * odcb;
+    const T scat_cloud = ssacb * odc;
+    T od = gas.od + odc;
+    const T scat = scat_clear + scat_cloud;
+    T ssa = od > T(0) ? scat / d_max(od, Limits<T>::tiny()) : T(0);
+    T asy = scat > T(0) ? (gas.g * scat_clear + gcb * scat_cloud) /
+                              d_max(scat, Limits<T>::tiny())
+                        : T(0);
+    if (a.delta_gases) delta_eddington(od, ssa, asy);
+    sw_ref_trans(mu0, od, ssa, asy, c[r].refl, c[r].trans, c[r].rdir,
+                 c[r].tdd, c[r].tdir);
   }
 }
 
-// One layer of the up sweep: the albedos of the atmosphere from this
+// One layer of the up pass: the albedos of the atmosphere from this
 // layer's top down, from those below it.
 template <typename T>
 __device__ __forceinline__ void albedo_up(const Coef<T> &c, T alb, T albd,
@@ -132,15 +139,58 @@ __device__ __forceinline__ void diffuse_down(const Coef<T> &c, T fdir_top,
   fup = c.tdir * fdir_top * albd + fdn_new * alb;
 }
 
+// What the down pass reads at every level: region 0's coefficients and
+// the clear scene's and region 0's albedos.
+template <typename T> struct DnNext {
+  T c0[4];
+  T ac, adc, at0, adt0;
+};
+
+template <typename T>
+__device__ __forceinline__ DnNext<T> load_dn(const TcSwArgs<T> &a,
+                                             size_t i, size_t ir,
+                                             size_t ic, size_t ng) {
+  DnNext<T> n;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) n.c0[k] = a.coef[ic + k * ng];
+  n.ac = a.albb_c[i];
+  n.adc = a.albdb_c[i];
+  n.at0 = a.albb_t[ir];
+  n.adt0 = a.albdb_t[ir];
+  return n;
+}
+
+__device__ __forceinline__ void prefetch_l2(const void *p) {
+  asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
+}
+
+// Sum of v over a warp by a fixed shuffle tree (that of block_sum);
+// valid in lane 0.
+template <typename T> __device__ __forceinline__ T warp_sum(T v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_down_sync(0xffffffffu, v, off);
+  return v;
+}
+
 template <typename T>
 __global__ void tripleclouds_sw_kernel(TcSwArgs<T> a) {
-  __shared__ T red[4 * 32];
-  __shared__ TcLevel<T> s;
+  extern __shared__ unsigned char smem_raw[];
   const int col = blockIdx.x;
   const int g = threadIdx.x;
   const bool on = g < a.ng;
   const int band = on ? a.band_of_g[g] : 0;
-  const int nlev = a.nlev, ng = a.ng;
+  const int nlev = a.nlev, ng = a.ng, nband = a.nband;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarp = blockDim.x >> 5;
+  // shared: the six per-level sums' warp partials, then the column's v
+  // matrices, od scalings and clear flags
+  T *part = reinterpret_cast<T *>(smem_raw);
+  T *sv = part + (size_t)nlev * kSums * nwarp;
+  T *ssc = sv + (nlev + 1) * 9;
+  unsigned char *sclr = reinterpret_cast<unsigned char *>(ssc + nlev * 2);
+  tc_stage_column(sv, ssc, sclr, a.v9, a.scal2, a.clear, col, nlev);
+
   const size_t cg = (size_t)col * ng + g;
   const size_t cl0 = (size_t)col * nlev;
   const T mu0 = a.mu0[col];
@@ -148,133 +198,160 @@ __global__ void tripleclouds_sw_kernel(TcSwArgs<T> a) {
   auto lgr = [&](int l, int r) {
     return ((cl0 + l) * 3 + r) * (size_t)ng + g;
   };
+  auto lgc = [&](int l, int r, int k) {
+    return (((cl0 + l) * 3 + r) * 4 + k) * (size_t)ng + g;
+  };
   auto cgr = [&](int r) { return ((size_t)col * 3 + r) * ng + g; };
+  auto lb = [&](int l) { return (cl0 + l) * (size_t)nband + band; };
 
-  // S1: direct beam down, clear scene and 3 regions
-  T fc = on ? a.incoming[cg] : T(0);
-  T ft[3];
-#pragma unroll
-  for (int r = 0; r < 3; ++r) ft[r] = on ? a.fdir0[cgr(r)] : T(0);
-  T dir_g = T(0);
-  for (int l = 0; l < nlev; ++l) {
-    tc_stage<T>(s, nullptr, a.v9, nullptr, a.scal2, a.clear, col, nlev, l,
-                l + 1, l + 1);
-    if (on) {
-      T od[3], ssa[3], asy[3];
-      const bool cloudy =
-          sw_region_props(a, s, col, l, g, band, od, ssa, asy);
-      a.ftc[lg(l)] = fc;
-#pragma unroll
-      for (int r = 0; r < 3; ++r) a.ftt[lgr(l, r)] = ft[r];
-      fc = sw_direct_trans(mu0, od[0]) * fc;
-      T f[3] = {sw_direct_trans(mu0, od[0]) * ft[0], T(0), T(0)};
-      if (cloudy) {
-        f[1] = sw_direct_trans(mu0, od[1]) * ft[1];
-        f[2] = sw_direct_trans(mu0, od[2]) * ft[2];
-      }
-      dir_g = f[0] + f[1] + f[2];
-      if (s.skip) {
-#pragma unroll
-        for (int r = 0; r < 3; ++r) ft[r] = f[r];
-      } else {
-        mix_rows(s.v, f, ft);
-      }
-    }
-    T v[2] = {on ? fc : T(0), dir_g};
-    block_sum<T, 2>(v, red);
-    if (threadIdx.x == 0) {
-      a.dir_bb_c[cl0 + l] = v[0];
-      a.dir_bb_t[cl0 + l] = v[1];
-    }
-  }
+  // --- up pass: albedos of both scenes, surface -> TOA
+  T ac = T(0), adc = T(0), at[3] = {T(0), T(0), T(0)},
+    adt[3] = {T(0), T(0), T(0)};
   if (on) {
-    a.fdir_surf_c[cg] = fc;
-    a.fdir_surf_t[cg] = dir_g;
-  }
-
-  // S2: diffuse and direct albedos up, both scenes, surface -> TOA
-  T ac = on ? a.alb0_c[cg] : T(0), adc = on ? a.albd0_c[cg] : T(0);
-  T at[3], adt[3];
+    ac = a.alb0_c[cg];
+    adc = a.albd0_c[cg];
 #pragma unroll
-  for (int r = 0; r < 3; ++r) {
-    at[r] = on ? a.alb0_t[cgr(r)] : T(0);
-    adt[r] = on ? a.albd0_t[cgr(r)] : T(0);
-  }
-  for (int l = nlev - 1; l >= 0; --l) {
-    tc_stage<T>(s, nullptr, a.v9, nullptr, a.scal2, a.clear, col, nlev, l, l,
-                l - 1);
-    if (on) {
+    for (int r = 0; r < 3; ++r) {
+      at[r] = a.alb0_t[cgr(r)];
+      adt[r] = a.albd0_t[cgr(r)];
+    }
+    Gas<T> nxt = load_gas(a, lg(nlev - 1));
+    for (int l = nlev - 1; l >= 0; --l) {
+      const Gas<T> gas = nxt;
+      if (l > 0) nxt = load_gas(a, lg(l - 1));
+      const bool cloudy = !sclr[l];
+      const bool skip = !cloudy && (l == 0 || sclr[l - 1]);
       Coef<T> c[3];
-      sw_regions(a, s, col, l, g, band, mu0, c);
+      sw_regions(a, gas, cloudy, ssc + 2 * l, lb(l), mu0, c);
+#pragma unroll
+      for (int r = 0; r < 3; ++r) {
+        if (r > 0 && !cloudy) break;
+        a.coef[lgc(l, r, 0)] = c[r].refl;
+        a.coef[lgc(l, r, 1)] = c[r].trans;
+        a.coef[lgc(l, r, 2)] = c[r].tdd;
+        a.coef[lgc(l, r, 3)] = c[r].tdir;
+      }
       a.albb_c[lg(l)] = ac;
       a.albdb_c[lg(l)] = adc;
       albedo_up(c[0], ac, adc, ac, adc);
-      T an[3], adn[3];
+      T an[3] = {T(0), T(0), T(0)}, adn[3] = {T(0), T(0), T(0)};
 #pragma unroll
       for (int r = 0; r < 3; ++r) {
+        if (r > 0 && !cloudy) break;
         a.albb_t[lgr(l, r)] = at[r];
         a.albdb_t[lgr(l, r)] = adt[r];
         albedo_up(c[r], at[r], adt[r], an[r], adn[r]);
       }
-      if (s.clear) an[1] = an[2] = adn[1] = adn[2] = T(0);
-      if (s.skip) {
+      if (skip) {
 #pragma unroll
         for (int r = 0; r < 3; ++r) {
           at[r] = an[r];
           adt[r] = adn[r];
         }
       } else {
-        mix_cols(s.v, an, at);
-        mix_cols(s.v, adn, adt);
+        mix_cols(sv + 9 * l, an, at);
+        mix_cols(sv + 9 * l, adn, adt);
       }
     }
-    __syncthreads();  // every thread has read `s` before the next stage
-  }
-  if (on) {
     a.albd_top_c[cg] = adc;
 #pragma unroll
     for (int r = 0; r < 3; ++r) a.albd_top[cgr(r)] = adt[r];
   }
 
-  // S3: diffuse down, both scenes
+  // --- down pass: direct beam and diffuse flux of both scenes
+  T fc = T(0), ft[3] = {T(0), T(0), T(0)};
   T dc = T(0), dt[3] = {T(0), T(0), T(0)};
-  T dn_t = T(0);
+  T dir_t = T(0), dn_t = T(0);
+  DnNext<T> nxt;
+  if (on) {
+    fc = a.incoming[cg];
+#pragma unroll
+    for (int r = 0; r < 3; ++r) ft[r] = a.fdir0[cgr(r)];
+    nxt = load_dn(a, lg(0), lgr(0, 0), lgc(0, 0, 0), ng);
+  }
   for (int l = 0; l < nlev; ++l) {
-    tc_stage<T>(s, nullptr, a.v9, nullptr, a.scal2, a.clear, col, nlev, l,
-                l + 1, l + 1);
     T uc = T(0), up_t = T(0);
     if (on) {
+      const DnNext<T> s = nxt;
+      const bool cloudy = !sclr[l];
+      const bool skip = !cloudy && (l + 1 >= nlev || sclr[l + 1]);
+      if (l + 1 < nlev) {
+        nxt = load_dn(a, lg(l + 1), lgr(l + 1, 0), lgc(l + 1, 0, 0), ng);
+        if (!sclr[l + 1]) {     // the next level is cloudy
+#pragma unroll
+          for (int r = 1; r < 3; ++r) {
+            prefetch_l2(a.albb_t + lgr(l + 1, r));
+            prefetch_l2(a.albdb_t + lgr(l + 1, r));
+#pragma unroll
+            for (int k = 0; k < 4; ++k)
+              prefetch_l2(a.coef + lgc(l + 1, r, k));
+          }
+        }
+      }
+      // the coefficients the up pass stored (rdir is not needed here)
       Coef<T> c[3];
-      sw_regions(a, s, col, l, g, band, mu0, c);
-      diffuse_down(c[0], a.ftc[lg(l)], dc, a.albb_c[lg(l)],
-                   a.albdb_c[lg(l)], dc, uc);
-      T f[3], u[3];
 #pragma unroll
-      for (int r = 0; r < 3; ++r)
-        diffuse_down(c[r], a.ftt[lgr(l, r)], dt[r], a.albb_t[lgr(l, r)],
-                     a.albdb_t[lgr(l, r)], f[r], u[r]);
-      if (s.clear) f[1] = f[2] = u[1] = u[2] = T(0);
-      dn_t = f[0] + f[1] + f[2];
-      up_t = u[0] + u[1] + u[2];
-      if (s.skip) {
+      for (int r = 0; r < 3; ++r) {
+        c[r].refl = r == 0 ? s.c0[0] : cloudy ? a.coef[lgc(l, r, 0)] : T(0);
+        c[r].trans = r == 0 ? s.c0[1] : cloudy ? a.coef[lgc(l, r, 1)] : T(0);
+        c[r].tdd = r == 0 ? s.c0[2] : cloudy ? a.coef[lgc(l, r, 2)] : T(0);
+        c[r].tdir = r == 0 ? s.c0[3] : cloudy ? a.coef[lgc(l, r, 3)] : T(0);
+      }
+      // the direct beam at the layer top, and through the layer
+      const T fc_top = fc;
+      const T ft_top[3] = {ft[0], ft[1], ft[2]};
+      fc = c[0].tdir * fc_top;
+      T f[3] = {c[0].tdir * ft_top[0], T(0), T(0)};
+      if (cloudy) {
+        f[1] = c[1].tdir * ft_top[1];
+        f[2] = c[2].tdir * ft_top[2];
+      }
+      dir_t = f[0] + f[1] + f[2];
+      // the diffuse flux, from the albedos below the layer
+      diffuse_down(c[0], fc_top, dc, s.ac, s.adc, dc, uc);
+      T fr[3] = {T(0), T(0), T(0)}, ur[3] = {T(0), T(0), T(0)};
+      diffuse_down(c[0], ft_top[0], dt[0], s.at0, s.adt0, fr[0], ur[0]);
+      if (cloudy) {
 #pragma unroll
-        for (int r = 0; r < 3; ++r) dt[r] = f[r];
+        for (int r = 1; r < 3; ++r)
+          diffuse_down(c[r], ft_top[r], dt[r], a.albb_t[lgr(l, r)],
+                       a.albdb_t[lgr(l, r)], fr[r], ur[r]);
+      }
+      dn_t = fr[0] + fr[1] + fr[2];
+      up_t = ur[0] + ur[1] + ur[2];
+      if (skip) {
+#pragma unroll
+        for (int r = 0; r < 3; ++r) {
+          ft[r] = f[r];
+          dt[r] = fr[r];
+        }
       } else {
-        mix_rows(s.v, f, dt);
+        mix_rows(sv + 9 * (l + 1), f, ft);
+        mix_rows(sv + 9 * (l + 1), fr, dt);
       }
     }
-    T v[4] = {on ? dc : T(0), uc, dn_t, up_t};
-    block_sum<T, 4>(v, red);
-    if (threadIdx.x == 0) {
-      a.dn_bb_c[cl0 + l] = v[0];
-      a.up_bb_c[cl0 + l] = v[1];
-      a.dn_bb_t[cl0 + l] = v[2];
-      a.up_bb_t[cl0 + l] = v[3];
+    const T v[kSums] = {on ? fc : T(0), dir_t, on ? dc : T(0), uc, dn_t,
+                        up_t};
+#pragma unroll
+    for (int i = 0; i < kSums; ++i) {
+      const T s = warp_sum(v[i]);
+      if (lane == 0) part[((size_t)l * kSums + i) * nwarp + warp] = s;
     }
   }
   if (on) {
+    a.fdir_surf_c[cg] = fc;
+    a.fdir_surf_t[cg] = dir_t;
     a.fdn_surf_c[cg] = dc;
     a.fdn_surf_t[cg] = dn_t;
+  }
+  __syncthreads();
+  T *const outs[kSums] = {a.dir_bb_c, a.dir_bb_t, a.dn_bb_c,
+                          a.up_bb_c,  a.dn_bb_t,  a.up_bb_t};
+  for (int i = threadIdx.x; i < nlev * kSums; i += blockDim.x) {
+    const T *p = part + (size_t)i * nwarp;
+    T s = p[0];
+    for (int w = 1; w < nwarp; ++w) s += p[w];
+    outs[i % kSums][cl0 + i / kSums] = s;
   }
 }
 
@@ -282,54 +359,42 @@ template <typename T>
 int launch(void *const *p, int ncol, int nlev, int ng, int nband,
            int delta_gases, void *stream) {
   TcSwArgs<T> a;
-  a.od = (const T *)p[0];
-  a.ssa = (const T *)p[1];
-  a.g = (const T *)p[2];
-  a.odc_b = (const T *)p[3];
-  a.ssac_b = (const T *)p[4];
-  a.gc_b = (const T *)p[5];
-  a.scal2 = (const T *)p[6];
-  a.clear = (const unsigned char *)p[7];
-  a.v9 = (const T *)p[8];
-  a.mu0 = (const T *)p[9];
-  a.incoming = (const T *)p[10];
-  a.fdir0 = (const T *)p[11];
-  a.alb0_c = (const T *)p[12];
-  a.albd0_c = (const T *)p[13];
-  a.alb0_t = (const T *)p[14];
-  a.albd0_t = (const T *)p[15];
-  a.band_of_g = (const int *)p[16];
-  a.albd_top = (T *)p[17];
-  a.albd_top_c = (T *)p[18];
-  a.dir_bb_c = (T *)p[19];
-  a.dir_bb_t = (T *)p[20];
-  a.fdir_surf_c = (T *)p[21];
-  a.fdir_surf_t = (T *)p[22];
-  a.dn_bb_c = (T *)p[23];
-  a.up_bb_c = (T *)p[24];
-  a.dn_bb_t = (T *)p[25];
-  a.up_bb_t = (T *)p[26];
-  a.fdn_surf_c = (T *)p[27];
-  a.fdn_surf_t = (T *)p[28];
-  a.ftc = (T *)p[29];
-  a.ftt = (T *)p[30];
-  a.albb_c = (T *)p[31];
-  a.albdb_c = (T *)p[32];
-  a.albb_t = (T *)p[33];
-  a.albdb_t = (T *)p[34];
+  const T **in[] = {&a.od, &a.ssa, &a.g, &a.odc_b, &a.ssac_b, &a.gc_b,
+                    &a.scal2};
+  const T **in2[] = {&a.v9, &a.mu0, &a.incoming, &a.fdir0, &a.alb0_c,
+                     &a.albd0_c, &a.alb0_t, &a.albd0_t};
+  T **out[] = {&a.albd_top, &a.albd_top_c, &a.dir_bb_c, &a.dir_bb_t,
+               &a.fdir_surf_c, &a.fdir_surf_t, &a.dn_bb_c, &a.up_bb_c,
+               &a.dn_bb_t, &a.up_bb_t, &a.fdn_surf_c, &a.fdn_surf_t,
+               &a.albb_c, &a.albdb_c, &a.albb_t, &a.albdb_t, &a.coef};
+  int k = 0;
+  for (const T **q : in) *q = (const T *)p[k++];
+  a.clear = (const unsigned char *)p[k++];
+  for (const T **q : in2) *q = (const T *)p[k++];
+  a.band_of_g = (const int *)p[k++];
+  for (T **q : out) *q = (T *)p[k++];
   a.nlev = nlev;
   a.ng = ng;
   a.nband = nband;
   a.delta_gases = delta_gases;
-  // at least one warp: tc_stage loads with threads 0..14
   const int threads = ((ng + 31) / 32) * 32;
-  tripleclouds_sw_kernel<T><<<ncol, threads, 0, (cudaStream_t)stream>>>(a);
+  const size_t smem =
+      sizeof(T) * ((size_t)nlev * kSums * (threads / 32) +
+                   (size_t)(nlev + 1) * 9 + (size_t)nlev * 2) +
+      nlev;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        tripleclouds_sw_kernel<T>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  tripleclouds_sw_kernel<T><<<ncol, threads, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// p: the 35 tensor pointers in the order of TcSwArgs.
+// p: the 34 tensor pointers in the order of TcSwArgs.
 extern "C" int ecrad_tripleclouds_sw_f32(void *const *p, int ncol, int nlev,
                                          int ng, int nband, int delta_gases,
                                          void *stream) {

@@ -23,6 +23,9 @@ from ecrad_torch import kernels
 from ecrad_torch.solvers import spartacus as sp
 
 NREG = 3
+# g-points the SW kernel takes: one thread each, in blocks of at most 128
+# threads (csrc/spartacus_sw.cu kMaxThreads; RRTMG's SW has 112)
+SW_MAX_G = 128
 
 
 def _b(x):
@@ -34,14 +37,12 @@ def _sw_mats(mats, l):
     return tuple(sp._m3(x[l]) for x in mats)
 
 
-def sw_sweeps_plain(opts, Rs, Ts, Rds, Tdds, Tdirs, cl5, u9c, v9top, v9bot,
-                    msk_up, msk_dn, ent13, alb0, albd0, albc0, albdc0, ddn0,
-                    incoming):
-    """Both SW sweeps as torch loops over levels.  Returns (albd_f (9,
-    ncol, ng), alb_c_f, albd_c_f, (fup, fdn, fdir, fup_c, fdn_c, fdir_c)
-    each (nlev, ncol, ng))."""
-    nlev, _, ncol, ng = Rs.shape
-    mats = (Rs, Ts, Rds, Tdds, Tdirs)
+def _sw_up_plain(opts, mats, cl5, u9c, v9top, msk_up, ent13, alb0, albd0,
+                 albc0, albdc0):
+    """The SW up sweep as a torch loop over levels.  Returns the final
+    carry and, per level, the entry carry (alb (3, 3, ncol, ng), albd,
+    alb_c, albd_c): the albedos of the atmosphere below each layer."""
+    nlev, _, ncol, ng = mats[0].shape
     zero3 = alb0.new_zeros((NREG, ncol, ng))
     carry = (sp._m3(alb0), sp._m3(albd0), albc0, albdc0, zero3, zero3)
     below = [None] * nlev
@@ -54,9 +55,16 @@ def sw_sweeps_plain(opts, Rs, Ts, Rds, Tdds, Tdirs, cl5, u9c, v9top, v9bot,
         carry = sp._sw_up_core(
             carry, _sw_mats(mats, l), tuple(c[l] for c in cl5), _b(u9c[l]),
             _b(v9top[l]), tuple(m[:, k, None] for k in range(4)), ent, opts)
-    albd_f, alb_c_f, albd_c_f = carry[1:4]
+    return carry, below
 
-    state = (zero3, ddn0, torch.zeros_like(incoming), incoming)
+
+def _sw_dn_plain(mats, cl5, below, v9bot, msk_dn, ddn0, incoming):
+    """The SW down sweep as a torch loop over levels, from the up sweep's
+    entry carries.  Returns (fup, fdn, fdir, fup_c, fdn_c, fdir_c), each
+    (nlev, ncol, ng)."""
+    nlev, _, ncol, ng = mats[0].shape
+    state = (ddn0.new_zeros((NREG, ncol, ng)), ddn0,
+             torch.zeros_like(incoming), incoming)
     ys = []
     for l in range(nlev):
         m = msk_dn[l] != 0.0
@@ -64,8 +72,47 @@ def sw_sweeps_plain(opts, Rs, Ts, Rds, Tdds, Tdirs, cl5, u9c, v9top, v9bot,
             state, _sw_mats(mats, l), tuple(c[l] for c in cl5), below[l],
             _b(v9bot[l]), (m[:, 0, None], m[:, 1, None]))
         ys.append(y)
-    dn = tuple(torch.stack(x) for x in zip(*ys))
-    return albd_f.reshape(NREG * NREG, ncol, ng), alb_c_f, albd_c_f, dn
+    return tuple(torch.stack(x) for x in zip(*ys))
+
+
+def sw_sweeps_plain(opts, Rs, Ts, Rds, Tdds, Tdirs, cl5, u9c, v9top, v9bot,
+                    msk_up, msk_dn, ent13, alb0, albd0, albc0, albdc0, ddn0,
+                    incoming):
+    """Both SW sweeps as torch loops over levels.  Returns (albd_f (9,
+    ncol, ng), alb_c_f, albd_c_f, (fup, fdn, fdir, fup_c, fdn_c, fdir_c)
+    each (nlev, ncol, ng))."""
+    mats = (Rs, Ts, Rds, Tdds, Tdirs)
+    carry, below = _sw_up_plain(opts, mats, cl5, u9c, v9top, msk_up, ent13,
+                                alb0, albd0, albc0, albdc0)
+    albd_f, alb_c_f, albd_c_f = carry[1:4]
+    dn = _sw_dn_plain(mats, cl5, below, v9bot, msk_dn, ddn0, incoming)
+    return albd_f.reshape(NREG * NREG, *albd_f.shape[2:]), alb_c_f, \
+        albd_c_f, dn
+
+
+# The entries k = 3*i + j of R, T, Rd, Tdd and Tdir that the SW kernel
+# reads in a clear layer (csrc/spartacus_sw.cu says why these): [0][0],
+# and for Tdir also [1][0] and [2][0], which multiply the region-0 beam.
+SW_CLEAR_ENTRIES = ((0,), (0,), (0,), (0,), (0, 3, 6))
+
+
+def sw_needed_bytes(opts, Rs, Ts, Rds, Tdds, Tdirs, cl5, u9c, v9top, v9bot,
+                    msk_up, msk_dn, ent13, alb0, albd0, albc0, albdc0, ddn0,
+                    incoming):
+    """The bytes the SW sweeps must move on these inputs: each input read
+    once and each output written once, where the five layer matrices count
+    in clear layers (msk_dn[..., 0]) only the entries SW_CLEAR_ENTRIES."""
+    nlev, _, ncol, ng = Rs.shape
+    item = Rs.element_size()
+    n_all = nlev * ncol * ng
+    n_clear = int((msk_dn[..., 0] != 0.0).sum()) * ng
+    mats = sum(9 * (n_all - n_clear) + len(k) * n_clear
+               for k in SW_CLEAR_ENTRIES) * item
+    rest = sum(t.numel() * t.element_size()
+               for t in (*cl5, u9c, v9top, v9bot, msk_up, msk_dn, ent13,
+                         alb0, albd0, albc0, albdc0, ddn0, incoming))
+    outputs = (9 + 2 + 6 * nlev) * ncol * ng * item
+    return mats + rest + outputs
 
 
 def lw_sweeps_plain(opts, Rs, Ts, SUs, SDs, cl4, u9c, v9top, v9bot, msk_up,
@@ -134,6 +181,9 @@ def sw_sweeps(opts, Rs, Ts, Rds, Tdds, Tdirs, cl5, u9c, v9top, v9bot,
         albc0=(albc0, sfc), albdc0=(albdc0, sfc),
         ddn0=(ddn0, (NREG, ncol, ng)), incoming=(incoming, sfc))
     kernels.check_inputs("spartacus sw_sweeps", Rs, specs)
+    if ng > SW_MAX_G:
+        raise ValueError(f"spartacus sw_sweeps: the kernel takes at most "
+                         f"{SW_MAX_G} g-points, got {ng}")
     e = lambda *shape: Rs.new_empty(shape)  # noqa: E731
     albd_f, alb_c_f, albd_c_f = e(9, ncol, ng), e(*sfc), e(*sfc)
     dn = tuple(e(*lev) for _ in range(6))

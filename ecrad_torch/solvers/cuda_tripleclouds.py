@@ -389,11 +389,12 @@ def sw_fused(od, ssa, g, odc_b, ssac_b, gc_b, scal2, clear, v9, mu0,
                fdn_surf_c=e(ncol, ng), fdn_surf_t=e(ncol, ng))
     if ncol == 0:
         return out
-    # scratch: the direct flux at each layer top (clear, 3 regions) and
-    # the diffuse and direct albedos below each layer (clear, 3 regions)
-    scratch = [e(ncol, nlev, ng), e(ncol, nlev, NREG, ng),
-               e(ncol, nlev, ng), e(ncol, nlev, ng),
-               e(ncol, nlev, NREG, ng), e(ncol, nlev, NREG, ng)]
+    # scratch: the diffuse and direct albedos below each layer (clear, 3
+    # regions) and the layer coefficients (refl, trans, tdd, tdir, 3
+    # regions)
+    scratch = [e(ncol, nlev, ng), e(ncol, nlev, ng),
+               e(ncol, nlev, NREG, ng), e(ncol, nlev, NREG, ng),
+               e(ncol, nlev, NREG, 4, ng)]
     ptrs = kernels.pointer_array([
         od, ssa, g, odc_b, ssac_b, gc_b, scal2, clear, v9, mu0, incoming,
         fdir0, alb0_c, albd0_c, alb0_t, albd0_t, bog, out["albd_top"],

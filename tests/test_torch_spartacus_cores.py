@@ -341,3 +341,79 @@ def test_wrappers_run_plain_only_on_cpu(atmosphere):
         with pytest.raises(ValueError, match="unsupported device"):
             fn(opts, *meta)
         assert fn.launches == before
+
+
+# --- what the SW kernel skips in clear layers ------------------------------
+
+def _sw_args(atmosphere, mode):
+    optics, clouds, sw, _ = atmosphere
+    cfg = tconfig.Config(sw_entrapment=tconfig.Entrapment[mode],
+                         do_3d_effects=True, overhang_factor=0.3)
+    opts, args, _ = tsp.sw_sweep_args(cfg, *optics, *clouds, *sw)
+    return opts, args
+
+
+@pytest.mark.parametrize("mode", ["EXPLICIT", "MAXIMUM", "EDGE_ONLY"])
+def test_sw_sweeps_ignore_what_clear_layers_skip(atmosphere, mode):
+    """The contract of the SW kernel's clear-layer branch: the plain sweeps
+    give the same outputs when every layer-matrix entry the kernel does not
+    read in clear layers (all but cuda_spartacus.SW_CLEAR_ENTRIES), and
+    every entry but [0][0] of the albedos handed from the up to the down
+    sweep there, is replaced by random finite values."""
+    opts, args = _sw_args(atmosphere, mode)
+    ref = cuda_spartacus.sw_sweeps_plain(opts, *args)
+    mats, (cl5, u9c, v9top, v9bot, msk_up, msk_dn, ent13, alb0, albd0,
+           albc0, albdc0, ddn0, incoming) = args[:5], args[5:]
+    clear = msk_dn[..., 0] != 0.0                       # (nlev, ncol)
+    assert bool(clear.any()) and bool((~clear).any())
+    rng = np.random.default_rng(5)
+
+    def scramble(x, keep, where):
+        """x (9, ...) stacked: entries not in keep replaced where `where`
+        (broadcast over the trailing axes)."""
+        drop = torch.ones(9, dtype=torch.bool)
+        drop[list(keep)] = False
+        drop = drop.reshape((9,) + (1,) * (x.dim() - 1))
+        noise = torch.as_tensor(rng.uniform(0.0, 1.0, tuple(x.shape)))
+        return torch.where(drop & where, noise, x)
+
+    mats = tuple(scramble(m.transpose(0, 1), keep,
+                          clear[:, :, None]).transpose(0, 1)
+                 for m, keep in zip(mats, cuda_spartacus.SW_CLEAR_ENTRIES))
+    carry, below = cuda_spartacus._sw_up_plain(
+        opts, mats, cl5, u9c, v9top, msk_up, ent13, alb0, albd0, albc0,
+        albdc0)
+    below = [tuple(scramble(m.reshape(9, *m.shape[2:]), (0,),
+                            clear[l][:, None]).reshape(m.shape)
+                   for m in b[:2]) + b[2:]
+             for l, b in enumerate(below)]
+    dn = cuda_spartacus._sw_dn_plain(mats, cl5, below, v9bot, msk_dn, ddn0,
+                                     incoming)
+    got = (carry[1].reshape(9, *carry[1].shape[2:]), carry[2], carry[3], dn)
+    _flat_close(got, tuple(x.numpy() if torch.is_tensor(x)
+                           else tuple(y.numpy() for y in x) for x in ref),
+                1e-12)
+
+
+@pytest.mark.parametrize("cloudy", [True, False])
+def test_sw_needed_bytes(atmosphere, cloudy):
+    """sw_needed_bytes counts every byte of every input and output tensor
+    when every layer is cloudy, and in clear layers only the layer-matrix
+    entries of SW_CLEAR_ENTRIES."""
+    opts, args = _sw_args(atmosphere, "EXPLICIT")
+    msk_dn = args[10].clone()
+    msk_dn[..., 0] = 0.0 if cloudy else 1.0
+    args = args[:10] + (msk_dn,) + args[11:]
+    outs = cuda_spartacus.sw_sweeps(opts, *args)
+
+    def nbytes(x):
+        if torch.is_tensor(x):
+            return x.numel() * x.element_size()
+        return sum(nbytes(v) for v in x)
+
+    every = nbytes(args) + nbytes(outs)
+    nlev, _, ncol, ng = args[0].shape
+    skipped = sum(9 - len(k) for k in cuda_spartacus.SW_CLEAR_ENTRIES) \
+        * nlev * ncol * ng * args[0].element_size()
+    want = every if cloudy else every - skipped
+    assert cuda_spartacus.sw_needed_bytes(opts, *args) == want
