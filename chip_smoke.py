@@ -17,15 +17,17 @@ the script exits non-zero:
                spartacus_sw, spartacus_lw of the SPARTACUS path, in
                Explicit entrapment without LW multilayer effects as the
                path runs them, and again in Maximum and Edge-only
-               entrapment with them; tripleclouds_sw also with
-               delta-Eddington scaling of the gases) against its plain
-               torch version on the card, on the inputs the main path
-               builds for a random atmospheric state (numpy seed) at 137
-               levels and 2048 and 2049 columns, and for spartacus_sw and
-               tripleclouds_sw also on the same state with every layer
-               cloudy, in float64 and rounded to float32; kernel and plain
-               median times (the kernel's on each input set), and the least
-               time the card could take for the same work.
+               entrapment with them; sw_fused and tripleclouds_sw also
+               with delta-Eddington scaling of the gases, tripleclouds_lw
+               also without derivatives) against its plain torch version
+               on the card, on the inputs the main path builds for a
+               random atmospheric state (numpy seed) at 137 levels and
+               2048 and 2049 columns, and for sw_fused, tripleclouds_lw,
+               tripleclouds_sw and spartacus_sw also on the same state
+               with every layer cloudy, in float64 and rounded to float32;
+               kernel and plain median times (the kernel's on each input
+               set TIMED names), and the least time the card could take
+               for the same work.
 4. slice_f64 - the flagship (McICA) step (ecrad_torch.flagship) on the
                32-column meridian slice in float64 against the JAX package's
                float64 fluxes (tests/data/torch_flagship_meridian32.npz).
@@ -84,11 +86,13 @@ DEV = torch.device("cuda")
 
 # Kernel vs plain version on the same inputs: the generator scan is pure
 # selection, so exact; the sweeps sum over g in another order (block tree
-# vs torch.sum) and the kernels contract multiply-adds into FMAs, so f64
-# agrees to roundoff: rtol 1e-10 (with a floor of 1e-10 of the output's
-# largest value, for entries that are zero to roundoff).  In f32 the SW
-# sweeps themselves carry a few 1e-4 of relative rounding error against
-# f64, so two f32 evaluations in another order differ by as much.  The f32
+# vs torch.sum) and the kernels contract multiply-adds into FMAs (all but
+# sw_fused, whose coefficients need the plain version's rounding:
+# kernels.SOURCE_FLAGS), so f64 agrees to roundoff: rtol 1e-10 (with a
+# floor of 1e-10 of the output's largest value, for entries that are zero
+# to roundoff).  In f32 the SW sweeps themselves carry a few 1e-4 of
+# relative rounding error against f64, so two f32 evaluations in another
+# order differ by as much.  The f32
 # inputs are the f64 ones rounded, and each output passes if the kernel
 # agrees with the plain f32 version within 1e-3 (W m-2 for fluxes) or 1e-4
 # of the output's largest value, or else is no further from the plain f64
@@ -307,52 +311,79 @@ def spartacus_inputs(ncol, dtype, seed, min_cloud=0.0):
              ("multilayer", (lw_opts._replace(multilayer=True), *lw))])
 
 
-def tripleclouds_sw_inputs(step, kw, cloud, op):
-    """The Tripleclouds SW kernel's arguments for a McICA step's state and
-    optical properties."""
+def fused_inputs(step, kw, cloud, op):
+    """The arguments of the fused McICA and Tripleclouds kernels for a
+    McICA step's state (with its cloud sample) and optical properties."""
     config, tables = step.config, step.tables
-    cl, go = op["cl"], op["go"]
+    cl, go, thr = op["cl"], op["go"], config.cloud_fraction_threshold
+    emission = go.lw_emission * (1.0 - op["lw_albedo_g"])
     tc = config.replace(sw_solver=Solver.TRIPLECLOUDS,
                         lw_solver=Solver.TRIPLECLOUDS)
-    return tripleclouds.sw_fused_args(
-        tc, op["od_sw"], op["ssa_sw"], op["g_sw_arr"], cl["od_sw"],
-        cl["ssa_sw"], cl["g_sw"], tables.band_from_g_sw, op["frac"],
-        cloud["fractional_std"], cloud["overlap_param"], go.incoming_sw,
-        kw["cos_sza"], op["sw_albedo_diffuse_g"],
-        op["sw_albedo_direct_g"])[0]
+    return {
+        "lw_fused": mcica.lw_fused_args(
+            op["od_lw"], cl["od_lw"], cl["ssa_lw"], cl["g_lw"],
+            tables.band_from_g_lw, cloud["od_scaling_lw"], op["frac"],
+            go.planck_hl, emission, op["lw_albedo_g"], thr,
+            config.do_lw_derivatives),
+        "sw_fused": mcica.sw_fused_args(
+            op["od_sw"], op["ssa_sw"], op["g_sw_arr"], cl["od_sw"],
+            cl["ssa_sw"], cl["g_sw"], tables.band_from_g_sw,
+            cloud["od_scaling_sw"], op["frac"], go.incoming_sw,
+            kw["cos_sza"], op["sw_albedo_diffuse_g"],
+            op["sw_albedo_direct_g"], thr,
+            config.do_sw_delta_scaling_with_gases),
+        "tripleclouds_lw": tripleclouds.lw_fused_args(
+            tc, op["od_lw"], cl["od_lw"], cl["ssa_lw"], cl["g_lw"],
+            tables.band_from_g_lw, op["frac"], cloud["fractional_std"],
+            cloud["overlap_param"], go.planck_hl, emission,
+            op["lw_albedo_g"])[0],
+        "tripleclouds_sw": tripleclouds.sw_fused_args(
+            tc, op["od_sw"], op["ssa_sw"], op["g_sw_arr"], cl["od_sw"],
+            cl["ssa_sw"], cl["g_sw"], tables.band_from_g_sw, op["frac"],
+            cloud["fractional_std"], cloud["overlap_param"],
+            go.incoming_sw, kw["cos_sza"], op["sw_albedo_diffuse_g"],
+            op["sw_albedo_direct_g"])[0]}
 
 
-def sw_inputs(ncol, dtype, seed, min_cloud=0.0):
-    """The spartacus_sw (Explicit entrapment, the path's) and
-    tripleclouds_sw arguments for the random state of random_state; with
-    min_cloud 0.2 every layer is cloudy ("all_cloudy")."""
+def solver_inputs(ncol, dtype, seed, min_cloud=0.0):
+    """The sw_fused, tripleclouds_lw, tripleclouds_sw and spartacus_sw
+    (Explicit entrapment, the path's) arguments for the random state of
+    random_state; with min_cloud 0.2 every layer is cloudy
+    ("all_cloudy"), which is checked."""
     step, kw, cloud = random_state(ncol, dtype, seed, min_cloud=min_cloud)
     cloud = pipeline.add_cloud_sample(step.config, step.tables, cloud)
     op = _optical_properties(step.config, step.tables,
                              solar_irradiance=step.solar, cloud=cloud, **kw)
-    tc_sw = tripleclouds_sw_inputs(step, kw, cloud, op)
-    sp_sw = spartacus_inputs(ncol, dtype, seed, min_cloud)[0][0][1]
-    if min_cloud > 0.0 and (bool(tc_sw[7].any())
-                            or bool((sp_sw[11][..., 0] != 0).any())):
+    fused = fused_inputs(step, kw, cloud, op)
+    out = {name: fused[name]
+           for name in ("sw_fused", "tripleclouds_lw", "tripleclouds_sw")}
+    out["spartacus_sw"] = spartacus_inputs(ncol, dtype, seed,
+                                           min_cloud)[0][0][1]
+    if min_cloud > 0.0 and (
+            not bool(out["sw_fused"][7].all())
+            or bool(out["tripleclouds_lw"][5].any())
+            or bool(out["tripleclouds_sw"][7].any())
+            or bool((out["spartacus_sw"][11][..., 0] != 0).any())):
         raise AssertionError("the all-cloudy inputs have clear layers")
-    return {"tripleclouds_sw": tc_sw, "spartacus_sw": sp_sw}
+    return out
 
 
 def all_cloudy_inputs(ncol, dtype, seed):
-    """{kernel: [("all_cloudy", arguments)]} for spartacus_sw and
-    tripleclouds_sw (sw_inputs with every layer cloudy)."""
+    """{kernel: [("all_cloudy", arguments)]} for the kernels of
+    solver_inputs, with every layer cloudy."""
     return {name: [("all_cloudy", args)]
-            for name, args in sw_inputs(ncol, dtype, seed, 0.2).items()}
+            for name, args in solver_inputs(ncol, dtype, seed, 0.2).items()}
 
 
 def kernel_inputs(ncol, dtype, seed):
     """Each kernel's inputs as the main path builds them, for the random
     state of random_state.  Returns {kernel: [(label, arguments)]}, the
-    main path's first: the McICA kernels' and, from the same optical
+    main path's first: the McICA kernels' (sw_fused also with
+    delta-Eddington scaling of the gases) and, from the same optical
     properties, the Tripleclouds kernels' (tripleclouds_sw also with
-    delta-Eddington scaling of the gases) and the adding sweeps' (on the
-    clear-sky two-stream coefficients); the SPARTACUS sweeps' from
-    spartacus_inputs."""
+    delta-Eddington scaling of the gases, tripleclouds_lw also without
+    derivatives) and the adding sweeps' (on the clear-sky two-stream
+    coefficients); the SPARTACUS sweeps' from spartacus_inputs."""
     step, kw, cloud = random_state(ncol, dtype, seed)
     config, tables = step.config, step.tables
     gen = [cloud_generator.scan_inputs(config, cloud["iseed"],
@@ -363,26 +394,10 @@ def kernel_inputs(ncol, dtype, seed):
     cloud = pipeline.add_cloud_sample(config, tables, cloud)
     op = _optical_properties(config, tables, solar_irradiance=step.solar,
                              cloud=cloud, **kw)
-    cl, go, thr = op["cl"], op["go"], config.cloud_fraction_threshold
-    lw = mcica.lw_fused_args(
-        op["od_lw"], cl["od_lw"], cl["ssa_lw"], cl["g_lw"],
-        tables.band_from_g_lw, cloud["od_scaling_lw"], op["frac"],
-        go.planck_hl, go.lw_emission * (1.0 - op["lw_albedo_g"]),
-        op["lw_albedo_g"], thr, config.do_lw_derivatives)
-    sw = mcica.sw_fused_args(
-        op["od_sw"], op["ssa_sw"], op["g_sw_arr"], cl["od_sw"],
-        cl["ssa_sw"], cl["g_sw"], tables.band_from_g_sw,
-        cloud["od_scaling_sw"], op["frac"], go.incoming_sw, kw["cos_sza"],
-        op["sw_albedo_diffuse_g"], op["sw_albedo_direct_g"], thr,
-        config.do_sw_delta_scaling_with_gases)
-    tc = config.replace(sw_solver=Solver.TRIPLECLOUDS,
-                        lw_solver=Solver.TRIPLECLOUDS)
-    tc_lw, _ = tripleclouds.lw_fused_args(
-        tc, op["od_lw"], cl["od_lw"], cl["ssa_lw"], cl["g_lw"],
-        tables.band_from_g_lw, op["frac"], cloud["fractional_std"],
-        cloud["overlap_param"], go.planck_hl,
-        go.lw_emission * (1.0 - op["lw_albedo_g"]), op["lw_albedo_g"])
-    tc_sw = tripleclouds_sw_inputs(step, kw, cloud, op)
+    go = op["go"]
+    fused = fused_inputs(step, kw, cloud, op)
+    sw, tc_lw, tc_sw = (fused[k] for k in ("sw_fused", "tripleclouds_lw",
+                                           "tripleclouds_sw"))
     c = lambda xs: tuple(x.contiguous() for x in xs)
     ptop, pbot = go.planck_hl[:, :-1], go.planck_hl[:, 1:]
     emission = go.lw_emission * (1.0 - op["lw_albedo_g"])
@@ -399,8 +414,10 @@ def kernel_inputs(ncol, dtype, seed):
     sp_sw, sp_lw = spartacus_inputs(ncol, dtype, seed)
     one = lambda args: [("meridian", args)]  # noqa: E731
     return {"generator_scan": list(zip(("lw", "sw", "exp_exp"), gen)),
-            "lw_fused": one(lw), "sw_fused": one(sw),
-            "tripleclouds_lw": one(tc_lw),
+            "lw_fused": one(fused["lw_fused"]),
+            "sw_fused": [("meridian", sw), ("delta_gases", sw[:-1] + (True,))],
+            "tripleclouds_lw": [("meridian", tc_lw),
+                                ("no_derivatives", tc_lw[:-1] + (False,))],
             "tripleclouds_sw": [("meridian", tc_sw),
                                 ("delta_gases", tc_sw[:-1] + (True,))],
             "lw_noscat_sweeps": one(noscat), "scat_sweeps": one(scat),
@@ -446,7 +463,7 @@ def _outputs(x, key="out"):
     return {key: x}
 
 
-def _compare_f64(got, ref):
+def _compare_f64(got, ref, what=""):
     """Max abs error of the f64 kernel against the f64 plain version."""
     got, ref = _outputs(got), _outputs(ref)
     if set(got) != set(ref):
@@ -457,8 +474,8 @@ def _compare_f64(got, ref):
         err = (a - b).abs()
         worst = max(worst, float(err.max()))
         if not bool((err <= F64_RTOL * (b.abs() + b.abs().max())).all()):
-            raise AssertionError(f"{k}: f64 kernel differs from plain by "
-                                 f"{float(err.max())}")
+            raise AssertionError(f"{what} {k}: f64 kernel differs from plain "
+                                 f"by {float(err.max())}")
     return worst
 
 
@@ -520,7 +537,9 @@ def bound(name, args, out):
 
 
 # Input sets timed besides the main path's (the first of kernel_inputs)
-TIMED = {"spartacus_sw": ("all_cloudy",), "tripleclouds_sw": ("all_cloudy",)}
+TIMED = {"spartacus_sw": ("all_cloudy",), "tripleclouds_sw": ("all_cloudy",),
+         "sw_fused": ("delta_gases", "all_cloudy"),
+         "tripleclouds_lw": ("no_derivatives", "all_cloudy")}
 
 
 def check_kernel(name, inputs, ncol, err, checked):
@@ -530,7 +549,8 @@ def check_kernel(name, inputs, ncol, err, checked):
     k = KERNELS[name]
     for label, args in inputs:
         ref64 = k["plain"](*args)
-        err64 = _compare_f64(k["wrapper"](*args), ref64)
+        err64 = _compare_f64(k["wrapper"](*args), ref64,
+                             f"{name}/{label}/{ncol}")
         args32 = _f32(args)
         got32, ref32 = k["wrapper"](*args32), k["plain"](*args32)
         torch.cuda.synchronize()

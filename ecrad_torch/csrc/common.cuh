@@ -1,7 +1,9 @@
 // Shared device code for the ecrad_torch CUDA kernels: math overloads,
 // the two-stream layer coefficients (same formulas as
 // ecrad_torch/solvers/two_stream.py, which is the plain version), the
-// McICA cloud merges, and a deterministic block reduction over g-points.
+// McICA cloud merges, the Tripleclouds staging and mixes, deterministic
+// sums over g-points (per block, or per warp without a barrier) and the SW
+// adding steps with direct albedos.
 //
 // Every kernel of this package runs one thread block per column with one
 // thread per g-point, in the classic (ncol, nlev, ng) layout, so that the
@@ -187,50 +189,9 @@ __device__ __forceinline__ void merge_sw(T od, T ssa, T g, T odc, T ssac,
   g_t = scat > T(0) ? gscat / d_max(scat, Limits<T>::tiny()) : T(0);
 }
 
-// --- Tripleclouds: per-level overlap data and the interface mixes ---------
+// --- Tripleclouds: per-column overlap data and the interface mixes -------
 // The overlap matrices are stored per interface as 9 entries, k = 3*i + j
 // (interface j lies above layer j; interface nlev is the surface).
-template <typename T> struct TcLevel {
-  T u[9], v[9];  // overlap matrices at the interface the sweep mixes at
-  T rf[3];       // region fractions of the layer
-  T scal[2];     // od scalings of the two cloudy regions
-  int clear;     // the layer is clear (cloud fraction <= 0)
-  int skip;      // ... and so is its neighbour across that interface
-};
-
-// Stage one level's per-column data in shared memory: the same for every
-// g-point, so a few threads load it once and the block reads it after the
-// barrier.  u9/rf3 may be null (the SW sweeps do not read them).  `other`
-// is the neighbouring layer across the mixing interface; layers outside
-// 0..nlev-1 count as clear.  The caller must not overwrite `s` before every
-// thread is done reading the previous level (a block_sum or a barrier).
-template <typename T>
-__device__ __forceinline__ void tc_stage(TcLevel<T> &s, const T *u9,
-                                         const T *v9, const T *rf3,
-                                         const T *scal2,
-                                         const unsigned char *clear, int col,
-                                         int nlev, int l, int iface,
-                                         int other) {
-  const int t = threadIdx.x;
-  const size_t ifo = ((size_t)col * (nlev + 1) + iface) * 9;
-  const size_t lo = (size_t)col * nlev + l;
-  if (t < 9) {
-    if (u9 != nullptr) s.u[t] = u9[ifo + t];
-    s.v[t] = v9[ifo + t];
-  } else if (t < 12) {
-    if (rf3 != nullptr) s.rf[t - 9] = rf3[lo * 3 + (t - 9)];
-  } else if (t < 14) {
-    s.scal[t - 12] = scal2[lo * 2 + (t - 12)];
-  } else if (t == 14) {
-    const bool c = clear[lo] != 0;
-    const bool o = (other < 0 || other >= nlev)
-                       ? true
-                       : clear[(size_t)col * nlev + other] != 0;
-    s.clear = c;
-    s.skip = c && o;
-  }
-  __syncthreads();
-}
 
 // Stage a whole column's per-level data in shared memory once, for level
 // loops that hold no barrier: v9 at the nlev + 1 interfaces, the od
@@ -249,6 +210,20 @@ __device__ __forceinline__ void tc_stage_column(T *sv, T *ssc,
   for (int i = threadIdx.x; i < nlev; i += blockDim.x)
     sclr[i] = clear[(size_t)col * nlev + i] != 0;
   __syncthreads();
+}
+
+// tc_stage_column, and also u9 at the nlev + 1 interfaces and the region
+// fractions of the nlev layers (what the LW sweeps read besides).
+template <typename T>
+__device__ __forceinline__ void tc_stage_column(
+    T *su, T *srf, T *sv, T *ssc, unsigned char *sclr, const T *u9,
+    const T *rf3, const T *v9, const T *scal2, const unsigned char *clear,
+    int col, int nlev) {
+  for (int i = threadIdx.x; i < (nlev + 1) * 9; i += blockDim.x)
+    su[i] = u9[(size_t)col * (nlev + 1) * 9 + i];
+  for (int i = threadIdx.x; i < nlev * 3; i += blockDim.x)
+    srf[i] = rf3[(size_t)col * nlev * 3 + i];
+  tc_stage_column(sv, ssc, sclr, v9, scal2, clear, col, nlev);
 }
 
 // out[r] = sum_l m[3l + r] x[l]: the v-matrix mix of the up sweeps
@@ -301,6 +276,77 @@ __device__ __forceinline__ void block_sum(T (&v)[NV], T *red) {
     }
   }
   __syncthreads();
+}
+
+// Bring the line of p into L2 ahead of its load.
+__device__ __forceinline__ void prefetch_l2(const void *p) {
+  asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
+}
+
+// Sum of v over a warp by the fixed shuffle tree of block_sum; valid in
+// lane 0.  Every lane of the warp must call it.
+template <typename T> __device__ __forceinline__ T warp_sum(T v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_down_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// Per-level sums without a barrier in the level loop: each warp leaves its
+// warp_sum partial of sum i in part[i * nwarp + warp] ...
+template <typename T>
+__device__ __forceinline__ void warp_partial(T v, T *part, int i,
+                                             int nwarp) {
+  v = warp_sum(v);
+  if ((threadIdx.x & 31) == 0)
+    part[(size_t)i * nwarp + (threadIdx.x >> 5)] = v;
+}
+
+// ... and after the loop, outs[i % NS][i / NS] = the partials of sum i
+// added in warp order: deterministic, the order of block_sum.  Every thread
+// of the block must call it; it starts with a barrier (the partials are
+// complete) and ends with one (part may be written again).
+template <typename T, int NS>
+__device__ __forceinline__ void store_level_sums(const T *part,
+                                                 T *const (&outs)[NS],
+                                                 int nlev, int nwarp) {
+  __syncthreads();
+  for (int i = threadIdx.x; i < nlev * NS; i += blockDim.x) {
+    const T *p = part + (size_t)i * nwarp;
+    T s = p[0];
+    for (int w = 1; w < nwarp; ++w) s += p[w];
+    outs[i % NS][i / NS] = s;
+  }
+  __syncthreads();
+}
+
+// --- The SW adding steps with direct albedos --------------------------------
+// A layer's Meador-Weaver coefficients (tdd: direct -> diffuse, tdir:
+// direct -> direct).
+template <typename T> struct SwCoef {
+  T refl, trans, rdir, tdd, tdir;
+};
+
+// One layer of an up pass: the diffuse albedo and the direct albedo (the
+// upward source per unit direct flux at the interface) of the atmosphere
+// from this layer's top down, from those below it.
+template <typename T>
+__device__ __forceinline__ void albedo_up(const SwCoef<T> &c, T alb, T albd,
+                                          T &alb_new, T &albd_new) {
+  const T inv = T(1) / (T(1) - alb * c.refl);
+  alb_new = c.refl + c.trans * c.trans * alb * inv;
+  albd_new = c.rdir + (c.tdir * albd + c.tdd * alb) * c.trans * inv;
+}
+
+// One layer of a diffuse down pass: the diffuse flux at the layer base and
+// the up flux there, from the direct flux at the layer top.
+template <typename T>
+__device__ __forceinline__ void diffuse_down(const SwCoef<T> &c, T fdir_top,
+                                             T fdn, T alb, T albd,
+                                             T &fdn_new, T &fup) {
+  fdn_new = (c.trans * fdn + fdir_top * (c.tdir * albd * c.refl + c.tdd)) /
+            (T(1) - c.refl * alb);
+  fup = c.tdir * fdir_top * albd + fdn_new * alb;
 }
 
 }  // namespace ecrad

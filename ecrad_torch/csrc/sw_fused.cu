@@ -7,30 +7,61 @@
 // Plain version and wrapper: ecrad_torch/solvers/cuda_mcica.py
 // (sw_fused_plain, sw_fused).
 //
-// Per column and g-point, both scenes advance together:
-//   S1 direct beam down, storing the direct flux at each layer top;
-//   S2 surface -> TOA Moebius up (radiation_adding_ica_sw.F90:24-153),
-//      storing the albedo and source below each layer;
-//   S3 diffuse down, emitting per-level broadband sums.
-// Each sweep recomputes the layer coefficients: the _merge_sw cloud
-// merge for cloudy layers, the optional delta-Eddington scaling and
-// sw_ref_trans (with expm1; the TPU's cubic series is not needed).  S1
-// only needs the direct transmittance and computes nothing else.  mu0
-// arrives clamped to 1e-10; night columns are zeroed by the caller.
+// Per column and g-point, both scenes advance together in two passes:
+//   up   surface -> TOA: each layer's coefficients of each scene (the clear
+//        scene always, the total scene only in a cloudy layer, where it
+//        differs: the _merge_sw cloud merge, the optional delta-Eddington
+//        scaling, sw_ref_trans with expm1; the TPU's cubic series is not
+//        needed), and the diffuse and direct albedos of both scenes below
+//        each layer (radiation_adding_ica_sw.F90:24-153);
+//   down TOA -> surface: the same coefficients again, the direct beam
+//        (trans_dir_dir, which is sw_direct_trans bit for bit) and the
+//        diffuse flux of both scenes together, with the six per-level
+//        broadband sums.
+// The TPU's direct-beam pass is not needed because the up pass carries a
+// direct albedo (the upward source per unit direct flux at an interface)
+// in place of the source: with src = albd * tdir * f_top, the Moebius
+// source step becomes albd_top = rdir + (tdir * albd + tdd * alb) * trans
+// / (1 - alb * refl), from the surface's direct albedo times mu0, and the
+// TOA source is albd_top * incoming.  That is the function of the three
+// sweeps of cuda_adding.sw_sweeps_plain in another rounding order, not bit
+// for bit.  mu0 arrives clamped to 1e-10; night columns are zeroed by the
+// caller.
 //
-// What bounds it on the H100: arithmetic (two Meador-Weaver evaluations
-// per cloudy layer and sweep, with exp, expm1, sqrt and divisions) and
-// the level recurrence.  One block per column with one thread per
-// g-point keeps the six carries in registers and the loads of a level
-// contiguous over g; the S1->S2->S3 links (direct flux at layer top,
-// albedo and source below) go through scratch planes that the wrapper
-// allocates.  Broadband sums are deterministic block reductions.  The
-// grid is one block per column, so no column is ever skipped.
+// What bounds it on the H100: the latency of the level recurrence, not
+// the bytes (~14 plane passes, a third of the memory rate at the measured
+// time) and not the arithmetic (two Meador-Weaver evaluations per scene
+// and layer).  Tensor cores do not apply: each g-point's work is a scalar
+// recurrence, and no product here has the shape of an MMA.  One block per
+// column with one thread per g-point keeps the carries in registers and
+// each load contiguous over g, and covers any ncol.  The column's cloud
+// mask is staged in shared memory once, so the level loops hold no
+// barrier: each warp leaves its shuffle-tree partial of the six per-level
+// sums in shared memory, and the partials are added in warp order after
+// the down pass (deterministic, the order of a block reduction).  The
+// loads of the next level are issued one level ahead.  Only the albedos go
+// from the up to the down pass, through scratch the wrapper allocates; the
+// down pass computes the coefficients again, which measured as fast as
+// storing and reading them back (PERF.md).  The f32 build is held to 64
+// registers without spilling, so 8 blocks of 128 threads fit on an SM and
+// 2048 columns take 2 waves, not 4; that measured as fast as no cap and
+// faster than a cap of 80 (PERF.md).  The file is compiled without FMA
+// contraction (kernels.SOURCE_FLAGS), so that the f64 coefficients round op
+// for op as the plain torch version's do: near k * mu0 = 1 the Meador-Weaver
+// direct-beam coefficients lose up to ~10 digits to cancellation, and FMA
+// rounding alone moves the f64 fluxes by more than chip_smoke.py's f64
+// tolerance.  The f32 build measured no slower without it (PERF.md).
 #include "common.cuh"
 
 namespace {
 
 using namespace ecrad;
+
+// Blocks of up to 256 threads (g-points); the f32 build's register cap (the
+// f64 build is not capped).
+constexpr int kMaxThreads = 256;
+constexpr int kF32Regs = 64;
+constexpr int kSums = 6;  // dir_c, dir_t, dn_c, up_c, dn_t, up_t
 
 template <typename T> struct SwArgs {
   const T *od, *ssa, *g, *od_scaling, *odc_b, *ssac_b, *gc_b;
@@ -40,215 +71,201 @@ template <typename T> struct SwArgs {
   T *dir_bb_c, *dir_bb_t, *fdir_surf_c, *fdir_surf_t, *src_top_c,
       *src_top_t, *dn_bb_c, *up_bb_c, *dn_bb_t, *up_bb_t, *fdn_surf_c,
       *fdn_surf_t;
-  T *ftc, *ftt, *albb_c, *srcb_c, *albb_t, *srcb_t;  // scratch planes
+  // scratch: the diffuse and direct albedos of both scenes below each
+  // layer, (ncol, nlev, ng) each
+  T *albb_c, *albdb_c, *albb_t, *albdb_t;
   int nlev, ng, nband, delta_gases;
 };
 
-// Clear and total-sky optical properties of one (column, layer, g); the
-// total scene equals the clear one outside cloudy layers.
-template <typename T>
-__device__ __forceinline__ bool sw_props(const SwArgs<T> &a, int col, int l,
-                                         int g, int band, T &od, T &ssa,
-                                         T &asy, T &od_t, T &ssa_t,
-                                         T &g_t) {
-  const size_t lg = ((size_t)col * a.nlev + l) * a.ng + g;
-  od = a.od[lg];
-  ssa = a.ssa[lg];
-  asy = a.g[lg];
-  const bool cloudy = a.mask[(size_t)col * a.nlev + l] != 0;
-  if (cloudy) {
-    const size_t lb = ((size_t)col * a.nlev + l) * a.nband + band;
-    const T odc = a.od_scaling[lg] * a.odc_b[lb];
-    merge_sw(od, ssa, asy, odc, a.ssac_b[lb], a.gc_b[lb], od_t, ssa_t, g_t);
-    if (a.delta_gases) delta_eddington(od_t, ssa_t, g_t);
-  }
-  if (a.delta_gases) delta_eddington(od, ssa, asy);
-  if (!cloudy) {
-    od_t = od;
-    ssa_t = ssa;
-    g_t = asy;
-  }
-  return cloudy;
-}
-
-template <typename T> struct Coef {
-  T refl, trans, rdir, tdif, tdd;
+// The optical properties of one (column, layer, g-point) as loaded: the
+// gas and, in a cloudy layer, the od scaling and the cloud's band
+// properties.
+template <typename T> struct Props {
+  T od, ssa, g, scale, odcb, ssacb, gcb;
 };
 
 template <typename T>
-__device__ __forceinline__ void sw_layer(const SwArgs<T> &a, int col, int l,
-                                         int g, int band, T mu0, Coef<T> &c,
-                                         Coef<T> &t) {
-  T od, ssa, asy, od_t, ssa_t, g_t;
-  const bool cloudy = sw_props(a, col, l, g, band, od, ssa, asy, od_t,
-                               ssa_t, g_t);
-  sw_ref_trans(mu0, od, ssa, asy, c.refl, c.trans, c.rdir, c.tdif, c.tdd);
-  if (cloudy)
-    sw_ref_trans(mu0, od_t, ssa_t, g_t, t.refl, t.trans, t.rdir, t.tdif,
-                 t.tdd);
-  else
-    t = c;
+__device__ __forceinline__ Props<T> load_props(const SwArgs<T> &a,
+                                               size_t lg, size_t lb,
+                                               bool cloudy) {
+  Props<T> p;
+  p.od = a.od[lg];
+  p.ssa = a.ssa[lg];
+  p.g = a.g[lg];
+  if (cloudy) {
+    p.scale = a.od_scaling[lg];
+    p.odcb = a.odc_b[lb];
+    p.ssacb = a.ssac_b[lb];
+    p.gcb = a.gc_b[lb];
+  }
+  return p;
+}
+
+// Both scenes' coefficients of one layer: the clear scene's, and in a
+// cloudy layer the total scene's (merged from the unscaled gas, then each
+// scene optionally delta-Eddington scaled); t = c in a clear layer.
+template <typename T>
+__device__ __forceinline__ void layer_coefs(const Props<T> &p, bool cloudy,
+                                            bool delta, T mu0, SwCoef<T> &c,
+                                            SwCoef<T> &t) {
+  T od = p.od, ssa = p.ssa, asy = p.g;
+  if (cloudy) {
+    T od_t, ssa_t, g_t;
+    merge_sw(od, ssa, asy, p.scale * p.odcb, p.ssacb, p.gcb, od_t, ssa_t,
+             g_t);
+    if (delta) delta_eddington(od_t, ssa_t, g_t);
+    sw_ref_trans(mu0, od_t, ssa_t, g_t, t.refl, t.trans, t.rdir, t.tdd,
+                 t.tdir);
+  }
+  if (delta) delta_eddington(od, ssa, asy);
+  sw_ref_trans(mu0, od, ssa, asy, c.refl, c.trans, c.rdir, c.tdd, c.tdir);
+  if (!cloudy) t = c;
+}
+
+// What the down pass loads at a level: the layer's optical properties and
+// both scenes' albedos below it.
+template <typename T> struct DnLevel {
+  Props<T> p;
+  T ac, adc, at, adt;
+};
+
+template <typename T>
+__device__ __forceinline__ DnLevel<T> load_dn(const SwArgs<T> &a, size_t lg,
+                                              size_t lb, bool cloudy) {
+  DnLevel<T> n;
+  n.p = load_props(a, lg, lb, cloudy);
+  n.ac = a.albb_c[lg];
+  n.adc = a.albdb_c[lg];
+  n.at = a.albb_t[lg];
+  n.adt = a.albdb_t[lg];
+  return n;
 }
 
 template <typename T>
-__global__ void sw_fused_kernel(SwArgs<T> a) {
-  __shared__ T red[4 * 32];
+__global__ void __launch_bounds__(
+    kMaxThreads, sizeof(T) == 4 ? 65536 / (kMaxThreads * kF32Regs) : 1)
+    sw_fused_kernel(SwArgs<T> a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   const int col = blockIdx.x;
   const int g = threadIdx.x;
   const bool on = g < a.ng;
   const int band = on ? a.band_of_g[g] : 0;
-  const int nlev = a.nlev;
-  const size_t cg = (size_t)col * a.ng + g;
+  const int nlev = a.nlev, ng = a.ng, nband = a.nband;
+  const int nwarp = blockDim.x >> 5;
+  // shared: the six per-level sums' warp partials, then the column's mask
+  T *part = reinterpret_cast<T *>(smem_raw);
+  unsigned char *smask =
+      reinterpret_cast<unsigned char *>(part + (size_t)nlev * kSums * nwarp);
+  for (int i = threadIdx.x; i < nlev; i += blockDim.x)
+    smask[i] = a.mask[(size_t)col * nlev + i] != 0;
+  __syncthreads();
+
+  const size_t cg = (size_t)col * ng + g;
   const size_t cl0 = (size_t)col * nlev;
   const T mu0 = a.mu0[col];
+  const bool delta = a.delta_gases != 0;
+  auto lg = [&](int l) { return (cl0 + l) * (size_t)ng + g; };
+  auto lb = [&](int l) { return (cl0 + l) * (size_t)nband + band; };
 
-  // S1: direct beam down, both scenes
-  const T incoming = on ? a.incoming[cg] : T(0);
-  T fc = incoming, ft = incoming;
+  // --- up pass: the albedos of both scenes, surface -> TOA
+  if (on) {
+    T ac = a.alb_dif[cg], adc = a.alb_dir_mu0[cg];
+    T at = ac, adt = adc;
+    Props<T> nxt = load_props(a, lg(nlev - 1), lb(nlev - 1),
+                              smask[nlev - 1]);
+    for (int l = nlev - 1; l >= 0; --l) {
+      const Props<T> p = nxt;
+      const bool cloudy = smask[l];
+      if (l > 0) nxt = load_props(a, lg(l - 1), lb(l - 1), smask[l - 1]);
+      SwCoef<T> c, t;
+      layer_coefs(p, cloudy, delta, mu0, c, t);
+      a.albb_c[lg(l)] = ac;
+      a.albdb_c[lg(l)] = adc;
+      a.albb_t[lg(l)] = at;
+      a.albdb_t[lg(l)] = adt;
+      albedo_up(c, ac, adc, ac, adc);
+      albedo_up(t, at, adt, at, adt);
+    }
+    const T incoming = a.incoming[cg];
+    a.src_top_c[cg] = adc * incoming;
+    a.src_top_t[cg] = adt * incoming;
+  }
+
+  // --- down pass: direct beam and diffuse flux of both scenes
+  T fc = T(0), ft = T(0), dc = T(0), dt = T(0);
+  DnLevel<T> nxt;
+  if (on) {
+    fc = ft = a.incoming[cg];
+    nxt = load_dn(a, lg(0), lb(0), smask[0]);
+  }
   for (int l = 0; l < nlev; ++l) {
+    T uc = T(0), ut = T(0);
     if (on) {
-      T od, ssa, asy, od_t, ssa_t, g_t;
-      sw_props(a, col, l, g, band, od, ssa, asy, od_t, ssa_t, g_t);
-      const size_t lg = (cl0 + l) * a.ng + g;
-      a.ftc[lg] = fc;
-      a.ftt[lg] = ft;
-      fc = sw_direct_trans(mu0, od) * fc;
-      ft = sw_direct_trans(mu0, od_t) * ft;
+      const DnLevel<T> s = nxt;
+      const bool cloudy = smask[l];
+      if (l + 1 < nlev) nxt = load_dn(a, lg(l + 1), lb(l + 1), smask[l + 1]);
+      SwCoef<T> c, t;
+      layer_coefs(s.p, cloudy, delta, mu0, c, t);
+      const T fc_top = fc, ft_top = ft;
+      fc = c.tdir * fc_top;
+      ft = t.tdir * ft_top;
+      diffuse_down(c, fc_top, dc, s.ac, s.adc, dc, uc);
+      diffuse_down(t, ft_top, dt, s.at, s.adt, dt, ut);
     }
-    T v[2] = {on ? fc : T(0), on ? ft : T(0)};
-    block_sum<T, 2>(v, red);
-    if (threadIdx.x == 0) {
-      a.dir_bb_c[cl0 + l] = v[0];
-      a.dir_bb_t[cl0 + l] = v[1];
-    }
+    const T v[kSums] = {fc, ft, dc, uc, dt, ut};
+#pragma unroll
+    for (int i = 0; i < kSums; ++i)
+      warp_partial(v[i], part, l * kSums + i, nwarp);
   }
   if (on) {
     a.fdir_surf_c[cg] = fc;
     a.fdir_surf_t[cg] = ft;
-  }
-
-  // S2: Moebius up, both scenes, surface -> TOA
-  if (on) {
-    const T alb0 = a.alb_dif[cg];
-    const T adm = a.alb_dir_mu0[cg];
-    T alb_c = alb0, alb_t = alb0;
-    T src_c = adm * fc, src_t = adm * ft;
-    for (int l = nlev - 1; l >= 0; --l) {
-      Coef<T> c, t;
-      sw_layer(a, col, l, g, band, mu0, c, t);
-      const size_t lg = (cl0 + l) * a.ng + g;
-      {
-        const T ftop = a.ftc[lg];
-        a.albb_c[lg] = alb_c;
-        a.srcb_c[lg] = src_c;
-        const T s_up = c.rdir * ftop;
-        const T s_dn = c.tdif * ftop;
-        const T inv = T(1) / (T(1) - alb_c * c.refl);
-        const T alb_new = c.refl + c.trans * c.trans * alb_c * inv;
-        src_c = s_up + c.trans * (src_c + alb_c * s_dn) * inv;
-        alb_c = alb_new;
-      }
-      {
-        const T ftop = a.ftt[lg];
-        a.albb_t[lg] = alb_t;
-        a.srcb_t[lg] = src_t;
-        const T s_up = t.rdir * ftop;
-        const T s_dn = t.tdif * ftop;
-        const T inv = T(1) / (T(1) - alb_t * t.refl);
-        const T alb_new = t.refl + t.trans * t.trans * alb_t * inv;
-        src_t = s_up + t.trans * (src_t + alb_t * s_dn) * inv;
-        alb_t = alb_new;
-      }
-    }
-    a.src_top_c[cg] = src_c;
-    a.src_top_t[cg] = src_t;
-  }
-
-  // S3: diffuse down, both scenes
-  T dc = T(0), dt = T(0);
-  for (int l = 0; l < nlev; ++l) {
-    T uc = T(0), ut = T(0);
-    if (on) {
-      Coef<T> c, t;
-      sw_layer(a, col, l, g, band, mu0, c, t);
-      const size_t lg = (cl0 + l) * a.ng + g;
-      {
-        const T alb_below = a.albb_c[lg];
-        const T src_below = a.srcb_c[lg];
-        const T inv = T(1) / (T(1) - alb_below * c.refl);
-        dc = (c.trans * dc + c.refl * src_below + c.tdif * a.ftc[lg]) * inv;
-        uc = alb_below * dc + src_below;
-      }
-      {
-        const T alb_below = a.albb_t[lg];
-        const T src_below = a.srcb_t[lg];
-        const T inv = T(1) / (T(1) - alb_below * t.refl);
-        dt = (t.trans * dt + t.refl * src_below + t.tdif * a.ftt[lg]) * inv;
-        ut = alb_below * dt + src_below;
-      }
-    }
-    T v[4] = {on ? dc : T(0), uc, on ? dt : T(0), ut};
-    block_sum<T, 4>(v, red);
-    if (threadIdx.x == 0) {
-      a.dn_bb_c[cl0 + l] = v[0];
-      a.up_bb_c[cl0 + l] = v[1];
-      a.dn_bb_t[cl0 + l] = v[2];
-      a.up_bb_t[cl0 + l] = v[3];
-    }
-  }
-  if (on) {
     a.fdn_surf_c[cg] = dc;
     a.fdn_surf_t[cg] = dt;
   }
+  T *const outs[kSums] = {a.dir_bb_c + cl0, a.dir_bb_t + cl0,
+                          a.dn_bb_c + cl0,  a.up_bb_c + cl0,
+                          a.dn_bb_t + cl0,  a.up_bb_t + cl0};
+  store_level_sums(part, outs, nlev, nwarp);
 }
 
 template <typename T>
 int launch(void *const *p, int ncol, int nlev, int ng, int nband,
            int delta_gases, void *stream) {
   SwArgs<T> a;
-  a.od = (const T *)p[0];
-  a.ssa = (const T *)p[1];
-  a.g = (const T *)p[2];
-  a.od_scaling = (const T *)p[3];
-  a.odc_b = (const T *)p[4];
-  a.ssac_b = (const T *)p[5];
-  a.gc_b = (const T *)p[6];
-  a.mask = (const unsigned char *)p[7];
-  a.mu0 = (const T *)p[8];
-  a.incoming = (const T *)p[9];
-  a.alb_dif = (const T *)p[10];
-  a.alb_dir_mu0 = (const T *)p[11];
-  a.band_of_g = (const int *)p[12];
-  a.dir_bb_c = (T *)p[13];
-  a.dir_bb_t = (T *)p[14];
-  a.fdir_surf_c = (T *)p[15];
-  a.fdir_surf_t = (T *)p[16];
-  a.src_top_c = (T *)p[17];
-  a.src_top_t = (T *)p[18];
-  a.dn_bb_c = (T *)p[19];
-  a.up_bb_c = (T *)p[20];
-  a.dn_bb_t = (T *)p[21];
-  a.up_bb_t = (T *)p[22];
-  a.fdn_surf_c = (T *)p[23];
-  a.fdn_surf_t = (T *)p[24];
-  a.ftc = (T *)p[25];
-  a.ftt = (T *)p[26];
-  a.albb_c = (T *)p[27];
-  a.srcb_c = (T *)p[28];
-  a.albb_t = (T *)p[29];
-  a.srcb_t = (T *)p[30];
+  const T **in[] = {&a.od, &a.ssa, &a.g, &a.od_scaling, &a.odc_b,
+                    &a.ssac_b, &a.gc_b};
+  const T **in2[] = {&a.mu0, &a.incoming, &a.alb_dif, &a.alb_dir_mu0};
+  T **out[] = {&a.dir_bb_c, &a.dir_bb_t, &a.fdir_surf_c, &a.fdir_surf_t,
+               &a.src_top_c, &a.src_top_t, &a.dn_bb_c, &a.up_bb_c,
+               &a.dn_bb_t, &a.up_bb_t, &a.fdn_surf_c, &a.fdn_surf_t,
+               &a.albb_c, &a.albdb_c, &a.albb_t, &a.albdb_t};
+  int k = 0;
+  for (const T **q : in) *q = (const T *)p[k++];
+  a.mask = (const unsigned char *)p[k++];
+  for (const T **q : in2) *q = (const T *)p[k++];
+  a.band_of_g = (const int *)p[k++];
+  for (T **q : out) *q = (T *)p[k++];
   a.nlev = nlev;
   a.ng = ng;
   a.nband = nband;
   a.delta_gases = delta_gases;
   const int threads = ((ng + 31) / 32) * 32;
-  sw_fused_kernel<T><<<ncol, threads, 0, (cudaStream_t)stream>>>(a);
+  const size_t smem =
+      sizeof(T) * (size_t)nlev * kSums * (threads / 32) + nlev;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        sw_fused_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  sw_fused_kernel<T><<<ncol, threads, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// p: the 31 tensor pointers in the order of SwArgs.
+// p: the 29 tensor pointers in the order of SwArgs.
 extern "C" int ecrad_sw_fused_f32(void *const *p, int ncol, int nlev,
                                   int ng, int nband, int delta_gases,
                                   void *stream) {

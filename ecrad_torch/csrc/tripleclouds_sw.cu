@@ -68,10 +68,6 @@ template <typename T> struct TcSwArgs {
   int nlev, ng, nband, delta_gases;
 };
 
-template <typename T> struct Coef {
-  T refl, trans, rdir, tdd, tdir;  // tdd: direct->diffuse, tdir: direct
-};
-
 // The gas optics of one (column, layer, g-point).
 template <typename T> struct Gas {
   T od, ssa, g;
@@ -91,7 +87,7 @@ template <typename T>
 __device__ __forceinline__ void sw_regions(const TcSwArgs<T> &a,
                                            const Gas<T> &gas, bool cloudy,
                                            const T *scal, size_t lb, T mu0,
-                                           Coef<T> (&c)[3]) {
+                                           SwCoef<T> (&c)[3]) {
   sw_ref_trans(mu0, gas.od, gas.ssa, gas.g, c[0].refl, c[0].trans,
                c[0].rdir, c[0].tdd, c[0].tdir);
   if (!cloudy) {
@@ -118,27 +114,6 @@ __device__ __forceinline__ void sw_regions(const TcSwArgs<T> &a,
   }
 }
 
-// One layer of the up pass: the albedos of the atmosphere from this
-// layer's top down, from those below it.
-template <typename T>
-__device__ __forceinline__ void albedo_up(const Coef<T> &c, T alb, T albd,
-                                          T &alb_new, T &albd_new) {
-  const T inv = T(1) / (T(1) - alb * c.refl);
-  alb_new = c.refl + c.trans * c.trans * alb * inv;
-  albd_new = c.rdir + (c.tdir * albd + c.tdd * alb) * c.trans * inv;
-}
-
-// One layer of the diffuse down sweep: the diffuse flux at the layer base
-// and the up flux there.
-template <typename T>
-__device__ __forceinline__ void diffuse_down(const Coef<T> &c, T fdir_top,
-                                             T fdn, T alb, T albd,
-                                             T &fdn_new, T &fup) {
-  fdn_new = (c.trans * fdn + fdir_top * (c.tdir * albd * c.refl + c.tdd)) /
-            (T(1) - c.refl * alb);
-  fup = c.tdir * fdir_top * albd + fdn_new * alb;
-}
-
 // What the down pass reads at every level: region 0's coefficients and
 // the clear scene's and region 0's albedos.
 template <typename T> struct DnNext {
@@ -160,19 +135,6 @@ __device__ __forceinline__ DnNext<T> load_dn(const TcSwArgs<T> &a,
   return n;
 }
 
-__device__ __forceinline__ void prefetch_l2(const void *p) {
-  asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
-}
-
-// Sum of v over a warp by a fixed shuffle tree (that of block_sum);
-// valid in lane 0.
-template <typename T> __device__ __forceinline__ T warp_sum(T v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_down_sync(0xffffffffu, v, off);
-  return v;
-}
-
 template <typename T>
 __global__ void tripleclouds_sw_kernel(TcSwArgs<T> a) {
   extern __shared__ unsigned char smem_raw[];
@@ -181,7 +143,6 @@ __global__ void tripleclouds_sw_kernel(TcSwArgs<T> a) {
   const bool on = g < a.ng;
   const int band = on ? a.band_of_g[g] : 0;
   const int nlev = a.nlev, ng = a.ng, nband = a.nband;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nwarp = blockDim.x >> 5;
   // shared: the six per-level sums' warp partials, then the column's v
   // matrices, od scalings and clear flags
@@ -221,7 +182,7 @@ __global__ void tripleclouds_sw_kernel(TcSwArgs<T> a) {
       if (l > 0) nxt = load_gas(a, lg(l - 1));
       const bool cloudy = !sclr[l];
       const bool skip = !cloudy && (l == 0 || sclr[l - 1]);
-      Coef<T> c[3];
+      SwCoef<T> c[3];
       sw_regions(a, gas, cloudy, ssc + 2 * l, lb(l), mu0, c);
 #pragma unroll
       for (int r = 0; r < 3; ++r) {
@@ -289,7 +250,7 @@ __global__ void tripleclouds_sw_kernel(TcSwArgs<T> a) {
         }
       }
       // the coefficients the up pass stored (rdir is not needed here)
-      Coef<T> c[3];
+      SwCoef<T> c[3];
 #pragma unroll
       for (int r = 0; r < 3; ++r) {
         c[r].refl = r == 0 ? s.c0[0] : cloudy ? a.coef[lgc(l, r, 0)] : T(0);
@@ -333,10 +294,8 @@ __global__ void tripleclouds_sw_kernel(TcSwArgs<T> a) {
     const T v[kSums] = {on ? fc : T(0), dir_t, on ? dc : T(0), uc, dn_t,
                         up_t};
 #pragma unroll
-    for (int i = 0; i < kSums; ++i) {
-      const T s = warp_sum(v[i]);
-      if (lane == 0) part[((size_t)l * kSums + i) * nwarp + warp] = s;
-    }
+    for (int i = 0; i < kSums; ++i)
+      warp_partial(v[i], part, l * kSums + i, nwarp);
   }
   if (on) {
     a.fdir_surf_c[cg] = fc;
@@ -344,15 +303,10 @@ __global__ void tripleclouds_sw_kernel(TcSwArgs<T> a) {
     a.fdn_surf_c[cg] = dc;
     a.fdn_surf_t[cg] = dn_t;
   }
-  __syncthreads();
-  T *const outs[kSums] = {a.dir_bb_c, a.dir_bb_t, a.dn_bb_c,
-                          a.up_bb_c,  a.dn_bb_t,  a.up_bb_t};
-  for (int i = threadIdx.x; i < nlev * kSums; i += blockDim.x) {
-    const T *p = part + (size_t)i * nwarp;
-    T s = p[0];
-    for (int w = 1; w < nwarp; ++w) s += p[w];
-    outs[i % kSums][cl0 + i / kSums] = s;
-  }
+  T *const outs[kSums] = {a.dir_bb_c + cl0, a.dir_bb_t + cl0,
+                          a.dn_bb_c + cl0,  a.up_bb_c + cl0,
+                          a.dn_bb_t + cl0,  a.up_bb_t + cl0};
+  store_level_sums(part, outs, nlev, nwarp);
 }
 
 template <typename T>

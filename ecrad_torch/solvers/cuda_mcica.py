@@ -215,6 +215,9 @@ def lw_fused(od, odc_b, ssac_b, gc_b, od_scaling, mask, planck_hl,
 lw_fused.launches = 0
 
 
+SW_FUSED_MAX_NG = 256      # csrc/sw_fused.cu's __launch_bounds__
+
+
 def sw_fused(od, ssa, g, odc_b, ssac_b, gc_b, od_scaling, mask, mu0,
              incoming, alb_dif, alb_dir_mu0, band_of_g, delta_gases):
     """Fused McICA SW sweeps.  CPU tensors run sw_fused_plain; CUDA
@@ -238,6 +241,9 @@ def sw_fused(od, ssa, g, odc_b, ssac_b, gc_b, od_scaling, mask, mu0,
     }, mask)
     if tuple(mask.shape) != (ncol, nlev):
         raise ValueError(f"sw_fused: mask has shape {tuple(mask.shape)}")
+    if ng > SW_FUSED_MAX_NG:
+        raise ValueError(f"sw_fused: ng={ng} exceeds the kernel's "
+                         f"{SW_FUSED_MAX_NG} threads")
     bog = _band_index(band_of_g, ng, nband, od.device)
     e = lambda *shape: torch.empty(shape, dtype=od.dtype, device=od.device)
     out = {}
@@ -250,7 +256,8 @@ def sw_fused(od, ssa, g, odc_b, ssac_b, gc_b, od_scaling, mask, mu0,
                     f"fdn_surf_{tag}": e(ncol, ng)})
     if ncol == 0:
         return out
-    scratch = [e(ncol, nlev, ng) for _ in range(6)]
+    # scratch: the diffuse and direct albedos of both scenes below each layer
+    scratch = [e(ncol, nlev, ng) for _ in range(4)]
     ptrs = kernels.pointer_array([
         od, ssa, g, od_scaling, odc_b, ssac_b, gc_b, mask, mu0, incoming,
         alb_dif, alb_dir_mu0, bog, out["dir_bb_c"], out["dir_bb_t"],

@@ -298,6 +298,9 @@ def _empty(ref):
                                       device=ref.device)
 
 
+LW_FUSED_MAX_NG = 256      # csrc/tripleclouds_lw.cu's __launch_bounds__
+
+
 def lw_fused(od, odc_b, ssac_b, gc_b, scal2, clear, rf3, u9, v9, planck_hl,
              emission, albedo, src0, band_of_g, do_derivatives):
     """Fused Tripleclouds LW sweeps.  CPU tensors run lw_fused_plain; CUDA
@@ -321,6 +324,9 @@ def lw_fused(od, odc_b, ssac_b, gc_b, scal2, clear, rf3, u9, v9, planck_hl,
     if tuple(clear.shape) != (ncol, nlev):
         raise ValueError(f"tripleclouds lw_fused: clear has shape "
                          f"{tuple(clear.shape)}")
+    if ng > LW_FUSED_MAX_NG:
+        raise ValueError(f"tripleclouds lw_fused: ng={ng} exceeds the "
+                         f"kernel's {LW_FUSED_MAX_NG} threads")
     bog = _band_index(band_of_g, ng, nband, od.device)
     e = _empty(od)
     out = dict(dn_bb_c=e(ncol, nlev), fdn_surf_c=e(ncol, ng),
@@ -332,14 +338,16 @@ def lw_fused(od, odc_b, ssac_b, gc_b, scal2, clear, rf3, u9, v9, planck_hl,
         out["deriv_t"] = e(ncol, nlev)
     if ncol == 0:
         return out
-    # the albedo and source of the atmosphere below each layer, per region
-    albb, srcb = e(ncol, nlev, NREG, ng), e(ncol, nlev, NREG, ng)
+    # scratch: the albedo and source of the atmosphere below each layer,
+    # per region; the derivative weights of each level
+    scratch = [e(ncol, nlev, NREG, ng), e(ncol, nlev, NREG, ng),
+               e(ncol, nlev, ng) if do_derivatives else None]
     ptrs = kernels.pointer_array([
         od, odc_b, ssac_b, gc_b, scal2, clear, rf3, u9, v9, planck_hl,
         emission, albedo, src0, bog, out["dn_bb_c"], out["fdn_surf_c"],
         out["fup_surf_c"], out["up_bb_c"], out["fup_toa_c"],
         out["src_top_t"], out["dn_bb_t"], out["up_bb_t"], out["fdn_surf_t"],
-        out["fup_surf_t"], out.get("deriv_t"), albb, srcb])
+        out["fup_surf_t"], out.get("deriv_t"), *scratch])
     lib = kernels.library()
     fn = (lib.ecrad_tripleclouds_lw_f32 if od.dtype == torch.float32
           else lib.ecrad_tripleclouds_lw_f64)

@@ -147,6 +147,71 @@ def test_sw_fused_plain_matches_pallas(delta):
              RTOL_SW_PALLAS, ATOL_SW_PALLAS)
 
 
+def _direct_albedo_sweeps(coeffs, incoming, alb_dif, alb_dir_mu0):
+    """The two passes of csrc/sw_fused.cu in its order: up, the diffuse
+    albedo and the direct albedo (upward source per unit direct flux) below
+    each layer; down, the direct beam with the diffuse flux."""
+    refl, trans, rdir, tdd, tdir = coeffs
+    nlev = refl.shape[1]
+    alb, albd = alb_dif, alb_dir_mu0
+    below = [None] * nlev
+    for l in range(nlev - 1, -1, -1):
+        below[l] = alb, albd
+        inv = 1.0 / (1.0 - alb * refl[:, l])
+        alb, albd = (refl[:, l] + trans[:, l] * trans[:, l] * alb * inv,
+                     rdir[:, l] + (tdir[:, l] * albd + tdd[:, l] * alb)
+                     * trans[:, l] * inv)
+    src_top = albd * incoming
+    fdir, fdn = incoming, torch.zeros_like(incoming)
+    dir_bb, dn_bb, up_bb = [], [], []
+    for l in range(nlev):
+        alb, albd = below[l]
+        fdn = (trans[:, l] * fdn + fdir * (tdir[:, l] * albd * refl[:, l]
+                                           + tdd[:, l])) \
+            / (1.0 - refl[:, l] * alb)
+        up_bb.append((tdir[:, l] * fdir * albd + fdn * alb).sum(-1))
+        fdir = tdir[:, l] * fdir
+        dir_bb.append(fdir.sum(-1))
+        dn_bb.append(fdn.sum(-1))
+    stack = lambda xs: torch.stack(xs, dim=1)
+    return dict(dir_bb=stack(dir_bb), fdir_surf=fdir, src_top=src_top,
+                dn_bb=stack(dn_bb), up_bb=stack(up_bb), fdn_surf=fdn)
+
+
+# The direct-albedo form is the three sweeps' function in another rounding
+# order: f64 roundoff through ~20 levels, of each entry and (for entries
+# that are zero to roundoff, as at night) of the field's largest value
+RTOL_REORDERED = 1e-12
+
+
+@pytest.mark.parametrize("delta", [False, True])
+def test_sw_direct_albedo_form_matches_plain(delta):
+    """The two-pass form of the kernel, on _sw_layers' coefficients,
+    gives sw_fused_plain's outputs, night columns included."""
+    p = _props(NCOL)
+    t = _t(p)
+    mask = torch.as_tensor(p["cloud_fraction"] >= 1e-6)
+    mu0 = torch.clamp(t["cos_sza"], min=1e-10)
+    alb_dir_mu0 = t["albedo_direct"] * mu0[:, None]
+    band = torch.as_tensor(BAND_FROM_G)
+    ref = cuda_mcica.sw_fused_plain(
+        t["od"], t["ssa"], t["g"], t["od_cloud_b"], t["ssa_cloud_b"],
+        t["g_cloud_b"], t["od_scaling"], mask, mu0, t["incoming"],
+        t["albedo"], alb_dir_mu0, band, delta)
+    scenes = cuda_mcica._sw_layers(
+        t["od"], t["ssa"], t["g"], t["od_cloud_b"], t["ssa_cloud_b"],
+        t["g_cloud_b"], t["od_scaling"], mask, mu0, band, delta)
+    assert (p["cos_sza"] <= 0).any() and mask.any() and not mask.all()
+    for tag, coeffs in zip(("c", "t"), scenes):
+        got = _direct_albedo_sweeps(coeffs, t["incoming"], t["albedo"],
+                                    alb_dir_mu0)
+        for k, v in got.items():
+            r = ref[f"{k}_{tag}"]
+            np.testing.assert_allclose(
+                v.numpy(), r.numpy(), rtol=RTOL_REORDERED,
+                atol=RTOL_REORDERED * float(r.abs().max()), err_msg=k)
+
+
 def _lw_args(p, band):
     return (p["od"], p["ssa"], p["g"], p["od_cloud_b"], p["ssa_cloud_b"],
             p["g_cloud_b"], band, p["od_scaling"], p["tcc"],

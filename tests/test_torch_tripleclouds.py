@@ -238,6 +238,43 @@ def test_sw_fused_plain_matches_pallas(delta):
     _compare(got, _from_knl(ref), RTOL_SW_PALLAS, ATOL_SW_PALLAS)
 
 
+# The linear form of the derivatives is the derivative pass's function in
+# another rounding order: f64 roundoff through ~10 levels
+RTOL_REORDERED = 1e-12
+
+
+@pytest.mark.parametrize("ncol", [1, NCOL])
+def test_lw_derivatives_linear_in_start(ncol):
+    """deriv_t as csrc/tripleclouds_lw.cu forms it: the derivative
+    recurrence dg = (u dg) * trans from [1, 0, 0] (no d0) gives weights
+    W[l, g] = sum_r w[r], and deriv_t[l] = sum_g d0_g W[l, g]."""
+    p = _t(_props(ncol))
+    cfg, _ = _configs(do_lw_derivatives=True,
+                      do_lw_aerosol_scattering=False)
+    args, _ = ttc.lw_fused_args(
+        cfg, p["od"], p["od_cloud_b"], p["ssa_cloud_b"], p["g_cloud_b"],
+        torch.as_tensor(BAND_FROM_G), p["cloud_fraction"],
+        p["fractional_std"], p["overlap_param"], p["planck_hl"],
+        p["emission"], p["albedo"])
+    (od, odc, ssac, gc, scal2, clear, rf3, u9, v9, planck, emission, albedo,
+     src0, band, _) = args
+    assert clear.any() and not clear.all()
+    ref = cuda_tripleclouds.lw_fused_plain(*args)
+    _, (_, trans, _, _) = cuda_tripleclouds._lw_regions(
+        od, odc, ssac, gc, scal2, clear, rf3, planck, band)
+    w = torch.zeros_like(src0)
+    w[:, 0] = 1.0
+    weights = [None] * NLEV
+    for l in range(NLEV - 1, -1, -1):
+        w = cuda_tripleclouds.mix_u(u9[:, l + 1], w) * trans[:, l]
+        weights[l] = w.sum(1)
+    fup = ref["fup_surf_t"]
+    d0 = fup / torch.clamp(fup.sum(-1, keepdim=True), min=1e-30)
+    got = (d0[:, None, :] * torch.stack(weights, dim=1)).sum(-1)
+    np.testing.assert_allclose(got.numpy(), ref["deriv_t"].numpy(),
+                               rtol=RTOL_REORDERED, atol=0)
+
+
 # --- solvers against the JAX scan path --------------------------------------
 
 # (config settings, band order, whether the port takes its fused path)

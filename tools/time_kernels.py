@@ -1,21 +1,29 @@
-"""Time the SW sweep kernels of the port on chip_smoke.py's inputs, f32,
-2048 columns, median of 5 CUDA-event timings each, and those of other
-checkouts on the same inputs in turns, on one NVIDIA GPU.
+"""Time the redesigned sweep kernels of the port on chip_smoke.py's
+inputs, f32, 2048 columns, median of 5 CUDA-event timings each, and those
+of other checkouts on the same inputs in turns, on one NVIDIA GPU.
 
     python3 tools/time_kernels.py [--other DIR ...] [--rounds N]
+        [--steps [--configs NAME ...]]
 
 Times `spartacus_sw` (Explicit entrapment, the spartacus_3d path's, and
-Maximum entrapment) and the Tripleclouds `sw_fused` on the main path's
-inputs ("meridian": the bundled slice tiled, a random state from a numpy
-seed) and on the same state with every layer cloudy ("all_cloudy").  Each
-checkout (this one, then each DIR, e.g. an older commit unpacked with
-`git archive`) runs in a process of its own that imports that checkout's
-`ecrad_torch` and builds its kernels; the inputs come from this
-checkout's chip_smoke.py either way.  A round runs the checkouts in
-order, the next round in reverse order; in the first, each checkout's
+Maximum entrapment), the Tripleclouds `sw_fused` and `lw_fused` and the
+McICA `sw_fused` on the main path's inputs ("meridian": the bundled slice
+tiled, a random state from a numpy seed) and on the same state with every
+layer cloudy ("all_cloudy").  Each checkout (this one, then each DIR, e.g.
+an older commit unpacked with `git archive`, or a copy with a kernel's
+variant edited in) runs in a process of its own that imports that
+checkout's `ecrad_torch` and builds its kernels; the inputs come from
+this checkout's chip_smoke.py either way.  A round runs the checkouts in
+order, the next round in reverse order; in the first, each one's
 kernels are also held against their plain versions in float64 (rtol
-1e-10, as chip_smoke.py), and a kernel that disagrees stops the run.
-Prints one JSON line per run and a summary line
+1e-10, as chip_smoke.py; a disagreement is reported in the run's line),
+and the registers and spills ptxas reports for the kernels are printed.  With
+--steps, each run times the main paths' steps instead (chip_smoke.py's
+full size: 6144 columns in blocks of 2048, f32, the median of three steps
+after one, host clock around a synchronised step, and the peak device
+memory of those steps) of the configurations named by --configs (by
+default those whose kernels the redesigns changed, and cloudless_rrtmg,
+whose did not).  Prints one JSON line per run and a summary line
 {"card": ..., "median_ms": {checkout: {case: ms}}}.
 """
 
@@ -25,16 +33,49 @@ import os
 import statistics
 import subprocess
 import sys
+import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
 NCOL = 2048
+STEP_CONFIGS = ("mcica_rrtmg", "tripleclouds_rrtmg", "homogeneous_rrtmg",
+                "spartacus_3d", "cloudless_rrtmg")
 
 
-def worker(check):
+def time_steps(chip_smoke, configs):
+    """{"step/<configuration>": ms} of one full-size main-path step, and
+    {"peak/<configuration>": bytes} of the device memory its steps held
+    at most."""
+    import torch
+
+    from ecrad_torch import flagship
+
+    out, peak = {}, {}
+    for config_name in configs:
+        step, args = flagship.build(
+            ncol=chip_smoke.FULL_NCOL, dtype=torch.float32, device="cuda",
+            block_size=chip_smoke.FULL_BLOCK, config_name=config_name)
+        step(*args)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            step(*args)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        out[f"step/{config_name}"] = statistics.median(times)
+        peak[f"peak/{config_name}"] = torch.cuda.max_memory_allocated()
+        del step, args
+        torch.cuda.empty_cache()
+    return out, peak
+
+
+def worker(check, configs):
     """Time this process's ecrad_torch (the first on sys.path) on the
     inputs of chip_smoke.py from ROOT; with check, first hold each kernel
-    against its plain version in float64 (chip_smoke._compare_f64)."""
+    against its plain version in float64 (chip_smoke._compare_f64); with
+    configs, time those configurations' main-path steps instead."""
     import importlib.util
 
     import torch
@@ -46,35 +87,49 @@ def worker(check):
     spec.loader.exec_module(chip_smoke)
     from ecrad_torch import kernels
     from ecrad_torch.config import Entrapment
-    from ecrad_torch.solvers import cuda_spartacus, cuda_tripleclouds
 
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: time_kernels needs an NVIDIA GPU")
+    log = kernels.build()["log"]
     kernels.library()
-    sp_fns = (cuda_spartacus.sw_sweeps, cuda_spartacus.sw_sweeps_plain)
-    tc_fns = (cuda_tripleclouds.sw_fused, cuda_tripleclouds.sw_fused_plain)
+    if configs:
+        ms, peak = time_steps(chip_smoke, configs)
+        print(json.dumps({"ecrad_torch": os.path.dirname(
+            os.path.dirname(os.path.abspath(kernels.__file__))),
+            "ms": ms, "peak_memory_bytes": peak}), flush=True)
+        return
+    regs = [line.strip() for line in log.splitlines()
+            if "entry function" in line or "registers" in line
+            or "spill" in line]
+    k = chip_smoke.KERNELS
+    fns = {name: (k[name]["wrapper"], k[name]["plain"])
+           for name in ("spartacus_sw", "tripleclouds_sw",
+                        "tripleclouds_lw", "sw_fused")}
     cases, f64_err = {}, {}
     for label, min_cloud in (("meridian", 0.0), ("all_cloudy", 0.2)):
-        inputs = chip_smoke.sw_inputs(NCOL, torch.float64, NCOL, min_cloud)
-        sp, tc = inputs["spartacus_sw"], inputs["tripleclouds_sw"]
-        del inputs
-        spm = (sp[0]._replace(mode=Entrapment.MAXIMUM),) + sp[1:]
-        for case, (fn, plain), args in (
-                ("spartacus_sw", sp_fns, sp),
-                ("spartacus_sw_maximum", sp_fns, spm),
-                ("tripleclouds_sw", tc_fns, tc)):
+        inputs = chip_smoke.solver_inputs(NCOL, torch.float64, NCOL,
+                                          min_cloud)
+        sp = inputs["spartacus_sw"]
+        inputs["spartacus_sw_maximum"] = (
+            sp[0]._replace(mode=Entrapment.MAXIMUM),) + sp[1:]
+        for case, args in inputs.items():
+            fn, plain = fns[case.replace("_maximum", "")]
             key = f"{case}/{label}"
             if check:     # the kernel against its plain version, in f64
-                f64_err[key] = chip_smoke._compare_f64(fn(*args),
-                                                       plain(*args))
+                try:
+                    f64_err[key] = chip_smoke._compare_f64(fn(*args),
+                                                           plain(*args))
+                except AssertionError as e:
+                    f64_err[key] = f"FAILS: {e}"
             a = chip_smoke._f32(args)
             cases[key] = chip_smoke.median_ms(lambda: fn(*a))
             del a
-        del sp, spm, tc
+        del inputs, sp
         torch.cuda.empty_cache()
     print(json.dumps({"ecrad_torch": os.path.dirname(
         os.path.dirname(os.path.abspath(kernels.__file__))),
-        "ms": cases, "max_abs_err_f64": f64_err}), flush=True)
+        "ms": cases, "max_abs_err_f64": f64_err,
+        "ptxas": regs if check else []}), flush=True)
 
 
 def main():
@@ -82,36 +137,44 @@ def main():
     parser.add_argument("--other", action="append", default=[],
                         help="another checkout to time beside this one")
     parser.add_argument("--rounds", type=int, default=1)
+    parser.add_argument("--steps", action="store_true",
+                        help="time the main paths' steps, not the kernels")
+    parser.add_argument("--configs", nargs="+", default=list(STEP_CONFIGS),
+                        help="the configurations --steps times")
     parser.add_argument("--worker", action="store_true",
                         help=argparse.SUPPRESS)
     parser.add_argument("--check", action="store_true",
                         help=argparse.SUPPRESS)
     args = parser.parse_args()
     if args.worker:
-        worker(args.check)
+        worker(args.check, args.configs if args.steps else ())
         return
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    trees = [ROOT] + [os.path.abspath(d) for d in args.other]
-    runs = {t: [] for t in trees}
+    # (label, checkout)
+    runs = [(".", ROOT)]
+    runs += [(os.path.relpath(os.path.abspath(d), ROOT), os.path.abspath(d))
+             for d in args.other]
+    times = {label: [] for label, _ in runs}
     for r in range(args.rounds):
-        for tree in trees if r % 2 == 0 else trees[::-1]:
+        for label, tree in runs if r % 2 == 0 else runs[::-1]:
             env = dict(os.environ, PYTHONPATH=tree)
             out = subprocess.run(
                 [sys.executable, os.path.abspath(__file__), "--worker",
-                 *(["--check"] if r == 0 else [])],
+                 *(["--check"] if r == 0 else []),
+                 *(["--steps", "--configs", *args.configs]
+                   if args.steps else [])],
                 env=env, capture_output=True, text=True, cwd=tree)
             if out.returncode != 0:
-                raise RuntimeError(f"{tree}: worker failed:\n{out.stderr}")
+                raise RuntimeError(f"{label}: worker failed:\n{out.stderr}")
             line = json.loads(out.stdout.strip().splitlines()[-1])
-            print(json.dumps(dict(line, round=r)), flush=True)
-            runs[tree].append(line["ms"])
+            print(json.dumps(dict(line, run=label, round=r)), flush=True)
+            times[label].append(line["ms"])
     print(json.dumps({"card": smi, "median_ms": {
-        os.path.relpath(t, ROOT): {
-            case: statistics.median(run[case] for run in rs)
-            for case in rs[0]} for t, rs in runs.items()}}))
+        label: {case: statistics.median(run[case] for run in rs)
+                for case in rs[0]} for label, rs in times.items()}}))
 
 
 if __name__ == "__main__":
