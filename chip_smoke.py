@@ -18,13 +18,14 @@ the script exits non-zero:
                Explicit entrapment without LW multilayer effects as the
                path runs them, and again in Maximum and Edge-only
                entrapment with them; sw_fused and tripleclouds_sw also
-               with delta-Eddington scaling of the gases, tripleclouds_lw
-               also without derivatives) against its plain torch version
-               on the card, on the inputs the main path builds for a
-               random atmospheric state (numpy seed) at 137 levels and
-               2048 and 2049 columns, and for sw_fused, tripleclouds_lw,
-               tripleclouds_sw and spartacus_sw also on the same state
-               with every layer cloudy, in float64 and rounded to float32;
+               with delta-Eddington scaling of the gases, lw_fused and
+               tripleclouds_lw also without derivatives) against its
+               plain torch version on the card, on the inputs the main
+               path builds for a random atmospheric state (numpy seed) at
+               137 levels and 2048 and 2049 columns, and for lw_fused,
+               sw_fused, tripleclouds_lw, tripleclouds_sw, spartacus_sw
+               and spartacus_lw also on the same state with every layer
+               cloudy, in float64 and rounded to float32;
                kernel and plain median times (the kernel's on each input
                set TIMED names), and the least time the card could take
                for the same work.
@@ -346,8 +347,9 @@ def fused_inputs(step, kw, cloud, op):
 
 
 def solver_inputs(ncol, dtype, seed, min_cloud=0.0):
-    """The sw_fused, tripleclouds_lw, tripleclouds_sw and spartacus_sw
-    (Explicit entrapment, the path's) arguments for the random state of
+    """The lw_fused, sw_fused, tripleclouds_lw, tripleclouds_sw,
+    spartacus_sw (Explicit entrapment) and spartacus_lw (without multilayer
+    effects: the spartacus_3d path's) arguments for the random state of
     random_state; with min_cloud 0.2 every layer is cloudy
     ("all_cloudy"), which is checked."""
     step, kw, cloud = random_state(ncol, dtype, seed, min_cloud=min_cloud)
@@ -355,15 +357,18 @@ def solver_inputs(ncol, dtype, seed, min_cloud=0.0):
     op = _optical_properties(step.config, step.tables,
                              solar_irradiance=step.solar, cloud=cloud, **kw)
     fused = fused_inputs(step, kw, cloud, op)
-    out = {name: fused[name]
-           for name in ("sw_fused", "tripleclouds_lw", "tripleclouds_sw")}
-    out["spartacus_sw"] = spartacus_inputs(ncol, dtype, seed,
-                                           min_cloud)[0][0][1]
+    out = {name: fused[name] for name in ("lw_fused", "sw_fused",
+                                          "tripleclouds_lw",
+                                          "tripleclouds_sw")}
+    sp_sw, sp_lw = spartacus_inputs(ncol, dtype, seed, min_cloud)
+    out["spartacus_sw"], out["spartacus_lw"] = sp_sw[0][1], sp_lw[0][1]
     if min_cloud > 0.0 and (
-            not bool(out["sw_fused"][7].all())
+            not bool(out["lw_fused"][5].all())
+            or not bool(out["sw_fused"][7].all())
             or bool(out["tripleclouds_lw"][5].any())
             or bool(out["tripleclouds_sw"][7].any())
-            or bool((out["spartacus_sw"][11][..., 0] != 0).any())):
+            or bool((out["spartacus_sw"][11][..., 0] != 0).any())
+            or bool((out["spartacus_lw"][10][..., 0] != 0).any())):
         raise AssertionError("the all-cloudy inputs have clear layers")
     return out
 
@@ -378,12 +383,13 @@ def all_cloudy_inputs(ncol, dtype, seed):
 def kernel_inputs(ncol, dtype, seed):
     """Each kernel's inputs as the main path builds them, for the random
     state of random_state.  Returns {kernel: [(label, arguments)]}, the
-    main path's first: the McICA kernels' (sw_fused also with
-    delta-Eddington scaling of the gases) and, from the same optical
-    properties, the Tripleclouds kernels' (tripleclouds_sw also with
-    delta-Eddington scaling of the gases, tripleclouds_lw also without
-    derivatives) and the adding sweeps' (on the clear-sky two-stream
-    coefficients); the SPARTACUS sweeps' from spartacus_inputs."""
+    main path's first: the McICA kernels' (lw_fused also without
+    derivatives, sw_fused also with delta-Eddington scaling of the gases)
+    and, from the same optical properties, the Tripleclouds kernels'
+    (tripleclouds_sw also with delta-Eddington scaling of the gases,
+    tripleclouds_lw also without derivatives) and the adding sweeps' (on
+    the clear-sky two-stream coefficients); the SPARTACUS sweeps' from
+    spartacus_inputs."""
     step, kw, cloud = random_state(ncol, dtype, seed)
     config, tables = step.config, step.tables
     gen = [cloud_generator.scan_inputs(config, cloud["iseed"],
@@ -414,7 +420,9 @@ def kernel_inputs(ncol, dtype, seed):
     sp_sw, sp_lw = spartacus_inputs(ncol, dtype, seed)
     one = lambda args: [("meridian", args)]  # noqa: E731
     return {"generator_scan": list(zip(("lw", "sw", "exp_exp"), gen)),
-            "lw_fused": one(fused["lw_fused"]),
+            "lw_fused": [("meridian", fused["lw_fused"]),
+                         ("no_derivatives",
+                          fused["lw_fused"][:-1] + (False,))],
             "sw_fused": [("meridian", sw), ("delta_gases", sw[:-1] + (True,))],
             "tripleclouds_lw": [("meridian", tc_lw),
                                 ("no_derivatives", tc_lw[:-1] + (False,))],
@@ -512,10 +520,10 @@ def _f32(args):
 def bound(name, args, out):
     """The least time (ms) the card could take for a kernel's work on
     these inputs, and which side bounds it: the bytes it must move (every
-    input and output tensor once; for spartacus_sw only the layer-matrix
-    entries clear layers use, cuda_spartacus.sw_needed_bytes) over the
-    memory rate, or the operations (OPS, with the cloudy fraction of these
-    inputs) over the float32 rate.  bytes_all_tensors counts every byte of
+    input and output tensor once; for the SPARTACUS sweeps only the
+    layer-matrix entries clear layers use, cuda_spartacus.sw_needed_bytes
+    and lw_needed_bytes) over the memory rate, or the operations (OPS, with
+    the cloudy fraction of these inputs) over the float32 rate.  bytes_all_tensors counts every byte of
     every tensor."""
     every = sum(t.numel() * t.element_size()
                 for t in (*_outputs(args).values(), *_outputs(out).values())
@@ -523,6 +531,8 @@ def bound(name, args, out):
     nbytes = every
     if name == "spartacus_sw":
         nbytes = cuda_spartacus.sw_needed_bytes(*args)
+    elif name == "spartacus_lw":
+        nbytes = cuda_spartacus.lw_needed_bytes(*args)
     if name.startswith("spartacus"):      # (opts, (nlev, 9, ncol, ng), ...)
         nlev, _, ncol, ng = args[1].shape
     else:
@@ -537,15 +547,19 @@ def bound(name, args, out):
 
 
 # Input sets timed besides the main path's (the first of kernel_inputs)
-TIMED = {"spartacus_sw": ("all_cloudy",), "tripleclouds_sw": ("all_cloudy",),
+TIMED = {"spartacus_sw": ("all_cloudy",),
+         "spartacus_lw": ("multilayer", "all_cloudy"),
+         "tripleclouds_sw": ("all_cloudy",),
+         "lw_fused": ("no_derivatives", "all_cloudy"),
          "sw_fused": ("delta_gases", "all_cloudy"),
          "tripleclouds_lw": ("no_derivatives", "all_cloudy")}
 
 
 def check_kernel(name, inputs, ncol, err, checked):
     """Hold a kernel against its plain version on each input set, in
-    float64 and rounded to float32; the worst errors go into err (by dtype,
-    shape and comparison)."""
+    float64 and rounded to float32, and a second float32 launch against
+    the first bit for bit (every kernel sums in a fixed order); the worst
+    errors go into err (by dtype, shape and comparison)."""
     k = KERNELS[name]
     for label, args in inputs:
         ref64 = k["plain"](*args)
@@ -553,7 +567,12 @@ def check_kernel(name, inputs, ncol, err, checked):
                              f"{name}/{label}/{ncol}")
         args32 = _f32(args)
         got32, ref32 = k["wrapper"](*args32), k["plain"](*args32)
+        again = _outputs(k["wrapper"](*args32))
         torch.cuda.synchronize()
+        if not all(torch.equal(v, again[n])
+                   for n, v in _outputs(got32).items()):
+            raise AssertionError(f"{name}/{label}/{ncol}: two launches on "
+                                 f"the same inputs differ")
         if name == "generator_scan" and (
                 err64 != 0.0 or not torch.equal(got32, ref32)):
             raise AssertionError("generator_scan is not exact")
@@ -585,11 +604,13 @@ def time_kernel(name, inputs, res, main):
 def kernels_phase(smi):
     """Check each kernel on its input sets at each of SHAPES, and time it
     at the first; the all-cloudy sets are built once the main path's are
-    freed, which keeps the float64 inputs within the card's memory."""
+    freed, which keeps the float64 inputs within the card's memory (each
+    group's peak device memory is reported)."""
     results = {name: {"max_abs_err": {}, "checked": set(), "variants": {}}
                for name in KERNELS}
     for ncol in SHAPES:
         for make in (kernel_inputs, all_cloudy_inputs):
+            torch.cuda.reset_peak_memory_stats()
             inputs = make(ncol, torch.float64, seed=ncol)
             for name, sets in inputs.items():
                 res = results[name]
@@ -599,6 +620,8 @@ def kernels_phase(smi):
                     time_kernel(name, sets, res, main=make is kernel_inputs)
             del inputs
             torch.cuda.empty_cache()
+            phase("kernel_inputs", ncol=ncol, inputs=make.__name__,
+                  peak_memory_bytes=torch.cuda.max_memory_allocated())
     for name, res in results.items():
         phase("kernels", kernel=name, max_abs_err=res["max_abs_err"],
               checked=sorted(res["checked"]),

@@ -283,6 +283,29 @@ __device__ __forceinline__ void prefetch_l2(const void *p) {
   asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
 }
 
+// One value (4 or 8 bytes) from global into shared memory, asynchronously
+// (cp.async), and the group fences around such copies.
+template <typename T>
+__device__ __forceinline__ void cp_async(T *smem, const T *gmem) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(dst),
+               "l"(gmem), "n"(sizeof(T)));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Value k of level l in a ring of S slots in shared memory: slot l % S
+// holds K values per thread, value k of thread t at ring[(slot * K + k) *
+// blockDim.x + t].
+template <int K, int S, typename T>
+__device__ __forceinline__ T *ring_at(T *ring, int l, int k) {
+  return ring + ((size_t)((l % S) * K + k)) * blockDim.x + threadIdx.x;
+}
+
 // Sum of v over a warp by the fixed shuffle tree of block_sum; valid in
 // lane 0.  Every lane of the warp must call it.
 template <typename T> __device__ __forceinline__ T warp_sum(T v) {

@@ -57,6 +57,34 @@ __device__ __forceinline__ Mat3<T> m3_shared(const T *s) {
   return m;
 }
 
+// A matrix of the stacked layout whose [0][0] is already in a register:
+// loads the other eight entries.
+template <typename T>
+__device__ __forceinline__ Mat3<T> m3_load_rest(T a00, const T *p,
+                                                size_t stride) {
+  Mat3<T> m;
+  m.a[0][0] = a00;
+#pragma unroll
+  for (int k = 1; k < 9; ++k) m.a[k / 3][k % 3] = p[k * stride];
+  return m;
+}
+
+// Stage one column's per-level data, K values per level gathered from the
+// (nlev, ncol, k) arrays src[] of widths w[] of the SPARTACUS sweeps, and
+// wait for every thread's share.
+template <typename T, int N>
+__device__ __forceinline__ void stage(T *st, const T *const (&src)[N],
+                                      const int (&w)[N], int K, int col,
+                                      int ncol, int nlev) {
+  for (int i = threadIdx.x; i < nlev * K; i += blockDim.x) {
+    const int l = i / K;
+    int k = i % K, s = 0;
+    while (k >= w[s]) k -= w[s++];
+    st[i] = src[s][((size_t)l * ncol + col) * w[s] + k];
+  }
+  __syncthreads();
+}
+
 template <typename T>
 __device__ __forceinline__ Mat3<T> m3_mul(const Mat3<T> &A,
                                           const Mat3<T> &B) {

@@ -151,33 +151,6 @@ __device__ __forceinline__ Vec3<T> pick_row(const Mat3<T> &A, int j) {
   return r;
 }
 
-// A matrix of the stacked layout whose [0][0] is already in a register:
-// loads the other eight entries.
-template <typename T>
-__device__ __forceinline__ Mat3<T> m3_load_rest(T a00, const T *p,
-                                                size_t stride) {
-  Mat3<T> m;
-  m.a[0][0] = a00;
-#pragma unroll
-  for (int k = 1; k < 9; ++k) m.a[k / 3][k % 3] = p[k * stride];
-  return m;
-}
-
-// One value (4 or 8 bytes) from global into shared memory, asynchronously
-// (cp.async), and the group fences around such copies.
-template <typename T>
-__device__ __forceinline__ void cp_async(T *smem, const T *gmem) {
-  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(dst),
-               "l"(gmem), "n"(sizeof(T)));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // step_migrations (radiation_spartacus_sw.F90:966-1046) of one region
 // from its diagonal entries; act false gives 0 (a select).
 template <typename T>
@@ -262,13 +235,6 @@ __device__ __forceinline__ const T *dn_src(const SpSwArgs<T> &a, size_t m,
   }
 }
 
-// Value k of level l in the ring: slot l % kSlots holds K values per
-// thread, value k of thread t at ring[(slot * K + k) * blockDim.x + t].
-template <int K, typename T>
-__device__ __forceinline__ T *ring_at(T *ring, int l, int k) {
-  return ring + ((size_t)((l % kSlots) * K + k)) * blockDim.x + threadIdx.x;
-}
-
 // Copy the level's scalars into the ring (none for a level outside the
 // column), as one group of cp.async.
 template <typename T>
@@ -278,7 +244,7 @@ __device__ __forceinline__ void issue_up(const SpSwArgs<T> &a, T *ring,
     const size_t m = (size_t)l * 9 * plane + cg, v = (size_t)l * plane + cg;
 #pragma unroll
     for (int k = 0; k < kUpK; ++k)
-      cp_async(ring_at<kUpK>(ring, l, k), up_src(a, m, v, k));
+      cp_async(ring_at<kUpK, kSlots>(ring, l, k), up_src(a, m, v, k));
   }
   cp_async_commit();
 }
@@ -290,25 +256,9 @@ __device__ __forceinline__ void issue_dn(const SpSwArgs<T> &a, T *ring,
     const size_t m = (size_t)l * 9 * plane + cg, v = (size_t)l * plane + cg;
 #pragma unroll
     for (int k = 0; k < kDnK; ++k)
-      cp_async(ring_at<kDnK>(ring, l, k), dn_src(a, m, v, plane, k));
+      cp_async(ring_at<kDnK, kSlots>(ring, l, k), dn_src(a, m, v, plane, k));
   }
   cp_async_commit();
-}
-
-// Stage one column's per-level data, K values per level gathered from the
-// (nlev, ncol, k) arrays src[] of widths w[], and wait for every thread's
-// share.
-template <typename T, int N>
-__device__ __forceinline__ void stage(T *st, const T *const (&src)[N],
-                                      const int (&w)[N], int K, int col,
-                                      int ncol, int nlev) {
-  for (int i = threadIdx.x; i < nlev * K; i += blockDim.x) {
-    const int l = i / K;
-    int k = i % K, s = 0;
-    while (k >= w[s]) k -= w[s++];
-    st[i] = src[s][((size_t)l * ncol + col) * w[s] + k];
-  }
-  __syncthreads();
 }
 
 // in float, held to 128 registers so that 4 blocks fit on an SM
@@ -354,7 +304,7 @@ __global__ void __launch_bounds__(kMaxThreads,
     T x[kUpK];
     cp_async_wait<kAhead - 1>();   // level l's copies have landed
 #pragma unroll
-    for (int k = 0; k < kUpK; ++k) x[k] = *ring_at<kUpK>(ring, l, k);
+    for (int k = 0; k < kUpK; ++k) x[k] = *ring_at<kUpK, kSlots>(ring, l, k);
     // into the slot level l + 1 used
     issue_up(a, ring, l - kAhead, cg, plane);
     const UpScalars<T> s = {x[0], x[1], x[2], x[3], x[4],
@@ -528,7 +478,7 @@ __global__ void __launch_bounds__(kMaxThreads,
     T x[kDnK];
     cp_async_wait<kAhead - 1>();
 #pragma unroll
-    for (int k = 0; k < kDnK; ++k) x[k] = *ring_at<kDnK>(ring, l, k);
+    for (int k = 0; k < kDnK; ++k) x[k] = *ring_at<kDnK, kSlots>(ring, l, k);
     issue_dn(a, ring, l + kAhead, cg, plane);
     const DnScalars<T> s = {x[0], x[1], x[2],  x[3],  x[4],  x[5],  x[6],
                             x[7], x[8], x[9], x[10], x[11], x[12], x[13]};

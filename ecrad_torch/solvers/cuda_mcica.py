@@ -163,6 +163,9 @@ def _band_index(band_of_g, ng, nband, device):
     return band_of_g.to(device=device, dtype=torch.int32).contiguous()
 
 
+LW_FUSED_MAX_NG = 256      # csrc/lw_fused.cu's __launch_bounds__
+
+
 def lw_fused(od, odc_b, ssac_b, gc_b, od_scaling, mask, planck_hl,
              emission, albedo, band_of_g, do_derivatives):
     """Fused McICA LW sweeps.  CPU tensors run lw_fused_plain; CUDA
@@ -183,6 +186,9 @@ def lw_fused(od, odc_b, ssac_b, gc_b, od_scaling, mask, planck_hl,
     }, mask)
     if tuple(mask.shape) != (ncol, nlev):
         raise ValueError(f"lw_fused: mask has shape {tuple(mask.shape)}")
+    if ng > LW_FUSED_MAX_NG:
+        raise ValueError(f"lw_fused: ng={ng} exceeds the kernel's "
+                         f"{LW_FUSED_MAX_NG} threads")
     bog = _band_index(band_of_g, ng, nband, od.device)
     e = lambda *shape: torch.empty(shape, dtype=od.dtype, device=od.device)
     out = dict(dn_bb_c=e(ncol, nlev), fdn_surf_c=e(ncol, ng),
@@ -194,14 +200,17 @@ def lw_fused(od, odc_b, ssac_b, gc_b, od_scaling, mask, planck_hl,
         out.update(deriv_c=e(ncol, nlev), deriv_t=e(ncol, nlev))
     if ncol == 0:
         return out
-    alb_below, src_below = e(ncol, nlev, ng), e(ncol, nlev, ng)
+    # scratch: the total-sky albedo and source below each layer, and the
+    # total-sky derivative weights
+    scratch = [e(ncol, nlev, ng), e(ncol, nlev, ng),
+               e(ncol, nlev, ng) if do_derivatives else None]
     ptrs = kernels.pointer_array([
         od, odc_b, ssac_b, gc_b, od_scaling, mask, planck_hl, emission,
         albedo, bog, out["dn_bb_c"], out["fdn_surf_c"], out["up_bb_c"],
         out["fup_toa_c"], out["fup_surf_c"], out["src_top_t"],
         out["dn_bb_t"], out["up_bb_t"], out["fdn_surf_t"],
         out["fup_surf_t"], out.get("deriv_c"), out.get("deriv_t"),
-        alb_below, src_below])
+        *scratch])
     lib = kernels.library()
     fn = (lib.ecrad_lw_fused_f32 if od.dtype == torch.float32
           else lib.ecrad_lw_fused_f64)

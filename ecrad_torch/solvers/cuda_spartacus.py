@@ -26,6 +26,9 @@ NREG = 3
 # g-points the SW kernel takes: one thread each, in blocks of at most 128
 # threads (csrc/spartacus_sw.cu kMaxThreads; RRTMG's SW has 112)
 SW_MAX_G = 128
+# values the LW up sweep hands the down sweep per (column, level, g-point)
+# (csrc/spartacus_lw.cu kHand)
+LW_HAND = 14
 
 
 def _b(x):
@@ -96,23 +99,49 @@ def sw_sweeps_plain(opts, Rs, Ts, Rds, Tdds, Tdirs, cl5, u9c, v9top, v9bot,
 SW_CLEAR_ENTRIES = ((0,), (0,), (0,), (0,), (0, 3, 6))
 
 
+def _needed_bytes(mats, clear_entries, msk_dn, others, n_out_planes):
+    """The bytes a sweep kernel must move: each of the tensors ``others``
+    read once, ``n_out_planes`` (ncol, ng) planes written once, and the
+    stacked layer matrices ``mats`` (nlev, K, ncol, ng) read once, where
+    in clear layers (msk_dn[..., 0]) only their entries clear_entries."""
+    nlev, _, ncol, ng = mats[0].shape
+    item = mats[0].element_size()
+    n_all = nlev * ncol * ng
+    n_clear = int((msk_dn[..., 0] != 0.0).sum()) * ng
+    read = sum(m.shape[1] * (n_all - n_clear) + len(k) * n_clear
+               for m, k in zip(mats, clear_entries)) * item
+    read += sum(t.numel() * t.element_size() for t in others)
+    return read + n_out_planes * ncol * ng * item
+
+
 def sw_needed_bytes(opts, Rs, Ts, Rds, Tdds, Tdirs, cl5, u9c, v9top, v9bot,
                     msk_up, msk_dn, ent13, alb0, albd0, albc0, albdc0, ddn0,
                     incoming):
     """The bytes the SW sweeps must move on these inputs: each input read
     once and each output written once, where the five layer matrices count
     in clear layers (msk_dn[..., 0]) only the entries SW_CLEAR_ENTRIES."""
-    nlev, _, ncol, ng = Rs.shape
-    item = Rs.element_size()
-    n_all = nlev * ncol * ng
-    n_clear = int((msk_dn[..., 0] != 0.0).sum()) * ng
-    mats = sum(9 * (n_all - n_clear) + len(k) * n_clear
-               for k in SW_CLEAR_ENTRIES) * item
-    rest = sum(t.numel() * t.element_size()
-               for t in (*cl5, u9c, v9top, v9bot, msk_up, msk_dn, ent13,
-                         alb0, albd0, albc0, albdc0, ddn0, incoming))
-    outputs = (9 + 2 + 6 * nlev) * ncol * ng * item
-    return mats + rest + outputs
+    nlev = Rs.shape[0]
+    return _needed_bytes(
+        (Rs, Ts, Rds, Tdds, Tdirs), SW_CLEAR_ENTRIES, msk_dn,
+        (*cl5, u9c, v9top, v9bot, msk_up, msk_dn, ent13, alb0, albd0,
+         albc0, albdc0, ddn0, incoming), 9 + 2 + 6 * nlev)
+
+
+# The entries of R, T (k = 3*i + j) and of SU, SD that the LW kernel reads
+# in a clear layer (csrc/spartacus_lw.cu says why these): [0][0] and [0].
+LW_CLEAR_ENTRIES = ((0,), (0,), (0,), (0,))
+
+
+def lw_needed_bytes(opts, Rs, Ts, SUs, SDs, cl4, u9c, v9top, v9bot, msk_up,
+                    msk_dn, alb0, src0, albc0, srcc0):
+    """The bytes the LW sweeps must move on these inputs: each input read
+    once and each output written once, where the four layer matrices count
+    in clear layers (msk_dn[..., 0]) only the entries LW_CLEAR_ENTRIES."""
+    nlev = Rs.shape[0]
+    return _needed_bytes(
+        (Rs, Ts, SUs, SDs), LW_CLEAR_ENTRIES, msk_dn,
+        (*cl4, u9c, v9top, v9bot, msk_up, msk_dn, alb0, src0, albc0,
+         srcc0), NREG + 1 + 4 * nlev)
 
 
 def lw_sweeps_plain(opts, Rs, Ts, SUs, SDs, cl4, u9c, v9top, v9bot, msk_up,
@@ -232,13 +261,12 @@ def lw_sweeps(opts, Rs, Ts, SUs, SDs, cl4, u9c, v9top, v9bot, msk_up,
     dn = tuple(e(*lev) for _ in range(4))
     if ncol == 0:
         return src_f, src_c_f, dn
-    # the entry carry of the up sweep at each level: albedo and source of
-    # the atmosphere below each layer, regions and clear sky
-    scratch = (e(nlev, 9, ncol, ng), e(nlev, NREG, ncol, ng), e(*lev),
-               e(*lev))
+    # the entry carry of the up sweep at each level: the albedo and source
+    # of the atmosphere below each layer, regions and clear sky
+    scratch = e(ncol, nlev, LW_HAND, ng)
     _launch("spartacus_lw", Rs,
             (Rs, Ts, SUs, SDs, *cl4, u9c, v9top, v9bot, msk_up, msk_dn,
-             alb0, src0, albc0, srcc0, src_f, src_c_f, *dn, *scratch),
+             alb0, src0, albc0, srcc0, src_f, src_c_f, *dn, scratch),
             int(bool(opts.multilayer)))
     lw_sweeps.launches += 1
     return src_f, src_c_f, dn

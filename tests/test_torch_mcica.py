@@ -4,6 +4,10 @@ JAX package, on the same random inputs (CPU, f64).
 * ``lw_fused_plain``/``sw_fused_plain`` against the Pallas kernels
   ``pallas_mcica.lw_fused``/``sw_fused`` in interpret mode, on the same
   kernel-layout planes (transposed to the port's layout).
+* The orders in which ``csrc/sw_fused.cu`` (two passes with direct
+  albedos) and ``csrc/lw_fused.cu`` (three passes, the derivatives a
+  chain and a sum over g) compute, in plain torch, against the plain
+  versions.
 * ``solver_mcica_lw``/``sw`` against the JAX package's scan path, with
   derivatives on and off, night columns and an odd column count; the
   port runs its fused path (plain version on the CPU) and, for a g axis
@@ -210,6 +214,78 @@ def test_sw_direct_albedo_form_matches_plain(delta):
             np.testing.assert_allclose(
                 v.numpy(), r.numpy(), rtol=RTOL_REORDERED,
                 atol=RTOL_REORDERED * float(r.abs().max()), err_msg=k)
+
+
+def _three_pass_lw(od, odc_b, ssac_b, gc_b, od_scaling, mask, planck_hl,
+                   emission, albedo, band_of_g, do_derivatives):
+    """The three passes of csrc/lw_fused.cu in its order, on
+    _lw_layers' coefficients: clear down; up with the clear up flux, the
+    total-sky Moebius sweep, the clear derivative chain from d0_c and the
+    total-sky weights w from 1; total-sky down; deriv_t = sum_g d0_t w."""
+    (trans_c, s_up_c, s_dn_c), (refl, trans, s_up, s_dn) = \
+        cuda_mcica._lw_layers(od, odc_b, ssac_b, gc_b, od_scaling, mask,
+                              planck_hl, band_of_g)
+    nlev = od.shape[1]
+    stack = lambda xs: torch.stack(xs, dim=1)  # noqa: E731
+    d0 = lambda f: f / torch.clamp(f.sum(-1, keepdim=True),  # noqa: E731
+                                   min=1e-30)
+    fdn, dn_bb_c = torch.zeros_like(emission), []
+    for l in range(nlev):
+        fdn = trans_c[:, l] * fdn + s_dn_c[:, l]
+        dn_bb_c.append(fdn.sum(-1))
+    fdn_surf_c, fup_surf_c = fdn, emission + albedo * fdn
+    fup, alb, src = fup_surf_c, albedo, emission
+    dc, w = d0(fup_surf_c), torch.ones_like(emission)
+    below, up_bb_c, deriv_c, weights = ([None] * nlev for _ in range(4))
+    for l in range(nlev - 1, -1, -1):
+        fup = trans_c[:, l] * fup + s_up_c[:, l]
+        up_bb_c[l] = fup.sum(-1)
+        below[l] = alb, src
+        inv = 1.0 / (1.0 - alb * refl[:, l])
+        alb, src = (refl[:, l] + trans[:, l] * trans[:, l] * alb * inv,
+                    s_up[:, l] + trans[:, l] * (src + alb * s_dn[:, l])
+                    * inv)
+        dc, w = dc * trans_c[:, l], w * trans[:, l]
+        deriv_c[l], weights[l] = dc.sum(-1), w
+    fdn, dn_bb_t, up_bb_t = torch.zeros_like(emission), [], []
+    for l in range(nlev):
+        alb_b, src_b = below[l]
+        fdn = (trans[:, l] * fdn + refl[:, l] * src_b + s_dn[:, l]) \
+            / (1.0 - alb_b * refl[:, l])
+        dn_bb_t.append(fdn.sum(-1))
+        up_bb_t.append((alb_b * fdn + src_b).sum(-1))
+    fup_surf_t = albedo * fdn + emission
+    out = dict(dn_bb_c=stack(dn_bb_c), fdn_surf_c=fdn_surf_c,
+               up_bb_c=stack(up_bb_c), fup_toa_c=fup, fup_surf_c=fup_surf_c,
+               src_top_t=src, dn_bb_t=stack(dn_bb_t), up_bb_t=stack(up_bb_t),
+               fdn_surf_t=fdn, fup_surf_t=fup_surf_t)
+    if do_derivatives:
+        out.update(deriv_c=stack(deriv_c),
+                   deriv_t=(d0(fup_surf_t)[:, None, :]
+                            * stack(weights)).sum(-1))
+    return out
+
+
+@pytest.mark.parametrize("derivs", [False, True])
+@pytest.mark.parametrize("ncol", [1, NCOL])
+def test_lw_three_pass_form_matches_plain(ncol, derivs):
+    """The three-pass form of the kernel (the clear derivative carried in
+    the up pass, deriv_t a sum over g of d0_t w) gives lw_fused_plain's
+    outputs; column 0 has no cloudy layer."""
+    p = _props(ncol)
+    p["cloud_fraction"][0] = 0.0
+    t = _t(p)
+    mask = torch.as_tensor(p["cloud_fraction"] >= 1e-6)
+    assert not mask[0].any() and (ncol == 1 or mask.any())
+    args = (t["od"], t["od_cloud_b"], t["ssa_cloud_b"], t["g_cloud_b"],
+            t["od_scaling"], mask, t["planck_hl"], t["emission"],
+            t["albedo"], torch.as_tensor(BAND_FROM_G), derivs)
+    ref = cuda_mcica.lw_fused_plain(*args)
+    got = _three_pass_lw(*args)
+    assert set(got) == set(ref)
+    for k, v in got.items():
+        np.testing.assert_allclose(v.numpy(), ref[k].numpy(),
+                                   rtol=RTOL_REORDERED, atol=0, err_msg=k)
 
 
 def _lw_args(p, band):

@@ -13,6 +13,9 @@ package (CPU, f64, seeded inputs).
   Pallas column block needs ``ncol % 128 == 0``), 6 levels and 14
   g-points, for every entrapment mode and multilayer on and off.
 * The kernel wrappers take their plain version for CPU tensors only.
+* What the kernels skip in clear layers (``SW_CLEAR_ENTRIES``,
+  ``LW_CLEAR_ENTRIES``) does not move the plain sweeps' outputs, and
+  ``sw_needed_bytes`` / ``lw_needed_bytes`` count the bytes they must move.
 """
 
 import numpy as np
@@ -417,3 +420,101 @@ def test_sw_needed_bytes(atmosphere, cloudy):
         * nlev * ncol * ng * args[0].element_size()
     want = every if cloudy else every - skipped
     assert cuda_spartacus.sw_needed_bytes(opts, *args) == want
+
+
+# --- what the LW kernel skips in clear layers ------------------------------
+
+def _lw_args(atmosphere, multilayer=False):
+    optics, clouds, _, lw = atmosphere
+    cfg = tconfig.Config(do_3d_effects=True,
+                         do_3d_lw_multilayer_effects=multilayer)
+    opts, args, _ = tsp.lw_sweep_args(cfg, *optics, *clouds, *lw)
+    return opts, args
+
+
+def _scramble(rng, x, keep, where):
+    """x (K, ...) stacked: entries not in keep replaced by random finite
+    values where `where` (broadcast over the trailing axes)."""
+    drop = torch.ones(x.shape[0], dtype=torch.bool)
+    drop[list(keep)] = False
+    drop = drop.reshape((-1,) + (1,) * (x.dim() - 1))
+    noise = torch.as_tensor(rng.uniform(0.0, 1.0, tuple(x.shape)))
+    return torch.where(drop & where, noise, x)
+
+
+@pytest.mark.parametrize("multilayer", [False, True])
+def test_lw_sweeps_ignore_what_clear_layers_skip(atmosphere, multilayer):
+    """The contract of the LW kernel's clear-layer branch: the plain sweeps
+    give the same outputs when every layer-matrix entry the kernel does not
+    read in clear layers (all but cuda_spartacus.LW_CLEAR_ENTRIES) is
+    replaced by random finite values, and the sweeps run through the step
+    cores as the kernel does also when every entry but alb[0][0] and
+    src[0] of the carry handed from the up to the down sweep is."""
+    opts, args = _lw_args(atmosphere, multilayer)
+    ref = cuda_spartacus.lw_sweeps_plain(opts, *args)
+    mats, (cl4, u9c, v9top, v9bot, msk_up, msk_dn, alb0, src0, albc0,
+           srcc0) = args[:4], args[4:]
+    clear = msk_dn[..., 0] != 0.0                       # (nlev, ncol)
+    assert bool(clear.any()) and bool((~clear).any())
+    rng = np.random.default_rng(7)
+    mats = tuple(_scramble(rng, m.transpose(0, 1), keep,
+                           clear[:, :, None]).transpose(0, 1)
+                 for m, keep in zip(mats, cuda_spartacus.LW_CLEAR_ENTRIES))
+    ref_np = tuple(x.numpy() if torch.is_tensor(x)
+                   else tuple(y.numpy() for y in x) for x in ref)
+    _flat_close(cuda_spartacus.lw_sweeps_plain(opts, *mats, *args[4:]),
+                ref_np, 1e-12)
+
+    # the up sweep, the hand-off with only what the kernel stores in clear
+    # layers, the down sweep
+    nlev, _, ncol, ng = mats[0].shape
+    lmats = [(tsp._m3(mats[0][l]), tsp._m3(mats[1][l]), mats[2][l],
+              mats[3][l]) for l in range(nlev)]
+    carry = (tsp._m3(alb0), src0, albc0, srcc0)
+    below = [None] * nlev
+    for l in range(nlev - 1, -1, -1):
+        alb, src, alb_c, src_c = carry
+        where = clear[l][:, None]
+        below[l] = (_scramble(rng, src, (0,), where),
+                    _scramble(rng, alb.reshape(9, ncol, ng), (0,),
+                              where).reshape(alb.shape), src_c, alb_c)
+        m = msk_up[l] != 0.0
+        carry = tsp._lw_up_core(carry, lmats[l], tuple(c[l] for c in cl4),
+                                cuda_spartacus._b(u9c[l]),
+                                cuda_spartacus._b(v9top[l]),
+                                (m[:, 0, None], m[:, 1, None]), opts)
+    state = (src0.new_zeros((3, ncol, ng)), torch.zeros_like(srcc0))
+    ys = []
+    for l in range(nlev):
+        m = msk_dn[l] != 0.0
+        state, y = tsp._lw_dn_core(state, lmats[l], tuple(c[l] for c in cl4),
+                                   below[l], cuda_spartacus._b(v9bot[l]),
+                                   (m[:, 0, None], m[:, 1, None]))
+        ys.append(y)
+    got = (carry[1], carry[3], tuple(torch.stack(x) for x in zip(*ys)))
+    _flat_close(got, ref_np, 1e-12)
+
+
+@pytest.mark.parametrize("cloudy", [True, False])
+def test_lw_needed_bytes(atmosphere, cloudy):
+    """lw_needed_bytes counts every byte of every input and output tensor
+    when every layer is cloudy, and in clear layers only the layer-matrix
+    entries of LW_CLEAR_ENTRIES."""
+    opts, args = _lw_args(atmosphere)
+    msk_dn = args[9].clone()
+    msk_dn[..., 0] = 0.0 if cloudy else 1.0
+    args = args[:9] + (msk_dn,) + args[10:]
+    outs = cuda_spartacus.lw_sweeps(opts, *args)
+
+    def nbytes(x):
+        if torch.is_tensor(x):
+            return x.numel() * x.element_size()
+        return sum(nbytes(v) for v in x)
+
+    every = nbytes(args) + nbytes(outs)
+    nlev, _, ncol, ng = args[0].shape
+    skipped = sum(m.shape[1] - len(k) for m, k in
+                  zip(args[:4], cuda_spartacus.LW_CLEAR_ENTRIES)) \
+        * nlev * ncol * ng * args[0].element_size()
+    want = every if cloudy else every - skipped
+    assert cuda_spartacus.lw_needed_bytes(opts, *args) == want

@@ -6,10 +6,12 @@ of other checkouts on the same inputs in turns, on one NVIDIA GPU.
         [--steps [--configs NAME ...]]
 
 Times `spartacus_sw` (Explicit entrapment, the spartacus_3d path's, and
-Maximum entrapment), the Tripleclouds `sw_fused` and `lw_fused` and the
-McICA `sw_fused` on the main path's inputs ("meridian": the bundled slice
-tiled, a random state from a numpy seed) and on the same state with every
-layer cloudy ("all_cloudy").  Each checkout (this one, then each DIR, e.g.
+Maximum entrapment), `spartacus_lw` (without multilayer effects, the
+path's, and with them), the Tripleclouds `sw_fused` and `lw_fused` and the
+McICA `sw_fused` and `lw_fused` (also without derivatives) on the main
+path's inputs ("meridian": the bundled slice tiled, a random state from a
+numpy seed) and on the same state with every layer cloudy
+("all_cloudy").  Each checkout (this one, then each DIR, e.g.
 an older commit unpacked with `git archive`, or a copy with a kernel's
 variant edited in) runs in a process of its own that imports that
 checkout's `ecrad_torch` and builds its kernels; the inputs come from
@@ -102,18 +104,22 @@ def worker(check, configs):
             if "entry function" in line or "registers" in line
             or "spill" in line]
     k = chip_smoke.KERNELS
-    fns = {name: (k[name]["wrapper"], k[name]["plain"])
-           for name in ("spartacus_sw", "tripleclouds_sw",
-                        "tripleclouds_lw", "sw_fused")}
     cases, f64_err = {}, {}
     for label, min_cloud in (("meridian", 0.0), ("all_cloudy", 0.2)):
         inputs = chip_smoke.solver_inputs(NCOL, torch.float64, NCOL,
                                           min_cloud)
-        sp = inputs["spartacus_sw"]
+        # case: (kernel, arguments)
+        inputs = {case: (case, args) for case, args in inputs.items()}
+        sp, sp_lw, mc = (inputs[n][1] for n in ("spartacus_sw",
+                                                "spartacus_lw", "lw_fused"))
         inputs["spartacus_sw_maximum"] = (
-            sp[0]._replace(mode=Entrapment.MAXIMUM),) + sp[1:]
-        for case, args in inputs.items():
-            fn, plain = fns[case.replace("_maximum", "")]
+            "spartacus_sw",
+            (sp[0]._replace(mode=Entrapment.MAXIMUM),) + sp[1:])
+        inputs["spartacus_lw_multilayer"] = (
+            "spartacus_lw", (sp_lw[0]._replace(multilayer=True),) + sp_lw[1:])
+        inputs["lw_fused_no_derivatives"] = ("lw_fused", mc[:-1] + (False,))
+        for case, (name, args) in inputs.items():
+            fn, plain = k[name]["wrapper"], k[name]["plain"]
             key = f"{case}/{label}"
             if check:     # the kernel against its plain version, in f64
                 try:
@@ -124,7 +130,7 @@ def worker(check, configs):
             a = chip_smoke._f32(args)
             cases[key] = chip_smoke.median_ms(lambda: fn(*a))
             del a
-        del inputs, sp
+        del inputs, sp, sp_lw, mc
         torch.cuda.empty_cache()
     print(json.dumps({"ecrad_torch": os.path.dirname(
         os.path.dirname(os.path.abspath(kernels.__file__))),
