@@ -19,13 +19,17 @@ the script exits non-zero:
                path runs them, and again in Maximum and Edge-only
                entrapment with them; sw_fused and tripleclouds_sw also
                with delta-Eddington scaling of the gases, lw_fused and
-               tripleclouds_lw also without derivatives) against its
+               tripleclouds_lw also without derivatives; scat_sweeps
+               and sw_sweeps also on the total scene's coefficients, as
+               the unfused McICA path builds them) against its
                plain torch version on the card, on the inputs the main
                path builds for a random atmospheric state (numpy seed) at
                137 levels and 2048 and 2049 columns, and for lw_fused,
-               sw_fused, tripleclouds_lw, tripleclouds_sw, spartacus_sw
-               and spartacus_lw also on the same state with every layer
-               cloudy, in float64 and rounded to float32;
+               sw_fused, tripleclouds_lw, tripleclouds_sw, spartacus_sw,
+               spartacus_lw and the total scene's scat_sweeps and
+               sw_sweeps also on the same state with every layer
+               cloudy, in float64 and rounded to float32 (a second
+               float32 launch must equal the first bit for bit);
                kernel and plain median times (the kernel's on each input
                set TIMED names), and the least time the card could take
                for the same work.
@@ -346,11 +350,52 @@ def fused_inputs(step, kw, cloud, op):
             op["sw_albedo_direct_g"])[0]}
 
 
+def total_scene_inputs(step, kw, cloud, op):
+    """The scat_sweeps and sw_sweeps arguments of the total scene as the
+    unfused McICA path builds them (mcica.solver_mcica_lw with LW aerosol
+    scattering on, as the Homogeneous path runs it, and solver_mcica_sw)
+    for a McICA step's state (with its cloud sample) and optical
+    properties: the merged cloud's coefficients in cloudy layers, the
+    clear sky's elsewhere."""
+    config, tables = step.config, step.tables
+    cl, go = op["cl"], op["go"]
+    mask = (op["frac"] >= config.cloud_fraction_threshold)[..., None]
+    bl, bs = tables.band_from_g_lw, tables.band_from_g_sw
+    pick = lambda total, clear: tuple(  # noqa: E731
+        torch.where(mask, t, c).contiguous() for t, c in zip(total, clear))
+    ptop, pbot = go.planck_hl[:, :-1], go.planck_hl[:, 1:]
+    od, ssa, g = op["od_lw"], op["ssa_lw"], op["g_lw_arr"]
+    merged = cuda_mcica.merge_cloud_lw(
+        od, cloud["od_scaling_lw"] * cl["od_lw"][..., bl], mask,
+        ssa_cloud_g=cl["ssa_lw"][..., bl], g_cloud_g=cl["g_lw"][..., bl],
+        ssa_clear=ssa, g_clear=g, do_cloud_scattering=True,
+        do_aerosol_scattering=True)
+    emission = go.lw_emission * (1.0 - op["lw_albedo_g"])
+    scat = pick(two_stream.lw_ref_trans(*merged, ptop, pbot),
+                two_stream.lw_ref_trans(od, ssa, g, ptop, pbot)) \
+        + (op["lw_albedo_g"].contiguous(), emission.contiguous())
+    mu0 = torch.clamp(kw["cos_sza"], min=1.0e-10)[:, None, None]
+    clear = (op["od_sw"], op["ssa_sw"], op["g_sw_arr"])
+    total = cuda_mcica.merge_cloud_sw(
+        *clear, cloud["od_scaling_sw"] * cl["od_sw"][..., bs],
+        cl["ssa_sw"][..., bs], cl["g_sw"][..., bs], mask)
+    if config.do_sw_delta_scaling_with_gases:
+        clear = two_stream.delta_eddington(*clear)
+        total = two_stream.delta_eddington(*total)
+    sw = pick(two_stream.sw_ref_trans(mu0, *total),
+              two_stream.sw_ref_trans(mu0, *clear)) \
+        + (go.incoming_sw.contiguous(),
+           op["sw_albedo_diffuse_g"].contiguous(),
+           (op["sw_albedo_direct_g"] * mu0[:, :, 0]).contiguous())
+    return {"scat_sweeps": scat, "sw_sweeps": sw}
+
+
 def solver_inputs(ncol, dtype, seed, min_cloud=0.0):
     """The lw_fused, sw_fused, tripleclouds_lw, tripleclouds_sw,
     spartacus_sw (Explicit entrapment) and spartacus_lw (without multilayer
-    effects: the spartacus_3d path's) arguments for the random state of
-    random_state; with min_cloud 0.2 every layer is cloudy
+    effects: the spartacus_3d path's) arguments, and the total scene's
+    scat_sweeps and sw_sweeps arguments (total_scene_inputs), for the random
+    state of random_state; with min_cloud 0.2 every layer is cloudy
     ("all_cloudy"), which is checked."""
     step, kw, cloud = random_state(ncol, dtype, seed, min_cloud=min_cloud)
     cloud = pipeline.add_cloud_sample(step.config, step.tables, cloud)
@@ -360,6 +405,7 @@ def solver_inputs(ncol, dtype, seed, min_cloud=0.0):
     out = {name: fused[name] for name in ("lw_fused", "sw_fused",
                                           "tripleclouds_lw",
                                           "tripleclouds_sw")}
+    out.update(total_scene_inputs(step, kw, cloud, op))
     sp_sw, sp_lw = spartacus_inputs(ncol, dtype, seed, min_cloud)
     out["spartacus_sw"], out["spartacus_lw"] = sp_sw[0][1], sp_lw[0][1]
     if min_cloud > 0.0 and (
@@ -388,8 +434,9 @@ def kernel_inputs(ncol, dtype, seed):
     and, from the same optical properties, the Tripleclouds kernels'
     (tripleclouds_sw also with delta-Eddington scaling of the gases,
     tripleclouds_lw also without derivatives) and the adding sweeps' (on
-    the clear-sky two-stream coefficients); the SPARTACUS sweeps' from
-    spartacus_inputs."""
+    the clear-sky two-stream coefficients, as the Cloudless path builds
+    them; scat_sweeps and sw_sweeps also on the total scene's,
+    total_scene_inputs); the SPARTACUS sweeps' from spartacus_inputs."""
     step, kw, cloud = random_state(ncol, dtype, seed)
     config, tables = step.config, step.tables
     gen = [cloud_generator.scan_inputs(config, cloud["iseed"],
@@ -417,6 +464,7 @@ def kernel_inputs(ncol, dtype, seed):
                                          op["ssa_sw"], op["g_sw_arr"])
                  + (go.incoming_sw, op["sw_albedo_diffuse_g"],
                     op["sw_albedo_direct_g"] * mu0))
+    total = total_scene_inputs(step, kw, cloud, op)
     sp_sw, sp_lw = spartacus_inputs(ncol, dtype, seed)
     one = lambda args: [("meridian", args)]  # noqa: E731
     return {"generator_scan": list(zip(("lw", "sw", "exp_exp"), gen)),
@@ -428,8 +476,12 @@ def kernel_inputs(ncol, dtype, seed):
                                 ("no_derivatives", tc_lw[:-1] + (False,))],
             "tripleclouds_sw": [("meridian", tc_sw),
                                 ("delta_gases", tc_sw[:-1] + (True,))],
-            "lw_noscat_sweeps": one(noscat), "scat_sweeps": one(scat),
-            "sw_sweeps": one(sw_clear), "spartacus_sw": sp_sw,
+            "lw_noscat_sweeps": one(noscat),
+            "scat_sweeps": [("meridian", scat),
+                            ("total_scene", total["scat_sweeps"])],
+            "sw_sweeps": [("meridian", sw_clear),
+                          ("total_scene", total["sw_sweeps"])],
+            "spartacus_sw": sp_sw,
             "spartacus_lw": sp_lw}
 
 
@@ -552,7 +604,9 @@ TIMED = {"spartacus_sw": ("all_cloudy",),
          "tripleclouds_sw": ("all_cloudy",),
          "lw_fused": ("no_derivatives", "all_cloudy"),
          "sw_fused": ("delta_gases", "all_cloudy"),
-         "tripleclouds_lw": ("no_derivatives", "all_cloudy")}
+         "tripleclouds_lw": ("no_derivatives", "all_cloudy"),
+         "scat_sweeps": ("total_scene", "all_cloudy"),
+         "sw_sweeps": ("total_scene", "all_cloudy")}
 
 
 def check_kernel(name, inputs, ncol, err, checked):

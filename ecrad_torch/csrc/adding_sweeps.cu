@@ -9,31 +9,61 @@
 //
 // One block per column, one thread per g-point; each thread runs every
 // sweep of its (column, g) in turn, with the level recurrence in
-// registers.  The work the TPU did between its calls is register work
-// here: fup_surf = emission + albedo * fdn_surf before the LW up sweep,
-// src0 = alb0_dir_x_mu0 * fdir_surf before the SW up sweep.  The up sweeps
-// hand the albedo and source of the atmosphere below each layer (and in
-// SW the direct flux at each layer top) to the down sweep through scratch
-// planes that the wrapper allocates: each thread writes and reads back
-// only its own (column, g), so no barrier is needed there.  The down
-// sweep recomputes 1 / (1 - alb_below * refl), as the TPU kernel does.
-// Per-level broadband sums over g are the fixed-order block reductions of
-// common.cuh, so repeated runs agree bit for bit; the grid is one block
-// per column, so every column is computed for any ncol.
+// registers, so every column is computed for any ncol.
 //
-// What bounds it on the H100: bytes.  Per (column, layer, g) the sweeps do
-// a few multiply-adds and at most one division, against 3 to 5 input
-// planes read (12 to 20 bytes in float32), far below the card's ~20
-// operations per byte; the scratch planes add one write and one read of 2
-// (LW) or 3 (SW) planes more.  The design keeps the reads coalesced (a
-// warp reads 32 consecutive g of one level) and the carries out of
-// memory; keeping the scratch in shared memory instead (it fits in f32,
-// not in f64) is left to a later change.
+// lw_noscat_sweeps: two affine sweeps (fup_surf = emission + albedo *
+// fdn_surf between them), per-level broadband sums by the fixed-order
+// block reductions of common.cuh.
+//
+// scat_sweeps and sw_sweeps: an up pass and a down pass with nothing
+// handed between them per level.  The up pass (surface -> TOA) keeps only
+// its carry at the base of every chunk of kChunk levels (chunks counted
+// from TOA; the last, at the surface, may be shorter) in a small
+// checkpoint buffer (ncol, nchunk, 2, ng) that the wrapper allocates.  The
+// down pass walks the chunks from TOA: it loads a chunk's layer planes
+// once (kChunk loads of each plane in flight), runs the up recurrence
+// over the chunk again from the checkpoint below it, keeping the carries
+// below each of its levels in registers, and then the down recurrence
+// over the same values.  The recompute repeats the up pass's operations
+// on the same values from the same start, so it gives the up pass's
+// carries.  Each thread writes and reads back only its own (column, g) of
+// the checkpoints, so no barrier is needed there.
+//   scat_sweeps carries the albedo and source below each layer
+//   (radiation_adding_ica_lw.F90:32-134); the down step reuses the
+//   recompute's 1 / (1 - alb_below * refl), the value the plain version
+//   computes again.
+//   sw_sweeps carries the diffuse albedo and the direct albedo (the upward
+//   source per unit direct flux at the interface; common.cuh albedo_up)
+//   from (alb0_dif, alb0_dir_x_mu0), so src_top = albd * incoming, and the
+//   down pass carries the direct beam (fdir = tdirdir * fdir, as the plain
+//   version) with the diffuse flux, each level's step affine in the two
+//   with coefficients from the recompute.  Two chains, not the plain
+//   version's three: its function in another rounding order, as in
+//   csrc/sw_fused.cu.  Night columns (incoming 0) give zeros.
+// Their per-level broadband sums hold no barrier in the level loops: each
+// warp leaves its shuffle-tree partial in shared memory (warp_partial),
+// and the partials are added in warp order after the down pass
+// (store_level_sums): deterministic, so a second launch is bit-equal.
+//
+// What bounds them on the H100: bytes.  Per (column, layer, g) the sweeps
+// do a few multiply-adds and one or two divisions, against 4 (scat) or 5
+// (SW) input planes, far below the card's ~20 operations per byte.  Each
+// plane is read twice (up pass, down pass) and no plane is written: 8 and
+// 10 plane passes, where handing the carries over through scratch planes
+// took 11 and 15 (and measured ~1.7x slower, also with the hand-off packed
+// per column and loads a level ahead).  A chunk's loads are all in flight
+// at once.  Against this design (PERF.md): chunks of 4, 6 or 16 levels,
+// the chunk in shared memory (cp.async, two stages), register caps of 64
+// or 80 and one barrier per level measured no faster.
 #include "common.cuh"
 
 namespace {
 
 using namespace ecrad;
+
+// Levels per chunk of the down pass (and the up pass's checkpoint stride);
+// chunk values live in registers, so this is a compile-time constant.
+constexpr int kChunk = 8;
 
 template <typename T> struct NoscatArgs {
   const T *trans, *s_up, *s_dn;           // (ncol, nlev, ng)
@@ -46,7 +76,7 @@ template <typename T> struct ScatArgs {
   const T *refl, *trans, *s_up, *s_dn;    // (ncol, nlev, ng)
   const T *alb0, *src0;                   // (ncol, ng)
   T *dn_bb, *up_bb, *src_top, *fdn_surf;
-  T *alb_below, *src_below;               // scratch (ncol, nlev, ng)
+  T *ckpt;                                // (ncol, nchunk, 2, ng)
   int nlev, ng;
 };
 
@@ -54,7 +84,7 @@ template <typename T> struct SwArgs {
   const T *refl, *trans, *rdir, *tdd, *tdirdir;       // (ncol, nlev, ng)
   const T *incoming, *alb0_dif, *alb0_dir_x_mu0;      // (ncol, ng)
   T *dir_bb, *dn_bb, *up_bb, *fdir_surf, *fdn_surf, *src_top;
-  T *fdir_top, *alb_below, *src_below;                // scratch
+  T *ckpt;                                            // (ncol, nchunk, 2, ng)
   int nlev, ng;
 };
 
@@ -108,109 +138,209 @@ __global__ void lw_noscat_kernel(NoscatArgs<T> a) {
   if (on) a.fup_toa[cg] = fup;
 }
 
-// The Moebius up sweep of one (column, g), surface -> TOA: stores the
-// albedo and source below each layer and returns the source at TOA.  The
-// layer sources are s_up_l(lg) and s_dn_l(lg).
-template <typename T, typename SUp, typename SDn>
-__device__ __forceinline__ T moebius_up(const T *refl, const T *trans,
-                                        T *alb_below, T *src_below,
-                                        size_t cl0, int nlev, int ng, int g,
-                                        T alb, T src, SUp s_up_l,
-                                        SDn s_dn_l) {
-  for (int l = nlev - 1; l >= 0; --l) {
-    const size_t lg = (cl0 + l) * ng + g;
-    const T r = refl[lg], t = trans[lg];
-    alb_below[lg] = alb;
-    src_below[lg] = src;
-    const T inv = T(1) / (T(1) - alb * r);
-    const T alb_new = r + t * t * alb * inv;
-    src = s_up_l(lg) + t * (src + alb * s_dn_l(lg)) * inv;
-    alb = alb_new;
-  }
-  return src;
+// One layer of the Moebius up sweep: the albedo and source of the
+// atmosphere from the layer's top down, from those below it.  Returns
+// 1 / (1 - alb_below * refl), which the down step needs too.
+template <typename T>
+__device__ __forceinline__ T moebius_up(T r, T t, T s_up, T s_dn, T &alb,
+                                        T &src) {
+  const T inv = T(1) / (T(1) - alb * r);
+  const T alb_new = r + t * t * alb * inv;
+  src = s_up + t * (src + alb * s_dn) * inv;
+  alb = alb_new;
+  return inv;
 }
 
-// The affine down sweep, TOA -> surface, with per-level broadband down and
-// up fluxes at half-levels 1..nlev; returns the surface down flux.  Every
-// thread of the block must call it.
-template <typename T, typename SDn>
-__device__ __forceinline__ T affine_down(const T *refl, const T *trans,
-                                         const T *alb_below,
-                                         const T *src_below, T *dn_bb,
-                                         T *up_bb, T *red, size_t cl0,
-                                         int nlev, int ng, int g, bool on,
-                                         SDn s_dn_l) {
-  T *const out[2] = {dn_bb, up_bb};
-  T fdn = T(0);
-  for (int l = 0; l < nlev; ++l) {
-    T fup = T(0);
-    if (on) {
-      const size_t lg = (cl0 + l) * ng + g;
-      const T ab = alb_below[lg], sb = src_below[lg], r = refl[lg];
-      const T inv = T(1) / (T(1) - ab * r);
-      fdn = (trans[lg] * fdn + r * sb + s_dn_l(lg)) * inv;
-      fup = ab * fdn + sb;
-    }
-    T v[2] = {on ? fdn : T(0), fup};
-    store_bb<T, 2>(v, red, out, cl0 + l);
-  }
-  return fdn;
+// Levels [lo, lo + n) of a column's chunk; n < kChunk only at the surface.
+struct Chunk {
+  int lo, n;
+};
+
+__device__ __forceinline__ Chunk chunk_at(int c, int nlev) {
+  return {c * kChunk, min(kChunk, nlev - c * kChunk)};
 }
 
 template <typename T>
 __global__ void scat_kernel(ScatArgs<T> a) {
-  __shared__ T red[2 * 32];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T *part = reinterpret_cast<T *>(smem_raw);
   const int g = threadIdx.x;
   const bool on = g < a.ng;
-  const size_t cl0 = (size_t)blockIdx.x * a.nlev;
-  const size_t cg = (size_t)blockIdx.x * a.ng + g;
-  const T *s_up = a.s_up, *s_dn = a.s_dn;
-  auto up_src = [s_up](size_t lg) { return s_up[lg]; };
-  auto dn_src = [s_dn](size_t lg) { return s_dn[lg]; };
-  if (on)
-    a.src_top[cg] = moebius_up(a.refl, a.trans, a.alb_below, a.src_below,
-                               cl0, a.nlev, a.ng, g, a.alb0[cg], a.src0[cg],
-                               up_src, dn_src);
-  const T fdn = affine_down(a.refl, a.trans, a.alb_below, a.src_below,
-                            a.dn_bb, a.up_bb, red, cl0, a.nlev, a.ng, g, on,
-                            dn_src);
+  const int nlev = a.nlev, ng = a.ng, nwarp = blockDim.x >> 5;
+  const int nchunk = (nlev + kChunk - 1) / kChunk;
+  const size_t cl0 = (size_t)blockIdx.x * nlev;
+  const size_t cg = (size_t)blockIdx.x * ng + g;
+  // this thread's checkpoints: (alb, src) of chunk c at ck[2c ng], +ng
+  T *ck = a.ckpt + (size_t)blockIdx.x * nchunk * 2 * ng + g;
+  auto lg = [&](int l) { return (cl0 + l) * (size_t)ng + g; };
+
+  // --- up pass, surface -> TOA: only the checkpoints are stored
+  if (on) {
+    T alb = a.alb0[cg], src = a.src0[cg];
+    for (int c = nchunk - 1; c >= 0; --c) {
+      const Chunk ch = chunk_at(c, nlev);
+      ck[(size_t)c * 2 * ng] = alb;
+      ck[(size_t)c * 2 * ng + ng] = src;
+      T r[kChunk], t[kChunk], su[kChunk], sd[kChunk];
+#pragma unroll
+      for (int k = 0; k < kChunk; ++k) {
+        if (k < ch.n) {
+          const size_t i = lg(ch.lo + k);
+          r[k] = a.refl[i];
+          t[k] = a.trans[i];
+          su[k] = a.s_up[i];
+          sd[k] = a.s_dn[i];
+        }
+      }
+#pragma unroll
+      for (int k = kChunk - 1; k >= 0; --k)
+        if (k < ch.n) moebius_up(r[k], t[k], su[k], sd[k], alb, src);
+    }
+    a.src_top[cg] = src;
+  }
+
+  // --- down pass, TOA -> surface, chunk by chunk
+  T fdn = T(0);
+  for (int c = 0; c < nchunk; ++c) {
+    const Chunk ch = chunk_at(c, nlev);
+    T r[kChunk], t[kChunk], sd[kChunk], ab[kChunk], sb[kChunk], inv[kChunk];
+    if (on) {
+      T su[kChunk];
+#pragma unroll
+      for (int k = 0; k < kChunk; ++k) {
+        if (k < ch.n) {
+          const size_t i = lg(ch.lo + k);
+          r[k] = a.refl[i];
+          t[k] = a.trans[i];
+          su[k] = a.s_up[i];
+          sd[k] = a.s_dn[i];
+        }
+      }
+      // the up pass again from the checkpoint below the chunk
+      T alb = ck[(size_t)c * 2 * ng], src = ck[(size_t)c * 2 * ng + ng];
+#pragma unroll
+      for (int k = kChunk - 1; k >= 0; --k) {
+        if (k < ch.n) {
+          ab[k] = alb;
+          sb[k] = src;
+          inv[k] = moebius_up(r[k], t[k], su[k], sd[k], alb, src);
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kChunk; ++k) {
+      if (k < ch.n) {
+        T fup = T(0);
+        if (on) {
+          fdn = (t[k] * fdn + r[k] * sb[k] + sd[k]) * inv[k];
+          fup = ab[k] * fdn + sb[k];
+        }
+        const int l = ch.lo + k;
+        warp_partial(on ? fdn : T(0), part, 2 * l, nwarp);
+        warp_partial(fup, part, 2 * l + 1, nwarp);
+      }
+    }
+  }
   if (on) a.fdn_surf[cg] = fdn;
+  T *const outs[2] = {a.dn_bb + cl0, a.up_bb + cl0};
+  store_level_sums(part, outs, nlev, nwarp);
+}
+
+template <typename T>
+__device__ __forceinline__ void load_coef(const SwArgs<T> &a, size_t i,
+                                          SwCoef<T> &c) {
+  c.refl = a.refl[i];
+  c.trans = a.trans[i];
+  c.rdir = a.rdir[i];
+  c.tdd = a.tdd[i];
+  c.tdir = a.tdirdir[i];
 }
 
 template <typename T>
 __global__ void sw_kernel(SwArgs<T> a) {
-  __shared__ T red[2 * 32];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T *part = reinterpret_cast<T *>(smem_raw);
   const int g = threadIdx.x;
   const bool on = g < a.ng;
-  const int nlev = a.nlev;
+  const int nlev = a.nlev, ng = a.ng, nwarp = blockDim.x >> 5;
+  const int nchunk = (nlev + kChunk - 1) / kChunk;
   const size_t cl0 = (size_t)blockIdx.x * nlev;
-  const size_t cg = (size_t)blockIdx.x * a.ng + g;
-  T *const dir[1] = {a.dir_bb};
+  const size_t cg = (size_t)blockIdx.x * ng + g;
+  // this thread's checkpoints: (alb, albd) of chunk c at ck[2c ng], +ng
+  T *ck = a.ckpt + (size_t)blockIdx.x * nchunk * 2 * ng + g;
+  auto lg = [&](int l) { return (cl0 + l) * (size_t)ng + g; };
 
-  // direct beam down, storing the flux at each layer top
-  T fdir = on ? a.incoming[cg] : T(0);
-  for (int l = 0; l < nlev; ++l) {
-    if (on) {
-      const size_t lg = (cl0 + l) * a.ng + g;
-      a.fdir_top[lg] = fdir;
-      fdir = a.tdirdir[lg] * fdir;
+  // --- up pass, surface -> TOA: the diffuse and direct albedos
+  if (on) {
+    T alb = a.alb0_dif[cg], albd = a.alb0_dir_x_mu0[cg];
+    for (int c = nchunk - 1; c >= 0; --c) {
+      const Chunk ch = chunk_at(c, nlev);
+      ck[(size_t)c * 2 * ng] = alb;
+      ck[(size_t)c * 2 * ng + ng] = albd;
+      SwCoef<T> cf[kChunk];
+#pragma unroll
+      for (int k = 0; k < kChunk; ++k)
+        if (k < ch.n) load_coef(a, lg(ch.lo + k), cf[k]);
+#pragma unroll
+      for (int k = kChunk - 1; k >= 0; --k)
+        if (k < ch.n) albedo_up(cf[k], alb, albd, alb, albd);
     }
-    T v[1] = {on ? fdir : T(0)};
-    store_bb<T, 1>(v, red, dir, cl0 + l);
+    a.src_top[cg] = albd * a.incoming[cg];
   }
-  const T *rdir = a.rdir, *tdd = a.tdd, *ftop = a.fdir_top;
-  auto up_src = [rdir, ftop](size_t lg) { return rdir[lg] * ftop[lg]; };
-  auto dn_src = [tdd, ftop](size_t lg) { return tdd[lg] * ftop[lg]; };
+
+  // --- down pass, TOA -> surface: the direct beam and the diffuse flux.
+  // A level's step is affine in the fluxes at its top: fdn' = A fdn + B
+  // fdir and fup = Y fdir + alb fdn', with d = 1 - alb refl, A = trans / d,
+  // B = (tdir albd refl + tdd) / d and Y = tdir albd from the recompute
+  // (diffuse_down in another rounding order), so the level chain holds no
+  // division; that measured ~12% faster than diffuse_down (PERF.md).
+  T fdir = on ? a.incoming[cg] : T(0), fdn = T(0);
+  for (int c = 0; c < nchunk; ++c) {
+    const Chunk ch = chunk_at(c, nlev);
+    T A[kChunk], B[kChunk], Y[kChunk], ab[kChunk], td[kChunk];
+    if (on) {
+      SwCoef<T> cf[kChunk];
+#pragma unroll
+      for (int k = 0; k < kChunk; ++k)
+        if (k < ch.n) load_coef(a, lg(ch.lo + k), cf[k]);
+      T alb = ck[(size_t)c * 2 * ng], albd = ck[(size_t)c * 2 * ng + ng];
+#pragma unroll
+      for (int k = kChunk - 1; k >= 0; --k) {
+        if (k < ch.n) {
+          const SwCoef<T> &q = cf[k];
+          const T inv = T(1) / (T(1) - alb * q.refl);
+          ab[k] = alb;
+          td[k] = q.tdir;
+          Y[k] = q.tdir * albd;
+          A[k] = q.trans * inv;
+          B[k] = (Y[k] * q.refl + q.tdd) * inv;
+          albedo_up(q, alb, albd, alb, albd);
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kChunk; ++k) {
+      if (k < ch.n) {
+        T fup = T(0);
+        if (on) {
+          const T fdir_top = fdir;
+          fdir = td[k] * fdir_top;
+          fdn = A[k] * fdn + B[k] * fdir_top;
+          fup = Y[k] * fdir_top + fdn * ab[k];
+        }
+        const int l = ch.lo + k;
+        warp_partial(on ? fdir : T(0), part, 3 * l, nwarp);
+        warp_partial(on ? fdn : T(0), part, 3 * l + 1, nwarp);
+        warp_partial(fup, part, 3 * l + 2, nwarp);
+      }
+    }
+  }
   if (on) {
     a.fdir_surf[cg] = fdir;
-    a.src_top[cg] = moebius_up(a.refl, a.trans, a.alb_below, a.src_below,
-                               cl0, nlev, a.ng, g, a.alb0_dif[cg],
-                               a.alb0_dir_x_mu0[cg] * fdir, up_src, dn_src);
+    a.fdn_surf[cg] = fdn;
   }
-  const T fdn = affine_down(a.refl, a.trans, a.alb_below, a.src_below,
-                            a.dn_bb, a.up_bb, red, cl0, nlev, a.ng, g, on,
-                            dn_src);
-  if (on) a.fdn_surf[cg] = fdn;
+  T *const outs[3] = {a.dir_bb + cl0, a.dn_bb + cl0, a.up_bb + cl0};
+  store_level_sums(part, outs, nlev, nwarp);
 }
 
 inline int threads_for(int ng) { return ((ng + 31) / 32) * 32; }
@@ -235,6 +365,22 @@ int launch_noscat(void *const *p, int ncol, int nlev, int ng, void *stream) {
   return (int)cudaGetLastError();
 }
 
+// Launch a kernel whose dynamic shared memory holds the warp partials of
+// nsums per-level sums; a column too deep for shared memory fails here.
+template <typename Kernel, typename Args>
+int launch_chunked(Kernel kernel, const Args &a, int ncol, int nsums,
+                   size_t elem, void *stream) {
+  const int threads = threads_for(a.ng);
+  const size_t smem = elem * (size_t)a.nlev * nsums * (threads / 32);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<ncol, threads, smem, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_scat(void *const *p, int ncol, int nlev, int ng, void *stream) {
   ScatArgs<T> a;
@@ -248,12 +394,10 @@ int launch_scat(void *const *p, int ncol, int nlev, int ng, void *stream) {
   a.up_bb = (T *)p[7];
   a.src_top = (T *)p[8];
   a.fdn_surf = (T *)p[9];
-  a.alb_below = (T *)p[10];
-  a.src_below = (T *)p[11];
+  a.ckpt = (T *)p[10];
   a.nlev = nlev;
   a.ng = ng;
-  scat_kernel<T><<<ncol, threads_for(ng), 0, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  return launch_chunked(scat_kernel<T>, a, ncol, 2, sizeof(T), stream);
 }
 
 template <typename T>
@@ -273,19 +417,16 @@ int launch_sw(void *const *p, int ncol, int nlev, int ng, void *stream) {
   a.fdir_surf = (T *)p[11];
   a.fdn_surf = (T *)p[12];
   a.src_top = (T *)p[13];
-  a.fdir_top = (T *)p[14];
-  a.alb_below = (T *)p[15];
-  a.src_below = (T *)p[16];
+  a.ckpt = (T *)p[14];
   a.nlev = nlev;
   a.ng = ng;
-  sw_kernel<T><<<ncol, threads_for(ng), 0, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  return launch_chunked(sw_kernel<T>, a, ncol, 3, sizeof(T), stream);
 }
 
 }  // namespace
 
 // p: the tensor pointers in the order of the Args struct (inputs, outputs,
-// scratch), as solvers/cuda_adding.py passes them.
+// checkpoints), as solvers/cuda_adding.py passes them.
 extern "C" int ecrad_lw_noscat_sweeps_f32(void *const *p, int ncol, int nlev,
                                           int ng, void *stream) {
   return launch_noscat<float>(p, ncol, nlev, ng, stream);
@@ -310,3 +451,6 @@ extern "C" int ecrad_sw_sweeps_f64(void *const *p, int ncol, int nlev,
                                    int ng, void *stream) {
   return launch_sw<double>(p, ncol, nlev, ng, stream);
 }
+// The levels per checkpoint of scat_sweeps and sw_sweeps: the wrapper
+// allocates (ncol, ceil(nlev / chunk), 2, ng) checkpoints.
+extern "C" int ecrad_adding_chunk_levels(void) { return kChunk; }

@@ -126,6 +126,8 @@ def library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
     lib.ecrad_error_string.argtypes = [ctypes.c_int]
     lib.ecrad_error_string.restype = ctypes.c_char_p
+    lib.ecrad_adding_chunk_levels.argtypes = []
+    lib.ecrad_adding_chunk_levels.restype = ctypes.c_int
     return lib
 
 

@@ -103,11 +103,12 @@ def sw_sweeps_plain(refl, trans, rdir, tdd, tdirdir, incoming, alb0_dif,
                 fdir_surf=fdir, fdn_surf=fdn_surf, src_top=src_top)
 
 
-def _launch(name, planes, surfaces, outputs, nscratch):
-    """Check the inputs, allocate outputs and scratch, launch
-    ``ecrad_<name>`` and return the outputs by name.  planes: layer
-    planes (ncol, nlev, ng); surfaces: (ncol, ng); outputs: {name:
-    "bb" (ncol, nlev) or "g" (ncol, ng)}."""
+def _launch(name, planes, surfaces, outputs, checkpoints):
+    """Check the inputs, allocate outputs (and, with checkpoints, the up
+    pass's (ncol, ceil(nlev / chunk), 2, ng) carries at every chunk of
+    levels), launch ``ecrad_<name>`` and return the outputs by name.
+    planes: layer planes (ncol, nlev, ng); surfaces: (ncol, ng); outputs:
+    {name: "bb" (ncol, nlev) or "g" (ncol, ng)}."""
     ref = planes[0]
     ncol, nlev, ng = ref.shape
     kernels.check_inputs(name, ref, {
@@ -119,10 +120,11 @@ def _launch(name, planes, surfaces, outputs, nscratch):
            for k, kind in outputs.items()}
     if ncol == 0:
         return out
-    scratch = [e(ncol, nlev, ng) for _ in range(nscratch)]
+    lib = kernels.library()
+    scratch = ([e(ncol, -(-nlev // lib.ecrad_adding_chunk_levels()), 2, ng)]
+               if checkpoints else [])
     ptrs = kernels.pointer_array([*planes, *surfaces, *out.values(),
                                   *scratch])
-    lib = kernels.library()
     fn = getattr(lib, f"ecrad_{name}_"
                  + ("f32" if ref.dtype == torch.float32 else "f64"))
     with torch.cuda.device(ref.device):
@@ -140,7 +142,7 @@ def lw_noscat_sweeps(trans, s_up, s_dn, emission, albedo):
     out = _launch("lw_noscat_sweeps", [trans, s_up, s_dn],
                   [emission, albedo],
                   dict(dn_bb="bb", fdn_surf="g", up_bb="bb", fup_toa="g",
-                       fup_surf="g"), nscratch=0)
+                       fup_surf="g"), checkpoints=False)
     lw_noscat_sweeps.launches += 1
     return out
 
@@ -155,7 +157,7 @@ def scat_sweeps(refl, trans, s_up, s_dn, alb0, src0):
         return scat_sweeps_plain(refl, trans, s_up, s_dn, alb0, src0)
     out = _launch("scat_sweeps", [refl, trans, s_up, s_dn], [alb0, src0],
                   dict(dn_bb="bb", up_bb="bb", src_top="g", fdn_surf="g"),
-                  nscratch=2)
+                  checkpoints=True)
     scat_sweeps.launches += 1
     return out
 
@@ -166,14 +168,15 @@ scat_sweeps.launches = 0
 def sw_sweeps(refl, trans, rdir, tdd, tdirdir, incoming, alb0_dif,
               alb0_dir_x_mu0):
     """The three SW sweeps.  CPU tensors run sw_sweeps_plain; CUDA
-    tensors launch the kernel (csrc/adding_sweeps.cu) or raise."""
+    tensors launch the kernel (csrc/adding_sweeps.cu: the same function in
+    two passes, with direct albedos) or raise."""
     if refl.device.type == "cpu":
         return sw_sweeps_plain(refl, trans, rdir, tdd, tdirdir, incoming,
                                alb0_dif, alb0_dir_x_mu0)
     out = _launch("sw_sweeps", [refl, trans, rdir, tdd, tdirdir],
                   [incoming, alb0_dif, alb0_dir_x_mu0],
                   dict(dir_bb="bb", dn_bb="bb", up_bb="bb", fdir_surf="g",
-                       fdn_surf="g", src_top="g"), nscratch=3)
+                       fdn_surf="g", src_top="g"), checkpoints=True)
     sw_sweeps.launches += 1
     return out
 

@@ -10,6 +10,11 @@
   ``pltpu.force_tpu_interpret_mode()``, as tests/test_pallas_adding.py
   reaches them), with full and (ncol, 1) surface albedos.
 * The kernel wrappers take their plain version for CPU tensors only.
+* The orders in which ``csrc/adding_sweeps.cu`` computes ``scat_sweeps``
+  and ``sw_sweeps`` (an up pass that keeps its carry only every k levels,
+  a down pass that recomputes each chunk's carries from there; SW with
+  direct albedos), in plain torch, against the plain versions, on the
+  module's layers, a thick-cloud case and a night case.
 
 37 columns: a ragged count (the JAX wrappers pad it to 128).
 """
@@ -165,3 +170,154 @@ def test_wrappers_run_plain_only_on_cpu(props):
     with pytest.raises(ValueError, match="unsupported device"):
         cuda_adding.lw_noscat_sweeps(*meta)
     assert cuda_adding.lw_noscat_sweeps.launches == before
+
+
+# --- the orders of csrc/adding_sweeps.cu --------------------------------------
+
+def checkpointed_carries(nlev, k, step, carry):
+    """The carries below each layer as csrc/adding_sweeps.cu's down pass
+    recomputes them: the up pass (surface -> TOA) keeps only the carry
+    below each chunk of k levels (chunks counted from TOA, the one at the
+    surface ragged), and each chunk's levels are run up again from its
+    checkpoint.  step(l, carry) -> (carry above layer l, what the down step
+    reuses).  Returns the carry at TOA and [(carry below layer l, reused)]
+    by level; k=1 is a hand-off of every level's carry."""
+    chunks = [(lo, min(nlev, lo + k)) for lo in range(0, nlev, k)]
+    ckpt = [None] * len(chunks)
+    for c in range(len(chunks) - 1, -1, -1):
+        ckpt[c] = carry
+        for l in range(chunks[c][1] - 1, chunks[c][0] - 1, -1):
+            carry = step(l, carry)[0]
+    below = [None] * nlev
+    for c, (lo, hi) in enumerate(chunks):
+        up = ckpt[c]
+        for l in range(hi - 1, lo - 1, -1):
+            nxt, reused = step(l, up)
+            below[l], up = (up, reused), nxt
+    return carry, below
+
+
+def checkpointed_scat_sweeps(refl, trans, s_up, s_dn, alb0, src0, k):
+    """scat_sweeps in the order of csrc/adding_sweeps.cu: the Moebius up
+    pass with checkpoints every k levels, the affine down pass from each
+    chunk's recomputed albedos, sources and 1 / (1 - alb_below * refl)."""
+    def step(l, carry):
+        alb, src = carry
+        inv = 1.0 / (1.0 - alb * refl[:, l])
+        return ((refl[:, l] + trans[:, l] * trans[:, l] * alb * inv,
+                 s_up[:, l] + trans[:, l] * (src + alb * s_dn[:, l]) * inv),
+                inv)
+
+    nlev = refl.shape[1]
+    (_, src_top), below = checkpointed_carries(nlev, k, step, (alb0, src0))
+    fdn, dn_bb, up_bb = torch.zeros_like(alb0), [], []
+    for l in range(nlev):
+        (alb, src), inv = below[l]
+        fdn = (trans[:, l] * fdn + refl[:, l] * src + s_dn[:, l]) * inv
+        dn_bb.append(fdn.sum(-1))
+        up_bb.append((alb * fdn + src).sum(-1))
+    stack = lambda xs: torch.stack(xs, dim=1)  # noqa: E731
+    return dict(dn_bb=stack(dn_bb), up_bb=stack(up_bb), src_top=src_top,
+                fdn_surf=fdn), below
+
+
+def direct_albedo_sweeps(coeffs, incoming, alb_dif, alb_dir_mu0, k,
+                         affine=False):
+    """The SW sweeps with direct albedos, in the order of the two passes of
+    csrc/sw_fused.cu (k=1, the albedos below every layer handed over) and
+    of csrc/adding_sweeps.cu's sw_sweeps (checkpoints every k levels, and
+    with affine each level's down step as fdn' = A fdn + B fdir, fup = Y
+    fdir + alb fdn'): up, the diffuse albedo and the direct albedo (upward
+    source per unit direct flux) below each layer; down, the direct beam
+    with the diffuse flux."""
+    refl, trans, rdir, tdd, tdir = coeffs
+
+    def step(l, carry):
+        alb, albd = carry
+        inv = 1.0 / (1.0 - alb * refl[:, l])
+        return ((refl[:, l] + trans[:, l] * trans[:, l] * alb * inv,
+                 rdir[:, l] + (tdir[:, l] * albd + tdd[:, l] * alb)
+                 * trans[:, l] * inv), inv)
+
+    nlev = refl.shape[1]
+    (_, albd_top), below = checkpointed_carries(
+        nlev, k, step, (alb_dif, alb_dir_mu0))
+    src_top = albd_top * incoming
+    fdir, fdn = incoming, torch.zeros_like(incoming)
+    dir_bb, dn_bb, up_bb = [], [], []
+    for l in range(nlev):
+        (alb, albd), inv = below[l]
+        if affine:
+            y = tdir[:, l] * albd
+            fdn = trans[:, l] * inv * fdn \
+                + (y * refl[:, l] + tdd[:, l]) * inv * fdir
+            up_bb.append((y * fdir + fdn * alb).sum(-1))
+        else:
+            fdn = (trans[:, l] * fdn
+                   + fdir * (tdir[:, l] * albd * refl[:, l] + tdd[:, l])) \
+                / (1.0 - refl[:, l] * alb)
+            up_bb.append((tdir[:, l] * fdir * albd + fdn * alb).sum(-1))
+        fdir = tdir[:, l] * fdir
+        dir_bb.append(fdir.sum(-1))
+        dn_bb.append(fdn.sum(-1))
+    stack = lambda xs: torch.stack(xs, dim=1)  # noqa: E731
+    return dict(dir_bb=stack(dir_bb), fdir_surf=fdir, src_top=src_top,
+                dn_bb=stack(dn_bb), up_bb=stack(up_bb), fdn_surf=fdn), below
+
+
+def _mirror_case(props, case):
+    """The module's layers ("props"); with thick cloud in a few layers
+    ("thick": direct transmittance at most 1e-6, diffuse reflectance up to
+    0.8); or with every third column at night ("night": incoming 0)."""
+    p = {k: v.copy() for k, v in props.items()}
+    rng = np.random.default_rng(1)
+    if case == "thick":
+        layers = [2, 7, 8, 9, 15, NLEV - 1]
+        shape = (NCOL, len(layers), NG)
+        p["refl"][:, layers] = rng.uniform(0.5, 0.8, shape)
+        p["trans"][:, layers] = rng.uniform(0.0, 1.0, shape) \
+            * (0.99 - p["refl"][:, layers])
+        p["tdirdir"][:, layers] = rng.uniform(0.0, 1e-6, shape)
+    if case == "night":
+        p["incoming"][::3] = 0.0
+    p["alb_dir_mu0"] = p["alb_dir"] * p["mu0"]
+    return p
+
+
+# The direct-albedo form is the three SW sweeps' function in another
+# rounding order: f64 roundoff through ~20 levels, of each entry and (for
+# entries that are zero to roundoff) of the field's largest value.
+RTOL_REORDERED = 1e-12
+MIRROR_CASES = {"scat_sweeps": ("props", "thick"),
+                "sw_sweeps": ("props", "thick", "night")}
+
+
+@pytest.mark.parametrize("k", [4, 8, 21, 32])    # 21 % k: 1, 5, 0; k > nlev
+@pytest.mark.parametrize("name,case", [(n, c) for n, cs in MIRROR_CASES.items()
+                                       for c in cs])
+def test_checkpointed_sweeps_match_plain(props, name, case, k):
+    """The kernel's order (checkpoints every k levels, chunks recomputed;
+    SW with direct albedos and affine down steps) gives the plain version's outputs, and each
+    recomputed carry equals the one a full up pass hands over (k=1), bit
+    for bit."""
+    p = _mirror_case(props, case)
+    names, _, outs = KERNELS[name]
+    args = _t(*(p[n] for n in names))
+    ref = getattr(cuda_adding, name + "_plain")(*args)
+    if name == "scat_sweeps":
+        (got, below), (_, handed) = (checkpointed_scat_sweeps(*args, k=k),
+                                     checkpointed_scat_sweeps(*args, k=1))
+    else:
+        (got, below), (_, handed) = (
+            direct_albedo_sweeps(args[:5], *args[5:], k=k, affine=True),
+            direct_albedo_sweeps(args[:5], *args[5:], k=1, affine=True))
+    assert set(got) == set(outs)
+    for (carry, _), (carry1, _) in zip(below, handed):
+        assert all(torch.equal(a, b) for a, b in zip(carry, carry1))
+    for key in outs:
+        r = ref[key]
+        np.testing.assert_allclose(
+            got[key].numpy(), r.numpy(), rtol=RTOL_REORDERED,
+            atol=RTOL_REORDERED * float(r.abs().max()), err_msg=key)
+    if case == "night":
+        assert all(bool((got[key][::3] == 0).all()) for key in outs)

@@ -5,9 +5,9 @@ JAX package, on the same random inputs (CPU, f64).
   ``pallas_mcica.lw_fused``/``sw_fused`` in interpret mode, on the same
   kernel-layout planes (transposed to the port's layout).
 * The orders in which ``csrc/sw_fused.cu`` (two passes with direct
-  albedos) and ``csrc/lw_fused.cu`` (three passes, the derivatives a
-  chain and a sum over g) compute, in plain torch, against the plain
-  versions.
+  albedos, ``test_torch_adding.direct_albedo_sweeps``) and
+  ``csrc/lw_fused.cu`` (three passes, the derivatives a chain and a sum
+  over g) compute, in plain torch, against the plain versions.
 * ``solver_mcica_lw``/``sw`` against the JAX package's scan path, with
   derivatives on and off, night columns and an odd column count; the
   port runs its fused path (plain version on the CPU) and, for a g axis
@@ -25,6 +25,7 @@ from ecrad_tpu.solvers import mcica as jmcica
 from ecrad_tpu.solvers import pallas_mcica
 from ecrad_torch.solvers import cuda_mcica
 from ecrad_torch.solvers import mcica as tmcica
+from tests.test_torch_adding import direct_albedo_sweeps
 
 torch.set_num_threads(2)
 
@@ -151,37 +152,6 @@ def test_sw_fused_plain_matches_pallas(delta):
              RTOL_SW_PALLAS, ATOL_SW_PALLAS)
 
 
-def _direct_albedo_sweeps(coeffs, incoming, alb_dif, alb_dir_mu0):
-    """The two passes of csrc/sw_fused.cu in its order: up, the diffuse
-    albedo and the direct albedo (upward source per unit direct flux) below
-    each layer; down, the direct beam with the diffuse flux."""
-    refl, trans, rdir, tdd, tdir = coeffs
-    nlev = refl.shape[1]
-    alb, albd = alb_dif, alb_dir_mu0
-    below = [None] * nlev
-    for l in range(nlev - 1, -1, -1):
-        below[l] = alb, albd
-        inv = 1.0 / (1.0 - alb * refl[:, l])
-        alb, albd = (refl[:, l] + trans[:, l] * trans[:, l] * alb * inv,
-                     rdir[:, l] + (tdir[:, l] * albd + tdd[:, l] * alb)
-                     * trans[:, l] * inv)
-    src_top = albd * incoming
-    fdir, fdn = incoming, torch.zeros_like(incoming)
-    dir_bb, dn_bb, up_bb = [], [], []
-    for l in range(nlev):
-        alb, albd = below[l]
-        fdn = (trans[:, l] * fdn + fdir * (tdir[:, l] * albd * refl[:, l]
-                                           + tdd[:, l])) \
-            / (1.0 - refl[:, l] * alb)
-        up_bb.append((tdir[:, l] * fdir * albd + fdn * alb).sum(-1))
-        fdir = tdir[:, l] * fdir
-        dir_bb.append(fdir.sum(-1))
-        dn_bb.append(fdn.sum(-1))
-    stack = lambda xs: torch.stack(xs, dim=1)
-    return dict(dir_bb=stack(dir_bb), fdir_surf=fdir, src_top=src_top,
-                dn_bb=stack(dn_bb), up_bb=stack(up_bb), fdn_surf=fdn)
-
-
 # The direct-albedo form is the three sweeps' function in another rounding
 # order: f64 roundoff through ~20 levels, of each entry and (for entries
 # that are zero to roundoff, as at night) of the field's largest value
@@ -207,8 +177,9 @@ def test_sw_direct_albedo_form_matches_plain(delta):
         t["g_cloud_b"], t["od_scaling"], mask, mu0, band, delta)
     assert (p["cos_sza"] <= 0).any() and mask.any() and not mask.all()
     for tag, coeffs in zip(("c", "t"), scenes):
-        got = _direct_albedo_sweeps(coeffs, t["incoming"], t["albedo"],
-                                    alb_dir_mu0)
+        # csrc/sw_fused.cu hands the albedos below every layer over: k=1
+        got, _ = direct_albedo_sweeps(coeffs, t["incoming"], t["albedo"],
+                                      alb_dir_mu0, k=1)
         for k, v in got.items():
             r = ref[f"{k}_{tag}"]
             np.testing.assert_allclose(

@@ -1,17 +1,20 @@
-"""Time the redesigned sweep kernels of the port on chip_smoke.py's
-inputs, f32, 2048 columns, median of 5 CUDA-event timings each, and those
-of other checkouts on the same inputs in turns, on one NVIDIA GPU.
+"""Time the port's kernels on chip_smoke.py's inputs, f32, 2048 columns,
+median of 5 CUDA-event timings each, and those of other checkouts on the
+same inputs in turns, on one NVIDIA GPU.
 
     python3 tools/time_kernels.py [--other DIR ...] [--rounds N]
-        [--steps [--configs NAME ...]]
+        [--kernels NAME ...] [--steps [--configs NAME ...]]
 
-Times `spartacus_sw` (Explicit entrapment, the spartacus_3d path's, and
-Maximum entrapment), `spartacus_lw` (without multilayer effects, the
-path's, and with them), the Tripleclouds `sw_fused` and `lw_fused` and the
-McICA `sw_fused` and `lw_fused` (also without derivatives) on the main
-path's inputs ("meridian": the bundled slice tiled, a random state from a
-numpy seed) and on the same state with every layer cloudy
-("all_cloudy").  Each checkout (this one, then each DIR, e.g.
+Times each kernel (or those --kernels names) on every input set of
+chip_smoke.kernel_inputs ("meridian": the bundled slice tiled, a random
+state from a numpy seed; a kernel's first set is the main path's, the
+others are its variants: spartacus_sw in Maximum and Edge-only
+entrapment, spartacus_lw with multilayer effects, the fused McICA and
+Tripleclouds kernels with delta-scaled gases or without derivatives,
+scat_sweeps and sw_sweeps on the total scene) and of
+chip_smoke.all_cloudy_inputs (the same state with every layer cloudy,
+"all_cloudy").  A case is named "<kernel>[_<set>]/<state>".  Each
+checkout (this one, then each DIR, e.g.
 an older commit unpacked with `git archive`, or a copy with a kernel's
 variant edited in) runs in a process of its own that imports that
 checkout's `ecrad_torch` and builds its kernels; the inputs come from
@@ -24,8 +27,7 @@ and the registers and spills ptxas reports for the kernels are printed.  With
 full size: 6144 columns in blocks of 2048, f32, the median of three steps
 after one, host clock around a synchronised step, and the peak device
 memory of those steps) of the configurations named by --configs (by
-default those whose kernels the redesigns changed, and cloudless_rrtmg,
-whose did not).  Prints one JSON line per run and a summary line
+default all five).  Prints one JSON line per run and a summary line
 {"card": ..., "median_ms": {checkout: {case: ms}}}.
 """
 
@@ -73,11 +75,12 @@ def time_steps(chip_smoke, configs):
     return out, peak
 
 
-def worker(check, configs):
+def worker(check, configs, names):
     """Time this process's ecrad_torch (the first on sys.path) on the
-    inputs of chip_smoke.py from ROOT; with check, first hold each kernel
-    against its plain version in float64 (chip_smoke._compare_f64); with
-    configs, time those configurations' main-path steps instead."""
+    inputs of chip_smoke.py from ROOT, the kernels names lists (all when
+    empty); with check, first hold each kernel against its plain version
+    in float64 (chip_smoke._compare_f64); with configs, time those
+    configurations' main-path steps instead."""
     import importlib.util
 
     import torch
@@ -88,7 +91,6 @@ def worker(check, configs):
     chip_smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(chip_smoke)
     from ecrad_torch import kernels
-    from ecrad_torch.config import Entrapment
 
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: time_kernels needs an NVIDIA GPU")
@@ -105,32 +107,26 @@ def worker(check, configs):
             or "spill" in line]
     k = chip_smoke.KERNELS
     cases, f64_err = {}, {}
-    for label, min_cloud in (("meridian", 0.0), ("all_cloudy", 0.2)):
-        inputs = chip_smoke.solver_inputs(NCOL, torch.float64, NCOL,
-                                          min_cloud)
-        # case: (kernel, arguments)
-        inputs = {case: (case, args) for case, args in inputs.items()}
-        sp, sp_lw, mc = (inputs[n][1] for n in ("spartacus_sw",
-                                                "spartacus_lw", "lw_fused"))
-        inputs["spartacus_sw_maximum"] = (
-            "spartacus_sw",
-            (sp[0]._replace(mode=Entrapment.MAXIMUM),) + sp[1:])
-        inputs["spartacus_lw_multilayer"] = (
-            "spartacus_lw", (sp_lw[0]._replace(multilayer=True),) + sp_lw[1:])
-        inputs["lw_fused_no_derivatives"] = ("lw_fused", mc[:-1] + (False,))
-        for case, (name, args) in inputs.items():
+    for state, make in (("meridian", chip_smoke.kernel_inputs),
+                        ("all_cloudy", chip_smoke.all_cloudy_inputs)):
+        inputs = make(NCOL, torch.float64, NCOL)
+        for name, sets in inputs.items():
+            if names and name not in names:
+                continue
             fn, plain = k[name]["wrapper"], k[name]["plain"]
-            key = f"{case}/{label}"
-            if check:     # the kernel against its plain version, in f64
-                try:
-                    f64_err[key] = chip_smoke._compare_f64(fn(*args),
-                                                           plain(*args))
-                except AssertionError as e:
-                    f64_err[key] = f"FAILS: {e}"
-            a = chip_smoke._f32(args)
-            cases[key] = chip_smoke.median_ms(lambda: fn(*a))
-            del a
-        del inputs, sp, sp_lw, mc
+            for i, (label, args) in enumerate(sets):
+                case = name if i == 0 else f"{name}_{label}"
+                key = f"{case}/{state}"
+                if check:     # the kernel against its plain version, in f64
+                    try:
+                        f64_err[key] = chip_smoke._compare_f64(
+                            fn(*args), plain(*args))
+                    except AssertionError as e:
+                        f64_err[key] = f"FAILS: {e}"
+                a = chip_smoke._f32(args)
+                cases[key] = chip_smoke.median_ms(lambda: fn(*a))
+                del a
+        del inputs
         torch.cuda.empty_cache()
     print(json.dumps({"ecrad_torch": os.path.dirname(
         os.path.dirname(os.path.abspath(kernels.__file__))),
@@ -143,6 +139,8 @@ def main():
     parser.add_argument("--other", action="append", default=[],
                         help="another checkout to time beside this one")
     parser.add_argument("--rounds", type=int, default=1)
+    parser.add_argument("--kernels", nargs="+", default=[],
+                        help="the kernels to time (default: all)")
     parser.add_argument("--steps", action="store_true",
                         help="time the main paths' steps, not the kernels")
     parser.add_argument("--configs", nargs="+", default=list(STEP_CONFIGS),
@@ -153,7 +151,7 @@ def main():
                         help=argparse.SUPPRESS)
     args = parser.parse_args()
     if args.worker:
-        worker(args.check, args.configs if args.steps else ())
+        worker(args.check, args.configs if args.steps else (), args.kernels)
         return
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -170,6 +168,7 @@ def main():
             out = subprocess.run(
                 [sys.executable, os.path.abspath(__file__), "--worker",
                  *(["--check"] if r == 0 else []),
+                 *(["--kernels", *args.kernels] if args.kernels else []),
                  *(["--steps", "--configs", *args.configs]
                    if args.steps else [])],
                 env=env, capture_output=True, text=True, cwd=tree)
