@@ -11,9 +11,14 @@
 // sweep of its (column, g) in turn, with the level recurrence in
 // registers, so every column is computed for any ncol.
 //
-// lw_noscat_sweeps: two affine sweeps (fup_surf = emission + albedo *
-// fdn_surf between them), per-level broadband sums by the fixed-order
-// block reductions of common.cuh.
+// lw_noscat_sweeps: two affine sweeps, down (TOA -> surface) then up
+// (surface -> TOA), with fup_surf = emission + albedo * fdn_surf between
+// them.  Neither needs the other's per-level values, so nothing is handed
+// over or recomputed.  Each pass walks chunks of kNoscatChunk = 4 levels
+// (down from TOA; up from the surface chunk, which may be shorter) and
+// loads a chunk's trans and source for all its levels before its
+// recurrence runs; the up pass takes the surface chunk's trans from the
+// down pass's registers.
 //
 // scat_sweeps and sw_sweeps: an up pass and a down pass with nothing
 // handed between them per level.  The up pass (surface -> TOA) keeps only
@@ -40,30 +45,43 @@
 //   with coefficients from the recompute.  Two chains, not the plain
 //   version's three: its function in another rounding order, as in
 //   csrc/sw_fused.cu.  Night columns (incoming 0) give zeros.
-// Their per-level broadband sums hold no barrier in the level loops: each
-// warp leaves its shuffle-tree partial in shared memory (warp_partial),
-// and the partials are added in warp order after the down pass
-// (store_level_sums): deterministic, so a second launch is bit-equal.
+// The per-level broadband sums of all three hold no barrier in the level
+// loops: each warp leaves its shuffle-tree partial in shared memory
+// (warp_partial), and the partials are added in warp order after the last
+// pass (store_level_sums) in block_sum's order: deterministic, so a second
+// launch is bit-equal, and the sums a block_sum per level would give.
 //
 // What bounds them on the H100: bytes.  Per (column, layer, g) the sweeps
-// do a few multiply-adds and one or two divisions, against 4 (scat) or 5
-// (SW) input planes, far below the card's ~20 operations per byte.  Each
-// plane is read twice (up pass, down pass) and no plane is written: 8 and
-// 10 plane passes, where handing the carries over through scratch planes
-// took 11 and 15 (and measured ~1.7x slower, also with the hand-off packed
-// per column and loads a level ahead).  A chunk's loads are all in flight
-// at once.  Against this design (PERF.md): chunks of 4, 6 or 16 levels,
-// the chunk in shared memory (cp.async, two stages), register caps of 64
-// or 80 and one barrier per level measured no faster.
+// do a few multiply-adds and one or two divisions, against 3 (noscat), 4
+// (scat) or 5 (SW) input planes, far below the card's ~20 operations per
+// byte.  lw_noscat_sweeps reads trans in both passes and each source in
+// one: 4 plane passes.  scat_sweeps and sw_sweeps read each plane twice
+// (up pass, down pass) and write no plane: 8 and 10 plane passes, where
+// handing the carries over through scratch planes took 11 and 15 (and
+// measured ~1.7x slower, also with the hand-off packed per column and
+// loads a level ahead).  A chunk's loads are all in flight at once.
+// Against this design (PERF.md), scat_sweeps and sw_sweeps: chunks of 4,
+// 6 or 16 levels, the chunk in shared memory (cp.async, two stages),
+// register caps of 64 or 80 and one barrier per level measured no faster.
+// lw_noscat_sweeps: chunks of 2, 3, 6, 8 or 16 levels (8: 48 registers in
+// float, 8 blocks per SM, against 40 and 10 at 4), the next chunk's loads
+// in flight during a chunk's recurrence (at 4 or 8 levels), __ldg loads,
+// one barrier per level and, at 8 levels, register caps for 10 or 12
+// blocks per SM (spills) and trans kept in shared memory for the up pass
+// (3 plane passes, 2 blocks per SM) measured no faster.  A barrier per
+// level inside the `if (k < ch.n)` guard made the up pass's sums wrong;
+// after the guard it gave the right sums.
 #include "common.cuh"
 
 namespace {
 
 using namespace ecrad;
 
-// Levels per chunk of the down pass (and the up pass's checkpoint stride);
-// chunk values live in registers, so this is a compile-time constant.
+// Levels per chunk of scat_sweeps' and sw_sweeps' down pass (and the up
+// pass's checkpoint stride), and of both passes of lw_noscat_sweeps; chunk
+// values live in registers, so these are compile-time constants.
 constexpr int kChunk = 8;
+constexpr int kNoscatChunk = 4;
 
 template <typename T> struct NoscatArgs {
   const T *trans, *s_up, *s_dn;           // (ncol, nlev, ng)
@@ -88,56 +106,6 @@ template <typename T> struct SwArgs {
   int nlev, ng;
 };
 
-// Store the broadband sums of v at level l of (ncol, nlev) outputs.
-template <typename T, int NV>
-__device__ __forceinline__ void store_bb(T (&v)[NV], T *red, T *const (&out)[NV],
-                                         size_t at) {
-  block_sum<T, NV>(v, red);
-  if (threadIdx.x == 0) {
-#pragma unroll
-    for (int i = 0; i < NV; ++i) out[i][at] = v[i];
-  }
-}
-
-template <typename T>
-__global__ void lw_noscat_kernel(NoscatArgs<T> a) {
-  __shared__ T red[32];
-  const int g = threadIdx.x;
-  const bool on = g < a.ng;
-  const int nlev = a.nlev;
-  const size_t cl0 = (size_t)blockIdx.x * nlev;
-  const size_t cg = (size_t)blockIdx.x * a.ng + g;
-  T *const dn[1] = {a.dn_bb};
-  T *const up[1] = {a.up_bb};
-
-  // down, TOA -> surface
-  T fdn = T(0);
-  for (int l = 0; l < nlev; ++l) {
-    if (on) {
-      const size_t lg = (cl0 + l) * a.ng + g;
-      fdn = a.trans[lg] * fdn + a.s_dn[lg];
-    }
-    T v[1] = {on ? fdn : T(0)};
-    store_bb<T, 1>(v, red, dn, cl0 + l);
-  }
-  T fup = T(0);
-  if (on) {
-    fup = a.emission[cg] + a.albedo[cg] * fdn;
-    a.fdn_surf[cg] = fdn;
-    a.fup_surf[cg] = fup;
-  }
-  // up, surface -> TOA
-  for (int l = nlev - 1; l >= 0; --l) {
-    if (on) {
-      const size_t lg = (cl0 + l) * a.ng + g;
-      fup = a.trans[lg] * fup + a.s_up[lg];
-    }
-    T v[1] = {on ? fup : T(0)};
-    store_bb<T, 1>(v, red, up, cl0 + l);
-  }
-  if (on) a.fup_toa[cg] = fup;
-}
-
 // One layer of the Moebius up sweep: the albedo and source of the
 // atmosphere from the layer's top down, from those below it.  Returns
 // 1 / (1 - alb_below * refl), which the down step needs too.
@@ -151,13 +119,82 @@ __device__ __forceinline__ T moebius_up(T r, T t, T s_up, T s_dn, T &alb,
   return inv;
 }
 
-// Levels [lo, lo + n) of a column's chunk; n < kChunk only at the surface.
+// Levels [lo, lo + n) of a column's chunk c of K levels; n < K only at the
+// surface.
 struct Chunk {
   int lo, n;
 };
 
+template <int K = kChunk>
 __device__ __forceinline__ Chunk chunk_at(int c, int nlev) {
-  return {c * kChunk, min(kChunk, nlev - c * kChunk)};
+  return {c * K, min(K, nlev - c * K)};
+}
+
+template <typename T>
+__global__ void lw_noscat_kernel(NoscatArgs<T> a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T *part = reinterpret_cast<T *>(smem_raw);
+  const int g = threadIdx.x;
+  const bool on = g < a.ng;
+  const int nlev = a.nlev, ng = a.ng, nwarp = blockDim.x >> 5;
+  const int nchunk = (nlev + kNoscatChunk - 1) / kNoscatChunk;
+  const size_t cl0 = (size_t)blockIdx.x * nlev;
+  const size_t cg = (size_t)blockIdx.x * ng + g;
+  auto lg = [&](int l) { return (cl0 + l) * (size_t)ng + g; };
+
+  // --- down pass, TOA -> surface
+  T t[kNoscatChunk], s[kNoscatChunk];
+  T fdn = T(0);
+  for (int c = 0; c < nchunk; ++c) {
+    const Chunk ch = chunk_at<kNoscatChunk>(c, nlev);
+    if (on) {
+#pragma unroll
+      for (int k = 0; k < kNoscatChunk; ++k) {
+        if (k < ch.n) {
+          const size_t i = lg(ch.lo + k);
+          t[k] = a.trans[i];
+          s[k] = a.s_dn[i];
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kNoscatChunk; ++k) {
+      if (k < ch.n) {
+        if (on) fdn = t[k] * fdn + s[k];
+        warp_partial(on ? fdn : T(0), part, 2 * (ch.lo + k), nwarp);
+      }
+    }
+  }
+  T fup = T(0);
+  if (on) {
+    fup = a.emission[cg] + a.albedo[cg] * fdn;
+    a.fdn_surf[cg] = fdn;
+    a.fup_surf[cg] = fup;
+  }
+  // --- up pass, surface -> TOA; t still holds the surface chunk's trans
+  for (int c = nchunk - 1; c >= 0; --c) {
+    const Chunk ch = chunk_at<kNoscatChunk>(c, nlev);
+    if (on) {
+#pragma unroll
+      for (int k = 0; k < kNoscatChunk; ++k) {
+        if (k < ch.n) {
+          const size_t i = lg(ch.lo + k);
+          if (c < nchunk - 1) t[k] = a.trans[i];
+          s[k] = a.s_up[i];
+        }
+      }
+    }
+#pragma unroll
+    for (int k = kNoscatChunk - 1; k >= 0; --k) {
+      if (k < ch.n) {
+        if (on) fup = t[k] * fup + s[k];
+        warp_partial(on ? fup : T(0), part, 2 * (ch.lo + k) + 1, nwarp);
+      }
+    }
+  }
+  if (on) a.fup_toa[cg] = fup;
+  T *const outs[2] = {a.dn_bb + cl0, a.up_bb + cl0};
+  store_level_sums(part, outs, nlev, nwarp);
 }
 
 template <typename T>
@@ -345,6 +382,22 @@ __global__ void sw_kernel(SwArgs<T> a) {
 
 inline int threads_for(int ng) { return ((ng + 31) / 32) * 32; }
 
+// Launch a kernel whose dynamic shared memory holds the warp partials of
+// nsums per-level sums; a column too deep for shared memory fails here.
+template <typename Kernel, typename Args>
+int launch_chunked(Kernel kernel, const Args &a, int ncol, int nsums,
+                   size_t elem, void *stream) {
+  const int threads = threads_for(a.ng);
+  const size_t smem = elem * (size_t)a.nlev * nsums * (threads / 32);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<ncol, threads, smem, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_noscat(void *const *p, int ncol, int nlev, int ng, void *stream) {
   NoscatArgs<T> a;
@@ -360,25 +413,7 @@ int launch_noscat(void *const *p, int ncol, int nlev, int ng, void *stream) {
   a.fup_surf = (T *)p[9];
   a.nlev = nlev;
   a.ng = ng;
-  lw_noscat_kernel<T>
-      <<<ncol, threads_for(ng), 0, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
-}
-
-// Launch a kernel whose dynamic shared memory holds the warp partials of
-// nsums per-level sums; a column too deep for shared memory fails here.
-template <typename Kernel, typename Args>
-int launch_chunked(Kernel kernel, const Args &a, int ncol, int nsums,
-                   size_t elem, void *stream) {
-  const int threads = threads_for(a.ng);
-  const size_t smem = elem * (size_t)a.nlev * nsums * (threads / 32);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  kernel<<<ncol, threads, smem, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  return launch_chunked(lw_noscat_kernel<T>, a, ncol, 2, sizeof(T), stream);
 }
 
 template <typename T>

@@ -13,8 +13,10 @@
 * The orders in which ``csrc/adding_sweeps.cu`` computes ``scat_sweeps``
   and ``sw_sweeps`` (an up pass that keeps its carry only every k levels,
   a down pass that recomputes each chunk's carries from there; SW with
-  direct albedos), in plain torch, against the plain versions, on the
-  module's layers, a thick-cloud case and a night case.
+  direct albedos) and ``lw_noscat_sweeps`` (both passes in chunks of k
+  levels, per-level sums in the kernel's order), in plain torch, against
+  the plain versions, on the module's layers, a thick-cloud case and a
+  night case.
 
 37 columns: a ragged count (the JAX wrappers pad it to 128).
 """
@@ -265,6 +267,48 @@ def direct_albedo_sweeps(coeffs, incoming, alb_dif, alb_dir_mu0, k,
                 dn_bb=stack(dn_bb), up_bb=stack(up_bb), fdn_surf=fdn), below
 
 
+def block_sum(x):
+    """The sum over the last axis (g-points) in the order of common.cuh's
+    block_sum, which warp_partial and store_level_sums follow: a
+    shuffle-down tree over each warp of 32 lanes, padded with zeros, then
+    the warps' partials added in warp order."""
+    x = torch.nn.functional.pad(x, (0, -x.shape[-1] % 32))
+    x = x.unflatten(-1, (-1, 32))
+    for off in (16, 8, 4, 2, 1):
+        x = x[..., :off] + x[..., off:2 * off]
+    s = x[..., 0, 0]
+    for w in range(1, x.shape[-2]):
+        s = s + x[..., w, 0]
+    return s
+
+
+def chunked_noscat_sweeps(trans, s_up, s_dn, emission, albedo, k):
+    """lw_noscat_sweeps in the order of csrc/adding_sweeps.cu: the down
+    pass over chunks of k levels from TOA, the up pass over the same
+    chunks from the surface one (the short one when k does not divide
+    nlev), each chunk's planes taken whole before its levels run, and
+    each level's broadband sum in block_sum's order."""
+    nlev = trans.shape[1]
+    chunks = [(lo, min(nlev, lo + k)) for lo in range(0, nlev, k)]
+    dn_bb, up_bb = [None] * nlev, [None] * nlev
+    fdn = torch.zeros_like(emission)
+    for lo, hi in chunks:
+        t, s = trans[:, lo:hi], s_dn[:, lo:hi]
+        for j in range(hi - lo):
+            fdn = t[:, j] * fdn + s[:, j]
+            dn_bb[lo + j] = block_sum(fdn)
+    fup_surf = emission + albedo * fdn
+    fup = fup_surf
+    for lo, hi in reversed(chunks):
+        t, s = trans[:, lo:hi], s_up[:, lo:hi]
+        for j in range(hi - lo - 1, -1, -1):
+            fup = t[:, j] * fup + s[:, j]
+            up_bb[lo + j] = block_sum(fup)
+    stack = lambda xs: torch.stack(xs, dim=1)  # noqa: E731
+    return dict(dn_bb=stack(dn_bb), fdn_surf=fdn, up_bb=stack(up_bb),
+                fup_toa=fup, fup_surf=fup_surf)
+
+
 def _mirror_case(props, case):
     """The module's layers ("props"); with thick cloud in a few layers
     ("thick": direct transmittance at most 1e-6, diffuse reflectance up to
@@ -288,7 +332,8 @@ def _mirror_case(props, case):
 # rounding order: f64 roundoff through ~20 levels, of each entry and (for
 # entries that are zero to roundoff) of the field's largest value.
 RTOL_REORDERED = 1e-12
-MIRROR_CASES = {"scat_sweeps": ("props", "thick"),
+MIRROR_CASES = {"lw_noscat_sweeps": ("props", "thick"),
+                "scat_sweeps": ("props", "thick"),
                 "sw_sweeps": ("props", "thick", "night")}
 
 
@@ -297,14 +342,20 @@ MIRROR_CASES = {"scat_sweeps": ("props", "thick"),
                                        for c in cs])
 def test_checkpointed_sweeps_match_plain(props, name, case, k):
     """The kernel's order (checkpoints every k levels, chunks recomputed;
-    SW with direct albedos and affine down steps) gives the plain version's outputs, and each
-    recomputed carry equals the one a full up pass hands over (k=1), bit
-    for bit."""
+    SW with direct albedos and affine down steps; LW without scattering
+    in chunks, its sums in block_sum's order) gives the plain version's
+    outputs, and each recomputed carry equals the one a full up pass hands
+    over (k=1), bit for bit; so do LW without scattering's per-g-point
+    outputs."""
     p = _mirror_case(props, case)
     names, _, outs = KERNELS[name]
     args = _t(*(p[n] for n in names))
     ref = getattr(cuda_adding, name + "_plain")(*args)
-    if name == "scat_sweeps":
+    if name == "lw_noscat_sweeps":
+        got, below, handed = chunked_noscat_sweeps(*args, k=k), [], []
+        assert all(torch.equal(got[key], ref[key])
+                   for key in ("fdn_surf", "fup_toa", "fup_surf"))
+    elif name == "scat_sweeps":
         (got, below), (_, handed) = (checkpointed_scat_sweeps(*args, k=k),
                                      checkpointed_scat_sweeps(*args, k=1))
     else:

@@ -22,18 +22,24 @@ this checkout's chip_smoke.py either way.  A round runs the checkouts in
 order, the next round in reverse order; in the first, each one's
 kernels are also held against their plain versions in float64 (rtol
 1e-10, as chip_smoke.py; a disagreement is reported in the run's line),
-and the registers and spills ptxas reports for the kernels are printed.  With
+the registers and spills ptxas reports for the kernels are printed, and
+each checkout saves its float32 outputs of every case under
+build/time_kernels/ of this checkout; the summary line then says, per
+case and per other checkout, whether its outputs equal this checkout's
+bit for bit ("equal") or by how much they differ at most.  With
 --steps, each run times the main paths' steps instead (chip_smoke.py's
 full size: 6144 columns in blocks of 2048, f32, the median of three steps
 after one, host clock around a synchronised step, and the peak device
 memory of those steps) of the configurations named by --configs (by
 default all five).  Prints one JSON line per run and a summary line
-{"card": ..., "median_ms": {checkout: {case: ms}}}.
+{"card": ..., "median_ms": {checkout: {case: ms}}, "f32_outputs_vs_this":
+{checkout: {case: "equal" or max_abs_diff}}}.
 """
 
 import argparse
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -75,11 +81,16 @@ def time_steps(chip_smoke, configs):
     return out, peak
 
 
-def worker(check, configs, names):
+def case_file(save, case):
+    return os.path.join(save, case.replace("/", "__") + ".pt")
+
+
+def worker(check, configs, names, save):
     """Time this process's ecrad_torch (the first on sys.path) on the
     inputs of chip_smoke.py from ROOT, the kernels names lists (all when
     empty); with check, first hold each kernel against its plain version
-    in float64 (chip_smoke._compare_f64); with configs, time those
+    in float64 (chip_smoke._compare_f64), and save each case's float32
+    outputs into the directory save; with configs, time those
     configurations' main-path steps instead."""
     import importlib.util
 
@@ -125,6 +136,10 @@ def worker(check, configs, names):
                         f64_err[key] = f"FAILS: {e}"
                 a = chip_smoke._f32(args)
                 cases[key] = chip_smoke.median_ms(lambda: fn(*a))
+                if check:
+                    torch.save({n: v.cpu() for n, v in
+                                chip_smoke._outputs(fn(*a)).items()},
+                               case_file(save, key))
                 del a
         del inputs
         torch.cuda.empty_cache()
@@ -149,9 +164,11 @@ def main():
                         help=argparse.SUPPRESS)
     parser.add_argument("--check", action="store_true",
                         help=argparse.SUPPRESS)
+    parser.add_argument("--save", help=argparse.SUPPRESS)
     args = parser.parse_args()
     if args.worker:
-        worker(args.check, args.configs if args.steps else (), args.kernels)
+        worker(args.check, args.configs if args.steps else (), args.kernels,
+               args.save)
         return
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -162,12 +179,18 @@ def main():
     runs += [(os.path.relpath(os.path.abspath(d), ROOT), os.path.abspath(d))
              for d in args.other]
     times = {label: [] for label, _ in runs}
+    saved = os.path.join(ROOT, "build", "time_kernels")
+    shutil.rmtree(saved, ignore_errors=True)
+    save = {label: os.path.join(saved, str(i))
+            for i, (label, _) in enumerate(runs)}
+    for d in save.values():
+        os.makedirs(d)
     for r in range(args.rounds):
         for label, tree in runs if r % 2 == 0 else runs[::-1]:
             env = dict(os.environ, PYTHONPATH=tree)
             out = subprocess.run(
                 [sys.executable, os.path.abspath(__file__), "--worker",
-                 *(["--check"] if r == 0 else []),
+                 *(["--check", "--save", save[label]] if r == 0 else []),
                  *(["--kernels", *args.kernels] if args.kernels else []),
                  *(["--steps", "--configs", *args.configs]
                    if args.steps else [])],
@@ -179,7 +202,34 @@ def main():
             times[label].append(line["ms"])
     print(json.dumps({"card": smi, "median_ms": {
         label: {case: statistics.median(run[case] for run in rs)
-                for case in rs[0]} for label, rs in times.items()}}))
+                for case in rs[0]} for label, rs in times.items()},
+        "f32_outputs_vs_this": {
+            label: compare_outputs(save["."], save[label], times["."][0])
+            for label, _ in runs[1:]} if not args.steps else {}}))
+
+
+def compare_outputs(this, other, cases):
+    """{case: "equal" when the float32 outputs saved under other equal
+    those under this bit for bit, else their largest absolute difference
+    ("missing" when other saved no such case, "names differ" when its
+    outputs have other names)."""
+    import torch
+
+    res = {}
+    for case in cases:
+        path = case_file(other, case)
+        if not os.path.exists(path):
+            res[case] = "missing"
+            continue
+        a, b = torch.load(case_file(this, case)), torch.load(path)
+        if set(a) != set(b):
+            res[case] = "names differ"
+        elif all(torch.equal(a[n], b[n]) for n in a):
+            res[case] = "equal"
+        else:
+            res[case] = max(float((a[n].double() - b[n].double()).abs().max())
+                            for n in a)
+    return res
 
 
 if __name__ == "__main__":
