@@ -29,7 +29,11 @@ the script exits non-zero:
                spartacus_lw and the total scene's scat_sweeps and
                sw_sweeps also on the same state with every layer
                cloudy, in float64 and rounded to float32 (a second
-               float32 launch must equal the first bit for bit);
+               float32 launch must equal the first bit for bit); and the
+               five kernels of the ecCKD paths (generator_scan, lw_fused,
+               sw_fused, tripleclouds_lw, tripleclouds_sw) also on the
+               ecckd_mcica state (32 g-points, per-g-point cloud optics:
+               32 bands, band_of_g the identity; one warp per block);
                kernel and plain median times (the kernel's on each input
                set TIMED names), and the least time the card could take
                for the same work.
@@ -50,8 +54,13 @@ the script exits non-zero:
 8. slice_hom_* - the same three for homogeneous_rrtmg
                (tests/data/torch_homogeneous_meridian32.npz).
 9. slice_sp_*  - the same three for spartacus_3d
-               (tests/data/torch_spartacus_meridian32.npz); its full phase
-               also reports the peak device memory of the run.
+               (tests/data/torch_spartacus_meridian32.npz).
+10. slice_tc_ecckd_*, slice_ecckd_* - the same three for
+               tripleclouds_ecckd and ecckd_mcica (tests/data/torch_
+               {tripleclouds_ecckd,ecckd_mcica}_meridian32.npz; ecCKD gas
+               optics, general cloud optics); the float32 McICA slice is
+               fed the JAX float32 stochastic sample, as 5(a).
+The full phases from 6 on also report the peak device memory of the run.
 The kernels' launch counters are reset just before each main path (5b and
 the *_full phases) and read just after it.
 
@@ -79,11 +88,17 @@ from ecrad_torch.solvers import mcica, spartacus, tripleclouds, two_stream
 HERE = os.path.dirname(os.path.abspath(__file__))
 DATA = os.path.join(HERE, "tests", "data")
 REFERENCE = os.path.join(DATA, "torch_flagship_meridian32.npz")
-# the deterministic configurations: (phase tag, reference file)
+# the configurations after the flagship: (phase tag, reference file)
 SLICES = {"tripleclouds_rrtmg": ("tc", "torch_tripleclouds_meridian32.npz"),
           "cloudless_rrtmg": ("cl", "torch_cloudless_meridian32.npz"),
           "homogeneous_rrtmg": ("hom", "torch_homogeneous_meridian32.npz"),
-          "spartacus_3d": ("sp", "torch_spartacus_meridian32.npz")}
+          "spartacus_3d": ("sp", "torch_spartacus_meridian32.npz"),
+          "tripleclouds_ecckd": ("tc_ecckd",
+                                 "torch_tripleclouds_ecckd_meridian32.npz"),
+          "ecckd_mcica": ("ecckd", "torch_ecckd_mcica_meridian32.npz")}
+# the JAX float32 stochastic sample of a McICA reference file
+SAMPLE_KEYS = ("od_scaling_sw", "od_scaling_lw", "total_cloud_cover_sw",
+               "total_cloud_cover_lw")
 NLEV = 137
 SHAPES = (2048, 2049)         # the bench block, and a ragged column count
 FULL_NCOL, FULL_BLOCK = 6144, 2048
@@ -179,6 +194,8 @@ MAIN_PATHS = {
     "cloudless_rrtmg": dict(lw_noscat_sweeps=1, sw_sweeps=1),
     "homogeneous_rrtmg": dict(scat_sweeps=2, sw_fused=1),
     "spartacus_3d": dict(spartacus_sw=1, spartacus_lw=1),
+    "tripleclouds_ecckd": dict(tripleclouds_lw=1, tripleclouds_sw=1),
+    "ecckd_mcica": dict(generator_scan=2, lw_fused=1, sw_fused=1),
 }
 
 # The least time of a kernel's work on one H100 SXM (NVIDIA's published
@@ -426,6 +443,31 @@ def all_cloudy_inputs(ncol, dtype, seed):
             for name, args in solver_inputs(ncol, dtype, seed, 0.2).items()}
 
 
+def ecckd_inputs(ncol, dtype, seed):
+    """{kernel: [("ecckd", arguments)]} for the kernels of the ecCKD paths
+    at their widths, from the random state of random_state on the
+    ecckd_mcica configuration: generator_scan at 32 g-points, and the
+    fused McICA and Tripleclouds kernels' arguments (fused_inputs) with
+    32 g-points and per-g-point cloud optics (32 bands, band_of_g the
+    identity), which is checked."""
+    step, kw, cloud = random_state(ncol, dtype, seed, "ecckd_mcica")
+    config, tables = step.config, step.tables
+    gen = cloud_generator.scan_inputs(config, cloud["iseed"],
+                                      cloud["fraction"],
+                                      cloud["overlap_param"],
+                                      config.n_g_lw)[:6]
+    cloud = pipeline.add_cloud_sample(config, tables, cloud)
+    op = _optical_properties(config, tables, solar_irradiance=step.solar,
+                             cloud=cloud, **kw)
+    out = {"generator_scan": gen, **fused_inputs(step, kw, cloud, op)}
+    for bfg in (tables.band_from_g_lw, tables.band_from_g_sw):
+        if not torch.equal(bfg.cpu(), torch.arange(32)) \
+                or op["cl"]["od_sw"].shape[-1] != 32:
+            raise AssertionError("ecckd_mcica is not at 32 g-points and "
+                                 "bands")
+    return {name: [("ecckd", args)] for name, args in out.items()}
+
+
 def kernel_inputs(ncol, dtype, seed):
     """Each kernel's inputs as the main path builds them, for the random
     state of random_state.  Returns {kernel: [(label, arguments)]}, the
@@ -599,12 +641,13 @@ def bound(name, args, out):
 
 
 # Input sets timed besides the main path's (the first of kernel_inputs)
-TIMED = {"spartacus_sw": ("all_cloudy",),
+TIMED = {"generator_scan": ("ecckd",),
+         "spartacus_sw": ("all_cloudy",),
          "spartacus_lw": ("multilayer", "all_cloudy"),
-         "tripleclouds_sw": ("all_cloudy",),
-         "lw_fused": ("no_derivatives", "all_cloudy"),
-         "sw_fused": ("delta_gases", "all_cloudy"),
-         "tripleclouds_lw": ("no_derivatives", "all_cloudy"),
+         "tripleclouds_sw": ("all_cloudy", "ecckd"),
+         "lw_fused": ("no_derivatives", "all_cloudy", "ecckd"),
+         "sw_fused": ("delta_gases", "all_cloudy", "ecckd"),
+         "tripleclouds_lw": ("no_derivatives", "all_cloudy", "ecckd"),
          "scat_sweeps": ("total_scene", "all_cloudy"),
          "sw_sweeps": ("total_scene", "all_cloudy")}
 
@@ -657,13 +700,13 @@ def time_kernel(name, inputs, res, main):
 
 def kernels_phase(smi):
     """Check each kernel on its input sets at each of SHAPES, and time it
-    at the first; the all-cloudy sets are built once the main path's are
-    freed, which keeps the float64 inputs within the card's memory (each
-    group's peak device memory is reported)."""
+    at the first; the all-cloudy and ecCKD sets are built once the main
+    path's are freed, which keeps the float64 inputs within the card's
+    memory (each group's peak device memory is reported)."""
     results = {name: {"max_abs_err": {}, "checked": set(), "variants": {}}
                for name in KERNELS}
     for ncol in SHAPES:
-        for make in (kernel_inputs, all_cloudy_inputs):
+        for make in (kernel_inputs, all_cloudy_inputs, ecckd_inputs):
             torch.cuda.reset_peak_memory_stats()
             inputs = make(ncol, torch.float64, seed=ncol)
             for name, sets in inputs.items():
@@ -715,16 +758,21 @@ def slice_f64_phase(ref):
     phase("slice_f64", max_abs_err=worst, launches=n)
 
 
+def fed_sample_step(step, args, ref):
+    """interface.radiation on a McICA step's inputs fed the reference's
+    JAX float32 stochastic sample (the step without its generator)."""
+    kw = dict(zip(flagship.ARG_ORDER, args))
+    cloud = dict(kw.pop("cloud"))
+    for k in SAMPLE_KEYS:
+        cloud[k] = torch.as_tensor(ref["f32_sample/" + k], device=DEV)
+    return radiation(step.config, step.tables, solar_irradiance=step.solar,
+                     cloud=cloud, **kw)
+
+
 def slice_f32_phase(ref, smi):
     # (a) radiation() fed the JAX float32 stochastic sample
     step, args = flagship.build(ncol=32, dtype=torch.float32, device=DEV)
-    kw = dict(zip(flagship.ARG_ORDER, args))
-    cloud = dict(kw.pop("cloud"))
-    for k in ("od_scaling_sw", "od_scaling_lw", "total_cloud_cover_sw",
-              "total_cloud_cover_lw"):
-        cloud[k] = torch.as_tensor(ref["f32_sample/" + k], device=DEV)
-    flux = radiation(step.config, step.tables, solar_irradiance=step.solar,
-                     cloud=cloud, **kw)
+    flux = fed_sample_step(step, args, ref)
     torch.cuda.synchronize()
     worst = _check_slice(flux, ref, "f32/", SLICE_F32_ATOL,
                          SLICE_F32_ATOL_DIMLESS)
@@ -773,8 +821,10 @@ def per_block(config_name, nblocks=1):
 
 
 def slice_phases(config_name, ref, smi):
-    """A deterministic configuration: f64 and f32 slices against JAX, then
-    its main path at full size; returns the main path's launch counts."""
+    """A configuration of SLICES: f64 and f32 slices against JAX (the f32
+    one fed the JAX float32 stochastic sample where the reference holds
+    one, so without the generator's launches), then its main path at full
+    size; returns the main path's launch counts."""
     tag = SLICES[config_name][0]
     for dtype, prefix, atol, atol_dimless in (
             (torch.float64, "f64/", SLICE_F64_ATOL, SLICE_F64_ATOL_DIMLESS),
@@ -782,11 +832,15 @@ def slice_phases(config_name, ref, smi):
         name = f"slice_{tag}_{prefix[:3]}"
         step, args = flagship.build(ncol=32, dtype=dtype, device=DEV,
                                     config_name=config_name)
+        want = per_block(config_name)
+        fed = dtype == torch.float32 and f"f32_sample/{SAMPLE_KEYS[0]}" in ref
         reset_counts()
-        flux = step(*args)
+        flux = fed_sample_step(step, args, ref) if fed else step(*args)
         torch.cuda.synchronize()
         n = counts()
-        expect_counts(n, f"one {name} step", **per_block(config_name))
+        if fed:
+            want.pop("generator_scan")
+        expect_counts(n, f"one {name} step", **want)
         held_to = prefix
         if dtype == torch.float32:
             held_to = F32_HELD_TO.get(config_name, prefix)
@@ -796,7 +850,8 @@ def slice_phases(config_name, ref, smi):
             extra["held_to"] = held_to
             extra["max_abs_err_vs_" + prefix[:3]] = _check_slice(
                 flux, ref, prefix, float("inf"), float("inf"))
-        phase(name, max_abs_err=worst, launches=n, **extra)
+        phase(name, max_abs_err=worst, launches=n, fed_jax_sample=fed,
+              **extra)
 
     step, args = flagship.build(ncol=FULL_NCOL, dtype=torch.float32,
                                 device=DEV, block_size=FULL_BLOCK,

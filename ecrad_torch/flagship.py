@@ -10,13 +10,17 @@ configurations change the solvers:
 * ``homogeneous_rrtmg``: Homogeneous SW and LW with LW aerosol scattering
   on (ecRad's default), so LW takes the unfused adding sweeps;
 * ``spartacus_3d``: SPARTACUS SW and LW with 3D effects (Explicit
-  entrapment, LW side emissivity) and no SW delta scaling with gases.
+  entrapment, LW side emissivity) and no SW delta scaling with gases;
+* ``tripleclouds_ecckd``: Tripleclouds SW and LW on ecCKD gas optics (32
+  g-points in each band set) with general cloud optics per g-point,
+  Planck-weighted LW emissivities and no aerosols;
+* ``ecckd_mcica``: the same on the McICA solvers.
 
 Mirrors ``__graft_entry__._build`` of the JAX package with the same
 ``nam_overrides``: the same Config, cloud-separation settings and tiling
-(for ``tripleclouds_rrtmg`` and ``spartacus_3d``, the overrides of
-``tools/bench_matrix.py`` CONFIGS), including the cloud sizes that
-SPARTACUS reads.
+(for ``tripleclouds_rrtmg``, ``spartacus_3d`` and the two ecCKD
+configurations, the overrides of ``tools/bench_matrix.py`` CONFIGS),
+including the cloud sizes that SPARTACUS reads.
 """
 
 from __future__ import annotations
@@ -25,7 +29,8 @@ import numpy as np
 import torch
 
 from ecrad_torch import pipeline
-from ecrad_torch.config import Config, IceModel, LiquidModel, Solver
+from ecrad_torch.config import (Config, GasModel, IceModel, LiquidModel,
+                                Solver)
 from ecrad_torch.data import DATA_DIR, MERIDIAN_INPUT
 from ecrad_torch.interface import setup_radiation
 from ecrad_torch.io.input import DriverConfig, read_input
@@ -34,6 +39,13 @@ ARG_ORDER = ("pressure_hl", "temperature_hl", "gas_mmr", "cos_sza",
              "skin_temperature", "sw_albedo", "sw_albedo_direct",
              "lw_emissivity", "cloud", "aerosol")
 
+
+# ecCKD gas optics in both band sets, with general cloud optics and
+# without aerosols
+ECCKD = dict(gas_model_sw=GasModel.ECCKD, gas_model_lw=GasModel.ECCKD,
+             use_general_cloud_optics=True,
+             do_nearest_spectral_lw_emiss=False, use_aerosols=False,
+             n_aerosol_types=0, i_aerosol_type_map=())
 
 # Named configurations: Config fields over the flagship's
 CONFIGS = {
@@ -48,6 +60,10 @@ CONFIGS = {
     "spartacus_3d": dict(sw_solver=Solver.SPARTACUS,
                          lw_solver=Solver.SPARTACUS, do_3d_effects=True,
                          do_sw_delta_scaling_with_gases=False),
+    "tripleclouds_ecckd": dict(sw_solver=Solver.TRIPLECLOUDS,
+                               lw_solver=Solver.TRIPLECLOUDS,
+                               **ECCKD),
+    "ecckd_mcica": ECCKD,
 }
 
 

@@ -1,6 +1,6 @@
 """Radiation scheme orchestration (port of ``ecrad_tpu/interface.py``
-for the RRTMG configurations with the Cloudless, Homogeneous, McICA,
-Tripleclouds and SPARTACUS solvers).
+for the RRTMG and ecCKD configurations, in either band, with the Cloudless,
+Homogeneous, McICA, Tripleclouds and SPARTACUS solvers).
 
 Equivalent of radiation/radiation_interface.F90: ``setup_radiation``
 (host-side: loads the LUTs, computes the spectral mappings, and returns
@@ -23,16 +23,23 @@ from ecrad_torch.containers import Flux
 from ecrad_torch.data import find_data_file
 from ecrad_torch.optics import aerosol as aerosol_mod
 from ecrad_torch.optics import cloud as cloud_optics_mod
+from ecrad_torch.optics import ecckd as ecckd_mod
+from ecrad_torch.optics import general_cloud as general_cloud_mod
 from ecrad_torch.optics import rrtmg, rrtmg_data
+from ecrad_torch.optics.spectral_def import SpectralDefinition
 from ecrad_torch.solvers import cloudless, mcica, spartacus, tripleclouds
 from ecrad_torch.solvers.cloud_generator import fit_pdf_cheb
+
+# The ecCKD definition files read unless the configuration names others
+ECCKD_SW_FILE = "ecckd-1.4_sw_climate_rgb-32b_ckd-definition.nc"
+ECCKD_LW_FILE = "ecckd-1.0_lw_climate_fsck-32b_ckd-definition.nc"
 
 
 class Tables(NamedTuple):
     """Setup-time derived arrays, as tensors on one device (integer
-    index arrays int64, everything else in the working dtype; scalars
-    stay Python numbers)."""
-    gas: Dict                                  # {"rrtmg": tables}
+    index arrays int64, everything else in the working dtype; scalars,
+    strings and the ecCKD metadata stay Python values)."""
+    gas: Dict                      # {"rrtmg": tables, "sw"/"lw": ecCKD}
     sw_albedo_weights: torch.Tensor            # (nalbedo, nbands_sw)
     lw_emiss_weights: torch.Tensor             # (nemiss, nbands_lw)
     i_albedo_from_band_sw: Optional[torch.Tensor]
@@ -42,14 +49,17 @@ class Tables(NamedTuple):
     cloud: Optional[Dict] = None               # cloud-optics tables
     aerosol: Optional[Dict] = None             # aerosol-optics tables
     pdf_sampler: Optional[Dict] = None         # McICA PDF LUT + fit
+    gas_meta: Optional[Dict] = None            # {"sw"/"lw": ecCKD meta}
 
 
 def _to_tensors(x, device, dtype):
     """Arrays -> tensors (float in ``dtype``, integers int64, bool as
-    is); 0-d arrays -> Python scalars; dicts recursively; other leaves
-    unchanged.  Accepts anything with ``__array__``."""
+    is); 0-d arrays -> Python scalars; dicts and lists recursively; other
+    leaves unchanged.  Accepts anything with ``__array__``."""
     if isinstance(x, dict):
         return {k: _to_tensors(v, device, dtype) for k, v in x.items()}
+    if isinstance(x, list):
+        return [_to_tensors(v, device, dtype) for v in x]
     if x is None or isinstance(x, (bool, int, float, str, tuple)):
         return x
     a = np.asarray(x)
@@ -65,7 +75,8 @@ def _to_tensors(x, device, dtype):
 def tables_from_numpy(jax_tables, device, dtype) -> Tables:
     """The JAX package's ``Tables`` (numpy or jnp leaves) as the port's
     Tables: same leaves, converted with ``np.asarray``.  The TPU-only
-    level windows (``gas["rrtmg"]["windows"]``) are dropped."""
+    level windows (``gas["rrtmg"]["windows"]``) are dropped, and so are
+    the spectral definitions, which only setup reads."""
     kw = {}
     for name in Tables._fields:
         value = getattr(jax_tables, name)
@@ -78,9 +89,11 @@ def tables_from_numpy(jax_tables, device, dtype) -> Tables:
 
 def _check_supported(config: Config):
     """The configurations this port covers."""
-    if (config.gas_model_sw != GasModel.RRTMG
-            or config.gas_model_lw != GasModel.RRTMG):
-        raise NotImplementedError("the port has RRTMG gas optics only")
+    models = (GasModel.RRTMG, GasModel.ECCKD)
+    if (config.gas_model_sw not in models
+            or config.gas_model_lw not in models):
+        raise NotImplementedError("the port has RRTMG and ecCKD gas optics "
+                                  "only")
     ported = (Solver.CLOUDLESS, Solver.HOMOGENEOUS, Solver.MCICA,
               Solver.TRIPLECLOUDS, Solver.SPARTACUS)
     if (config.do_sw and config.sw_solver not in ported) or (
@@ -92,51 +105,91 @@ def _check_supported(config: Config):
             and config.nregions != 3:
         raise NotImplementedError("the port's SPARTACUS solvers take three "
                                   "regions only")
-    if config.use_general_cloud_optics:
-        raise NotImplementedError("general cloud optics are not ported")
-    for flag in ("use_spectral_solar_scaling", "use_spectral_solar_cycle",
-                 "do_save_spectral_flux", "do_save_gpoint_flux",
-                 "do_toa_spectral_flux"):
+    for flag in ("use_spectral_solar_scaling", "do_save_spectral_flux",
+                 "do_save_gpoint_flux", "do_toa_spectral_flux"):
         if getattr(config, flag):
             raise NotImplementedError(f"{flag} is not ported")
 
 
+def _gas_model_setup(config: Config, band: str, ddir: str, gas_tables,
+                     gas_meta):
+    """One band set's gas model ("sw" or "lw"; radiation_interface.F90
+    setup_radiation): returns (its Config fields, band_from_g (0-based),
+    spectral definition); the model's tables go into gas_tables, an ecCKD
+    model's metadata into gas_meta."""
+    is_sw = band == "sw"
+    model = config.gas_model_sw if is_sw else config.gas_model_lw
+    if model == GasModel.RRTMG:
+        # RRTMG supports only band-wise cloud/aerosol/surface optics, on a
+        # band-bounds-only spectral definition
+        # (radiation_ifs_rrtm.F90:106-115,151-159)
+        if "rrtmg" not in gas_tables:
+            gas_tables["rrtmg"] = rrtmg.setup_tables()
+        if is_sw:
+            ng, nb = rrtmg_data.NG_SW, rrtmg_data.NBANDS_SW
+            wn = rrtmg_data.SW_WAVENUM1, rrtmg_data.SW_WAVENUM2
+        else:
+            ng, nb = rrtmg_data.NG_LW, rrtmg_data.NBANDS_LW
+            wn = rrtmg_data.LW_WAVENUM1, rrtmg_data.LW_WAVENUM2
+        return ({f"n_g_{band}": ng, f"n_bands_{band}": nb,
+                 f"do_cloud_aerosol_per_{band}_g_point": False},
+                gas_tables["rrtmg"][f"{band}_band_from_g"],
+                SpectralDefinition.bands_only(*wn, is_solar=is_sw))
+    override = (config.gas_optics_sw_override_file_name if is_sw
+                else config.gas_optics_lw_override_file_name)
+    default = ECCKD_SW_FILE if is_sw else ECCKD_LW_FILE
+    tables, specdef, meta = ecckd_mod.load_ckd_model(
+        find_data_file(ddir, override or default))
+    if is_sw and config.use_spectral_solar_cycle:
+        # radiation_config.F90:1200-1215 + radiation_ecckd.F90:295
+        ecckd_mod.read_spectral_solar_cycle(
+            tables, specdef,
+            find_data_file(ddir, config.ssi_override_file_name
+                           or "ssi_nrl2.nc"),
+            use_updated_solar_spectrum=config.use_updated_solar_spectrum)
+    gas_tables[band], gas_meta[band] = tables, meta
+    per_g = getattr(config, f"do_cloud_aerosol_per_{band}_g_point")
+    return ({f"n_g_{band}": specdef.ng,
+             f"n_bands_{band}": specdef.ng if per_g else specdef.nband},
+            np.arange(specdef.ng) if per_g else specdef.band_number,
+            specdef)
+
+
 def setup_radiation(config: Config, device, dtype, data_dir: str = None):
-    """Host-side setup (radiation_interface.F90:37-156) for the RRTMG +
-    SOCRATES/Fu + general aerosol configurations of the ported solvers.
-    Cloud tables load only when a solver needs clouds, the McICA PDF table
-    only when McICA is one of the solvers.
+    """Host-side setup (radiation_interface.F90:37-156) for the RRTMG and
+    ecCKD gas models (per band set), SOCRATES/Fu or general cloud optics
+    and general aerosols with the ported solvers.  Cloud tables load only
+    when a solver needs clouds, the McICA PDF table only when McICA is one
+    of the solvers.
 
     data_dir overrides config.directory_name for locating optics files.
     Returns (consolidated config, Tables on ``device`` in ``dtype``).
     """
     _check_supported(config)
-    gas_rrtmg = rrtmg.setup_tables()
+    if config.use_spectral_solar_cycle \
+            and config.gas_model_sw != GasModel.ECCKD:
+        # radiation_config.F90:1201-1203
+        raise ValueError(
+            "solar cycle only available with ecCKD gas optics model")
     ddir = data_dir or config.directory_name
 
-    # --- band structure (radiation_ifs_rrtm.F90:106-115,151-152): RRTMG
-    # supports only band-wise cloud/aerosol/surface optics
-    kw = dict(n_g_sw=rrtmg_data.NG_SW, n_bands_sw=rrtmg_data.NBANDS_SW,
-              do_cloud_aerosol_per_sw_g_point=False,
-              n_g_lw=rrtmg_data.NG_LW, n_bands_lw=rrtmg_data.NBANDS_LW,
-              do_cloud_aerosol_per_lw_g_point=False)
-    band_from_g_sw = gas_rrtmg["sw_band_from_g"]
-    band_from_g_lw = gas_rrtmg["lw_band_from_g"]
-    wn1_sw, wn2_sw = rrtmg_data.SW_WAVENUM1, rrtmg_data.SW_WAVENUM2
-    wn1_lw, wn2_lw = rrtmg_data.LW_WAVENUM1, rrtmg_data.LW_WAVENUM2
-    from ecrad_torch.optics.spectral_def import SpectralDefinition
-    specdef_sw = SpectralDefinition.bands_only(wn1_sw, wn2_sw,
-                                               is_solar=True)
-    specdef_lw = SpectralDefinition.bands_only(wn1_lw, wn2_lw,
-                                               is_solar=False)
+    # --- band structure, per band set
+    gas_tables, gas_meta = {}, {}
+    kw_sw, band_from_g_sw, specdef_sw = _gas_model_setup(
+        config, "sw", ddir, gas_tables, gas_meta)
+    kw_lw, band_from_g_lw, specdef_lw = _gas_model_setup(
+        config, "lw", ddir, gas_tables, gas_meta)
+    kw = {**kw_sw, **kw_lw}
+    # the forced flags hold for the setup below
     config = config.replace(**kw)
 
     # --- surface albedo/emissivity interval consolidation
-    # (radiation_config.F90:1947-2103)
+    # (radiation_config.F90:1947-2103), per band or per g-point
     i_sw_idx = [i for i in config.i_sw_albedo_index if i and i > 0] or [1]
     sw_bounds = list(config.sw_albedo_wavelength_bound[:len(i_sw_idx) - 1])
     sw_albedo_weights = specdef_sw.calc_mapping_from_bands(
-        sw_bounds, i_sw_idx, use_bands=True)
+        sw_bounds, i_sw_idx,
+        use_bands=not config.do_cloud_aerosol_per_sw_g_point)
     kw["n_albedo_intervals"] = int(max(i_sw_idx))
     kw["n_canopy_bands_sw"] = (kw["n_g_sw"]
                                if config.use_canopy_full_spectrum_sw
@@ -148,7 +201,8 @@ def setup_radiation(config: Config, device, dtype, data_dir: str = None):
     i_lw_idx = [i for i in config.i_lw_emiss_index if i and i > 0] or [1]
     lw_bounds = list(config.lw_emiss_wavelength_bound[:len(i_lw_idx) - 1])
     lw_emiss_weights = specdef_lw.calc_mapping_from_bands(
-        lw_bounds, i_lw_idx, use_bands=True)
+        lw_bounds, i_lw_idx,
+        use_bands=not config.do_cloud_aerosol_per_lw_g_point)
     kw["n_emiss_intervals"] = int(max(i_lw_idx))
     kw["n_canopy_bands_lw"] = (kw["n_g_lw"]
                                if config.use_canopy_full_spectrum_lw
@@ -167,7 +221,15 @@ def setup_radiation(config: Config, device, dtype, data_dir: str = None):
 
     # --- cloud optics + McICA PDF LUT
     cloud_tables = pdf_tables = None
-    if kw["do_clouds"]:
+    if kw["do_clouds"] and config.use_general_cloud_optics:
+        cloud_tables = general_cloud_mod.setup_general_cloud_optics(
+            config, ddir, specdef_sw, specdef_lw)
+        kw["n_cloud_types"] = len(cloud_tables["type_names"])
+    elif kw["do_clouds"]:
+        if GasModel.ECCKD in (config.gas_model_sw, config.gas_model_lw):
+            raise NotImplementedError(
+                "the band-wise cloud optics take RRTMG bands; use general "
+                "cloud optics with ecCKD")
         cloud_tables = cloud_optics_mod.setup_cloud_optics(config, ddir)
     if kw["do_clouds"] and Solver.MCICA in (config.sw_solver,
                                              config.lw_solver):
@@ -189,11 +251,14 @@ def setup_radiation(config: Config, device, dtype, data_dir: str = None):
             "i_aerosol_type_map")
     if config.use_aerosols and config.n_aerosol_types > 0:
         aerosol_tables = aerosol_mod.setup_aerosol_optics(
-            config, ddir, wn1_sw, wn2_sw, wn1_lw, wn2_lw)
+            config, ddir, specdef_sw.wavenumber1_band,
+            specdef_sw.wavenumber2_band, specdef_lw.wavenumber1_band,
+            specdef_lw.wavenumber2_band, specdef_sw=specdef_sw,
+            specdef_lw=specdef_lw)
 
     new_config = config.replace(**kw)
     host = Tables(
-        gas={"rrtmg": gas_rrtmg},
+        gas=gas_tables,
         sw_albedo_weights=sw_albedo_weights,
         lw_emiss_weights=lw_emiss_weights,
         i_albedo_from_band_sw=i_albedo_from_band_sw,
@@ -203,6 +268,7 @@ def setup_radiation(config: Config, device, dtype, data_dir: str = None):
         cloud=cloud_tables,
         aerosol=aerosol_tables,
         pdf_sampler=pdf_tables,
+        gas_meta=gas_meta,
     )
     return new_config, tables_from_numpy(host, device, dtype)
 
@@ -248,11 +314,50 @@ def indexed_sum_g(x_g, band_from_g, nbands: int):
     return x_g @ onehot
 
 
+def _ecckd_gas_optics(config: Config, tables: Tables, pressure_hl,
+                      temperature_hl, gdict, cos_sza, skin_temperature,
+                      solar_irradiance, spectral_solar_cycle_multiplier):
+    """The ecCKD gas optics of the band sets that use it
+    (radiation_ecckd_interface.F90:174-340), as RRTMGGasOptics fields:
+    pressure-weighted full-level temperature, gases as volume mixing
+    ratios; the LW optical depth floored at min_gas_od_lw, the SW one not
+    (ssa is the Rayleigh share), the incoming flux 0 where the sun is
+    down."""
+    phl, thl = pressure_hl, temperature_hl
+    t_fl = ((thl[:, :-1] * phl[:, :-1] + thl[:, 1:] * phl[:, 1:])
+            / (phl[:, :-1] + phl[:, 1:]))
+    gas_vmr = {name: mmr * (constants.MOLAR_MASS_DRY_AIR
+                            / constants.MOLAR_MASS[name])
+               for name, mmr in gdict.items()}
+    out = {}
+    if config.do_sw and config.gas_model_sw == GasModel.ECCKD:
+        t, meta = tables.gas["sw"], tables.gas_meta["sw"]
+        od, ray = ecckd_mod.calc_optical_depth(t, meta, phl, t_fl, gas_vmr)
+        od = od + ray
+        inc = ecckd_mod.calc_incoming_sw(
+            t, solar_irradiance, phl.shape[0],
+            solar_cycle_multiplier=(spectral_solar_cycle_multiplier
+                                    if config.use_spectral_solar_cycle
+                                    else 0.0))
+        out.update(od_sw=od, ssa_sw=ray / od,
+                   incoming_sw=torch.where((cos_sza > 0.0)[:, None], inc,
+                                           torch.zeros_like(inc)))
+    if config.do_lw and config.gas_model_lw == GasModel.ECCKD:
+        t, meta = tables.gas["lw"], tables.gas_meta["lw"]
+        od, _ = ecckd_mod.calc_optical_depth(t, meta, phl, t_fl, gas_vmr)
+        out.update(od_lw=torch.clamp(od, min=config.min_gas_od_lw),
+                   planck_hl=ecckd_mod.calc_planck(t, meta, thl),
+                   lw_emission=ecckd_mod.calc_planck(t, meta,
+                                                     skin_temperature))
+    return out
+
+
 def _optical_properties(config: Config, tables: Tables, *,
                         pressure_hl, temperature_hl, gas_mmr,
                         cos_sza, skin_temperature, sw_albedo,
                         sw_albedo_direct, lw_emissivity,
-                        solar_irradiance, cloud=None, aerosol=None):
+                        solar_irradiance, cloud=None, aerosol=None,
+                        spectral_solar_cycle_multiplier=0.0):
     """Surface + gas + aerosol + cloud optical properties — the front
     half of radiation() (radiation_interface.F90:200-383)."""
     _check_supported(config)
@@ -262,13 +367,31 @@ def _optical_properties(config: Config, tables: Tables, *,
     gdict = {name: gas_mmr[:, :, constants.GAS_INDEX[name]]
              for name in ("h2o", "co2", "ch4", "n2o", "cfc11", "cfc12",
                           "hcfc22", "ccl4", "o3")}
-    go = rrtmg.gas_optics(
-        tables.gas["rrtmg"], pressure_hl, temperature_hl, gdict,
-        cos_sza=cos_sza, do_lw=config.do_lw, do_sw=config.do_sw,
-        skin_temperature=skin_temperature,
-        solar_irradiance=solar_irradiance,
-        min_gas_od_lw=config.min_gas_od_lw,
-        min_gas_od_sw=config.min_gas_od_sw)
+    # RRTMG and/or ecCKD, possibly mixed per band set
+    # (radiation_interface.F90 gas_optics dispatch)
+    go_kw = {}
+    do_lw_rrtmg = config.do_lw and config.gas_model_lw == GasModel.RRTMG
+    do_sw_rrtmg = config.do_sw and config.gas_model_sw == GasModel.RRTMG
+    if do_lw_rrtmg or do_sw_rrtmg:
+        r = rrtmg.gas_optics(
+            tables.gas["rrtmg"], pressure_hl, temperature_hl, gdict,
+            cos_sza=cos_sza, do_lw=do_lw_rrtmg, do_sw=do_sw_rrtmg,
+            skin_temperature=skin_temperature,
+            solar_irradiance=solar_irradiance,
+            min_gas_od_lw=config.min_gas_od_lw,
+            min_gas_od_sw=config.min_gas_od_sw)
+        if do_lw_rrtmg:
+            go_kw.update(od_lw=r.od_lw, planck_hl=r.planck_hl,
+                         lw_emission=r.lw_emission)
+        if do_sw_rrtmg:
+            go_kw.update(od_sw=r.od_sw, ssa_sw=r.ssa_sw,
+                         incoming_sw=r.incoming_sw)
+    if GasModel.ECCKD in (config.gas_model_sw, config.gas_model_lw):
+        go_kw.update(_ecckd_gas_optics(
+            config, tables, pressure_hl, temperature_hl, gdict, cos_sza,
+            skin_temperature, solar_irradiance,
+            spectral_solar_cycle_multiplier))
+    go = rrtmg.RRTMGGasOptics(**go_kw)
 
     od_lw, planck_hl = go.od_lw, go.planck_hl
     od_sw, ssa_sw = go.od_sw, go.ssa_sw
@@ -308,10 +431,16 @@ def _optical_properties(config: Config, tables: Tables, *,
                 & (total_water >= config.cloud_mixing_ratio_threshold))
         frac = torch.where(keep, cloud["fraction"],
                            torch.zeros_like(cloud["fraction"]))
-        cl = cloud_optics_mod.cloud_optics(
-            config, tables.cloud, pressure_hl, temperature_hl,
-            frac, cloud["q_liq"], cloud["q_ice"],
-            cloud["re_liq"], cloud["re_ice"])
+        if config.use_general_cloud_optics:
+            cl = general_cloud_mod.general_cloud_optics(
+                config, tables.cloud, pressure_hl, frac,
+                torch.stack([cloud["q_liq"], cloud["q_ice"]], dim=-1),
+                torch.stack([cloud["re_liq"], cloud["re_ice"]], dim=-1))
+        else:
+            cl = cloud_optics_mod.cloud_optics(
+                config, tables.cloud, pressure_hl, temperature_hl,
+                frac, cloud["q_liq"], cloud["q_ice"],
+                cloud["re_liq"], cloud["re_ice"])
 
     return dict(
         sw_albedo_direct_g=sw_albedo_direct_g,
@@ -324,9 +453,13 @@ def _optical_properties(config: Config, tables: Tables, *,
 
 def _spartacus_perm(config: Config, is_sw: bool) -> np.ndarray:
     """G-point permutation for SPARTACUS: RRTMG g-points reordered by
-    approximately increasing optical depth (radiation_ifs_rrtm.F90:117-134)."""
-    return (rrtmg_data.RRTM_GPOINT_REORDERING_SW if is_sw
-            else rrtmg_data.RRTM_GPOINT_REORDERING_LW)
+    approximately increasing optical depth (radiation_ifs_rrtm.F90:117-134);
+    other gas models use natural order."""
+    gm = config.gas_model_sw if is_sw else config.gas_model_lw
+    if gm == GasModel.RRTMG:
+        return (rrtmg_data.RRTM_GPOINT_REORDERING_SW if is_sw
+                else rrtmg_data.RRTM_GPOINT_REORDERING_LW)
+    return np.arange(config.n_g_sw if is_sw else config.n_g_lw)
 
 
 def _unpermute_g_fields(out, perm: np.ndarray):
@@ -396,12 +529,15 @@ def radiation(config: Config, tables: Tables, *,
               pressure_hl, temperature_hl, gas_mmr,
               cos_sza, skin_temperature, sw_albedo, sw_albedo_direct,
               lw_emissivity, solar_irradiance,
-              cloud=None, aerosol=None) -> Flux:
+              cloud=None, aerosol=None,
+              spectral_solar_cycle_multiplier=0.0) -> Flux:
     """The hot path (radiation_interface.F90:200-517) for the ported
     configurations.
 
     gas_mmr: (ncol, nlev, NUM_GASES) mass mixing ratios in
-    constants.GAS_NAMES order.  For a McICA solver cloud must carry the
+    constants.GAS_NAMES order.  spectral_solar_cycle_multiplier shifts
+    the ecCKD solar spectrum along the solar cycle (with
+    use_spectral_solar_cycle).  For a McICA solver cloud must carry the
     stochastic sample (od_scaling_*, total_cloud_cover_*; see
     pipeline.add_cloud_sample); Tripleclouds reads fractional_std and
     overlap_param, SPARTACUS also inv_cloud_effective_size (and
@@ -416,7 +552,8 @@ def radiation(config: Config, tables: Tables, *,
         cos_sza=cos_sza, skin_temperature=skin_temperature,
         sw_albedo=sw_albedo, sw_albedo_direct=sw_albedo_direct,
         lw_emissivity=lw_emissivity, solar_irradiance=solar_irradiance,
-        cloud=cloud, aerosol=aerosol)
+        cloud=cloud, aerosol=aerosol,
+        spectral_solar_cycle_multiplier=spectral_solar_cycle_multiplier)
     go, frac, cl = op["go"], op["frac"], op["cl"]
     do_clouds = op["do_clouds"]
     flux_kw = {}

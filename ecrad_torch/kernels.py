@@ -28,14 +28,16 @@ CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(REPO_ROOT, "build", "ecrad_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# Flags of one source.  sw_fused.cu contracts no multiply-add into an FMA,
-# so that its f64 layer coefficients round op for op as the plain torch
-# version's do: near k * mu0 = 1 the Meador-Weaver direct-beam
-# coefficients lose up to ~10 digits (one f64 rounding there becomes a
-# ~1e-6 relative change), which other rounding carries into the fluxes
-# at more than chip_smoke.py's f64 tolerance.  Its f32 build measured no
-# slower without contraction (PERF.md).
-SOURCE_FLAGS = {"sw_fused.cu": ("-fmad=false",)}
+# Flags of one source.  The two sources that compute the SW layer
+# coefficients (common.cuh sw_ref_trans), sw_fused.cu and
+# tripleclouds_sw.cu, contract no multiply-add into an FMA, so that their
+# f64 coefficients round op for op as the plain torch versions' do: near
+# k * mu0 = 1 the Meador-Weaver direct-beam coefficients lose up to ~10
+# digits (one f64 rounding there becomes a ~1e-6 relative change), which
+# other rounding carries into the fluxes at more than chip_smoke.py's f64
+# tolerance.  The f32 builds were timed without contraction (PERF.md).
+SOURCE_FLAGS = {"sw_fused.cu": ("-fmad=false",),
+                "tripleclouds_sw.cu": ("-fmad=false",)}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int

@@ -2,9 +2,10 @@
 for the general aerosol optics file).
 
 Reference: radiation/radiation_aerosol_optics.F90 — general aerosol optics
-setup (high-spectral-resolution file averaged to bands at setup, L96-215)
-and the run-time RH-dependent merge into the gas optics arrays
-(add_aerosol_optics L487-780); spectral averaging weights from
+setup (high-spectral-resolution file averaged to bands, or to the g-points
+of an ecCKD spectral definition, at setup, L96-215) and the run-time
+RH-dependent merge into the gas optics arrays (add_aerosol_optics
+L487-780); spectral averaging weights from
 radiation_spectral_definition.F90:222-321 (calc_mapping).
 """
 
@@ -58,10 +59,13 @@ def calc_mapping_bands(wavenumber1_band, wavenumber2_band, ref_temp,
 
 
 def setup_aerosol_optics(config: Config, data_dir: str,
-                         wn1_sw, wn2_sw, wn1_lw, wn2_lw) -> Dict:
+                         wn1_sw, wn2_sw, wn1_lw, wn2_lw,
+                         specdef_sw=None, specdef_lw=None) -> Dict:
     """Load + spectrally average the general (high-resolution) aerosol
-    optics file per RRTMG band (radiation_aerosol_optics.F90:96-215),
-    host-side numpy."""
+    optics file (radiation_aerosol_optics.F90:96-215), host-side numpy:
+    per band (wn1/wn2 bounds), or per g-point through the spectral
+    definition with do_cloud_aerosol_per_*_g_point (ecCKD; pass
+    specdef_sw/lw)."""
     from ecrad_torch.data import find_data_file
     from ecrad_torch.io.netcdf import NcFile
 
@@ -73,11 +77,6 @@ def setup_aerosol_optics(config: Config, data_dir: str,
     else:
         raise NotImplementedError(
             "the port reads the general aerosol optics file only")
-    if config.do_cloud_aerosol_per_sw_g_point \
-            or config.do_cloud_aerosol_per_lw_g_point:
-        raise NotImplementedError(
-            "per-g-point aerosol optics (ecCKD) are not ported")
-
     out = {}
     with NcFile(path) as f:
         if not f.exists("wavenumber"):
@@ -94,12 +93,18 @@ def setup_aerosol_optics(config: Config, data_dir: str,
             g_philic = f.get("asymmetry_hydrophilic")
             rh_lower = f.get("relative_humidity1")
 
-    map_sw = calc_mapping_bands(wn1_sw, wn2_sw,
-                                spectral.SOLAR_REFERENCE_TEMPERATURE,
-                                wavenumber)
-    map_lw = calc_mapping_bands(wn1_lw, wn2_lw,
-                                spectral.TERRESTRIAL_REFERENCE_TEMPERATURE,
-                                wavenumber)
+    if config.do_cloud_aerosol_per_sw_g_point and specdef_sw is not None:
+        map_sw = specdef_sw.calc_mapping(wavenumber, use_bands=False)
+    else:
+        map_sw = calc_mapping_bands(wn1_sw, wn2_sw,
+                                    spectral.SOLAR_REFERENCE_TEMPERATURE,
+                                    wavenumber)
+    if config.do_cloud_aerosol_per_lw_g_point and specdef_lw is not None:
+        map_lw = specdef_lw.calc_mapping(wavenumber, use_bands=False)
+    else:
+        map_lw = calc_mapping_bands(
+            wn1_lw, wn2_lw, spectral.TERRESTRIAL_REFERENCE_TEMPERATURE,
+            wavenumber)
 
     def average(mapping, mass_ext, ssa, g):
         """matmul(mapping(nband,nwn), X(nwn, ...)) over the last axis of
@@ -124,7 +129,8 @@ def setup_aerosol_optics(config: Config, data_dir: str,
          out["g_lw_philic"]) = average(map_lw, mass_ext_philic,
                                        ssa_philic, g_philic)
         out["rh_lower"] = rh_lower
-    # band-wise tables: phobic (nband, ntype), philic (nband, ntype, nrh)
+    # tables per band (or g-point): phobic (nband, ntype), philic (nband,
+    # ntype, nrh)
     return out
 
 
@@ -213,8 +219,9 @@ def delta_eddington_extensive(od, scat, scatg):
 def add_aerosol_optics(config: Config, aer: Dict, band_from_g_sw,
                        band_from_g_lw, od_sw, ssa_sw, g_sw, od_lw,
                        ssa_lw=None, g_lw=None):
-    """Merge band-wise aerosol properties into per-g gas arrays
-    (radiation_aerosol_optics.F90:662-780, RRTMG band-based branch).
+    """Merge band-wise (or per-g-point) aerosol properties into per-g gas
+    arrays (radiation_aerosol_optics.F90:662-780); SW has a branch of its
+    own per g-point, LW merges alike in both.
 
     Returns updated (od_sw, ssa_sw, g_sw, od_lw, ssa_lw, g_lw)."""
     od_a, scat_a, scatg_a = aer["od_sw"], aer["scat_sw"], aer["scatg_sw"]
@@ -224,16 +231,23 @@ def add_aerosol_optics(config: Config, aer: Dict, band_from_g_sw,
     od_a_g = od_a[..., band_from_g_sw]
     scat_a_g = scat_a[..., band_from_g_sw]
     scatg_a_g = scatg_a[..., band_from_g_sw]
-    local_od = od_sw + od_a_g
-    apply = (local_od > 0.0) & (od_a_g > 0.0)
     local_scat = ssa_sw * od_sw + scat_a_g
-    new_g = torch.where(local_scat > 0.0,
-                        scatg_a_g / torch.clamp(local_scat, min=1e-300),
-                        g_sw)
-    g_sw = torch.where(apply, new_g, g_sw)
-    ssa_sw = torch.where(apply, local_scat
-                         / torch.clamp(local_od, min=1e-300), ssa_sw)
-    od_sw = torch.where(apply, local_od, od_sw)
+    if config.do_cloud_aerosol_per_sw_g_point:
+        # per-g-point merge (radiation_aerosol_optics.F90:668-676)
+        od_sw = od_sw + od_a_g
+        g_sw = scatg_a_g / torch.clamp(local_scat, min=1.0e-24)
+        ssa_sw = torch.clamp(local_scat / torch.clamp(od_sw, min=1.0e-24),
+                             max=1.0)
+    else:
+        local_od = od_sw + od_a_g
+        apply = (local_od > 0.0) & (od_a_g > 0.0)
+        new_g = torch.where(local_scat > 0.0,
+                            scatg_a_g / torch.clamp(local_scat, min=1e-300),
+                            g_sw)
+        g_sw = torch.where(apply, new_g, g_sw)
+        ssa_sw = torch.where(apply, local_scat
+                             / torch.clamp(local_od, min=1e-300), ssa_sw)
+        od_sw = torch.where(apply, local_od, od_sw)
 
     if config.do_lw_aerosol_scattering:
         od_a, scat_a, scatg_a = delta_eddington_extensive(

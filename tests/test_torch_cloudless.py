@@ -217,7 +217,8 @@ def test_setup_flags_match_jax(name):
     assert (step.tables.pdf_sampler is None) == (jtables.pdf_sampler is None)
     assert step.config.do_clouds == (name != "cloudless_rrtmg")
     assert step.config.is_homogeneous == (name == "homogeneous_rrtmg")
-    assert (step.tables.pdf_sampler is None) == (name != "mcica_rrtmg")
+    assert (step.tables.pdf_sampler is None) == (
+        name not in ("mcica_rrtmg", "ecckd_mcica"))
 
 
 def test_radiation_without_clouds_runs_cloudless():

@@ -8,6 +8,7 @@ import subprocess
 import sys
 
 import numpy as np
+import pytest
 import torch
 
 from ecrad_tpu.config import Config as JaxConfig
@@ -30,6 +31,7 @@ import ecrad_torch.solvers.tripleclouds, ecrad_torch.solvers.cuda_tripleclouds
 import ecrad_torch.solvers.cuda_adding, ecrad_torch.solvers.cloudless
 import ecrad_torch.solvers.matrix, ecrad_torch.solvers.spartacus
 import ecrad_torch.solvers.cuda_spartacus
+import ecrad_torch.optics.ecckd, ecrad_torch.optics.general_cloud
 import chip_smoke
 new = set(sys.modules) - before
 bad = sorted(m for m in new
@@ -52,6 +54,10 @@ def _assert_same(a, b, path="tables"):
         assert isinstance(a, dict) and set(a) == set(b), (path, set(a) ^ set(b))
         for k in b:
             _assert_same(a[k], b[k], f"{path}[{k!r}]")
+    elif isinstance(b, list):
+        assert isinstance(a, list) and len(a) == len(b), path
+        for i, (x, y) in enumerate(zip(a, b)):
+            _assert_same(x, y, f"{path}[{i}]")
     elif torch.is_tensor(b):
         assert torch.is_tensor(a), path
         assert a.dtype == b.dtype and a.shape == b.shape, path
@@ -68,11 +74,12 @@ def _same_config(port, jax):
         assert a == b, f.name
 
 
-def test_setup_radiation_matches_jax_exactly():
-    port_config, port_tables = setup_radiation(
-        flagship.flagship_config("float64"), "cpu", torch.float64,
-        data_dir=DATA_DIR)
-    kw = {f.name: getattr(flagship.flagship_config("float64"), f.name)
+def _setup_both(config):
+    """setup_radiation of the port and of the JAX package for the same
+    port Config: (port config, port tables, JAX config, JAX tables)."""
+    port_config, port_tables = setup_radiation(config, "cpu", torch.float64,
+                                               data_dir=DATA_DIR)
+    kw = {f.name: getattr(config, f.name)
           for f in dataclasses.fields(JaxConfig)}
     kw = {k: (getattr(type(getattr(JaxConfig(), k)), v.name)
               if hasattr(v, "name") and hasattr(v, "value") else v)
@@ -84,7 +91,39 @@ def test_setup_radiation_matches_jax_exactly():
     for name in Tables._fields:
         _assert_same(getattr(port_tables, name), getattr(converted, name),
                      name)
+    return port_config, port_tables, jax_config, jax_tables
+
+
+def test_setup_radiation_matches_jax_exactly():
+    _, port_tables, _, jax_tables = _setup_both(
+        flagship.flagship_config("float64"))
     # the conversion keeps integer index arrays integer
     assert port_tables.band_from_g_lw.dtype == torch.int64
     np.testing.assert_array_equal(port_tables.band_from_g_sw.numpy(),
                                   np.asarray(jax_tables.band_from_g_sw))
+
+
+# the ecCKD configurations, and ecckd_mcica with the flagship's aerosols
+# (per g-point) and the solar cycle with the updated solar spectrum
+ECCKD_SETUPS = {
+    "tripleclouds_ecckd": {},
+    "ecckd_mcica": {},
+    "ecckd_mcica_aerosols_solar_cycle": dict(
+        use_aerosols=True, n_aerosol_types=12,
+        i_aerosol_type_map=(-1, -2, -3, 7, 8, 9, -4, 10, 11, 11, -5, 14),
+        use_spectral_solar_cycle=True, use_updated_solar_spectrum=True),
+}
+
+
+@pytest.mark.parametrize("case", list(ECCKD_SETUPS))
+def test_setup_radiation_matches_jax_exactly_ecckd(case):
+    name = case if case in flagship.CONFIGS else "ecckd_mcica"
+    config = flagship.flagship_config("float64", name).replace(
+        **ECCKD_SETUPS[case])
+    port_config, port_tables, _, _ = _setup_both(config)
+    assert port_config.n_g_sw == port_config.n_bands_sw == 32
+    assert set(port_tables.gas) == {"sw", "lw"}
+    assert port_tables.gas_meta["lw"]["gases"][1]["name"] == "h2o"
+    assert (port_tables.aerosol is not None) == ("aerosols" in case)
+    assert ("norm_amplitude_solar_irradiance" in port_tables.gas["sw"]) \
+        == ("solar_cycle" in case)

@@ -25,7 +25,12 @@ commit of the tree:
   to ``tests/data/torch_homogeneous_meridian32.npz``;
 * ``spartacus_3d`` (SPARTACUS SW and LW with 3D effects and no SW delta
   scaling with gases, ``tools/bench_matrix.py`` CONFIGS) to
-  ``tests/data/torch_spartacus_meridian32.npz``.
+  ``tests/data/torch_spartacus_meridian32.npz``;
+* ``tripleclouds_ecckd`` (Tripleclouds SW and LW on ecCKD gas optics with
+  general cloud optics, no aerosols, ``tools/bench_matrix.py`` CONFIGS) to
+  ``tests/data/torch_tripleclouds_ecckd_meridian32.npz``;
+* ``ecckd_mcica`` (the same on McICA, with its float32 sample) to
+  ``tests/data/torch_ecckd_mcica_meridian32.npz``.
 
 ``tools/bench_matrix.py`` names only the McICA, Tripleclouds and
 SPARTACUS solvers, so the solvers are given here by the name of the JAX
@@ -43,6 +48,11 @@ import tempfile
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DATA = os.path.join(REPO, "tests", "data")
+# the ecCKD configurations' overrides (tools/bench_matrix.py CONFIGS)
+ECCKD = dict(gas_model_sw_name="ECCKD", gas_model_lw_name="ECCKD",
+             use_general_cloud_optics=True,
+             do_nearest_spectral_lw_emiss=False, use_aerosols=False,
+             n_aerosol_types=0, i_aerosol_type_map=())
 # configuration -> (nam_overrides, output file)
 OUTPUTS = {
     "mcica_rrtmg": ({}, "torch_flagship_meridian32.npz"),
@@ -59,6 +69,10 @@ OUTPUTS = {
                           lw_solver_name="SPARTACUS", do_3d_effects=True,
                           do_sw_delta_scaling_with_gases=False),
                      "torch_spartacus_meridian32.npz"),
+    "tripleclouds_ecckd": (dict(sw_solver_name="Tripleclouds",
+                                lw_solver_name="Tripleclouds", **ECCKD),
+                           "torch_tripleclouds_ecckd_meridian32.npz"),
+    "ecckd_mcica": (ECCKD, "torch_ecckd_mcica_meridian32.npz"),
 }
 NCOL = 32
 SAMPLE_KEYS = ("od_scaling_sw", "od_scaling_lw", "total_cloud_cover_sw",

@@ -13,7 +13,8 @@ entrapment, spartacus_lw with multilayer effects, the fused McICA and
 Tripleclouds kernels with delta-scaled gases or without derivatives,
 scat_sweeps and sw_sweeps on the total scene) and of
 chip_smoke.all_cloudy_inputs (the same state with every layer cloudy,
-"all_cloudy").  A case is named "<kernel>[_<set>]/<state>".  Each
+"all_cloudy") and chip_smoke.ecckd_inputs (the five kernels of the ecCKD
+paths at 32 g-points on the ecckd_mcica state, "ecckd").  A case is named "<kernel>[_<set>]/<state>".  Each
 checkout (this one, then each DIR, e.g.
 an older commit unpacked with `git archive`, or a copy with a kernel's
 variant edited in) runs in a process of its own that imports that
@@ -31,7 +32,7 @@ bit for bit ("equal") or by how much they differ at most.  With
 full size: 6144 columns in blocks of 2048, f32, the median of three steps
 after one, host clock around a synchronised step, and the peak device
 memory of those steps) of the configurations named by --configs (by
-default all five).  Prints one JSON line per run and a summary line
+default all seven).  Prints one JSON line per run and a summary line
 {"card": ..., "median_ms": {checkout: {case: ms}}, "f32_outputs_vs_this":
 {checkout: {case: "equal" or max_abs_diff}}}.
 """
@@ -49,7 +50,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
 NCOL = 2048
 STEP_CONFIGS = ("mcica_rrtmg", "tripleclouds_rrtmg", "homogeneous_rrtmg",
-                "spartacus_3d", "cloudless_rrtmg")
+                "spartacus_3d", "cloudless_rrtmg", "tripleclouds_ecckd",
+                "ecckd_mcica")
 
 
 def time_steps(chip_smoke, configs):
@@ -119,7 +121,8 @@ def worker(check, configs, names, save):
     k = chip_smoke.KERNELS
     cases, f64_err = {}, {}
     for state, make in (("meridian", chip_smoke.kernel_inputs),
-                        ("all_cloudy", chip_smoke.all_cloudy_inputs)):
+                        ("all_cloudy", chip_smoke.all_cloudy_inputs),
+                        ("ecckd", chip_smoke.ecckd_inputs)):
         inputs = make(NCOL, torch.float64, NCOL)
         for name, sets in inputs.items():
             if names and name not in names:
