@@ -60,6 +60,9 @@ the script exits non-zero:
                {tripleclouds_ecckd,ecckd_mcica}_meridian32.npz; ecCKD gas
                optics, general cloud optics); the float32 McICA slice is
                fed the JAX float32 stochastic sample, as 5(a).
+11. slice_tc_baran_* - the same three for tripleclouds_baran2016
+               (tests/data/torch_tripleclouds_baran2016_meridian32.npz;
+               Tripleclouds with Slingo liquid and Baran2016 ice).
 The full phases from 6 on also report the peak device memory of the run.
 The kernels' launch counters are reset just before each main path (5b and
 the *_full phases) and read just after it.
@@ -95,7 +98,9 @@ SLICES = {"tripleclouds_rrtmg": ("tc", "torch_tripleclouds_meridian32.npz"),
           "spartacus_3d": ("sp", "torch_spartacus_meridian32.npz"),
           "tripleclouds_ecckd": ("tc_ecckd",
                                  "torch_tripleclouds_ecckd_meridian32.npz"),
-          "ecckd_mcica": ("ecckd", "torch_ecckd_mcica_meridian32.npz")}
+          "ecckd_mcica": ("ecckd", "torch_ecckd_mcica_meridian32.npz"),
+          "tripleclouds_baran2016": (
+              "tc_baran", "torch_tripleclouds_baran2016_meridian32.npz")}
 # the JAX float32 stochastic sample of a McICA reference file
 SAMPLE_KEYS = ("od_scaling_sw", "od_scaling_lw", "total_cloud_cover_sw",
                "total_cloud_cover_lw")
@@ -196,6 +201,7 @@ MAIN_PATHS = {
     "spartacus_3d": dict(spartacus_sw=1, spartacus_lw=1),
     "tripleclouds_ecckd": dict(tripleclouds_lw=1, tripleclouds_sw=1),
     "ecckd_mcica": dict(generator_scan=2, lw_fused=1, sw_fused=1),
+    "tripleclouds_baran2016": dict(tripleclouds_lw=1, tripleclouds_sw=1),
 }
 
 # The least time of a kernel's work on one H100 SXM (NVIDIA's published

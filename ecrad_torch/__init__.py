@@ -1,6 +1,9 @@
 """ecrad_torch: the PyTorch/CUDA port of ecrad_tpu.
 
-RRTMG gas optics, IFS general aerosols, SOCRATES liquid and Fu ice, LW
+RRTMG or ecCKD gas optics, IFS general or legacy band-wise aerosols (types
+by index or by name) or directly specified aerosol optics, the band-wise
+cloud optics models (SOCRATES or Slingo/Lindner-Li liquid; Fu, Baran,
+Baran2016, Baran2017 or Yi ice) or general cloud optics, LW
 derivatives and canopy fluxes with the Cloudless, Homogeneous, McICA,
 Tripleclouds and SPARTACUS solvers run as plain torch on tensors of any
 device, with ten hand-written CUDA kernels (``csrc/``): the McICA
@@ -11,8 +14,9 @@ kernel's wrapper runs its plain torch version instead.
 
 Entry point: :func:`ecrad_torch.flagship.build`, on the card by default,
 with the named configurations ``mcica_rrtmg`` (the flagship),
-``tripleclouds_rrtmg``, ``cloudless_rrtmg``, ``homogeneous_rrtmg`` and
-``spartacus_3d``.
+``tripleclouds_rrtmg``, ``cloudless_rrtmg``, ``homogeneous_rrtmg``,
+``spartacus_3d``, ``tripleclouds_ecckd``, ``ecckd_mcica`` and
+``tripleclouds_baran2016``.
 The JAX package ``ecrad_tpu`` is the reference; this package imports
 nothing of it.
 """

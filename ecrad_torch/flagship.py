@@ -14,7 +14,10 @@ configurations change the solvers:
 * ``tripleclouds_ecckd``: Tripleclouds SW and LW on ecCKD gas optics (32
   g-points in each band set) with general cloud optics per g-point,
   Planck-weighted LW emissivities and no aerosols;
-* ``ecckd_mcica``: the same on the McICA solvers.
+* ``ecckd_mcica``: the same on the McICA solvers;
+* ``tripleclouds_baran2016``: Tripleclouds SW and LW with Slingo liquid
+  (Slingo SW, Lindner-Li LW) and Baran2016 ice, the band-wise cloud optics
+  models other than SOCRATES/Fu, with the flagship's aerosols.
 
 Mirrors ``__graft_entry__._build`` of the JAX package with the same
 ``nam_overrides``: the same Config, cloud-separation settings and tiling
@@ -64,6 +67,10 @@ CONFIGS = {
                                lw_solver=Solver.TRIPLECLOUDS,
                                **ECCKD),
     "ecckd_mcica": ECCKD,
+    "tripleclouds_baran2016": dict(sw_solver=Solver.TRIPLECLOUDS,
+                                   lw_solver=Solver.TRIPLECLOUDS,
+                                   liquid_model=LiquidModel.SLINGO,
+                                   ice_model=IceModel.BARAN2016),
 }
 
 

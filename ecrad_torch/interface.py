@@ -26,6 +26,7 @@ from ecrad_torch.optics import cloud as cloud_optics_mod
 from ecrad_torch.optics import ecckd as ecckd_mod
 from ecrad_torch.optics import general_cloud as general_cloud_mod
 from ecrad_torch.optics import rrtmg, rrtmg_data
+from ecrad_torch.optics.aerosol_description import resolve_aerosol_type_names
 from ecrad_torch.optics.spectral_def import SpectralDefinition
 from ecrad_torch.solvers import cloudless, mcica, spartacus, tripleclouds
 from ecrad_torch.solvers.cloud_generator import fit_pdf_cheb
@@ -157,8 +158,9 @@ def _gas_model_setup(config: Config, band: str, ddir: str, gas_tables,
 
 def setup_radiation(config: Config, device, dtype, data_dir: str = None):
     """Host-side setup (radiation_interface.F90:37-156) for the RRTMG and
-    ecCKD gas models (per band set), SOCRATES/Fu or general cloud optics
-    and general aerosols with the ported solvers.  Cloud tables load only
+    ecCKD gas models (per band set), band-wise or general cloud optics and
+    general or legacy band-wise aerosols, their types given by index or by
+    name, with the ported solvers.  Cloud tables load only
     when a solver needs clouds, the McICA PDF table only when McICA is one
     of the solvers.
 
@@ -246,9 +248,16 @@ def setup_radiation(config: Config, device, dtype, data_dir: str = None):
 
     aerosol_tables = None
     if config.use_aerosols and config.aerosol_type_name:
-        raise NotImplementedError(
-            "name-based aerosol type selection is not ported; give "
-            "i_aerosol_type_map")
+        # resolve name-based selection against the optics file's metadata
+        # registry (radiation_aerosol_optics_description.F90)
+        kw["i_aerosol_type_map"] = resolve_aerosol_type_names(
+            config.aerosol_type_name,
+            aerosol_mod.aerosol_optics_path(config, ddir),
+            config.aerosol_preferred_optical_model)
+        kw["n_aerosol_types"] = len(kw["i_aerosol_type_map"])
+        config = config.replace(
+            i_aerosol_type_map=kw["i_aerosol_type_map"],
+            n_aerosol_types=kw["n_aerosol_types"])
     if config.use_aerosols and config.n_aerosol_types > 0:
         aerosol_tables = aerosol_mod.setup_aerosol_optics(
             config, ddir, specdef_sw.wavenumber1_band,
@@ -402,24 +411,25 @@ def _optical_properties(config: Config, tables: Tables, *,
     if config.do_sw:
         g_sw_arr = torch.zeros_like(od_sw)
 
-    if config.use_aerosols and aerosol is not None:
-        if "od_sw" in aerosol:
-            raise NotImplementedError(
-                "directly specified aerosol optics are not ported")
-        if tables.aerosol is not None:
-            # RH-dependent aerosol merge (radiation_aerosol_optics.F90:487+)
-            p_fl = 0.5 * (pressure_hl[:, :-1] + pressure_hl[:, 1:])
-            t_fl = 0.5 * (temperature_hl[:, :-1] + temperature_hl[:, 1:])
-            h2o_mmr = gas_mmr[:, :, constants.GAS_INDEX["h2o"]]
-            rh = h2o_mmr / aerosol_mod.h2o_sat_liq(p_fl, t_fl)
-            aer = aerosol_mod.aerosol_band_properties(
-                config, tables.aerosol, pressure_hl,
-                aerosol["mixing_ratio"], rh)
-            od_sw, ssa_sw, g_sw_arr, od_lw, ssa_lw, g_lw_arr = \
-                aerosol_mod.add_aerosol_optics(
-                    config, aer, tables.band_from_g_sw,
-                    tables.band_from_g_lw, od_sw, ssa_sw, g_sw_arr, od_lw,
-                    ssa_lw, g_lw_arr)
+    aer = None
+    if config.use_aerosols and aerosol is not None and "od_sw" in aerosol:
+        # directly specified band-wise optics
+        aer = aerosol_mod.direct_aerosol_properties(config, aerosol)
+    elif config.use_aerosols and aerosol is not None \
+            and tables.aerosol is not None:
+        # RH-dependent aerosol merge (radiation_aerosol_optics.F90:487+)
+        p_fl = 0.5 * (pressure_hl[:, :-1] + pressure_hl[:, 1:])
+        t_fl = 0.5 * (temperature_hl[:, :-1] + temperature_hl[:, 1:])
+        h2o_mmr = gas_mmr[:, :, constants.GAS_INDEX["h2o"]]
+        rh = h2o_mmr / aerosol_mod.h2o_sat_liq(p_fl, t_fl)
+        aer = aerosol_mod.aerosol_band_properties(
+            config, tables.aerosol, pressure_hl, aerosol["mixing_ratio"], rh)
+    if aer is not None:
+        # the merge skips a band set that is off
+        od_sw, ssa_sw, g_sw_arr, od_lw, ssa_lw, g_lw_arr = \
+            aerosol_mod.add_aerosol_optics(
+                config, aer, tables.band_from_g_sw, tables.band_from_g_lw,
+                od_sw, ssa_sw, g_sw_arr, od_lw, ssa_lw, g_lw_arr)
 
     # --- cloud optics (radiation_interface.F90:357-383)
     do_clouds = config.do_clouds and cloud is not None

@@ -1,11 +1,12 @@
-"""Aerosol optical properties (port of ``ecrad_tpu/optics/aerosol.py``
-for the general aerosol optics file).
+"""Aerosol optical properties (port of ``ecrad_tpu/optics/aerosol.py``).
 
 Reference: radiation/radiation_aerosol_optics.F90 — general aerosol optics
 setup (high-spectral-resolution file averaged to bands, or to the g-points
-of an ecCKD spectral definition, at setup, L96-215) and the run-time
-RH-dependent merge into the gas optics arrays (add_aerosol_optics
-L487-780); spectral averaging weights from
+of an ecCKD spectral definition, at setup, L96-215), the legacy band-wise
+file (radiation_aerosol_optics_data.F90:204-231, spread onto g-points by
+L345-476), the run-time RH-dependent merge into the gas optics arrays
+(add_aerosol_optics L487-780) and directly specified optics
+(add_aerosol_optics_direct L832-1021); spectral averaging weights from
 radiation_spectral_definition.F90:222-321 (calc_mapping).
 """
 
@@ -58,30 +59,52 @@ def calc_mapping_bands(wavenumber1_band, wavenumber2_band, ref_temp,
     return mapping
 
 
+# The IFS aerosol optics files read unless the configuration names another
+GENERAL_AEROSOL_FILE = "aerosol_ifs_49R1_20230119.nc"
+LEGACY_AEROSOL_FILE = "aerosol_ifs_rrtm_46R1_with_NI_AM.nc"
+
+
+def aerosol_optics_path(config: Config, data_dir: str) -> str:
+    """The aerosol optics file: the override, else the general file, else
+    the legacy band-wise one (radiation_aerosol_optics.F90:59-62)."""
+    from ecrad_torch.data import find_data_file
+
+    if config.aerosol_optics_override_file_name:
+        name = config.aerosol_optics_override_file_name
+    elif config.use_general_aerosol_optics:
+        name = GENERAL_AEROSOL_FILE
+    else:
+        name = LEGACY_AEROSOL_FILE
+    return find_data_file(data_dir, name)
+
+
 def setup_aerosol_optics(config: Config, data_dir: str,
                          wn1_sw, wn2_sw, wn1_lw, wn2_lw,
                          specdef_sw=None, specdef_lw=None) -> Dict:
-    """Load + spectrally average the general (high-resolution) aerosol
-    optics file (radiation_aerosol_optics.F90:96-215), host-side numpy:
-    per band (wn1/wn2 bounds), or per g-point through the spectral
-    definition with do_cloud_aerosol_per_*_g_point (ecCKD; pass
-    specdef_sw/lw)."""
-    from ecrad_torch.data import find_data_file
+    """Load the aerosol optics file, host-side numpy.  A general
+    (high-resolution) file is spectrally averaged
+    (radiation_aerosol_optics.F90:96-215) per band (wn1/wn2 bounds), or per
+    g-point through the spectral definition with
+    do_cloud_aerosol_per_*_g_point (ecCKD; pass specdef_sw/lw); a file
+    without ``wavenumber`` is band-wise (legacy), whether it is the default
+    or an override (_load_legacy_aerosol_optics)."""
     from ecrad_torch.io.netcdf import NcFile
 
-    if config.aerosol_optics_override_file_name:
-        path = find_data_file(data_dir,
-                              config.aerosol_optics_override_file_name)
-    elif config.use_general_aerosol_optics:
-        path = find_data_file(data_dir, "aerosol_ifs_49R1_20230119.nc")
-    else:
-        raise NotImplementedError(
-            "the port reads the general aerosol optics file only")
+    path = aerosol_optics_path(config, data_dir)
     out = {}
     with NcFile(path) as f:
         if not f.exists("wavenumber"):
-            raise NotImplementedError(
-                f"band-wise (legacy) aerosol optics file: {path}")
+            # the reference checks only that the band counts match
+            # (radiation_aerosol_optics.F90:68-78); band bounds are taken
+            # on faith
+            return _load_legacy_aerosol_optics(
+                f, path, len(wn1_sw), len(wn1_lw),
+                specdef_sw=(specdef_sw
+                            if config.do_cloud_aerosol_per_sw_g_point
+                            else None),
+                specdef_lw=(specdef_lw
+                            if config.do_cloud_aerosol_per_lw_g_point
+                            else None))
         wavenumber = f.get("wavenumber")
         mass_ext_phobic = f.get("mass_ext_hydrophobic")     # (ntype, nwn)
         ssa_phobic = f.get("ssa_hydrophobic")
@@ -131,6 +154,103 @@ def setup_aerosol_optics(config: Config, data_dir: str,
         out["rh_lower"] = rh_lower
     # tables per band (or g-point): phobic (nband, ntype), philic (nband,
     # ntype, nrh)
+    return out
+
+
+def _load_legacy_aerosol_optics(f, path, nb_sw, nb_lw,
+                                specdef_sw=None, specdef_lw=None) -> Dict:
+    """Band-wise aerosol optics file (e.g. aerosol_ifs_rrtm_46R1*.nc).
+
+    Two uses in the reference:
+      * RRTMG bands: tables used directly
+        (radiation_aerosol_optics_data.F90:204-231 ``setup``; band-count
+        check radiation_aerosol_optics.F90:68-78);
+      * ecCKD per-g-point: band data spread onto g-points with
+        calc_mapping_from_wavenumber_bands
+        (setup_general_aerosol_optics_legacy,
+        radiation_aerosol_optics.F90:345-476).
+    Returns the tables of setup_aerosol_optics: phobic (nband, ntype),
+    philic (nband, ntype, nrh) from the file's (ntype, nrh, nband).
+    """
+    me_sw_phob = f.get("mass_ext_sw_hydrophobic")    # (ntype, nband)
+    ssa_sw_phob = f.get("ssa_sw_hydrophobic")
+    g_sw_phob = f.get("asymmetry_sw_hydrophobic")
+    me_lw_phob = f.get("mass_ext_lw_hydrophobic")
+    ssa_lw_phob = f.get("ssa_lw_hydrophobic")
+    g_lw_phob = f.get("asymmetry_lw_hydrophobic")
+    use_philic = f.exists("mass_ext_sw_hydrophilic")
+    if use_philic:
+        me_sw_phil = f.get("mass_ext_sw_hydrophilic")  # (nt, nrh, nband)
+        ssa_sw_phil = f.get("ssa_sw_hydrophilic")
+        g_sw_phil = f.get("asymmetry_sw_hydrophilic")
+        me_lw_phil = f.get("mass_ext_lw_hydrophilic")
+        ssa_lw_phil = f.get("ssa_lw_hydrophilic")
+        g_lw_phil = f.get("asymmetry_lw_hydrophilic")
+        rh_lower = f.get("relative_humidity1")
+    wn1_sw_file = f.get("wavenumber1_sw")
+    wn2_sw_file = f.get("wavenumber2_sw")
+    wn1_lw_file = f.get("wavenumber1_lw")
+    wn2_lw_file = f.get("wavenumber2_lw")
+
+    def remap(mapping, me, ssa, g):
+        """mapping (n_target, n_src); me/ssa/g (..., n_src).
+        Extinction-weighted averages as radiation_aerosol_optics.F90:
+        406-476."""
+        me_t = np.einsum("ts,...s->...t", mapping, me)
+        ssa_t = np.einsum("ts,...s->...t", mapping, me * ssa) \
+            / np.maximum(me_t, 1e-300)
+        g_t = np.einsum("ts,...s->...t", mapping, me * ssa * g) \
+            / np.maximum(me_t * ssa_t, 1e-300)
+        return me_t, ssa_t, g_t
+
+    if specdef_sw is not None:
+        map_sw = specdef_sw.calc_mapping_from_wavenumber_bands(
+            wn1_sw_file, wn2_sw_file, use_bands=False).T
+        me_sw_phob, ssa_sw_phob, g_sw_phob = remap(
+            map_sw, me_sw_phob, ssa_sw_phob, g_sw_phob)
+        if use_philic:
+            me_sw_phil, ssa_sw_phil, g_sw_phil = remap(
+                map_sw, me_sw_phil, ssa_sw_phil, g_sw_phil)
+    elif me_sw_phob.shape[-1] != nb_sw:
+        raise ValueError(
+            "number of shortwave bands (%d) does not match aerosol "
+            "optics look-up table (%d): %s"
+            % (nb_sw, me_sw_phob.shape[-1], path))
+    if specdef_lw is not None:
+        map_lw = specdef_lw.calc_mapping_from_wavenumber_bands(
+            wn1_lw_file, wn2_lw_file, use_bands=False).T
+        me_lw_phob, ssa_lw_phob, g_lw_phob = remap(
+            map_lw, me_lw_phob, ssa_lw_phob, g_lw_phob)
+        if use_philic:
+            me_lw_phil, ssa_lw_phil, g_lw_phil = remap(
+                map_lw, me_lw_phil, ssa_lw_phil, g_lw_phil)
+    elif me_lw_phob.shape[-1] != nb_lw:
+        raise ValueError(
+            "number of longwave bands (%d) does not match aerosol "
+            "optics look-up table (%d): %s"
+            % (nb_lw, me_lw_phob.shape[-1], path))
+
+    out = {
+        "mass_ext_sw_phobic": np.ascontiguousarray(me_sw_phob.T),
+        "ssa_sw_phobic": np.ascontiguousarray(ssa_sw_phob.T),
+        "g_sw_phobic": np.ascontiguousarray(g_sw_phob.T),
+        "mass_ext_lw_phobic": np.ascontiguousarray(me_lw_phob.T),
+        "ssa_lw_phobic": np.ascontiguousarray(ssa_lw_phob.T),
+        "g_lw_phobic": np.ascontiguousarray(g_lw_phob.T),
+        "use_hydrophilic": use_philic,
+    }
+    if use_philic:
+        tr = lambda a: np.ascontiguousarray(  # noqa: E731
+            np.transpose(a, (2, 0, 1)))
+        out.update(
+            mass_ext_sw_philic=tr(me_sw_phil),
+            ssa_sw_philic=tr(ssa_sw_phil),
+            g_sw_philic=tr(g_sw_phil),
+            mass_ext_lw_philic=tr(me_lw_phil),
+            ssa_lw_philic=tr(ssa_lw_phil),
+            g_lw_philic=tr(g_lw_phil),
+            rh_lower=rh_lower,
+        )
     return out
 
 
@@ -205,6 +325,28 @@ def aerosol_band_properties(config: Config, tables: Dict, pressure_hl,
                 scatg_lw=out[..., s[5]:s[6]])
 
 
+def direct_aerosol_properties(config: Config, aerosol: Dict) -> Dict:
+    """Directly specified band-wise od / ssa / g profiles (ncol, nlev,
+    n_bands_sw|lw) as the extensive od / scat_od / scat_od*g that
+    add_aerosol_optics merges (radiation_aerosol.F90:44-56 allocate_direct,
+    radiation_aerosol_optics.F90:832-1021 add_aerosol_optics_direct).  An
+    absent ssa or g is 0; absent LW optics are zeros of n_bands_lw bands."""
+    zero_sw = torch.zeros_like(aerosol["od_sw"])
+    scat_sw = aerosol["od_sw"] * aerosol.get("ssa_sw", zero_sw)
+    aer = dict(od_sw=aerosol["od_sw"], scat_sw=scat_sw,
+               scatg_sw=scat_sw * aerosol.get("g_sw", zero_sw))
+    if "od_lw" in aerosol:
+        zero_lw = torch.zeros_like(aerosol["od_lw"])
+        scat_lw = aerosol["od_lw"] * aerosol.get("ssa_lw", zero_lw)
+        aer.update(od_lw=aerosol["od_lw"], scat_lw=scat_lw,
+                   scatg_lw=scat_lw * aerosol.get("g_lw", zero_lw))
+    else:
+        zlw = aerosol["od_sw"].new_zeros(
+            tuple(aerosol["od_sw"].shape[:-1]) + (config.n_bands_lw or 1,))
+        aer.update(od_lw=zlw, scat_lw=zlw, scatg_lw=zlw)
+    return aer
+
+
 def delta_eddington_extensive(od, scat, scatg):
     """radiation_delta_eddington.h:46-69."""
     g = torch.where(scat > 0.0, scatg / torch.clamp(scat, min=1e-300),
@@ -221,16 +363,28 @@ def add_aerosol_optics(config: Config, aer: Dict, band_from_g_sw,
                        ssa_lw=None, g_lw=None):
     """Merge band-wise (or per-g-point) aerosol properties into per-g gas
     arrays (radiation_aerosol_optics.F90:662-780); SW has a branch of its
-    own per g-point, LW merges alike in both.
+    own per g-point, LW merges alike in both.  A band set that is off
+    (do_sw / do_lw false) is not merged: its arrays pass through as they
+    came (None from interface._optical_properties).
 
     Returns updated (od_sw, ssa_sw, g_sw, od_lw, ssa_lw, g_lw)."""
+    if config.do_sw:
+        od_sw, ssa_sw, g_sw = _merge_sw(config, aer, band_from_g_sw, od_sw,
+                                        ssa_sw, g_sw)
+    if config.do_lw:
+        od_lw, ssa_lw, g_lw = _merge_lw(config, aer, band_from_g_lw, od_lw,
+                                        ssa_lw, g_lw)
+    return od_sw, ssa_sw, g_sw, od_lw, ssa_lw, g_lw
+
+
+def _merge_sw(config: Config, aer: Dict, band_from_g, od_sw, ssa_sw, g_sw):
     od_a, scat_a, scatg_a = aer["od_sw"], aer["scat_sw"], aer["scatg_sw"]
     if not config.do_sw_delta_scaling_with_gases:
         od_a, scat_a, scatg_a = delta_eddington_extensive(
             od_a, scat_a, scatg_a)
-    od_a_g = od_a[..., band_from_g_sw]
-    scat_a_g = scat_a[..., band_from_g_sw]
-    scatg_a_g = scatg_a[..., band_from_g_sw]
+    od_a_g = od_a[..., band_from_g]
+    scat_a_g = scat_a[..., band_from_g]
+    scatg_a_g = scatg_a[..., band_from_g]
     local_scat = ssa_sw * od_sw + scat_a_g
     if config.do_cloud_aerosol_per_sw_g_point:
         # per-g-point merge (radiation_aerosol_optics.F90:668-676)
@@ -238,35 +392,36 @@ def add_aerosol_optics(config: Config, aer: Dict, band_from_g_sw,
         g_sw = scatg_a_g / torch.clamp(local_scat, min=1.0e-24)
         ssa_sw = torch.clamp(local_scat / torch.clamp(od_sw, min=1.0e-24),
                              max=1.0)
-    else:
-        local_od = od_sw + od_a_g
-        apply = (local_od > 0.0) & (od_a_g > 0.0)
-        new_g = torch.where(local_scat > 0.0,
-                            scatg_a_g / torch.clamp(local_scat, min=1e-300),
-                            g_sw)
-        g_sw = torch.where(apply, new_g, g_sw)
-        ssa_sw = torch.where(apply, local_scat
-                             / torch.clamp(local_od, min=1e-300), ssa_sw)
-        od_sw = torch.where(apply, local_od, od_sw)
+        return od_sw, ssa_sw, g_sw
+    local_od = od_sw + od_a_g
+    apply = (local_od > 0.0) & (od_a_g > 0.0)
+    new_g = torch.where(local_scat > 0.0,
+                        scatg_a_g / torch.clamp(local_scat, min=1e-300),
+                        g_sw)
+    g_sw = torch.where(apply, new_g, g_sw)
+    ssa_sw = torch.where(apply, local_scat
+                         / torch.clamp(local_od, min=1e-300), ssa_sw)
+    od_sw = torch.where(apply, local_od, od_sw)
+    return od_sw, ssa_sw, g_sw
 
-    if config.do_lw_aerosol_scattering:
-        od_a, scat_a, scatg_a = delta_eddington_extensive(
-            aer["od_lw"], aer["scat_lw"], aer["scatg_lw"])
-        od_a_g = od_a[..., band_from_g_lw]
-        scat_a_g = scat_a[..., band_from_g_lw]
-        scatg_a_g = scatg_a[..., band_from_g_lw]
-        local_od = od_lw + od_a_g
-        apply = (local_od > 0.0) & (od_a_g > 0.0)
-        new_g = torch.where(scat_a_g > 0.0,
-                            scatg_a_g / torch.clamp(scat_a_g, min=1e-300),
-                            g_lw)
-        g_lw = torch.where(apply, new_g, g_lw)
-        ssa_lw = torch.where(apply, scat_a_g
-                             / torch.clamp(local_od, min=1e-300), ssa_lw)
-        od_lw = torch.where(apply, local_od, od_lw)
-    else:
+
+def _merge_lw(config: Config, aer: Dict, band_from_g, od_lw, ssa_lw, g_lw):
+    if not config.do_lw_aerosol_scattering:
         # absorption-only LW aerosol (radiation_aerosol_optics.F90:751-768)
         od_abs = aer["od_lw"] - aer["scat_lw"]
-        od_lw = od_lw + od_abs[..., band_from_g_lw]
-
-    return od_sw, ssa_sw, g_sw, od_lw, ssa_lw, g_lw
+        return od_lw + od_abs[..., band_from_g], ssa_lw, g_lw
+    od_a, scat_a, scatg_a = delta_eddington_extensive(
+        aer["od_lw"], aer["scat_lw"], aer["scatg_lw"])
+    od_a_g = od_a[..., band_from_g]
+    scat_a_g = scat_a[..., band_from_g]
+    scatg_a_g = scatg_a[..., band_from_g]
+    local_od = od_lw + od_a_g
+    apply = (local_od > 0.0) & (od_a_g > 0.0)
+    new_g = torch.where(scat_a_g > 0.0,
+                        scatg_a_g / torch.clamp(scat_a_g, min=1e-300),
+                        g_lw)
+    g_lw = torch.where(apply, new_g, g_lw)
+    ssa_lw = torch.where(apply, scat_a_g
+                         / torch.clamp(local_od, min=1e-300), ssa_lw)
+    od_lw = torch.where(apply, local_od, od_lw)
+    return od_lw, ssa_lw, g_lw

@@ -32,6 +32,7 @@ import ecrad_torch.solvers.cuda_adding, ecrad_torch.solvers.cloudless
 import ecrad_torch.solvers.matrix, ecrad_torch.solvers.spartacus
 import ecrad_torch.solvers.cuda_spartacus
 import ecrad_torch.optics.ecckd, ecrad_torch.optics.general_cloud
+import ecrad_torch.optics.aerosol_description
 import chip_smoke
 new = set(sys.modules) - before
 bad = sorted(m for m in new
@@ -127,3 +128,28 @@ def test_setup_radiation_matches_jax_exactly_ecckd(case):
     assert (port_tables.aerosol is not None) == ("aerosols" in case)
     assert ("norm_amplitude_solar_irradiance" in port_tables.gas["sw"]) \
         == ("solar_cycle" in case)
+
+
+# band-wise cloud optics models and aerosol types by name
+BANDWISE_SETUPS = {
+    "tripleclouds_baran2016": {},
+    "baran2017_yi_names": dict(
+        ice_model="BARAN2017", n_aerosol_types=0, i_aerosol_type_map=(),
+        aerosol_type_name=("SS,bin=1,philic", "DD,bin=2", "SU"),
+        aerosol_preferred_optical_model=("DD:Woodward2001",)),
+    "yi": dict(ice_model="YI"),
+}
+
+
+@pytest.mark.parametrize("case", list(BANDWISE_SETUPS))
+def test_setup_radiation_matches_jax_exactly_bandwise(case):
+    from ecrad_torch.config import IceModel
+    over = dict(BANDWISE_SETUPS[case])
+    if "ice_model" in over:
+        over["ice_model"] = IceModel[over["ice_model"]]
+    config = flagship.flagship_config(
+        "float64", "tripleclouds_baran2016").replace(**over)
+    port_config, port_tables, _, _ = _setup_both(config)
+    assert ("ice_coeff_gen" in port_tables.cloud) == ("2017" in case)
+    if "names" in case:
+        assert port_config.i_aerosol_type_map == (-1, 8, 14)

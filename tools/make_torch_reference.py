@@ -30,11 +30,15 @@ commit of the tree:
   general cloud optics, no aerosols, ``tools/bench_matrix.py`` CONFIGS) to
   ``tests/data/torch_tripleclouds_ecckd_meridian32.npz``;
 * ``ecckd_mcica`` (the same on McICA, with its float32 sample) to
-  ``tests/data/torch_ecckd_mcica_meridian32.npz``.
+  ``tests/data/torch_ecckd_mcica_meridian32.npz``;
+* ``tripleclouds_baran2016`` (Tripleclouds SW and LW with Slingo liquid and
+  Baran2016 ice, the flagship's aerosols) to
+  ``tests/data/torch_tripleclouds_baran2016_meridian32.npz``.
 
 ``tools/bench_matrix.py`` names only the McICA, Tripleclouds and
 SPARTACUS solvers, so the solvers are given here by the name of the JAX
-package's ``Solver`` member.
+package's ``Solver`` member, and so are the cloud optics models (its
+``LiquidModel`` and ``IceModel``).
 
     python tools/make_torch_reference.py [configuration ...]
 
@@ -73,7 +77,16 @@ OUTPUTS = {
                                 lw_solver_name="Tripleclouds", **ECCKD),
                            "torch_tripleclouds_ecckd_meridian32.npz"),
     "ecckd_mcica": (ECCKD, "torch_ecckd_mcica_meridian32.npz"),
+    "tripleclouds_baran2016": (dict(sw_solver_name="Tripleclouds",
+                                    lw_solver_name="Tripleclouds",
+                                    liquid_model="SLINGO",
+                                    ice_model="BARAN2016"),
+                               "torch_tripleclouds_baran2016_meridian32.npz"),
 }
+# Config fields given by the name of a member of the JAX package's enum
+ENUM_FIELDS = {"sw_solver": "Solver", "lw_solver": "Solver",
+               "gas_model_sw": "GasModel", "gas_model_lw": "GasModel",
+               "liquid_model": "LiquidModel", "ice_model": "IceModel"}
 NCOL = 32
 SAMPLE_KEYS = ("od_scaling_sw", "od_scaling_lw", "total_cloud_cover_sw",
                "total_cloud_cover_lw")
@@ -91,12 +104,12 @@ def run_jax(dtype: str, config_name: str) -> dict:
 
     sys.path.insert(0, REPO)
     import __graft_entry__
+    from ecrad_tpu import config as jconfig
     from ecrad_tpu import pipeline
-    from ecrad_tpu.config import Solver
     from tools.bench_matrix import _resolve
 
-    over = {k: Solver[v] if k in ("sw_solver", "lw_solver") else v
-            for k, v in OUTPUTS[config_name][0].items()}
+    over = {k: getattr(jconfig, ENUM_FIELDS[k])[v] if k in ENUM_FIELDS
+            else v for k, v in OUTPUTS[config_name][0].items()}
     step, args = __graft_entry__._build(
         ncol=NCOL, dtype=dtype, nam_overrides=_resolve(over))
     flux = jax.jit(step)(*args)

@@ -2,7 +2,7 @@
 
     python3 tools/profile_torch_step.py [ncol] [float32|float64] \
         [mcica_rrtmg|tripleclouds_rrtmg|cloudless_rrtmg|homogeneous_rrtmg|
-         spartacus_3d|tripleclouds_ecckd|ecckd_mcica]
+         spartacus_3d|tripleclouds_ecckd|ecckd_mcica|tripleclouds_baran2016]
 
 Builds the step of a named configuration (ecrad_torch.flagship, default
 the McICA flagship) at ncol columns (default 2048, the bench block) on the

@@ -32,7 +32,7 @@ bit for bit ("equal") or by how much they differ at most.  With
 full size: 6144 columns in blocks of 2048, f32, the median of three steps
 after one, host clock around a synchronised step, and the peak device
 memory of those steps) of the configurations named by --configs (by
-default all seven).  Prints one JSON line per run and a summary line
+default all eight).  Prints one JSON line per run and a summary line
 {"card": ..., "median_ms": {checkout: {case: ms}}, "f32_outputs_vs_this":
 {checkout: {case: "equal" or max_abs_diff}}}.
 """
@@ -51,7 +51,7 @@ ROOT = os.path.dirname(HERE)
 NCOL = 2048
 STEP_CONFIGS = ("mcica_rrtmg", "tripleclouds_rrtmg", "homogeneous_rrtmg",
                 "spartacus_3d", "cloudless_rrtmg", "tripleclouds_ecckd",
-                "ecckd_mcica")
+                "ecckd_mcica", "tripleclouds_baran2016")
 
 
 def time_steps(chip_smoke, configs):
