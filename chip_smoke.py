@@ -36,7 +36,15 @@ the script exits non-zero:
                32 bands, band_of_g the identity; one warp per block);
                kernel and plain median times (the kernel's on each input
                set TIMED names), and the least time the card could take
-               for the same work.
+               for the same work.  The four kernels that write per-g
+               planes for spectral flux output (PLANES: lw_fused,
+               sw_fused, tripleclouds_lw, tripleclouds_sw) are checked
+               again on every input set with their planes against the
+               plain versions' (the same bars), their broadband outputs
+               with planes against those without, bit for bit, and a
+               second float32 launch with planes against the first; they
+               are timed with planes too, beside a bound that counts the
+               planes' bytes.
 4. slice_f64 - the flagship (McICA) step (ecrad_torch.flagship) on the
                32-column meridian slice in float64 against the JAX package's
                float64 fluxes (tests/data/torch_flagship_meridian32.npz).
@@ -63,6 +71,18 @@ the script exits non-zero:
 11. slice_tc_baran_* - the same three for tripleclouds_baran2016
                (tests/data/torch_tripleclouds_baran2016_meridian32.npz;
                Tripleclouds with Slingo liquid and Baran2016 ice).
+12. slice_spec_*, slice_tc_gpt_* - the same three for the spectral flux
+               outputs: mcica_rrtmg_spectral (flux profiles and TOA fluxes
+               per band; the float32 slice fed the JAX float32 sample) and
+               tripleclouds_ecckd_gpoint (flux profiles per g-point)
+               (tests/data/torch_{mcica_spectral,tripleclouds_ecckd_gpoint}
+               _meridian32.npz, whose spectral profiles hold the columns
+               profile_columns), every per-band and per-g field held to
+               the same bars as the broadband ones.
+13. slice_sp_gpt_f64 - a 32-column float64 spartacus_3d step with flux
+               profiles per g-point: its broadband fields against
+               tests/data/torch_spartacus_meridian32.npz, and its g-point
+               profiles summed over g against its broadband fluxes.
 The full phases from 6 on also report the peak device memory of the run.
 The kernels' launch counters are reset just before each main path (5b and
 the *_full phases) and read just after it.
@@ -82,6 +102,7 @@ import torch
 
 from ecrad_torch import constants, flagship, kernels, pipeline
 from ecrad_torch.config import Entrapment, Solver
+from ecrad_torch.containers import Flux
 from ecrad_torch.interface import (_optical_properties, radiation,
                                    spartacus_lw_inputs, spartacus_sw_inputs)
 from ecrad_torch.solvers import cloud_generator, cuda_adding, cuda_generator
@@ -100,7 +121,11 @@ SLICES = {"tripleclouds_rrtmg": ("tc", "torch_tripleclouds_meridian32.npz"),
                                  "torch_tripleclouds_ecckd_meridian32.npz"),
           "ecckd_mcica": ("ecckd", "torch_ecckd_mcica_meridian32.npz"),
           "tripleclouds_baran2016": (
-              "tc_baran", "torch_tripleclouds_baran2016_meridian32.npz")}
+              "tc_baran", "torch_tripleclouds_baran2016_meridian32.npz"),
+          "mcica_rrtmg_spectral": ("spec",
+                                   "torch_mcica_spectral_meridian32.npz"),
+          "tripleclouds_ecckd_gpoint": (
+              "tc_gpt", "torch_tripleclouds_ecckd_gpoint_meridian32.npz")}
 # the JAX float32 stochastic sample of a McICA reference file
 SAMPLE_KEYS = ("od_scaling_sw", "od_scaling_lw", "total_cloud_cover_sw",
                "total_cloud_cover_lw")
@@ -141,6 +166,9 @@ SLICE_F32_ATOL, SLICE_F32_ATOL_DIMLESS = 0.5, 1e-4
 # distance to the JAX float32 fluxes is only reported.
 F32_HELD_TO = {"spartacus_3d": "f64/"}
 DIMLESS = ("lw_derivatives", "cloud_cover_lw", "cloud_cover_sw")
+# The g-point profiles of the SPARTACUS step summed over g against its
+# broadband fluxes (the same fluxes summed in another order): W m-2
+GPOINT_SUM_ATOL = 1e-9
 
 KERNELS = {
     "generator_scan": dict(
@@ -202,7 +230,11 @@ MAIN_PATHS = {
     "tripleclouds_ecckd": dict(tripleclouds_lw=1, tripleclouds_sw=1),
     "ecckd_mcica": dict(generator_scan=2, lw_fused=1, sw_fused=1),
     "tripleclouds_baran2016": dict(tripleclouds_lw=1, tripleclouds_sw=1),
+    "mcica_rrtmg_spectral": dict(generator_scan=2, lw_fused=1, sw_fused=1),
+    "tripleclouds_ecckd_gpoint": dict(tripleclouds_lw=1, tripleclouds_sw=1),
 }
+# The kernels that write per-g planes on request (planes=True)
+PLANES = ("lw_fused", "sw_fused", "tripleclouds_lw", "tripleclouds_sw")
 
 # The least time of a kernel's work on one H100 SXM (NVIDIA's published
 # peaks, dense, at 700 W): each input read once and each output
@@ -666,16 +698,11 @@ def check_kernel(name, inputs, ncol, err, checked):
     k = KERNELS[name]
     for label, args in inputs:
         ref64 = k["plain"](*args)
-        err64 = _compare_f64(k["wrapper"](*args), ref64,
-                             f"{name}/{label}/{ncol}")
+        got64 = k["wrapper"](*args)
+        err64 = _compare_f64(got64, ref64, f"{name}/{label}/{ncol}")
         args32 = _f32(args)
         got32, ref32 = k["wrapper"](*args32), k["plain"](*args32)
-        again = _outputs(k["wrapper"](*args32))
-        torch.cuda.synchronize()
-        if not all(torch.equal(v, again[n])
-                   for n, v in _outputs(got32).items()):
-            raise AssertionError(f"{name}/{label}/{ncol}: two launches on "
-                                 f"the same inputs differ")
+        _same_launches(got32, k["wrapper"](*args32), f"{name}/{label}/{ncol}")
         if name == "generator_scan" and (
                 err64 != 0.0 or not torch.equal(got32, ref32)):
             raise AssertionError("generator_scan is not exact")
@@ -684,7 +711,49 @@ def check_kernel(name, inputs, ncol, err, checked):
                        *((f"float32/{ncol}/{n}", e)
                          for n, e in err32.items())):
             err[key] = max(err.get(key, 0.0), v)
+        if name in PLANES:
+            del ref64, ref32
+            check_planes(name, label, args, args32, ncol, err, got64, got32)
         checked.add(label)
+
+
+def _same_launches(first, again, what):
+    """Two launches on the same inputs must give the same outputs, bit for
+    bit (every kernel sums in a fixed order)."""
+    again = _outputs(again)
+    torch.cuda.synchronize()
+    if not all(torch.equal(v, again[n]) for n, v in _outputs(first).items()):
+        raise AssertionError(f"{what}: two launches on the same inputs "
+                             f"differ")
+
+
+def check_planes(name, label, args, args32, ncol, err, bb64, bb32):
+    """A PLANES kernel with its per-g planes: every output against the
+    plain version's with planes, in float64 and float32 (the bars of
+    check_kernel); its broadband outputs against those without planes
+    (bb64, bb32), bit for bit; a second float32 launch against the first.
+    The worst errors go into err under planes/..."""
+    k = KERNELS[name]
+    what = f"{name}/{label}/{ncol}/planes"
+    got64 = k["wrapper"](*args, planes=True)
+    for n, v in bb64.items():
+        if not torch.equal(v, got64[n]):
+            raise AssertionError(f"{what}: float64 {n} differs from the "
+                                 f"launch without planes")
+    ref64 = k["plain"](*args, planes=True)
+    err64 = _compare_f64(got64, ref64, what)
+    del got64
+    got32 = k["wrapper"](*args32, planes=True)
+    for n, v in bb32.items():
+        if not torch.equal(v, got32[n]):
+            raise AssertionError(f"{what}: float32 {n} differs from the "
+                                 f"launch without planes")
+    _same_launches(got32, k["wrapper"](*args32, planes=True), what)
+    err32 = _compare_f32(got32, k["plain"](*args32, planes=True), ref64)
+    for key, v in ((f"planes/float64/{ncol}", err64),
+                   *((f"planes/float32/{ncol}/{n}", e)
+                     for n, e in err32.items())):
+        err[key] = max(err.get(key, 0.0), v)
 
 
 def time_kernel(name, inputs, res, main):
@@ -699,6 +768,11 @@ def time_kernel(name, inputs, res, main):
         a = _f32(args)
         times = dict(ms=median_ms(lambda: k["wrapper"](*a)),
                      **bound(name, a, k["wrapper"](*a)))
+        if name in PLANES:
+            with_planes = bound(name, a, k["wrapper"](*a, planes=True))
+            times.update(
+                ms_planes=median_ms(lambda: k["wrapper"](*a, planes=True)),
+                **{f"{n}_planes": v for n, v in with_planes.items()})
         res["variants"][label] = times
         if main and i == 0:
             res.update(times, plain_ms=median_ms(lambda: k["plain"](*a)))
@@ -732,11 +806,16 @@ def kernels_phase(smi):
               bound_ms=res["bound_ms"], bound_by=res["bound_by"],
               bytes=res["bytes"], operations=res["operations"],
               bound_ms_all_tensors=res["bound_ms_all_tensors"],
+              ms_planes_f32_2048=res.get("ms_planes"),
+              bound_ms_planes=res.get("bound_ms_planes"),
               variants_f32_2048=res["variants"], card=smi)
     return results
 
 
 def _check_slice(flux, ref, prefix, atol, atol_dimless):
+    """Every field of a Flux against a reference file's, within atol
+    (atol_dimless for DIMLESS); the spectral profiles (ncol, nlev+1,
+    nspec) on the reference's profile_columns only."""
     worst = {}
     fields = flux.fields()
     want = {k[len(prefix):] for k in ref if k.startswith(prefix)}
@@ -744,6 +823,8 @@ def _check_slice(flux, ref, prefix, atol, atol_dimless):
         raise AssertionError(f"flux fields differ: {set(fields) ^ want}")
     for name, v in fields.items():
         r = ref[prefix + name]
+        if v.dim() == 3:
+            v = v[torch.as_tensor(ref["profile_columns"], device=v.device)]
         err = float(np.abs(v.double().cpu().numpy() - r).max())
         worst[name] = err
         bar = atol_dimless if name in DIMLESS else atol
@@ -882,6 +963,40 @@ def slice_phases(config_name, ref, smi):
     return main_counts
 
 
+def spartacus_gpoint_phase(ref):
+    """spartacus_3d in float64 on the 32 meridian columns with flux
+    profiles per g-point: the broadband fields against the JAX float64
+    fluxes, and the g-point profiles summed over g against them."""
+    step, args = flagship.build(ncol=32, dtype=torch.float64, device=DEV,
+                                config_name="spartacus_3d")
+    config = step.config.replace(do_save_gpoint_flux=True)
+    reset_counts()
+    flux = pipeline.radiation_step(config, step.tables,
+                                   solar_irradiance=step.solar,
+                                   **dict(zip(flagship.ARG_ORDER, args)))
+    torch.cuda.synchronize()
+    n = counts()
+    expect_counts(n, "one spartacus_3d g-point step",
+                  **per_block("spartacus_3d"))
+    fields = flux.fields()
+    gpoint = {k: fields.pop(k) for k in list(fields) if k.endswith("_band")
+              and fields[k].dim() == 3}
+    worst = _check_slice(Flux(**fields), ref, "f64/", SLICE_F64_ATOL,
+                         SLICE_F64_ATOL_DIMLESS)
+    sums = {}
+    for k, v in gpoint.items():
+        if v.shape[-1] != config.n_g_lw and v.shape[-1] != config.n_g_sw:
+            raise AssertionError(f"{k}: {v.shape[-1]} g-points")
+        sums[k] = float((v.sum(-1) - fields[k[:-len("_band")]]).abs().max())
+        if not sums[k] <= GPOINT_SUM_ATOL:
+            raise AssertionError(f"{k} summed over g differs from the "
+                                 f"broadband flux by {sums[k]}")
+    if len(gpoint) != 10:
+        raise AssertionError(f"g-point profiles {sorted(gpoint)}")
+    phase("slice_sp_gpt_f64", max_abs_err=worst, gpoint_sum_err=sums,
+          launches=n)
+
+
 def main():
     smi = device_phase()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -896,6 +1011,8 @@ def main():
         with np.load(os.path.join(DATA, fname)) as z:
             ref = {k: z[k] for k in z.files}
         path_counts[config_name] = slice_phases(config_name, ref, smi)
+        if config_name == "spartacus_3d":
+            spartacus_gpoint_phase(ref)
     # each kernel's launches in the first main path that runs it
     launches = {}
     for config_name, path in MAIN_PATHS.items():
@@ -911,7 +1028,10 @@ def main():
          "bound_ms": results[n]["bound_ms"],
          "bound_by": results[n]["bound_by"],
          # no single PyTorch call computes these level recurrences
-         "library_ms": None}
+         "library_ms": None,
+         # with the per-g planes of spectral flux output (PLANES only)
+         "ms_planes": results[n].get("ms_planes"),
+         "bound_ms_planes": results[n].get("bound_ms_planes")}
         for n, k in KERNELS.items()]}
     print(json.dumps(line))
     print(smi)

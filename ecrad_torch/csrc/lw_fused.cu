@@ -47,6 +47,14 @@
 // registers without spilling, so 8 blocks of 160 threads fit on an SM and
 // 2048 columns take 2 waves, not 3 (59-74 registers uncapped), which
 // measured 10-22% faster (PERF.md).
+//
+// Spectral flux output: the build with kPlanes also stores each thread's
+// flux at every half-level, where it already holds it before the warp
+// partial, into four planes (ncol, nlev+1, ng): the clear and total-sky up
+// and down fluxes, rows 0 and nlev the TOA and surface values.  Stores are
+// contiguous over g, with no atomics and no barrier; the caller projects
+// the planes onto bands.  The build without kPlanes is the kernel above,
+// unchanged.
 #include "common.cuh"
 
 namespace {
@@ -69,6 +77,8 @@ template <typename T> struct LwArgs {
   // scratch (ncol, nlev, ng): the albedo and source below each layer, and
   // the total-sky derivative weights (null when derivatives are off)
   T *alb_below, *src_below, *wsum;
+  // per-g planes (ncol, nlev+1, ng), written by the kPlanes build only
+  T *up_g_c, *dn_g_c, *up_g_t, *dn_g_t;
   int nlev, ng, nband;
 };
 
@@ -106,7 +116,7 @@ template <typename T> struct DnLevel {
   T od, pbot, alb, src;
 };
 
-template <typename T>
+template <typename T, bool kPlanes>
 __global__ void __launch_bounds__(
     kMaxThreads, sizeof(T) == 4 ? 65536 / (kMaxThreads * kF32Regs) : 1)
     lw_fused_kernel(LwArgs<T> a) {
@@ -141,6 +151,7 @@ __global__ void __launch_bounds__(
       ptop = a.planck_hl[hl(0)];
       od_n = a.od[lg(0)];
       pbot_n = a.planck_hl[hl(1)];
+      if (kPlanes) a.dn_g_c[hl(0)] = T(0);
     }
     for (int l = 0; l < nlev; ++l) {
       if (on) {
@@ -152,6 +163,7 @@ __global__ void __launch_bounds__(
         T trans_c, su_c, sd_c;
         lw_no_scattering_trans(od, ptop, pbot, trans_c, su_c, sd_c);
         fdn = trans_c * fdn + sd_c;
+        if (kPlanes) a.dn_g_c[hl(l + 1)] = fdn;
         ptop = pbot;
       }
       warp_partial(fdn, part, l, nwarp);
@@ -192,6 +204,7 @@ __global__ void __launch_bounds__(
     if (on) {
       pbot = a.planck_hl[hl(nlev)];
       nxt = load_up(nlev - 1);
+      if (kPlanes) a.up_g_c[hl(nlev)] = fup;
     }
     for (int l = nlev - 1; l >= 0; --l) {
       if (on) {
@@ -201,6 +214,7 @@ __global__ void __launch_bounds__(
         T trans_c, su_c, sd_c;
         lw_no_scattering_trans(s.od, s.ptop, pbot, trans_c, su_c, sd_c);
         fup = trans_c * fup + su_c;
+        if (kPlanes) a.up_g_c[hl(l)] = fup;
         a.alb_below[lg(l)] = alb;
         a.src_below[lg(l)] = src;
         T trans = trans_c;
@@ -230,6 +244,10 @@ __global__ void __launch_bounds__(
     if (on) {
       a.fup_toa_c[cg] = fup;
       a.src_top_t[cg] = src;
+      if (kPlanes) {
+        a.up_g_t[hl(0)] = src;
+        a.dn_g_t[hl(0)] = T(0);
+      }
     }
   }
   if (derivs) {
@@ -271,6 +289,10 @@ __global__ void __launch_bounds__(
           fdn = trans_c * fdn + sd_c;
         }
         fupl = s.alb * fdn + s.src;
+        if (kPlanes) {
+          a.dn_g_t[hl(l + 1)] = fdn;
+          a.up_g_t[hl(l + 1)] = fupl;
+        }
         ptop = s.pbot;
       }
       warp_partial(fdn, part, 2 * l, nwarp);
@@ -304,15 +326,31 @@ __global__ void __launch_bounds__(
   store_level_sums(part, outs, nlev, nwarp);
 }
 
+// Launch the build with or without planes.
+template <typename T, bool kPlanes>
+int launch_as(const LwArgs<T> &a, int ncol, int threads, size_t smem,
+              void *stream) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        lw_fused_kernel<T, kPlanes>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  lw_fused_kernel<T, kPlanes><<<ncol, threads, smem, (cudaStream_t)stream>>>(
+      a);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
-int launch(void *const *p, int ncol, int nlev, int ng, int nband,
+int launch(void *const *p, int ncol, int nlev, int ng, int nband, int planes,
            void *stream) {
   LwArgs<T> a;
   const T **in[] = {&a.od, &a.odc_b, &a.ssac_b, &a.gc_b, &a.od_scaling};
   T **out[] = {&a.dn_bb_c,    &a.fdn_surf_c, &a.up_bb_c,    &a.fup_toa_c,
                &a.fup_surf_c, &a.src_top_t,  &a.dn_bb_t,    &a.up_bb_t,
                &a.fdn_surf_t, &a.fup_surf_t, &a.deriv_c,    &a.deriv_t,
-               &a.alb_below,  &a.src_below,  &a.wsum};
+               &a.alb_below,  &a.src_below,  &a.wsum,       &a.up_g_c,
+               &a.dn_g_c,     &a.up_g_t,     &a.dn_g_t};
   int k = 0;
   for (const T **q : in) *q = (const T *)p[k++];
   a.mask = (const unsigned char *)p[k++];
@@ -327,26 +365,22 @@ int launch(void *const *p, int ncol, int nlev, int ng, int nband,
   const int threads = ((ng + 31) / 32) * 32;
   const int npart = 2 * nlev * (threads / 32);
   const size_t smem = sizeof(T) * (size_t)(npart > 32 ? npart : 32) + nlev;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        lw_fused_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  lw_fused_kernel<T><<<ncol, threads, smem, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  return planes ? launch_as<T, true>(a, ncol, threads, smem, stream)
+                : launch_as<T, false>(a, ncol, threads, smem, stream);
 }
 
 }  // namespace
 
-// p: the 25 tensor pointers in the order of LwArgs (deriv_c, deriv_t and
-// wsum null when derivatives are off).
+// p: the 29 tensor pointers in the order of LwArgs (deriv_c, deriv_t and
+// wsum null when derivatives are off, the four planes unless planes).
 extern "C" int ecrad_lw_fused_f32(void *const *p, int ncol, int nlev,
-                                  int ng, int nband, void *stream) {
-  return launch<float>(p, ncol, nlev, ng, nband, stream);
+                                  int ng, int nband, int planes,
+                                  void *stream) {
+  return launch<float>(p, ncol, nlev, ng, nband, planes, stream);
 }
 
 extern "C" int ecrad_lw_fused_f64(void *const *p, int ncol, int nlev,
-                                  int ng, int nband, void *stream) {
-  return launch<double>(p, ncol, nlev, ng, nband, stream);
+                                  int ng, int nband, int planes,
+                                  void *stream) {
+  return launch<double>(p, ncol, nlev, ng, nband, planes, stream);
 }

@@ -51,6 +51,15 @@
 // direct-beam coefficients lose up to ~10 digits to cancellation, and FMA
 // rounding alone moves the f64 fluxes by more than chip_smoke.py's f64
 // tolerance.  The f32 build measured no slower without it (PERF.md).
+//
+// Spectral flux output: the build with kPlanes also stores each thread's
+// fluxes at every half-level of the down pass, where it already holds them
+// before the warp partials, into six planes (ncol, nlev+1, ng): per scene
+// the up flux, the diffuse down flux and the direct flux (normal to the
+// beam, as the broadband dir_bb sums), rows 0 and nlev the TOA and surface
+// values.  Stores are contiguous over g, with no atomics and no barrier;
+// the caller projects the planes onto bands and applies mu0.  The build
+// without kPlanes is the kernel above, unchanged.
 #include "common.cuh"
 
 namespace {
@@ -74,6 +83,8 @@ template <typename T> struct SwArgs {
   // scratch: the diffuse and direct albedos of both scenes below each
   // layer, (ncol, nlev, ng) each
   T *albb_c, *albdb_c, *albb_t, *albdb_t;
+  // per-g planes (ncol, nlev+1, ng), written by the kPlanes build only
+  T *up_g_c, *dn_g_c, *dir_g_c, *up_g_t, *dn_g_t, *dir_g_t;
   int nlev, ng, nband, delta_gases;
 };
 
@@ -141,7 +152,7 @@ __device__ __forceinline__ DnLevel<T> load_dn(const SwArgs<T> &a, size_t lg,
   return n;
 }
 
-template <typename T>
+template <typename T, bool kPlanes>
 __global__ void __launch_bounds__(
     kMaxThreads, sizeof(T) == 4 ? 65536 / (kMaxThreads * kF32Regs) : 1)
     sw_fused_kernel(SwArgs<T> a) {
@@ -166,6 +177,7 @@ __global__ void __launch_bounds__(
   const bool delta = a.delta_gases != 0;
   auto lg = [&](int l) { return (cl0 + l) * (size_t)ng + g; };
   auto lb = [&](int l) { return (cl0 + l) * (size_t)nband + band; };
+  auto hl = [&](int l) { return ((size_t)col * (nlev + 1) + l) * ng + g; };
 
   // --- up pass: the albedos of both scenes, surface -> TOA
   if (on) {
@@ -189,6 +201,12 @@ __global__ void __launch_bounds__(
     const T incoming = a.incoming[cg];
     a.src_top_c[cg] = adc * incoming;
     a.src_top_t[cg] = adt * incoming;
+    if (kPlanes) {
+      a.up_g_c[hl(0)] = adc * incoming;
+      a.up_g_t[hl(0)] = adt * incoming;
+      a.dn_g_c[hl(0)] = a.dn_g_t[hl(0)] = T(0);
+      a.dir_g_c[hl(0)] = a.dir_g_t[hl(0)] = incoming;
+    }
   }
 
   // --- down pass: direct beam and diffuse flux of both scenes
@@ -211,6 +229,15 @@ __global__ void __launch_bounds__(
       ft = t.tdir * ft_top;
       diffuse_down(c, fc_top, dc, s.ac, s.adc, dc, uc);
       diffuse_down(t, ft_top, dt, s.at, s.adt, dt, ut);
+      if (kPlanes) {
+        const size_t h = hl(l + 1);
+        a.dir_g_c[h] = fc;
+        a.dir_g_t[h] = ft;
+        a.dn_g_c[h] = dc;
+        a.up_g_c[h] = uc;
+        a.dn_g_t[h] = dt;
+        a.up_g_t[h] = ut;
+      }
     }
     const T v[kSums] = {fc, ft, dc, uc, dt, ut};
 #pragma unroll
@@ -229,9 +256,24 @@ __global__ void __launch_bounds__(
   store_level_sums(part, outs, nlev, nwarp);
 }
 
+// Launch the build with or without planes.
+template <typename T, bool kPlanes>
+int launch_as(const SwArgs<T> &a, int ncol, int threads, size_t smem,
+              void *stream) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        sw_fused_kernel<T, kPlanes>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  sw_fused_kernel<T, kPlanes><<<ncol, threads, smem, (cudaStream_t)stream>>>(
+      a);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch(void *const *p, int ncol, int nlev, int ng, int nband,
-           int delta_gases, void *stream) {
+           int delta_gases, int planes, void *stream) {
   SwArgs<T> a;
   const T **in[] = {&a.od, &a.ssa, &a.g, &a.od_scaling, &a.odc_b,
                     &a.ssac_b, &a.gc_b};
@@ -239,7 +281,8 @@ int launch(void *const *p, int ncol, int nlev, int ng, int nband,
   T **out[] = {&a.dir_bb_c, &a.dir_bb_t, &a.fdir_surf_c, &a.fdir_surf_t,
                &a.src_top_c, &a.src_top_t, &a.dn_bb_c, &a.up_bb_c,
                &a.dn_bb_t, &a.up_bb_t, &a.fdn_surf_c, &a.fdn_surf_t,
-               &a.albb_c, &a.albdb_c, &a.albb_t, &a.albdb_t};
+               &a.albb_c, &a.albdb_c, &a.albb_t, &a.albdb_t, &a.up_g_c,
+               &a.dn_g_c, &a.dir_g_c, &a.up_g_t, &a.dn_g_t, &a.dir_g_t};
   int k = 0;
   for (const T **q : in) *q = (const T *)p[k++];
   a.mask = (const unsigned char *)p[k++];
@@ -253,27 +296,24 @@ int launch(void *const *p, int ncol, int nlev, int ng, int nband,
   const int threads = ((ng + 31) / 32) * 32;
   const size_t smem =
       sizeof(T) * (size_t)nlev * kSums * (threads / 32) + nlev;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        sw_fused_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  sw_fused_kernel<T><<<ncol, threads, smem, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  return planes ? launch_as<T, true>(a, ncol, threads, smem, stream)
+                : launch_as<T, false>(a, ncol, threads, smem, stream);
 }
 
 }  // namespace
 
-// p: the 29 tensor pointers in the order of SwArgs.
+// p: the 35 tensor pointers in the order of SwArgs (the six planes null
+// unless planes).
 extern "C" int ecrad_sw_fused_f32(void *const *p, int ncol, int nlev,
                                   int ng, int nband, int delta_gases,
-                                  void *stream) {
-  return launch<float>(p, ncol, nlev, ng, nband, delta_gases, stream);
+                                  int planes, void *stream) {
+  return launch<float>(p, ncol, nlev, ng, nband, delta_gases, planes,
+                       stream);
 }
 
 extern "C" int ecrad_sw_fused_f64(void *const *p, int ncol, int nlev,
                                   int ng, int nband, int delta_gases,
-                                  void *stream) {
-  return launch<double>(p, ncol, nlev, ng, nband, delta_gases, stream);
+                                  int planes, void *stream) {
+  return launch<double>(p, ncol, nlev, ng, nband, delta_gases, planes,
+                        stream);
 }

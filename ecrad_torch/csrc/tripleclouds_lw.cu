@@ -54,6 +54,14 @@
 // registers without spilling (6 blocks of 160 threads per SM); 48 (8
 // blocks) spills and no cap runs 4 blocks, both measured slower on the
 // meridian-based inputs (PERF.md).
+//
+// Spectral flux output: the build with kPlanes also stores each thread's
+// fluxes at every half-level, where it already holds them (the regions
+// summed) before the warp partial, into four planes (ncol, nlev+1, ng):
+// the clear and 3-region up and down fluxes, rows 0 and nlev the TOA and
+// surface values.  Stores are contiguous over g, with no atomics and no
+// barrier; the caller projects the planes onto bands.  The build without
+// kPlanes is the kernel above, unchanged.
 #include "common.cuh"
 
 namespace {
@@ -77,6 +85,8 @@ template <typename T> struct TcLwArgs {
   // regions 1 and 2 only in cloudy layers; the derivative weights W (ncol,
   // nlev, ng), null when derivatives are off
   T *albb, *srcb, *wsum;
+  // per-g planes (ncol, nlev+1, ng), written by the kPlanes build only
+  T *up_g_c, *dn_g_c, *up_g_t, *dn_g_t;
   int nlev, ng, nband;
 };
 
@@ -119,7 +129,7 @@ template <typename T> struct DnLevel {
   T od, pbot, ab0, sb0;
 };
 
-template <typename T>
+template <typename T, bool kPlanes>
 __global__ void __launch_bounds__(
     kMaxThreads, sizeof(T) == 4 ? 65536 / (kMaxThreads * kF32Regs) : 1)
     tripleclouds_lw_kernel(TcLwArgs<T> a) {
@@ -160,6 +170,7 @@ __global__ void __launch_bounds__(
       ptop = a.planck_hl[hl(0)];
       od_n = a.od[lg(0)];
       pbot_n = a.planck_hl[hl(1)];
+      if (kPlanes) a.dn_g_c[hl(0)] = T(0);
     }
     for (int l = 0; l < nlev; ++l) {
       if (on) {
@@ -171,6 +182,7 @@ __global__ void __launch_bounds__(
         T trans_c, su_c, sd_c;
         lw_no_scattering_trans(od, ptop, pbot, trans_c, su_c, sd_c);
         fdn = trans_c * fdn + sd_c;
+        if (kPlanes) a.dn_g_c[hl(l + 1)] = fdn;
         ptop = pbot;
       }
       warp_partial(fdn, part, l, nwarp);
@@ -213,6 +225,7 @@ __global__ void __launch_bounds__(
         src[r] = a.src0[((size_t)col * 3 + r) * ng + g];
       pbot = a.planck_hl[hl(nlev)];
       nxt = load_up(nlev - 1);
+      if (kPlanes) a.up_g_c[hl(nlev)] = fup;
     }
     for (int l = nlev - 1; l >= 0; --l) {
       if (on) {
@@ -223,6 +236,7 @@ __global__ void __launch_bounds__(
         T trans_c, su_c, sd_c;
         lw_no_scattering_trans(s.od, s.ptop, pbot, trans_c, su_c, sd_c);
         fup = trans_c * fup + su_c;
+        if (kPlanes) a.up_g_c[hl(l)] = fup;
         T refl[3] = {T(0), T(0), T(0)}, trans[3] = {trans_c, T(1), T(1)};
         T su_r[3] = {su_c * rf[0], T(0), T(0)};
         T sd_r[3] = {sd_c * rf[0], T(0), T(0)};
@@ -272,6 +286,10 @@ __global__ void __launch_bounds__(
 #pragma unroll
       for (int r = 0; r < 3; ++r)
         a.src_top_t[((size_t)col * 3 + r) * ng + g] = src[r];
+      if (kPlanes) {
+        a.up_g_t[hl(0)] = src[0] + src[1] + src[2];
+        a.dn_g_t[hl(0)] = T(0);
+      }
     }
   }
   {
@@ -329,6 +347,10 @@ __global__ void __launch_bounds__(
         }
         dn_g = f[0] + f[1] + f[2];
         up_g = u[0] + u[1] + u[2];
+        if (kPlanes) {
+          a.dn_g_t[hl(l + 1)] = dn_g;
+          a.up_g_t[hl(l + 1)] = up_g;
+        }
         if (!cloudy && (l + 1 >= nlev || sclr[l + 1])) {
 #pragma unroll
           for (int r = 0; r < 3; ++r) fd[r] = f[r];
@@ -367,8 +389,23 @@ __global__ void __launch_bounds__(
   store_level_sums(part, outs, nlev, nwarp);
 }
 
+// Launch the build with or without planes.
+template <typename T, bool kPlanes>
+int launch_as(const TcLwArgs<T> &a, int ncol, int threads, size_t smem,
+              void *stream) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        tripleclouds_lw_kernel<T, kPlanes>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  tripleclouds_lw_kernel<T, kPlanes>
+      <<<ncol, threads, smem, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
-int launch(void *const *p, int ncol, int nlev, int ng, int nband,
+int launch(void *const *p, int ncol, int nlev, int ng, int nband, int planes,
            void *stream) {
   TcLwArgs<T> a;
   const T **in[] = {&a.od, &a.odc_b, &a.ssac_b, &a.gc_b, &a.scal2};
@@ -377,7 +414,7 @@ int launch(void *const *p, int ncol, int nlev, int ng, int nband,
   T **out[] = {&a.dn_bb_c, &a.fdn_surf_c, &a.fup_surf_c, &a.up_bb_c,
                &a.fup_toa_c, &a.src_top_t, &a.dn_bb_t, &a.up_bb_t,
                &a.fdn_surf_t, &a.fup_surf_t, &a.deriv_t, &a.albb, &a.srcb,
-               &a.wsum};
+               &a.wsum, &a.up_g_c, &a.dn_g_c, &a.up_g_t, &a.dn_g_t};
   int k = 0;
   for (const T **q : in) *q = (const T *)p[k++];
   a.clear = (const unsigned char *)p[k++];
@@ -393,27 +430,22 @@ int launch(void *const *p, int ncol, int nlev, int ng, int nband,
       sizeof(T) * ((size_t)(npart > 32 ? npart : 32) +
                    (size_t)(nlev + 1) * 18 + (size_t)nlev * 5) +
       nlev;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        tripleclouds_lw_kernel<T>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  tripleclouds_lw_kernel<T><<<ncol, threads, smem, (cudaStream_t)stream>>>(
-      a);
-  return (int)cudaGetLastError();
+  return planes ? launch_as<T, true>(a, ncol, threads, smem, stream)
+                : launch_as<T, false>(a, ncol, threads, smem, stream);
 }
 
 }  // namespace
 
-// p: the 28 tensor pointers in the order of TcLwArgs (deriv_t and wsum
-// null when derivatives are off).
+// p: the 32 tensor pointers in the order of TcLwArgs (deriv_t and wsum
+// null when derivatives are off, the four planes unless planes).
 extern "C" int ecrad_tripleclouds_lw_f32(void *const *p, int ncol, int nlev,
-                                         int ng, int nband, void *stream) {
-  return launch<float>(p, ncol, nlev, ng, nband, stream);
+                                         int ng, int nband, int planes,
+                                         void *stream) {
+  return launch<float>(p, ncol, nlev, ng, nband, planes, stream);
 }
 
 extern "C" int ecrad_tripleclouds_lw_f64(void *const *p, int ncol, int nlev,
-                                         int ng, int nband, void *stream) {
-  return launch<double>(p, ncol, nlev, ng, nband, stream);
+                                         int ng, int nband, int planes,
+                                         void *stream) {
+  return launch<double>(p, ncol, nlev, ng, nband, planes, stream);
 }

@@ -44,6 +44,15 @@
 // the down pass zeroes.  Reading the coefficients back measured faster
 // than computing them again, on the meridian-based inputs and with every
 // layer cloudy (PERF.md).  One block per column covers any ncol.
+//
+// Spectral flux output: the build with kPlanes also stores each thread's
+// fluxes at every half-level of the down pass, where it already holds them
+// (the regions summed) before the warp partials, into six planes (ncol,
+// nlev+1, ng): per scene the up flux, the diffuse down flux and the direct
+// flux (normal to the beam, as dir_bb), rows 0 and nlev the TOA and
+// surface values.  Stores are contiguous over g, with no atomics and no
+// barrier; the caller projects the planes onto bands and applies mu0.  The
+// build without kPlanes is the kernel above, unchanged.
 #include "common.cuh"
 
 namespace {
@@ -65,6 +74,8 @@ template <typename T> struct TcSwArgs {
   // nlev, ng), regions (ncol, nlev, 3, ng)); the layer coefficients
   // (ncol, nlev, 3, 4, ng)
   T *albb_c, *albdb_c, *albb_t, *albdb_t, *coef;
+  // per-g planes (ncol, nlev+1, ng), written by the kPlanes build only
+  T *up_g_c, *dn_g_c, *dir_g_c, *up_g_t, *dn_g_t, *dir_g_t;
   int nlev, ng, nband, delta_gases;
 };
 
@@ -135,7 +146,7 @@ __device__ __forceinline__ DnNext<T> load_dn(const TcSwArgs<T> &a,
   return n;
 }
 
-template <typename T>
+template <typename T, bool kPlanes>
 __global__ void tripleclouds_sw_kernel(TcSwArgs<T> a) {
   extern __shared__ unsigned char smem_raw[];
   const int col = blockIdx.x;
@@ -164,6 +175,7 @@ __global__ void tripleclouds_sw_kernel(TcSwArgs<T> a) {
   };
   auto cgr = [&](int r) { return ((size_t)col * 3 + r) * ng + g; };
   auto lb = [&](int l) { return (cl0 + l) * (size_t)nband + band; };
+  auto hl = [&](int l) { return ((size_t)col * (nlev + 1) + l) * ng + g; };
 
   // --- up pass: albedos of both scenes, surface -> TOA
   T ac = T(0), adc = T(0), at[3] = {T(0), T(0), T(0)},
@@ -217,6 +229,21 @@ __global__ void tripleclouds_sw_kernel(TcSwArgs<T> a) {
     a.albd_top_c[cg] = adc;
 #pragma unroll
     for (int r = 0; r < 3; ++r) a.albd_top[cgr(r)] = adt[r];
+    if (kPlanes) {
+      const T incoming = a.incoming[cg];
+      T up_t = T(0), dir_t = T(0);
+#pragma unroll
+      for (int r = 0; r < 3; ++r) {
+        const T f0 = a.fdir0[cgr(r)];
+        up_t += f0 * adt[r];
+        dir_t += f0;
+      }
+      a.up_g_c[hl(0)] = incoming * adc;
+      a.up_g_t[hl(0)] = up_t;
+      a.dn_g_c[hl(0)] = a.dn_g_t[hl(0)] = T(0);
+      a.dir_g_c[hl(0)] = incoming;
+      a.dir_g_t[hl(0)] = dir_t;
+    }
   }
 
   // --- down pass: direct beam and diffuse flux of both scenes
@@ -280,6 +307,15 @@ __global__ void tripleclouds_sw_kernel(TcSwArgs<T> a) {
       }
       dn_t = fr[0] + fr[1] + fr[2];
       up_t = ur[0] + ur[1] + ur[2];
+      if (kPlanes) {
+        const size_t h = hl(l + 1);
+        a.dir_g_c[h] = fc;
+        a.dir_g_t[h] = dir_t;
+        a.dn_g_c[h] = dc;
+        a.up_g_c[h] = uc;
+        a.dn_g_t[h] = dn_t;
+        a.up_g_t[h] = up_t;
+      }
       if (skip) {
 #pragma unroll
         for (int r = 0; r < 3; ++r) {
@@ -309,9 +345,24 @@ __global__ void tripleclouds_sw_kernel(TcSwArgs<T> a) {
   store_level_sums(part, outs, nlev, nwarp);
 }
 
+// Launch the build with or without planes.
+template <typename T, bool kPlanes>
+int launch_as(const TcSwArgs<T> &a, int ncol, int threads, size_t smem,
+              void *stream) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        tripleclouds_sw_kernel<T, kPlanes>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  tripleclouds_sw_kernel<T, kPlanes>
+      <<<ncol, threads, smem, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch(void *const *p, int ncol, int nlev, int ng, int nband,
-           int delta_gases, void *stream) {
+           int delta_gases, int planes, void *stream) {
   TcSwArgs<T> a;
   const T **in[] = {&a.od, &a.ssa, &a.g, &a.odc_b, &a.ssac_b, &a.gc_b,
                     &a.scal2};
@@ -320,7 +371,9 @@ int launch(void *const *p, int ncol, int nlev, int ng, int nband,
   T **out[] = {&a.albd_top, &a.albd_top_c, &a.dir_bb_c, &a.dir_bb_t,
                &a.fdir_surf_c, &a.fdir_surf_t, &a.dn_bb_c, &a.up_bb_c,
                &a.dn_bb_t, &a.up_bb_t, &a.fdn_surf_c, &a.fdn_surf_t,
-               &a.albb_c, &a.albdb_c, &a.albb_t, &a.albdb_t, &a.coef};
+               &a.albb_c, &a.albdb_c, &a.albb_t, &a.albdb_t, &a.coef,
+               &a.up_g_c, &a.dn_g_c, &a.dir_g_c, &a.up_g_t, &a.dn_g_t,
+               &a.dir_g_t};
   int k = 0;
   for (const T **q : in) *q = (const T *)p[k++];
   a.clear = (const unsigned char *)p[k++];
@@ -336,27 +389,24 @@ int launch(void *const *p, int ncol, int nlev, int ng, int nband,
       sizeof(T) * ((size_t)nlev * kSums * (threads / 32) +
                    (size_t)(nlev + 1) * 9 + (size_t)nlev * 2) +
       nlev;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        tripleclouds_sw_kernel<T>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  tripleclouds_sw_kernel<T><<<ncol, threads, smem, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  return planes ? launch_as<T, true>(a, ncol, threads, smem, stream)
+                : launch_as<T, false>(a, ncol, threads, smem, stream);
 }
 
 }  // namespace
 
-// p: the 34 tensor pointers in the order of TcSwArgs.
+// p: the 40 tensor pointers in the order of TcSwArgs (the six planes null
+// unless planes).
 extern "C" int ecrad_tripleclouds_sw_f32(void *const *p, int ncol, int nlev,
                                          int ng, int nband, int delta_gases,
-                                         void *stream) {
-  return launch<float>(p, ncol, nlev, ng, nband, delta_gases, stream);
+                                         int planes, void *stream) {
+  return launch<float>(p, ncol, nlev, ng, nband, delta_gases, planes,
+                       stream);
 }
 
 extern "C" int ecrad_tripleclouds_sw_f64(void *const *p, int ncol, int nlev,
                                          int ng, int nband, int delta_gases,
-                                         void *stream) {
-  return launch<double>(p, ncol, nlev, ng, nband, delta_gases, stream);
+                                         int planes, void *stream) {
+  return launch<double>(p, ncol, nlev, ng, nband, delta_gases, planes,
+                        stream);
 }

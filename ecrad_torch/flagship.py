@@ -17,7 +17,17 @@ configurations change the solvers:
 * ``ecckd_mcica``: the same on the McICA solvers;
 * ``tripleclouds_baran2016``: Tripleclouds SW and LW with Slingo liquid
   (Slingo SW, Lindner-Li LW) and Baran2016 ice, the band-wise cloud optics
-  models other than SOCRATES/Fu, with the flagship's aerosols.
+  models other than SOCRATES/Fu, with the flagship's aerosols;
+* ``mcica_rrtmg_spectral``: the flagship with spectral flux profiles per
+  band (do_save_spectral_flux, as the CY49R1 namelist sets it) and TOA
+  fluxes per band (do_toa_spectral_flux): the McICA kernels write their
+  per-g planes, projected onto the 14 SW / 16 LW bands;
+* ``tripleclouds_ecckd_gpoint``: ``tripleclouds_ecckd`` with flux
+  profiles per g-point (do_save_gpoint_flux): the Tripleclouds kernels
+  write their per-g planes at 32 g-points.
+
+The fields a configuration's Flux sets (``Flux.fields()``) depend on it:
+the spectral ones only with the flags above.
 
 Mirrors ``__graft_entry__._build`` of the JAX package with the same
 ``nam_overrides``: the same Config, cloud-separation settings and tiling
@@ -71,6 +81,11 @@ CONFIGS = {
                                    lw_solver=Solver.TRIPLECLOUDS,
                                    liquid_model=LiquidModel.SLINGO,
                                    ice_model=IceModel.BARAN2016),
+    "mcica_rrtmg_spectral": dict(do_save_spectral_flux=True,
+                                 do_toa_spectral_flux=True),
+    "tripleclouds_ecckd_gpoint": dict(sw_solver=Solver.TRIPLECLOUDS,
+                                      lw_solver=Solver.TRIPLECLOUDS,
+                                      do_save_gpoint_flux=True, **ECCKD),
 }
 
 

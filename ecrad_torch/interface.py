@@ -106,10 +106,6 @@ def _check_supported(config: Config):
             and config.nregions != 3:
         raise NotImplementedError("the port's SPARTACUS solvers take three "
                                   "regions only")
-    for flag in ("use_spectral_solar_scaling", "do_save_spectral_flux",
-                 "do_save_gpoint_flux", "do_toa_spectral_flux"):
-        if getattr(config, flag):
-            raise NotImplementedError(f"{flag} is not ported")
 
 
 def _gas_model_setup(config: Config, band: str, ddir: str, gas_tables,
@@ -314,6 +310,21 @@ def get_albedos(config: Config, tables: Tables, sw_albedo,
     return sw_albedo_direct_g, sw_albedo_diffuse_g, lw_albedo_g
 
 
+def spectral_matrix(config: Config, band_from_g, nbands: int, dtype):
+    """The (ng, nspec) 0/1 projection of the per-g flux profiles for
+    spectral flux output: the identity with do_save_gpoint_flux, the
+    one-hot band map with do_save_spectral_flux, else None
+    (radiation_config.F90 consolidate, i_spec_from_reordered_g)."""
+    if config.do_save_gpoint_flux:
+        ng = band_from_g.shape[0]
+        return torch.eye(ng, dtype=dtype, device=band_from_g.device)
+    if config.do_save_spectral_flux:
+        bands = torch.arange(nbands, dtype=torch.int64,
+                             device=band_from_g.device)
+        return (band_from_g[:, None] == bands[None, :]).to(dtype)
+    return None
+
+
 def indexed_sum_g(x_g, band_from_g, nbands: int):
     """Sum a g-point array into bands along the last axis
     (radiation_flux.F90 indexed_sum); band_from_g 0-based.  A 0/1 matrix
@@ -366,6 +377,7 @@ def _optical_properties(config: Config, tables: Tables, *,
                         cos_sza, skin_temperature, sw_albedo,
                         sw_albedo_direct, lw_emissivity,
                         solar_irradiance, cloud=None, aerosol=None,
+                        spectral_solar_scaling=None,
                         spectral_solar_cycle_multiplier=0.0):
     """Surface + gas + aerosol + cloud optical properties — the front
     half of radiation() (radiation_interface.F90:200-383)."""
@@ -388,7 +400,10 @@ def _optical_properties(config: Config, tables: Tables, *,
             skin_temperature=skin_temperature,
             solar_irradiance=solar_irradiance,
             min_gas_od_lw=config.min_gas_od_lw,
-            min_gas_od_sw=config.min_gas_od_sw)
+            min_gas_od_sw=config.min_gas_od_sw,
+            spectral_solar_scaling=(spectral_solar_scaling
+                                    if config.use_spectral_solar_scaling
+                                    else None))
         if do_lw_rrtmg:
             go_kw.update(od_lw=r.od_lw, planck_hl=r.planck_hl,
                          lw_emission=r.lw_emission)
@@ -539,15 +554,23 @@ def radiation(config: Config, tables: Tables, *,
               pressure_hl, temperature_hl, gas_mmr,
               cos_sza, skin_temperature, sw_albedo, sw_albedo_direct,
               lw_emissivity, solar_irradiance,
-              cloud=None, aerosol=None,
+              cloud=None, aerosol=None, spectral_solar_scaling=None,
               spectral_solar_cycle_multiplier=0.0) -> Flux:
     """The hot path (radiation_interface.F90:200-517) for the ported
     configurations.
 
     gas_mmr: (ncol, nlev, NUM_GASES) mass mixing ratios in
-    constants.GAS_NAMES order.  spectral_solar_cycle_multiplier shifts
-    the ecCKD solar spectrum along the solar cycle (with
-    use_spectral_solar_cycle).  For a McICA solver cloud must carry the
+    constants.GAS_NAMES order.  spectral_solar_scaling: a per-band
+    factor on the RRTMG solar spectrum (with use_spectral_solar_scaling;
+    (n_bands_sw,), shared by all columns).  spectral_solar_cycle_multiplier
+    shifts the ecCKD solar spectrum along the solar cycle (with
+    use_spectral_solar_cycle).  With do_save_spectral_flux or
+    do_save_gpoint_flux the *_band profile fields are set, per band or per
+    g-point, from the per-g planes of the fused McICA and Tripleclouds
+    kernels or the SPARTACUS profiles; the routes through the adding
+    sweeps (Cloudless, unfused McICA, the Tripleclouds scan form) raise
+    NotImplementedError for them.  do_toa_spectral_flux sets the TOA band
+    fields.  For a McICA solver cloud must carry the
     stochastic sample (od_scaling_*, total_cloud_cover_*; see
     pipeline.add_cloud_sample); Tripleclouds reads fractional_std and
     overlap_param, SPARTACUS also inv_cloud_effective_size (and
@@ -563,10 +586,22 @@ def radiation(config: Config, tables: Tables, *,
         sw_albedo=sw_albedo, sw_albedo_direct=sw_albedo_direct,
         lw_emissivity=lw_emissivity, solar_irradiance=solar_irradiance,
         cloud=cloud, aerosol=aerosol,
+        spectral_solar_scaling=spectral_solar_scaling,
         spectral_solar_cycle_multiplier=spectral_solar_cycle_multiplier)
     go, frac, cl = op["go"], op["frac"], op["cl"]
     do_clouds = op["do_clouds"]
     flux_kw = {}
+    dt = pressure_hl.dtype
+    spec_lw = (spectral_matrix(config, tables.band_from_g_lw,
+                               config.n_bands_lw, dt)
+               if config.do_lw else None)
+    spec_sw = (spectral_matrix(config, tables.band_from_g_sw,
+                               config.n_bands_sw, dt)
+               if config.do_sw else None)
+    # SPARTACUS projects its permuted g-points with permuted rows
+    perm_rows = lambda m, perm: (None if m is None  # noqa: E731
+                                 else m[torch.as_tensor(perm,
+                                                        device=m.device)])
 
     if config.do_lw:
         lw_albedo_g = op["lw_albedo_g"]
@@ -576,7 +611,8 @@ def radiation(config: Config, tables: Tables, *,
                 op["od_lw"], op["ssa_lw"], op["g_lw_arr"], go.planck_hl,
                 lw_emission, lw_albedo_g,
                 do_lw_aerosol_scattering=config.do_lw_aerosol_scattering,
-                do_lw_derivatives=config.do_lw_derivatives)
+                do_lw_derivatives=config.do_lw_derivatives,
+                spec_matrix=spec_lw)
         elif config.lw_solver == Solver.HOMOGENEOUS:
             ones, any_cloud = homogeneous_sample(config, frac, op["od_lw"])
             lw = mcica.solver_mcica_lw(
@@ -587,7 +623,8 @@ def radiation(config: Config, tables: Tables, *,
                 cloud_fraction_threshold=config.cloud_fraction_threshold,
                 do_lw_cloud_scattering=config.do_lw_cloud_scattering,
                 do_lw_aerosol_scattering=config.do_lw_aerosol_scattering,
-                do_lw_derivatives=config.do_lw_derivatives)
+                do_lw_derivatives=config.do_lw_derivatives,
+                spec_matrix=spec_lw)
             lw = lw._replace(cloud_cover=torch.full_like(any_cloud, -1.0))
         elif config.lw_solver == Solver.TRIPLECLOUDS:
             lw = tripleclouds.solver_tripleclouds_lw(
@@ -595,12 +632,12 @@ def radiation(config: Config, tables: Tables, *,
                 cl["od_lw"], cl["ssa_lw"], cl["g_lw"],
                 tables.band_from_g_lw, frac, cloud["fractional_std"],
                 cloud["overlap_param"], go.planck_hl, lw_emission,
-                lw_albedo_g)
+                lw_albedo_g, spec_matrix=spec_lw)
         elif config.lw_solver == Solver.SPARTACUS:
             perm, args = spartacus_lw_inputs(config, tables, op, cloud,
                                              pressure_hl, temperature_hl)
-            lw = _unpermute_g_fields(spartacus.solver_spartacus_lw(*args),
-                                     perm)
+            lw = _unpermute_g_fields(spartacus.solver_spartacus_lw(
+                *args, spec_matrix=perm_rows(spec_lw, perm)), perm)
         else:
             lw = mcica.solver_mcica_lw(
                 op["od_lw"], op["ssa_lw"], op["g_lw_arr"],
@@ -611,13 +648,25 @@ def radiation(config: Config, tables: Tables, *,
                 cloud_fraction_threshold=config.cloud_fraction_threshold,
                 do_lw_cloud_scattering=config.do_lw_cloud_scattering,
                 do_lw_aerosol_scattering=config.do_lw_aerosol_scattering,
-                do_lw_derivatives=config.do_lw_derivatives)
+                do_lw_derivatives=config.do_lw_derivatives,
+                spec_matrix=spec_lw)
         flux_kw.update(
             lw_up=lw.flux_up, lw_dn=lw.flux_dn,
             lw_up_clear=lw.flux_up_clear, lw_dn_clear=lw.flux_dn_clear,
             cloud_cover_lw=lw.cloud_cover)
         if config.do_lw_derivatives:
             flux_kw["lw_derivatives"] = lw.lw_derivatives
+        if spec_lw is not None:
+            # with do_save_gpoint_flux the spectral axis is the g-points
+            flux_kw.update(lw_up_band=lw.flux_up_s, lw_dn_band=lw.flux_dn_s,
+                           lw_up_clear_band=lw.flux_up_clear_s,
+                           lw_dn_clear_band=lw.flux_dn_clear_s)
+        if config.do_toa_spectral_flux:
+            # radiation_flux.F90:579-660 calc_toa_spectral
+            bfg, nb = tables.band_from_g_lw, config.n_bands_lw
+            flux_kw["lw_up_toa_band"] = indexed_sum_g(lw.lw_up_toa_g, bfg, nb)
+            flux_kw["lw_up_toa_clear_band"] = indexed_sum_g(
+                lw.lw_up_toa_clear_g, bfg, nb)
         if config.do_canopy_fluxes_lw:
             lw_dn_surf_g = lw.lw_dn_surf_g
             if config.use_canopy_full_spectrum_lw:
@@ -639,7 +688,8 @@ def radiation(config: Config, tables: Tables, *,
                 cos_sza, op["sw_albedo_diffuse_g"],
                 op["sw_albedo_direct_g"],
                 do_sw_delta_scaling_with_gases=(
-                    config.do_sw_delta_scaling_with_gases))
+                    config.do_sw_delta_scaling_with_gases),
+                spec_matrix=spec_sw)
         elif config.sw_solver == Solver.HOMOGENEOUS:
             ones, any_cloud = homogeneous_sample(config, frac, op["od_sw"])
             sw = mcica.solver_mcica_sw(
@@ -650,7 +700,8 @@ def radiation(config: Config, tables: Tables, *,
                 op["sw_albedo_diffuse_g"], op["sw_albedo_direct_g"],
                 cloud_fraction_threshold=config.cloud_fraction_threshold,
                 do_sw_delta_scaling_with_gases=(
-                    config.do_sw_delta_scaling_with_gases))
+                    config.do_sw_delta_scaling_with_gases),
+                spec_matrix=spec_sw)
             sw = sw._replace(cloud_cover=torch.full_like(any_cloud, -1.0))
         elif config.sw_solver == Solver.TRIPLECLOUDS:
             # Tripleclouds sets the cloud cover of night columns too
@@ -659,13 +710,14 @@ def radiation(config: Config, tables: Tables, *,
                 cl["od_sw"], cl["ssa_sw"], cl["g_sw"],
                 tables.band_from_g_sw, frac, cloud["fractional_std"],
                 cloud["overlap_param"], go.incoming_sw, cos_sza,
-                op["sw_albedo_diffuse_g"], op["sw_albedo_direct_g"])
+                op["sw_albedo_diffuse_g"], op["sw_albedo_direct_g"],
+                spec_matrix=spec_sw)
         elif config.sw_solver == Solver.SPARTACUS:
             perm, args = spartacus_sw_inputs(config, tables, op, cloud,
                                              pressure_hl, temperature_hl,
                                              cos_sza)
-            sw = _unpermute_g_fields(spartacus.solver_spartacus_sw(*args),
-                                     perm)
+            sw = _unpermute_g_fields(spartacus.solver_spartacus_sw(
+                *args, spec_matrix=perm_rows(spec_sw, perm)), perm)
         else:
             sw = mcica.solver_mcica_sw(
                 op["od_sw"], op["ssa_sw"], op["g_sw_arr"],
@@ -676,7 +728,8 @@ def radiation(config: Config, tables: Tables, *,
                 op["sw_albedo_diffuse_g"], op["sw_albedo_direct_g"],
                 cloud_fraction_threshold=config.cloud_fraction_threshold,
                 do_sw_delta_scaling_with_gases=(
-                    config.do_sw_delta_scaling_with_gases))
+                    config.do_sw_delta_scaling_with_gases),
+                spec_matrix=spec_sw)
         flux_kw.update(
             sw_up=sw.flux_up, sw_dn=sw.flux_dn,
             sw_dn_direct=sw.flux_dn_direct,
@@ -698,6 +751,24 @@ def radiation(config: Config, tables: Tables, *,
             flux_kw["sw_dn_surf_clear_band"] = (dir_clear_band
                                                + diff_clear_band)
             flux_kw["sw_dn_direct_surf_clear_band"] = dir_clear_band
+        if spec_sw is not None:
+            flux_kw.update(
+                sw_up_band=sw.flux_up_s, sw_dn_band=sw.flux_dn_s,
+                sw_dn_direct_band=sw.flux_dn_direct_s,
+                sw_up_clear_band=sw.flux_up_clear_s,
+                sw_dn_clear_band=sw.flux_dn_clear_s,
+                sw_dn_direct_clear_band=sw.flux_dn_direct_clear_s)
+        if config.do_toa_spectral_flux:
+            # at TOA the downward flux is the direct beam only
+            sw_dn_toa_g = torch.where(
+                (cos_sza > 0.0)[:, None],
+                go.incoming_sw * torch.clamp(cos_sza, min=0.0)[:, None],
+                torch.zeros_like(go.incoming_sw))
+            flux_kw["sw_dn_toa_band"] = indexed_sum_g(sw_dn_toa_g, bfg, nb)
+            flux_kw["sw_up_toa_band"] = indexed_sum_g(sw.sw_up_toa_g, bfg,
+                                                      nb)
+            flux_kw["sw_up_toa_clear_band"] = indexed_sum_g(
+                sw.sw_up_toa_clear_g, bfg, nb)
         if config.do_canopy_fluxes_sw:
             if config.use_canopy_full_spectrum_sw:
                 flux_kw["sw_dn_diffuse_surf_canopy"] = \

@@ -74,12 +74,15 @@ def gas_optics(tables: dict, pressure_hl, temperature_hl,
                gas_mmr: dict, cos_sza=None,
                do_lw=True, do_sw=True, skin_temperature=None,
                solar_irradiance=1366.0,
-               min_gas_od_lw=1.0e-15, min_gas_od_sw=0.0) -> RRTMGGasOptics:
+               min_gas_od_lw=1.0e-15, min_gas_od_sw=0.0,
+               spectral_solar_scaling=None) -> RRTMGGasOptics:
     """Full RRTMG gas optics.
 
     tables: the setup_tables dict as tensors.  gas_mmr: dict of
     (ncol, nlev) MASS mixing ratios with keys h2o, co2, ch4, n2o, cfc11,
-    cfc12, hcfc22, ccl4, o3 (absent -> 0).
+    cfc12, hcfc22, ccl4, o3 (absent -> 0).  spectral_solar_scaling: an
+    optional (14,) per-band factor on the solar spectrum, applied before
+    the renormalisation to solar_irradiance.
     """
     pressure_fl = 0.5 * (pressure_hl[:, :-1] + pressure_hl[:, 1:])
     temperature_fl = 0.5 * (temperature_hl[:, :-1] + temperature_hl[:, 1:])
@@ -132,6 +135,13 @@ def gas_optics(tables: dict, pressure_hl, temperature_hl,
             day = cos_sza > 0.0
             incsol = torch.where(day[:, None], sflux,
                                  torch.zeros_like(sflux))
+            if spectral_solar_scaling is not None:
+                # per-band scaling mapped to g-points
+                # (radiation_ifs_rrtm.F90:543-551)
+                scaling = torch.as_tensor(spectral_solar_scaling,
+                                          dtype=incsol.dtype,
+                                          device=incsol.device)
+                incsol = incsol * scaling[tables["sw_band_from_g"]]
             total = incsol.sum(-1)
             scale = torch.where(day, solar_irradiance
                                 / torch.clamp(total, min=1.0e-30),

@@ -45,11 +45,15 @@ def add_cloud_sample(config: Config, tables: Tables, cloud: dict) -> dict:
 
 
 def radiation_step(config: Config, tables: Tables, *, solar_irradiance,
-                   cloud=None, aerosol=None, **inputs) -> Flux:
-    """Cloud generator + radiation() — the full per-block step."""
+                   cloud=None, aerosol=None, spectral_solar_scaling=None,
+                   **inputs) -> Flux:
+    """Cloud generator + radiation() — the full per-block step.
+    spectral_solar_scaling: the (n_bands_sw,) per-band solar scaling of
+    use_spectral_solar_scaling, shared by all columns."""
     cloud_in = add_cloud_sample(config, tables, cloud)
     return radiation(config, tables, solar_irradiance=solar_irradiance,
-                     cloud=cloud_in, aerosol=aerosol, **inputs)
+                     cloud=cloud_in, aerosol=aerosol,
+                     spectral_solar_scaling=spectral_solar_scaling, **inputs)
 
 
 def _map(fn, tree):
@@ -72,15 +76,18 @@ def _pad_columns(tree, ncol: int, target: int):
 
 def radiation_blocked(config: Config, tables: Tables, *, solar_irradiance,
                       block_size: int, cloud=None, aerosol=None,
-                      **inputs) -> Flux:
+                      spectral_solar_scaling=None, **inputs) -> Flux:
     """NPROMA-style column blocking: radiation_step over column blocks in
     turn, bounding device temporaries to one block
-    (driver/ecrad_driver.F90:339-384)."""
+    (driver/ecrad_driver.F90:339-384).  spectral_solar_scaling has no
+    column axis: every block gets all of it."""
     ncol = inputs["pressure_hl"].shape[0]
     if block_size >= ncol:
         return radiation_step(config, tables,
                               solar_irradiance=solar_irradiance,
-                              cloud=cloud, aerosol=aerosol, **inputs)
+                              cloud=cloud, aerosol=aerosol,
+                              spectral_solar_scaling=spectral_solar_scaling,
+                              **inputs)
     nblocks = -(-ncol // block_size)
     tree = dict(inputs, cloud=cloud, aerosol=aerosol)
     tree = _pad_columns(tree, ncol, nblocks * block_size)
@@ -91,9 +98,10 @@ def radiation_blocked(config: Config, tables: Tables, *, solar_irradiance,
                      and x.dim() > 0 else x, tree)
         cl = block.pop("cloud")
         aer = block.pop("aerosol")
-        fluxes.append(radiation_step(config, tables,
-                                     solar_irradiance=solar_irradiance,
-                                     cloud=cl, aerosol=aer, **block))
+        fluxes.append(radiation_step(
+            config, tables, solar_irradiance=solar_irradiance, cloud=cl,
+            aerosol=aer, spectral_solar_scaling=spectral_solar_scaling,
+            **block))
     return Flux(**{name: torch.cat([f.fields()[name] for f in fluxes],
                                    dim=0)[:ncol]
                    for name in fluxes[0].fields()})

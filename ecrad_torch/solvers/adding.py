@@ -8,8 +8,10 @@ path: each assembles its result from one of the sweep functions of
 levels on the CPU).  Level axis: index 0 = top of atmosphere; layer arrays
 ``(ncol, nlev, ng)``, surface planes ``(ncol, ng)`` (an albedo may be
 ``(ncol, 1)``).  Profiles are broadband ``(ncol, nlev+1)``; g-resolved data
-exists only at the surface and TOA.  Spectral projections
-(``spec_matrix``) are not ported.
+exists only at the surface and TOA.  The three adding kernels write no
+per-g planes yet, so these functions take no spectral projection
+(``spec_matrix``): the routes through them raise for spectral flux output
+(``no_spectral_projection``).
 """
 
 from __future__ import annotations
@@ -37,6 +39,18 @@ class LwAdding(NamedTuple):
     up_toa_g: torch.Tensor           # (ncol, ng)
     dn_surf_g: torch.Tensor
     up_surf_g: torch.Tensor          # for LW derivatives
+
+
+def no_spectral_projection(spec_matrix, route: str) -> None:
+    """Raise for spectral flux output on a route that runs the adding
+    sweeps: their kernels write no per-g planes (there is no plain torch
+    route on the card to fall back to)."""
+    if spec_matrix is not None:
+        raise NotImplementedError(
+            f"spectral flux output is not ported for the {route} route: it "
+            "runs the adding-sweep kernels (csrc/adding_sweeps.cu: "
+            "lw_noscat_sweeps, scat_sweeps, sw_sweeps), which write no per-g "
+            "planes yet")
 
 
 def _stack_top(top, levels):

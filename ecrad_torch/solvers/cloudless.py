@@ -19,10 +19,13 @@ from ecrad_torch.solvers.outputs import LwFluxes, SwFluxes
 
 def solver_cloudless_lw(od, ssa, g, planck_hl, emission, albedo,
                         do_lw_aerosol_scattering=False,
-                        do_lw_derivatives=False) -> LwFluxes:
+                        do_lw_derivatives=False,
+                        spec_matrix=None) -> LwFluxes:
     """Args: od/ssa/g (ncol, nlev, ng); planck_hl (ncol, nlev+1, ng);
     emission/albedo (ncol, ng).  ssa and g are read only with aerosol
-    scattering."""
+    scattering.  Spectral flux output (spec_matrix) raises: the adding
+    sweeps write no per-g planes."""
+    adding.no_spectral_projection(spec_matrix, "Cloudless LW")
     planck_top, planck_bot = planck_hl[:, :-1], planck_hl[:, 1:]
     if do_lw_aerosol_scattering:
         refl, trans, src_up, src_dn = two_stream.lw_ref_trans(
@@ -48,9 +51,12 @@ def solver_cloudless_lw(od, ssa, g, planck_hl, emission, albedo,
 
 def solver_cloudless_sw(od, ssa, g, incoming_sw, cos_sza, albedo_diffuse,
                         albedo_direct,
-                        do_sw_delta_scaling_with_gases=False) -> SwFluxes:
+                        do_sw_delta_scaling_with_gases=False,
+                        spec_matrix=None) -> SwFluxes:
     """Args: od/ssa/g (ncol, nlev, ng); incoming_sw (ncol, ng); cos_sza
-    (ncol,); albedos (ncol, ng)."""
+    (ncol,); albedos (ncol, ng).  Spectral flux output (spec_matrix)
+    raises, as in solver_cloudless_lw."""
+    adding.no_spectral_projection(spec_matrix, "Cloudless SW")
     if do_sw_delta_scaling_with_gases:
         od, ssa, g = two_stream.delta_eddington(od, ssa, g)
     mu0 = torch.clamp(cos_sza, min=1.0e-10)[:, None]        # (ncol, 1)

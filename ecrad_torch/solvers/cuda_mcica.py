@@ -10,6 +10,13 @@ in-cloud band properties ``(ncol, nlev, nband)``, the cloudy-layer mask
 ``(ncol, nlev)`` bool, Planck ``(ncol, nlev+1, ng)``, surface planes
 ``(ncol, ng)`` and ``band_of_g`` ``(ng,)`` (any band order: the kernels
 look the band up, they need no band-contiguous g axis).
+
+With ``planes=True`` each also returns its per-g fluxes at every
+half-level, ``(ncol, nlev+1, ng)`` TOA first, for spectral flux output:
+``up_g_<s>`` and ``dn_g_<s>`` of each scene ``<s>`` (``c`` clear, ``t``
+total sky), and in SW the diffuse ``dn_g_<s>`` beside the direct
+``dir_g_<s>`` (normal to the beam, as ``dir_bb_<s>``).  The kernels write
+them from the build with planes; the broadband outputs do not change.
 """
 
 from __future__ import annotations
@@ -76,7 +83,8 @@ def _lw_layers(od, odc_b, ssac_b, gc_b, od_scaling, mask, planck_hl,
 
 
 def lw_fused_plain(od, odc_b, ssac_b, gc_b, od_scaling, mask, planck_hl,
-                   emission, albedo, band_of_g, do_derivatives):
+                   emission, albedo, band_of_g, do_derivatives,
+                   planes=False):
     """The fused LW sweeps as torch loops over levels (the reference for
     the kernel): the clear no-scattering sweeps and the total-sky adding
     sweeps of cuda_adding, then the derivatives."""
@@ -84,9 +92,9 @@ def lw_fused_plain(od, odc_b, ssac_b, gc_b, od_scaling, mask, planck_hl,
     (trans_c, s_up_c, s_dn_c), (refl, trans, s_up, s_dn) = _lw_layers(
         od, odc_b, ssac_b, gc_b, od_scaling, mask, planck_hl, band_of_g)
     clear = cuda_adding.lw_noscat_sweeps_plain(trans_c, s_up_c, s_dn_c,
-                                               emission, albedo)
+                                               emission, albedo, planes)
     tot = cuda_adding.scat_sweeps_plain(refl, trans, s_up, s_dn, albedo,
-                                        emission)
+                                        emission, planes)
     fup_surf_c = clear["fup_surf"]
     fup_surf_t = albedo * tot["fdn_surf"] + emission
     out = dict(dn_bb_c=clear["dn_bb"], fdn_surf_c=clear["fdn_surf"],
@@ -94,6 +102,9 @@ def lw_fused_plain(od, odc_b, ssac_b, gc_b, od_scaling, mask, planck_hl,
                fup_surf_c=fup_surf_c, src_top_t=tot["src_top"],
                dn_bb_t=tot["dn_bb"], up_bb_t=tot["up_bb"],
                fdn_surf_t=tot["fdn_surf"], fup_surf_t=fup_surf_t)
+    if planes:
+        out.update(up_g_c=clear["up_g"], dn_g_c=clear["dn_g"],
+                   up_g_t=tot["up_g"], dn_g_t=tot["dn_g"])
     if do_derivatives:
         # Hogan-Bozzo derivatives (radiation_lw_derivatives.F90:43-83)
         dc = fup_surf_c / torch.clamp(fup_surf_c.sum(-1, keepdim=True),
@@ -127,7 +138,8 @@ def _sw_layers(od, ssa, g, odc_b, ssac_b, gc_b, od_scaling, mask, mu0,
 
 
 def sw_fused_plain(od, ssa, g, odc_b, ssac_b, gc_b, od_scaling, mask, mu0,
-                   incoming, alb_dif, alb_dir_mu0, band_of_g, delta_gases):
+                   incoming, alb_dif, alb_dir_mu0, band_of_g, delta_gases,
+                   planes=False):
     """The fused SW sweeps as torch loops over levels (the reference for
     the kernel): cuda_adding's three SW sweeps on the clear and the
     total-sky coefficients.  mu0 (ncol,) already clamped to 1e-10."""
@@ -136,7 +148,7 @@ def sw_fused_plain(od, ssa, g, odc_b, ssac_b, gc_b, od_scaling, mask, mu0,
     out = {}
     for tag, coeffs in (("c", cl), ("t", tot)):
         r = cuda_adding.sw_sweeps_plain(*coeffs, incoming, alb_dif,
-                                        alb_dir_mu0)
+                                        alb_dir_mu0, planes)
         out.update({f"{k}_{tag}": v for k, v in r.items()})
     return out
 
@@ -166,14 +178,29 @@ def _band_index(band_of_g, ng, nband, device):
 LW_FUSED_MAX_NG = 256      # csrc/lw_fused.cu's __launch_bounds__
 
 
+def plane_outputs(out, e, ncol, nlev, ng, names, planes):
+    """Add the per-g planes ``names`` (ncol, nlev+1, ng) to a wrapper's
+    outputs when planes is asked for; returns their pointers (None without
+    planes) in the order of ``names``."""
+    if not planes:
+        return [None] * len(names)
+    out.update({n: e(ncol, nlev + 1, ng) for n in names})
+    return [out[n] for n in names]
+
+
+LW_PLANES = ("up_g_c", "dn_g_c", "up_g_t", "dn_g_t")
+SW_PLANES = ("up_g_c", "dn_g_c", "dir_g_c", "up_g_t", "dn_g_t", "dir_g_t")
+
+
 def lw_fused(od, odc_b, ssac_b, gc_b, od_scaling, mask, planck_hl,
-             emission, albedo, band_of_g, do_derivatives):
+             emission, albedo, band_of_g, do_derivatives, planes=False):
     """Fused McICA LW sweeps.  CPU tensors run lw_fused_plain; CUDA
-    tensors launch the kernel (csrc/lw_fused.cu) or raise."""
+    tensors launch the kernel (csrc/lw_fused.cu, its build with per-g
+    planes when planes is asked for) or raise."""
     if od.device.type == "cpu":
         return lw_fused_plain(od, odc_b, ssac_b, gc_b, od_scaling, mask,
                               planck_hl, emission, albedo, band_of_g,
-                              do_derivatives)
+                              do_derivatives, planes)
     ncol, nlev, ng = od.shape
     nband = odc_b.shape[-1]
     _check("lw_fused", od, {
@@ -198,6 +225,7 @@ def lw_fused(od, odc_b, ssac_b, gc_b, od_scaling, mask, planck_hl,
                fdn_surf_t=e(ncol, ng), fup_surf_t=e(ncol, ng))
     if do_derivatives:
         out.update(deriv_c=e(ncol, nlev), deriv_t=e(ncol, nlev))
+    plane_ptrs = plane_outputs(out, e, ncol, nlev, ng, LW_PLANES, planes)
     if ncol == 0:
         return out
     # scratch: the total-sky albedo and source below each layer, and the
@@ -210,12 +238,13 @@ def lw_fused(od, odc_b, ssac_b, gc_b, od_scaling, mask, planck_hl,
         out["fup_toa_c"], out["fup_surf_c"], out["src_top_t"],
         out["dn_bb_t"], out["up_bb_t"], out["fdn_surf_t"],
         out["fup_surf_t"], out.get("deriv_c"), out.get("deriv_t"),
-        *scratch])
+        *scratch, *plane_ptrs])
     lib = kernels.library()
     fn = (lib.ecrad_lw_fused_f32 if od.dtype == torch.float32
           else lib.ecrad_lw_fused_f64)
     with torch.cuda.device(od.device):
-        code = fn(ptrs, ncol, nlev, ng, nband, kernels.stream_of(od))
+        code = fn(ptrs, ncol, nlev, ng, nband, int(bool(planes)),
+                  kernels.stream_of(od))
     kernels.check(code, "lw_fused")
     lw_fused.launches += 1
     return out
@@ -228,13 +257,15 @@ SW_FUSED_MAX_NG = 256      # csrc/sw_fused.cu's __launch_bounds__
 
 
 def sw_fused(od, ssa, g, odc_b, ssac_b, gc_b, od_scaling, mask, mu0,
-             incoming, alb_dif, alb_dir_mu0, band_of_g, delta_gases):
+             incoming, alb_dif, alb_dir_mu0, band_of_g, delta_gases,
+             planes=False):
     """Fused McICA SW sweeps.  CPU tensors run sw_fused_plain; CUDA
-    tensors launch the kernel (csrc/sw_fused.cu) or raise."""
+    tensors launch the kernel (csrc/sw_fused.cu, its build with per-g
+    planes when planes is asked for) or raise."""
     if od.device.type == "cpu":
         return sw_fused_plain(od, ssa, g, odc_b, ssac_b, gc_b, od_scaling,
                               mask, mu0, incoming, alb_dif, alb_dir_mu0,
-                              band_of_g, delta_gases)
+                              band_of_g, delta_gases, planes)
     ncol, nlev, ng = od.shape
     nband = odc_b.shape[-1]
     _check("sw_fused", od, {
@@ -263,6 +294,7 @@ def sw_fused(od, ssa, g, odc_b, ssac_b, gc_b, od_scaling, mask, mu0,
                     f"dn_bb_{tag}": e(ncol, nlev),
                     f"up_bb_{tag}": e(ncol, nlev),
                     f"fdn_surf_{tag}": e(ncol, ng)})
+    plane_ptrs = plane_outputs(out, e, ncol, nlev, ng, SW_PLANES, planes)
     if ncol == 0:
         return out
     # scratch: the diffuse and direct albedos of both scenes below each layer
@@ -272,13 +304,14 @@ def sw_fused(od, ssa, g, odc_b, ssac_b, gc_b, od_scaling, mask, mu0,
         alb_dif, alb_dir_mu0, bog, out["dir_bb_c"], out["dir_bb_t"],
         out["fdir_surf_c"], out["fdir_surf_t"], out["src_top_c"],
         out["src_top_t"], out["dn_bb_c"], out["up_bb_c"], out["dn_bb_t"],
-        out["up_bb_t"], out["fdn_surf_c"], out["fdn_surf_t"], *scratch])
+        out["up_bb_t"], out["fdn_surf_c"], out["fdn_surf_t"], *scratch,
+        *plane_ptrs])
     lib = kernels.library()
     fn = (lib.ecrad_sw_fused_f32 if od.dtype == torch.float32
           else lib.ecrad_sw_fused_f64)
     with torch.cuda.device(od.device):
         code = fn(ptrs, ncol, nlev, ng, nband, int(bool(delta_gases)),
-                  kernels.stream_of(od))
+                  int(bool(planes)), kernels.stream_of(od))
     kernels.check(code, "sw_fused")
     sw_fused.launches += 1
     return out

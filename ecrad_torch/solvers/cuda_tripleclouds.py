@@ -23,6 +23,10 @@ Interface indexing, the three ways it is offset:
 * the derivative pass mixes with u at the interface below, surface up.
 A mix is skipped where the layer and its neighbour across that interface
 are both clear; the layers above TOA and below the surface count as clear.
+
+With ``planes=True`` each also returns the per-g fluxes of both scenes at
+every half-level, the three regions summed, as cuda_mcica's wrappers name
+them (``LW_PLANES``, ``SW_PLANES``).
 """
 
 from __future__ import annotations
@@ -31,7 +35,10 @@ import torch
 
 from ecrad_torch import kernels
 from ecrad_torch.solvers import two_stream
-from ecrad_torch.solvers.cuda_mcica import _band_index, _check
+from ecrad_torch.solvers.cuda_adding import keeper
+from ecrad_torch.solvers.cuda_mcica import (LW_PLANES, SW_PLANES,
+                                            _band_index, _check,
+                                            plane_outputs)
 
 NREG = 3
 
@@ -131,7 +138,7 @@ def _lw_regions(od, odc_b, ssac_b, gc_b, scal2, clear, rf3, planck_hl,
 
 def lw_fused_plain(od, odc_b, ssac_b, gc_b, scal2, clear, rf3, u9, v9,
                    planck_hl, emission, albedo, src0, band_of_g,
-                   do_derivatives):
+                   do_derivatives, planes=False):
     """The fused Tripleclouds LW sweeps as torch loops over levels (the
     reference for the kernel)."""
     nlev = od.shape[1]
@@ -139,12 +146,15 @@ def lw_fused_plain(od, odc_b, ssac_b, gc_b, scal2, clear, rf3, u9, v9,
         od, odc_b, ssac_b, gc_b, scal2, clear, rf3, planck_hl, band_of_g)
     stack = lambda xs: torch.stack(xs, dim=1)
 
+    keep = keeper(planes)       # the per-g fluxes, kept for the planes
+
     # P1: clear-sky downward
     fdn = torch.zeros_like(emission)
-    dn_bb_c = []
+    dn_bb_c, dn_g_c = [], [fdn]
     for l in range(nlev):
         fdn = trans_c[:, l] * fdn + sd_c[:, l]
         dn_bb_c.append(fdn.sum(-1))
+        keep(dn_g_c, fdn)
     fdn_surf_c = fdn
     fup_surf_c = emission + albedo * fdn_surf_c
 
@@ -153,11 +163,12 @@ def lw_fused_plain(od, odc_b, ssac_b, gc_b, scal2, clear, rf3, u9, v9,
     fup = fup_surf_c
     alb = torch.broadcast_to(albedo[:, None, :], src0.shape)
     src = src0
-    up_bb_c = [None] * nlev
+    up_bb_c, up_g_c = [None] * nlev, [fup_surf_c]
     albb, srcb = [None] * nlev, [None] * nlev
     for l in range(nlev - 1, -1, -1):
         fup = trans_c[:, l] * fup + su_c[:, l]
         up_bb_c[l] = fup.sum(-1)
+        keep(up_g_c, fup)
         albb[l], srcb[l] = alb, src
         inv = 1.0 / (1.0 - alb * refl[:, l])
         a = refl[:, l] + trans[:, l] * trans[:, l] * alb * inv
@@ -169,6 +180,7 @@ def lw_fused_plain(od, odc_b, ssac_b, gc_b, scal2, clear, rf3, u9, v9,
     # P3: 3-region downward, mixing at the interface below each layer
     fdn = torch.zeros_like(src0)
     dn_bb_t, up_bb_t = [], []
+    dn_g_t, up_g_t = [torch.zeros_like(emission)], [src.sum(1)]
     for l in range(nlev):
         f = (trans[:, l] * fdn + refl[:, l] * srcb[l] + sd[:, l]) \
             / (1.0 - refl[:, l] * albb[l])
@@ -178,6 +190,8 @@ def lw_fused_plain(od, odc_b, ssac_b, gc_b, scal2, clear, rf3, u9, v9,
         dn_bb_t.append(f.sum((1, 2)))
         up_bb_t.append(u.sum((1, 2)))
         fdn_surf_t, fup_surf_t = f.sum(1), u.sum(1)
+        keep(dn_g_t, fdn_surf_t)
+        keep(up_g_t, fup_surf_t)
         skip = skip_mix(clear, l, l + 1)
         fdn = torch.where(skip, f, mix_v_dn(v9[:, l + 1], f))
 
@@ -186,6 +200,9 @@ def lw_fused_plain(od, odc_b, ssac_b, gc_b, scal2, clear, rf3, u9, v9,
                fup_toa_c=fup, src_top_t=src,
                dn_bb_t=stack(dn_bb_t), up_bb_t=stack(up_bb_t),
                fdn_surf_t=fdn_surf_t, fup_surf_t=fup_surf_t)
+    if planes:
+        out.update(up_g_c=stack(up_g_c[::-1]), dn_g_c=stack(dn_g_c),
+                   up_g_t=stack(up_g_t), dn_g_t=stack(dn_g_t))
     if do_derivatives:
         # Region-coupled Hogan-Bozzo derivatives (radiation_lw_
         # derivatives.F90:200-250), u at the interface below, surface up.
@@ -219,7 +236,7 @@ def _sw_regions(od, ssa, g, odc_b, ssac_b, gc_b, scal2, clear, mu0,
 
 def sw_fused_plain(od, ssa, g, odc_b, ssac_b, gc_b, scal2, clear, v9, mu0,
                    incoming, fdir0, alb0_c, albd0_c, alb0_t, albd0_t,
-                   band_of_g, delta_gases):
+                   band_of_g, delta_gases, planes=False):
     """The fused Tripleclouds SW sweeps as torch loops over levels (the
     reference for the kernel).  mu0 (ncol,) clamped to 1e-10; incoming
     (ncol, ng); fdir0 (ncol, 3, ng) the region-weighted TOA direct flux;
@@ -232,8 +249,10 @@ def sw_fused_plain(od, ssa, g, odc_b, ssac_b, gc_b, scal2, clear, v9, mu0,
     masked = lambda l, x: zero_cloudy_regions(clear, l, x)
 
     # S1: direct beam down, clear scene and 3 regions
+    keep = keeper(planes)       # the per-g fluxes, kept for the planes
     fc, ft = incoming, fdir0
     ftc, ftt, dir_bb_c, dir_bb_t = [], [], [], []
+    dir_g_t = [fdir0.sum(1)]
     for l in range(nlev):
         ftc.append(fc)
         ftt.append(ft)
@@ -242,6 +261,7 @@ def sw_fused_plain(od, ssa, g, odc_b, ssac_b, gc_b, scal2, clear, v9, mu0,
         dir_bb_c.append(fc.sum(-1))
         dir_bb_t.append(f.sum((1, 2)))
         fdir_surf_t = f.sum(1)
+        keep(dir_g_t, fdir_surf_t)
         ft = torch.where(skip_mix(clear, l, l + 1), f,
                          mix_v_dn(v9[:, l + 1], f))
 
@@ -273,6 +293,8 @@ def sw_fused_plain(od, ssa, g, odc_b, ssac_b, gc_b, scal2, clear, v9, mu0,
     dc = torch.zeros_like(incoming)
     dt = torch.zeros_like(fdir0)
     dn_bb_c, up_bb_c, dn_bb_t, up_bb_t = [], [], [], []
+    dn_g_c, up_g_c = [dc], [incoming * adc]
+    dn_g_t, up_g_t = [dc], [(fdir0 * adt).sum(1)]
     for l in range(nlev):
         dc, uc = down(cl, l, ftc[l], dc, albb_c[l], albdb_c[l])
         dn_bb_c.append(dc.sum(-1))
@@ -282,15 +304,24 @@ def sw_fused_plain(od, ssa, g, odc_b, ssac_b, gc_b, scal2, clear, v9, mu0,
         dn_bb_t.append(f.sum((1, 2)))
         up_bb_t.append(u.sum((1, 2)))
         fdn_surf_t = f.sum(1)
+        keep(dn_g_c, dc)
+        keep(up_g_c, uc)
+        keep(dn_g_t, fdn_surf_t)
+        keep(up_g_t, u.sum(1))
         dt = torch.where(skip_mix(clear, l, l + 1), f,
                          mix_v_dn(v9[:, l + 1], f))
 
-    return dict(albd_top=adt, albd_top_c=adc,
-                dir_bb_c=stack(dir_bb_c), dir_bb_t=stack(dir_bb_t),
-                fdir_surf_c=fc, fdir_surf_t=fdir_surf_t,
-                dn_bb_c=stack(dn_bb_c), up_bb_c=stack(up_bb_c),
-                dn_bb_t=stack(dn_bb_t), up_bb_t=stack(up_bb_t),
-                fdn_surf_c=dc, fdn_surf_t=fdn_surf_t)
+    out = dict(albd_top=adt, albd_top_c=adc,
+               dir_bb_c=stack(dir_bb_c), dir_bb_t=stack(dir_bb_t),
+               fdir_surf_c=fc, fdir_surf_t=fdir_surf_t,
+               dn_bb_c=stack(dn_bb_c), up_bb_c=stack(up_bb_c),
+               dn_bb_t=stack(dn_bb_t), up_bb_t=stack(up_bb_t),
+               fdn_surf_c=dc, fdn_surf_t=fdn_surf_t)
+    if planes:
+        out.update(up_g_c=stack(up_g_c), dn_g_c=stack(dn_g_c),
+                   dir_g_c=stack(ftc + [fc]), up_g_t=stack(up_g_t),
+                   dn_g_t=stack(dn_g_t), dir_g_t=stack(dir_g_t))
+    return out
 
 
 def _empty(ref):
@@ -302,13 +333,15 @@ LW_FUSED_MAX_NG = 256      # csrc/tripleclouds_lw.cu's __launch_bounds__
 
 
 def lw_fused(od, odc_b, ssac_b, gc_b, scal2, clear, rf3, u9, v9, planck_hl,
-             emission, albedo, src0, band_of_g, do_derivatives):
+             emission, albedo, src0, band_of_g, do_derivatives,
+             planes=False):
     """Fused Tripleclouds LW sweeps.  CPU tensors run lw_fused_plain; CUDA
-    tensors launch the kernel (csrc/tripleclouds_lw.cu) or raise."""
+    tensors launch the kernel (csrc/tripleclouds_lw.cu, its build with
+    per-g planes when planes is asked for) or raise."""
     if od.device.type == "cpu":
         return lw_fused_plain(od, odc_b, ssac_b, gc_b, scal2, clear, rf3,
                               u9, v9, planck_hl, emission, albedo, src0,
-                              band_of_g, do_derivatives)
+                              band_of_g, do_derivatives, planes)
     ncol, nlev, ng = od.shape
     nband = odc_b.shape[-1]
     _check("tripleclouds lw_fused", od, {
@@ -336,6 +369,7 @@ def lw_fused(od, odc_b, ssac_b, gc_b, scal2, clear, rf3, u9, v9, planck_hl,
                fdn_surf_t=e(ncol, ng), fup_surf_t=e(ncol, ng))
     if do_derivatives:
         out["deriv_t"] = e(ncol, nlev)
+    plane_ptrs = plane_outputs(out, e, ncol, nlev, ng, LW_PLANES, planes)
     if ncol == 0:
         return out
     # scratch: the albedo and source of the atmosphere below each layer,
@@ -347,12 +381,13 @@ def lw_fused(od, odc_b, ssac_b, gc_b, scal2, clear, rf3, u9, v9, planck_hl,
         emission, albedo, src0, bog, out["dn_bb_c"], out["fdn_surf_c"],
         out["fup_surf_c"], out["up_bb_c"], out["fup_toa_c"],
         out["src_top_t"], out["dn_bb_t"], out["up_bb_t"], out["fdn_surf_t"],
-        out["fup_surf_t"], out.get("deriv_t"), *scratch])
+        out["fup_surf_t"], out.get("deriv_t"), *scratch, *plane_ptrs])
     lib = kernels.library()
     fn = (lib.ecrad_tripleclouds_lw_f32 if od.dtype == torch.float32
           else lib.ecrad_tripleclouds_lw_f64)
     with torch.cuda.device(od.device):
-        code = fn(ptrs, ncol, nlev, ng, nband, kernels.stream_of(od))
+        code = fn(ptrs, ncol, nlev, ng, nband, int(bool(planes)),
+                  kernels.stream_of(od))
     kernels.check(code, "tripleclouds lw_fused")
     lw_fused.launches += 1
     return out
@@ -363,13 +398,15 @@ lw_fused.launches = 0
 
 def sw_fused(od, ssa, g, odc_b, ssac_b, gc_b, scal2, clear, v9, mu0,
              incoming, fdir0, alb0_c, albd0_c, alb0_t, albd0_t, band_of_g,
-             delta_gases):
+             delta_gases, planes=False):
     """Fused Tripleclouds SW sweeps.  CPU tensors run sw_fused_plain; CUDA
-    tensors launch the kernel (csrc/tripleclouds_sw.cu) or raise."""
+    tensors launch the kernel (csrc/tripleclouds_sw.cu, its build with
+    per-g planes when planes is asked for) or raise."""
     if od.device.type == "cpu":
         return sw_fused_plain(od, ssa, g, odc_b, ssac_b, gc_b, scal2, clear,
                               v9, mu0, incoming, fdir0, alb0_c, albd0_c,
-                              alb0_t, albd0_t, band_of_g, delta_gases)
+                              alb0_t, albd0_t, band_of_g, delta_gases,
+                              planes)
     ncol, nlev, ng = od.shape
     nband = odc_b.shape[-1]
     _check("tripleclouds sw_fused", od, {
@@ -395,6 +432,7 @@ def sw_fused(od, ssa, g, odc_b, ssac_b, gc_b, scal2, clear, v9, mu0,
                dn_bb_c=e(ncol, nlev), up_bb_c=e(ncol, nlev),
                dn_bb_t=e(ncol, nlev), up_bb_t=e(ncol, nlev),
                fdn_surf_c=e(ncol, ng), fdn_surf_t=e(ncol, ng))
+    plane_ptrs = plane_outputs(out, e, ncol, nlev, ng, SW_PLANES, planes)
     if ncol == 0:
         return out
     # scratch: the diffuse and direct albedos below each layer (clear, 3
@@ -409,13 +447,13 @@ def sw_fused(od, ssa, g, odc_b, ssac_b, gc_b, scal2, clear, v9, mu0,
         out["albd_top_c"], out["dir_bb_c"], out["dir_bb_t"],
         out["fdir_surf_c"], out["fdir_surf_t"], out["dn_bb_c"],
         out["up_bb_c"], out["dn_bb_t"], out["up_bb_t"], out["fdn_surf_c"],
-        out["fdn_surf_t"], *scratch])
+        out["fdn_surf_t"], *scratch, *plane_ptrs])
     lib = kernels.library()
     fn = (lib.ecrad_tripleclouds_sw_f32 if od.dtype == torch.float32
           else lib.ecrad_tripleclouds_sw_f64)
     with torch.cuda.device(od.device):
         code = fn(ptrs, ncol, nlev, ng, nband, int(bool(delta_gases)),
-                  kernels.stream_of(od))
+                  int(bool(planes)), kernels.stream_of(od))
     kernels.check(code, "tripleclouds sw_fused")
     sw_fused.launches += 1
     return out

@@ -7,7 +7,10 @@ input.  Configurations the fused kernels cover (csrc/lw_fused.cu,
 csrc/sw_fused.cu, through solvers/cuda_mcica.py) go there; the others
 run the unfused two-stream + adding path.  The rule is the JAX
 package's, without its platform test: band-contiguous g ordering, and
-for LW cloud scattering on with aerosol scattering off.
+for LW cloud scattering on with aerosol scattering off.  Spectral flux
+output (``spec_matrix``) goes through the fused kernels' per-g planes,
+projected outside them (unlike the JAX package, which sends it to its
+scan path); the unfused path raises for it.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ from ecrad_torch.solvers import adding, cuda_mcica, two_stream
 from ecrad_torch.solvers.adding import LwAdding, SwAdding, _stack_bot, \
     _stack_top
 from ecrad_torch.solvers.lw_derivatives import lw_derivatives_ica
-from ecrad_torch.solvers.outputs import LwFluxes, SwFluxes
+from ecrad_torch.solvers.outputs import LwFluxes, SwFluxes, project
 
 
 def _gcounts(band_from_g):
@@ -34,7 +37,10 @@ def _gcounts(band_from_g):
 
 def _mix(w, cloudy, clear):
     """total_cloud_cover-weighted scene blend, broadcasting w over
-    trailing axes (radiation_mcica_lw.F90:236-248)."""
+    trailing axes (radiation_mcica_lw.F90:236-248); None for an absent
+    (spectral) field."""
+    if cloudy is None:
+        return None
     w = w.reshape(w.shape + (1,) * (cloudy.dim() - 1))
     return w * cloudy + (1.0 - w) * clear
 
@@ -45,7 +51,7 @@ def solver_mcica_lw(od, ssa, g, od_cloud_b, ssa_cloud_b, g_cloud_b,
                     cloud_fraction_threshold=1.0e-6,
                     do_lw_cloud_scattering=True,
                     do_lw_aerosol_scattering=False,
-                    do_lw_derivatives=False) -> LwFluxes:
+                    do_lw_derivatives=False, spec_matrix=None) -> LwFluxes:
     """Args:
       od/ssa/g: clear-sky (gas+aerosol) (ncol, nlev, ng)
       od_cloud_b/...: in-cloud per band (ncol, nlev, nband)
@@ -53,13 +59,17 @@ def solver_mcica_lw(od, ssa, g, od_cloud_b, ssa_cloud_b, g_cloud_b,
       od_scaling: (ncol, nlev, ng); total_cloud_cover (ncol,)
       cloud_fraction: (ncol, nlev); planck_hl (ncol, nlev+1, ng)
       emission/albedo: (ncol, ng)
+      spec_matrix: optional (ng, nspec) 0/1 projection for the spectral
+        profiles (fused route only)
     """
     if (_gcounts(band_from_g) is not None and do_lw_cloud_scattering
             and not do_lw_aerosol_scattering):
         return _solver_mcica_lw_fused(
             od, od_cloud_b, ssa_cloud_b, g_cloud_b, band_from_g,
             od_scaling, total_cloud_cover, cloud_fraction, planck_hl,
-            emission, albedo, cloud_fraction_threshold, do_lw_derivatives)
+            emission, albedo, cloud_fraction_threshold, do_lw_derivatives,
+            spec_matrix)
+    adding.no_spectral_projection(spec_matrix, "unfused McICA LW")
     planck_top, planck_bot = planck_hl[:, :-1], planck_hl[:, 1:]
     bb = band_from_g
 
@@ -118,9 +128,13 @@ def solver_mcica_lw(od, ssa, g, od_cloud_b, ssa_cloud_b, g_cloud_b,
 
 
 def _finish_lw(clear, tot, total_cloud_cover, cloud_fraction_threshold,
-               deriv_cloudy=None, deriv_clear=None) -> LwFluxes:
+               deriv_cloudy=None, deriv_clear=None, spectral=None) -> LwFluxes:
     """Blend total/clear scenes by cloud cover and pack LwFluxes
-    (radiation_mcica_lw.F90:236-248)."""
+    (radiation_mcica_lw.F90:236-248).  spectral: the projected profiles of
+    the clear ("c") and total ("t") scene, {scene: {"up", "dn"}}, blended
+    the same way; None without spectral flux output."""
+    sp = spectral or {"c": {}, "t": {}}
+    c_s, t_s = sp["c"].get, sp["t"].get
     tcc = total_cloud_cover
     has_cloud = tcc >= cloud_fraction_threshold
     w = torch.where(has_cloud, tcc, torch.zeros_like(tcc))
@@ -134,7 +148,10 @@ def _finish_lw(clear, tot, total_cloud_cover, cloud_fraction_threshold,
         lw_up_toa_g=_mix(w, tot.up_toa_g, clear.up_toa_g),
         lw_dn_surf_clear_g=clear.dn_surf_g,
         lw_up_toa_clear_g=clear.up_toa_g,
-        cloud_cover=w)
+        cloud_cover=w,
+        flux_up_s=_mix(w, t_s("up"), c_s("up")),
+        flux_dn_s=_mix(w, t_s("dn"), c_s("dn")),
+        flux_up_clear_s=c_s("up"), flux_dn_clear_s=c_s("dn"))
 
     if deriv_cloudy is not None:
         # cloudy-scene derivative, then blend with clear
@@ -166,14 +183,17 @@ def lw_fused_args(od, od_cloud_b, ssa_cloud_b, g_cloud_b, band_from_g,
 def _solver_mcica_lw_fused(od, od_cloud_b, ssa_cloud_b, g_cloud_b,
                            band_from_g, od_scaling, total_cloud_cover,
                            cloud_fraction, planck_hl, emission, albedo,
-                           cloud_fraction_threshold,
-                           do_lw_derivatives) -> LwFluxes:
-    """Fused-kernel LW path (solvers/cuda_mcica.lw_fused)."""
+                           cloud_fraction_threshold, do_lw_derivatives,
+                           spec_matrix=None) -> LwFluxes:
+    """Fused-kernel LW path (solvers/cuda_mcica.lw_fused), with the
+    kernel's per-g planes projected through spec_matrix when given."""
     ncol = cloud_fraction.shape[0]
     r = cuda_mcica.lw_fused(*lw_fused_args(
         od, od_cloud_b, ssa_cloud_b, g_cloud_b, band_from_g, od_scaling,
         cloud_fraction, planck_hl, emission, albedo,
-        cloud_fraction_threshold, do_lw_derivatives))
+        cloud_fraction_threshold, do_lw_derivatives),
+        planes=spec_matrix is not None)
+    proj = lambda k: project(r.get(k), spec_matrix)  # noqa: E731
 
     zeros = torch.zeros((ncol,), dtype=od.dtype, device=od.device)
     fup_surf_c = r["fup_surf_c"]
@@ -188,6 +208,8 @@ def _solver_mcica_lw_fused(od, od_cloud_b, ssa_cloud_b, g_cloud_b,
         dn=_stack_top(zeros, r["dn_bb_t"]),
         up_toa_g=src_top_t, dn_surf_g=r["fdn_surf_t"],
         up_surf_g=r["fup_surf_t"])
+    spectral = None if spec_matrix is None else {
+        s: {"up": proj(f"up_g_{s}"), "dn": proj(f"dn_g_{s}")} for s in "ct"}
 
     deriv_cloudy = deriv_clear = None
     if do_lw_derivatives:
@@ -195,7 +217,8 @@ def _solver_mcica_lw_fused(od, od_cloud_b, ssa_cloud_b, g_cloud_b,
         deriv_cloudy = torch.cat([r["deriv_t"], ones], dim=1)
         deriv_clear = torch.cat([r["deriv_c"], ones], dim=1)
     return _finish_lw(clear, tot, total_cloud_cover,
-                      cloud_fraction_threshold, deriv_cloudy, deriv_clear)
+                      cloud_fraction_threshold, deriv_cloudy, deriv_clear,
+                      spectral)
 
 
 def solver_mcica_sw(od, ssa, g, od_cloud_b, ssa_cloud_b, g_cloud_b,
@@ -203,13 +226,16 @@ def solver_mcica_sw(od, ssa, g, od_cloud_b, ssa_cloud_b, g_cloud_b,
                     cloud_fraction, incoming_sw, cos_sza,
                     albedo_diffuse, albedo_direct,
                     cloud_fraction_threshold=1.0e-6,
-                    do_sw_delta_scaling_with_gases=False) -> SwFluxes:
+                    do_sw_delta_scaling_with_gases=False,
+                    spec_matrix=None) -> SwFluxes:
     if _gcounts(band_from_g) is not None:
         return _solver_mcica_sw_fused(
             od, ssa, g, od_cloud_b, ssa_cloud_b, g_cloud_b, band_from_g,
             od_scaling, total_cloud_cover, cloud_fraction, incoming_sw,
             cos_sza, albedo_diffuse, albedo_direct,
-            cloud_fraction_threshold, do_sw_delta_scaling_with_gases)
+            cloud_fraction_threshold, do_sw_delta_scaling_with_gases,
+            spec_matrix)
+    adding.no_spectral_projection(spec_matrix, "unfused McICA SW")
     mu0 = torch.clamp(cos_sza, min=1.0e-10)[:, None, None]
     bb = band_from_g
 
@@ -244,9 +270,14 @@ def solver_mcica_sw(od, ssa, g, od_cloud_b, ssa_cloud_b, g_cloud_b,
 
 
 def _finish_sw(clear, tot, total_cloud_cover, cloud_fraction_threshold,
-               cos_sza) -> SwFluxes:
+               cos_sza, spectral=None) -> SwFluxes:
     """Blend total/clear SW scenes by cloud cover, zero night columns,
-    and pack SwFluxes (radiation_mcica_sw.F90 output section)."""
+    and pack SwFluxes (radiation_mcica_sw.F90 output section).  spectral:
+    the projected profiles of the clear ("c") and total ("t") scene,
+    {scene: {"up", "dn_diffuse", "dn_direct"}}, blended and zeroed the
+    same way; None without spectral flux output."""
+    sp = spectral or {"c": {}, "t": {}}
+    c_s, t_s = sp["c"].get, sp["t"].get
     tcc = total_cloud_cover
     has_cloud = tcc >= cloud_fraction_threshold
     day = cos_sza > 0.0
@@ -254,9 +285,15 @@ def _finish_sw(clear, tot, total_cloud_cover, cloud_fraction_threshold,
 
     def zn(x):
         """Zero night columns (the reference only assigns for
-        cos_sza > 0, radiation_mcica_sw.F90)."""
+        cos_sza > 0, radiation_mcica_sw.F90); None stays None."""
+        if x is None:
+            return None
         d = day.reshape(day.shape + (1,) * (x.dim() - 1))
         return torch.where(d, x, torch.zeros_like(x))
+
+    def total_dn(get):
+        return None if get("up") is None \
+            else get("dn_diffuse") + get("dn_direct")
 
     return SwFluxes(
         flux_up=zn(_mix(w, tot.up, clear.up)),
@@ -277,7 +314,13 @@ def _finish_sw(clear, tot, total_cloud_cover, cloud_fraction_threshold,
         # night columns keep the reference's unset sentinel -1
         # (radiation_flux.F90 reset; radiation_mcica_sw.F90 only assigns
         # for cos_sza > 0)
-        cloud_cover=torch.where(day, tcc, torch.full_like(tcc, -1.0)))
+        cloud_cover=torch.where(day, tcc, torch.full_like(tcc, -1.0)),
+        flux_up_s=zn(_mix(w, t_s("up"), c_s("up"))),
+        flux_dn_s=zn(_mix(w, total_dn(t_s), total_dn(c_s))),
+        flux_dn_direct_s=zn(_mix(w, t_s("dn_direct"), c_s("dn_direct"))),
+        flux_up_clear_s=zn(c_s("up")),
+        flux_dn_clear_s=zn(total_dn(c_s)),
+        flux_dn_direct_clear_s=zn(c_s("dn_direct")))
 
 
 def sw_fused_args(od, ssa, g, od_cloud_b, ssa_cloud_b, g_cloud_b,
@@ -303,14 +346,19 @@ def _solver_mcica_sw_fused(od, ssa, g, od_cloud_b, ssa_cloud_b,
                            total_cloud_cover, cloud_fraction,
                            incoming_sw, cos_sza, albedo_diffuse,
                            albedo_direct, cloud_fraction_threshold,
-                           do_sw_delta_scaling_with_gases) -> SwFluxes:
-    """Fused-kernel SW path (solvers/cuda_mcica.sw_fused)."""
+                           do_sw_delta_scaling_with_gases,
+                           spec_matrix=None) -> SwFluxes:
+    """Fused-kernel SW path (solvers/cuda_mcica.sw_fused), with the
+    kernel's per-g planes projected through spec_matrix when given (the
+    direct flux's mu0 applied after the projection, as in the JAX
+    package)."""
     ncol = cloud_fraction.shape[0]
     r = cuda_mcica.sw_fused(*sw_fused_args(
         od, ssa, g, od_cloud_b, ssa_cloud_b, g_cloud_b, band_from_g,
         od_scaling, cloud_fraction, incoming_sw, cos_sza, albedo_diffuse,
         albedo_direct, cloud_fraction_threshold,
-        do_sw_delta_scaling_with_gases))
+        do_sw_delta_scaling_with_gases), planes=spec_matrix is not None)
+    proj = lambda k: project(r.get(k), spec_matrix)  # noqa: E731
 
     mu0_col = torch.clamp(cos_sza, min=1.0e-10)
     mu0 = mu0_col[:, None]                                 # (ncol, 1)
@@ -327,5 +375,9 @@ def _solver_mcica_sw_fused(od, ssa, g, od_cloud_b, ssa_cloud_b,
             dn_diffuse_surf_g=r[f"fdn_surf_{tag}"],
             dn_direct_surf_g=r[f"fdir_surf_{tag}"] * mu0)
 
+    spectral = None if spec_matrix is None else {
+        s: {"up": proj(f"up_g_{s}"), "dn_diffuse": proj(f"dn_g_{s}"),
+            "dn_direct": proj(f"dir_g_{s}") * mu0[:, :, None]}
+        for s in "ct"}
     return _finish_sw(scene("c"), scene("t"), total_cloud_cover,
-                      cloud_fraction_threshold, cos_sza)
+                      cloud_fraction_threshold, cos_sza, spectral)

@@ -1,9 +1,13 @@
 """Unified solver output contract (as ``ecrad_tpu/solvers/outputs.py``).
 
 Profiles are broadband ``(ncol, nlev+1)``; spectrally resolved data
-exists only as surface/TOA g slices ``(ncol, ng)``.  The spectral
-``*_s`` profiles of the JAX package are not ported, so the two adapters
-below take no spectral projection.
+exists as surface/TOA g slices ``(ncol, ng)`` and, when spectral flux
+output is asked for, as ``*_s`` profiles ``(ncol, nlev+1, nspec)``: the
+per-g half-level fluxes projected through an ``(ng, nspec)`` matrix of
+zeros and ones (the one-hot band map, or the identity for g-point
+output).  The fused kernels write the per-g planes only when asked
+(``planes=True`` of their wrappers), and the projection is a matrix
+product outside them (``project``).
 """
 
 from __future__ import annotations
@@ -24,6 +28,11 @@ class LwFluxes(NamedTuple):
     lw_up_toa_clear_g: torch.Tensor
     cloud_cover: torch.Tensor            # (ncol,)
     lw_derivatives: Optional[torch.Tensor] = None
+    # spectral profiles (ncol, nlev+1, nspec), set iff a spec_matrix is given
+    flux_up_s: Optional[torch.Tensor] = None
+    flux_dn_s: Optional[torch.Tensor] = None
+    flux_up_clear_s: Optional[torch.Tensor] = None
+    flux_dn_clear_s: Optional[torch.Tensor] = None
 
 
 class SwFluxes(NamedTuple):
@@ -40,11 +49,47 @@ class SwFluxes(NamedTuple):
     sw_dn_direct_surf_clear_g: torch.Tensor
     sw_up_toa_clear_g: torch.Tensor
     cloud_cover: torch.Tensor
+    flux_up_s: Optional[torch.Tensor] = None
+    flux_dn_s: Optional[torch.Tensor] = None
+    flux_dn_direct_s: Optional[torch.Tensor] = None
+    flux_up_clear_s: Optional[torch.Tensor] = None
+    flux_dn_clear_s: Optional[torch.Tensor] = None
+    flux_dn_direct_clear_s: Optional[torch.Tensor] = None
+
+
+def is_identity(spec_matrix) -> bool:
+    """Whether an (ng, nspec) projection is the identity (g-point output),
+    which project() skips."""
+    n = spec_matrix.shape[0]
+    return spec_matrix.shape[1] == n and torch.equal(
+        spec_matrix, torch.eye(n, dtype=spec_matrix.dtype,
+                               device=spec_matrix.device))
+
+
+def project(x_g, spec_matrix):
+    """Per-g fluxes (..., ng) projected onto (..., nspec) through a 0/1
+    matrix, in their own dtype and never in TF32 (a matrix product, which
+    sums in a fixed order on every device); the identity is skipped.  None
+    without a matrix."""
+    if spec_matrix is None:
+        return None
+    if is_identity(spec_matrix):
+        return x_g
+    m = spec_matrix.to(x_g.dtype)
+    lead = x_g.shape[:-1]
+    flat = x_g.reshape(-1, x_g.shape[-1])
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out = flat @ m
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return out.reshape(*lead, m.shape[1])
 
 
 def lw_from_g_profiles(*, flux_up_g, flux_dn_g, flux_up_clear_g,
                        flux_dn_clear_g, cloud_cover,
-                       lw_derivatives=None) -> LwFluxes:
+                       lw_derivatives=None, spec_matrix=None) -> LwFluxes:
     """LwFluxes from g-resolved half-level profiles (ncol, nlev+1, ng), for
     solvers that build them (SPARTACUS)."""
     return LwFluxes(
@@ -54,12 +99,17 @@ def lw_from_g_profiles(*, flux_up_g, flux_dn_g, flux_up_clear_g,
         lw_dn_surf_g=flux_dn_g[:, -1, :], lw_up_toa_g=flux_up_g[:, 0, :],
         lw_dn_surf_clear_g=flux_dn_clear_g[:, -1, :],
         lw_up_toa_clear_g=flux_up_clear_g[:, 0, :],
-        cloud_cover=cloud_cover, lw_derivatives=lw_derivatives)
+        cloud_cover=cloud_cover, lw_derivatives=lw_derivatives,
+        flux_up_s=project(flux_up_g, spec_matrix),
+        flux_dn_s=project(flux_dn_g, spec_matrix),
+        flux_up_clear_s=project(flux_up_clear_g, spec_matrix),
+        flux_dn_clear_s=project(flux_dn_clear_g, spec_matrix))
 
 
 def sw_from_g_profiles(*, flux_up_g, flux_dn_diffuse_g, flux_dn_direct_g,
                        flux_up_clear_g, flux_dn_diffuse_clear_g,
-                       flux_dn_direct_clear_g, cloud_cover) -> SwFluxes:
+                       flux_dn_direct_clear_g, cloud_cover,
+                       spec_matrix=None) -> SwFluxes:
     """SwFluxes from g-resolved half-level profiles (ncol, nlev+1, ng)."""
     flux_dn_g = flux_dn_diffuse_g + flux_dn_direct_g
     flux_dn_clear_g = flux_dn_diffuse_clear_g + flux_dn_direct_clear_g
@@ -75,4 +125,10 @@ def sw_from_g_profiles(*, flux_up_g, flux_dn_diffuse_g, flux_dn_direct_g,
         sw_dn_diffuse_surf_clear_g=flux_dn_diffuse_clear_g[:, -1, :],
         sw_dn_direct_surf_clear_g=flux_dn_direct_clear_g[:, -1, :],
         sw_up_toa_clear_g=flux_up_clear_g[:, 0, :],
-        cloud_cover=cloud_cover)
+        cloud_cover=cloud_cover,
+        flux_up_s=project(flux_up_g, spec_matrix),
+        flux_dn_s=project(flux_dn_g, spec_matrix),
+        flux_dn_direct_s=project(flux_dn_direct_g, spec_matrix),
+        flux_up_clear_s=project(flux_up_clear_g, spec_matrix),
+        flux_dn_clear_s=project(flux_dn_clear_g, spec_matrix),
+        flux_dn_direct_clear_s=project(flux_dn_direct_clear_g, spec_matrix))

@@ -30,7 +30,9 @@ Two phases, as in the JAX package:
   pallas_spartacus.py`` (layer matrices ``(nlev, 9, ncol, ng)``,
   per-column data ``(nlev, ncol, K)``).
 
-Spectral projections (``spec_matrix``) are not ported.
+The sweeps already return per-g half-level profiles; spectral flux
+output projects them (``outputs.lw_from_g_profiles`` and
+``sw_from_g_profiles`` with a ``spec_matrix``).
 """
 
 from __future__ import annotations
@@ -770,9 +772,12 @@ def solver_spartacus_sw(config: Config, od, ssa, g, od_cloud_b,
                         inv_cloud_size, inv_inhom_size,
                         pressure_hl, temperature_hl,
                         incoming_sw, cos_sza, albedo_diffuse,
-                        albedo_direct) -> SwFluxes:
+                        albedo_direct, spec_matrix=None) -> SwFluxes:
     """radiation_spartacus_sw.F90:41-965.  All g-dependent inputs must be
-    in SPARTACUS (reordered) g order; band_from_g is the reordered map."""
+    in SPARTACUS (reordered) g order; band_from_g is the reordered map, and
+    spec_matrix (optional, for spectral profiles) has its rows in that
+    order too, so the projected profiles come out in band or natural g
+    order."""
     ncol, nlev, ng = od.shape
     opts, args, P = sw_sweep_args(
         config, od, ssa, g, od_cloud_b, ssa_cloud_b, g_cloud_b, band_from_g,
@@ -795,7 +800,7 @@ def solver_spartacus_sw(config: Config, od, ssa, g, od_cloud_b,
         flux_up_clear_g=zn(top(incoming_sw * albd_c_f, fup_cl)),
         flux_dn_diffuse_clear_g=zn(torch.cat([zeros, fdn_cl], 1)),
         flux_dn_direct_clear_g=zn(mu0p * top(incoming_sw, fdir_cl)),
-        cloud_cover=P["cloud_cover"])
+        cloud_cover=P["cloud_cover"], spec_matrix=spec_matrix)
 
 
 def lw_sweep_args(config: Config, od, ssa, g, od_cloud_b, ssa_cloud_b,
@@ -867,8 +872,10 @@ def solver_spartacus_lw(config: Config, od, ssa, g, od_cloud_b,
                         cloud_fraction, fractional_std, overlap_param,
                         inv_cloud_size, inv_inhom_size,
                         pressure_hl, temperature_hl,
-                        planck_hl, emission, albedo) -> LwFluxes:
-    """radiation_spartacus_lw.F90:35-607.  g-dependent inputs reordered."""
+                        planck_hl, emission, albedo,
+                        spec_matrix=None) -> LwFluxes:
+    """radiation_spartacus_lw.F90:35-607.  g-dependent inputs reordered,
+    and so are the rows of spec_matrix (see solver_spartacus_sw)."""
     ncol, nlev, ng = od.shape
     opts, args, P = lw_sweep_args(
         config, od, ssa, g, od_cloud_b, ssa_cloud_b, g_cloud_b, band_from_g,
@@ -903,4 +910,5 @@ def solver_spartacus_lw(config: Config, od, ssa, g, od_cloud_b,
         flux_dn_g=torch.cat([zeros, fdn_l.transpose(0, 1)], 1),
         flux_up_clear_g=top(src_c_f, fup_cl),
         flux_dn_clear_g=torch.cat([zeros, fdn_cl.transpose(0, 1)], 1),
-        cloud_cover=P["cloud_cover"], lw_derivatives=lw_derivatives)
+        cloud_cover=P["cloud_cover"], lw_derivatives=lw_derivatives,
+        spec_matrix=spec_matrix)

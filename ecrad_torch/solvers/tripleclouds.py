@@ -11,8 +11,9 @@ three regions and a band-contiguous g axis, and for LW cloud scattering on
 with aerosol scattering off (the JAX package's ``_use_fused_tc`` without
 its platform test).  The others run the scan form: torch loops over
 levels carrying ``(ncol, 3, ng)`` states, mixed across regions at every
-interface through the overlap matrices.  Spectral projections
-(``spec_matrix``) are not ported.
+interface through the overlap matrices.  Spectral flux output
+(``spec_matrix``) goes through the fused kernels' per-g planes, the
+regions summed, projected outside them; the scan form raises for it.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ from ecrad_torch.solvers.cuda_tripleclouds import (
     merge_regions, mix_u, mix_v, mix_v_dn, skip_mix, with_regions,
     zero_cloudy_regions)
 from ecrad_torch.solvers.mcica import _gcounts
-from ecrad_torch.solvers.outputs import LwFluxes, SwFluxes
+from ecrad_torch.solvers.outputs import LwFluxes, SwFluxes, project
 
 NREG = 3
 
@@ -162,13 +163,17 @@ def solver_tripleclouds_sw(config: Config, od, ssa, g, od_cloud_b,
                            ssa_cloud_b, g_cloud_b, band_from_g,
                            cloud_fraction, fractional_std, overlap_param,
                            incoming_sw, cos_sza, albedo_diffuse,
-                           albedo_direct) -> SwFluxes:
-    """radiation_tripleclouds_sw.F90:42-663 (batched, dense)."""
+                           albedo_direct, spec_matrix=None) -> SwFluxes:
+    """radiation_tripleclouds_sw.F90:42-663 (batched, dense).
+    spec_matrix: optional (ng, nspec) 0/1 projection for the spectral
+    profiles (fused route only)."""
     if _use_fused(config, band_from_g):
         return _solver_tripleclouds_sw_fused(
             config, od, ssa, g, od_cloud_b, ssa_cloud_b, g_cloud_b,
             band_from_g, cloud_fraction, fractional_std, overlap_param,
-            incoming_sw, cos_sza, albedo_diffuse, albedo_direct)
+            incoming_sw, cos_sza, albedo_diffuse, albedo_direct,
+            spec_matrix)
+    adding.no_spectral_projection(spec_matrix, "Tripleclouds SW scan")
     ncol, nlev, ng = od.shape
     mu0 = torch.clamp(cos_sza, min=1.0e-10)[:, None, None]
     reg_fracs, od_scaling, u_mat, v_mat, cloud_cover = _regions(
@@ -267,6 +272,8 @@ def _zero_night(cos_sza, out: SwFluxes) -> SwFluxes:
     day = cos_sza > 0.0
 
     def zn(x):
+        if x is None:
+            return None
         d = day.reshape(day.shape + (1,) * (x.dim() - 1))
         return torch.where(d, x, torch.zeros_like(x))
 
@@ -277,13 +284,17 @@ def _zero_night(cos_sza, out: SwFluxes) -> SwFluxes:
 def solver_tripleclouds_lw(config: Config, od, ssa, g, od_cloud_b,
                            ssa_cloud_b, g_cloud_b, band_from_g,
                            cloud_fraction, fractional_std, overlap_param,
-                           planck_hl, emission, albedo) -> LwFluxes:
-    """radiation_tripleclouds_lw.F90:38-607 (batched, dense)."""
+                           planck_hl, emission, albedo,
+                           spec_matrix=None) -> LwFluxes:
+    """radiation_tripleclouds_lw.F90:38-607 (batched, dense).
+    spec_matrix: optional (ng, nspec) 0/1 projection for the spectral
+    profiles (fused route only)."""
     if _use_fused_lw(config, band_from_g):
         return _solver_tripleclouds_lw_fused(
             config, od, od_cloud_b, ssa_cloud_b, g_cloud_b, band_from_g,
             cloud_fraction, fractional_std, overlap_param, planck_hl,
-            emission, albedo)
+            emission, albedo, spec_matrix)
+    adding.no_spectral_projection(spec_matrix, "Tripleclouds LW scan")
     ncol, nlev, ng = od.shape
     reg_fracs, od_scaling, u_mat, v_mat, cloud_cover = _regions(
         config, cloud_fraction, fractional_std, overlap_param)
@@ -419,13 +430,16 @@ def lw_fused_args(config, od, od_cloud_b, ssa_cloud_b, g_cloud_b,
 def _solver_tripleclouds_lw_fused(config, od, od_cloud_b, ssa_cloud_b,
                                   g_cloud_b, band_from_g, cloud_fraction,
                                   fractional_std, overlap_param, planck_hl,
-                                  emission, albedo) -> LwFluxes:
-    """Fused-kernel LW path (cuda_tripleclouds.lw_fused)."""
+                                  emission, albedo,
+                                  spec_matrix=None) -> LwFluxes:
+    """Fused-kernel LW path (cuda_tripleclouds.lw_fused), with the
+    kernel's per-g planes projected through spec_matrix when given."""
     ncol = cloud_fraction.shape[0]
     args, P = lw_fused_args(config, od, od_cloud_b, ssa_cloud_b, g_cloud_b,
                             band_from_g, cloud_fraction, fractional_std,
                             overlap_param, planck_hl, emission, albedo)
-    r = cuda_tripleclouds.lw_fused(*args)
+    r = cuda_tripleclouds.lw_fused(*args, planes=spec_matrix is not None)
+    proj = lambda k: project(r.get(k), spec_matrix)  # noqa: E731
     zeros = torch.zeros((ncol,), dtype=od.dtype, device=od.device)
     src_top = r["src_top_t"]                          # (ncol, 3, ng)
     out = LwFluxes(
@@ -438,7 +452,9 @@ def _solver_tripleclouds_lw_fused(config, od, od_cloud_b, ssa_cloud_b,
         lw_dn_surf_g=r["fdn_surf_t"], lw_up_toa_g=src_top.sum(1),
         lw_dn_surf_clear_g=r["fdn_surf_c"],
         lw_up_toa_clear_g=r["fup_toa_c"],
-        cloud_cover=P["cloud_cover"])
+        cloud_cover=P["cloud_cover"],
+        flux_up_s=proj("up_g_t"), flux_dn_s=proj("dn_g_t"),
+        flux_up_clear_s=proj("up_g_c"), flux_dn_clear_s=proj("dn_g_c"))
     if config.do_lw_derivatives:
         ones = torch.ones((ncol, 1), dtype=od.dtype, device=od.device)
         out = out._replace(lw_derivatives=torch.cat([r["deriv_t"], ones],
@@ -484,14 +500,20 @@ def _solver_tripleclouds_sw_fused(config, od, ssa, g, od_cloud_b,
                                   ssa_cloud_b, g_cloud_b, band_from_g,
                                   cloud_fraction, fractional_std,
                                   overlap_param, incoming_sw, cos_sza,
-                                  albedo_diffuse, albedo_direct) -> SwFluxes:
-    """Fused-kernel SW path (cuda_tripleclouds.sw_fused)."""
+                                  albedo_diffuse, albedo_direct,
+                                  spec_matrix=None) -> SwFluxes:
+    """Fused-kernel SW path (cuda_tripleclouds.sw_fused), with the
+    kernel's per-g planes projected through spec_matrix when given (mu0
+    applied to the direct flux after the projection, as in the JAX
+    package: max(cos_sza, 0) for the three regions, the clamped mu0 for
+    the clear scene)."""
     ncol = cloud_fraction.shape[0]
     args, P = sw_fused_args(config, od, ssa, g, od_cloud_b, ssa_cloud_b,
                             g_cloud_b, band_from_g, cloud_fraction,
                             fractional_std, overlap_param, incoming_sw,
                             cos_sza, albedo_diffuse, albedo_direct)
-    r = cuda_tripleclouds.sw_fused(*args)
+    r = cuda_tripleclouds.sw_fused(*args, planes=spec_matrix is not None)
+    proj = lambda k: project(r.get(k), spec_matrix)  # noqa: E731
     fdir0, mu0 = P["fdir0"], P["mu0"]
     zeros = torch.zeros((ncol,), dtype=od.dtype, device=od.device)
     mu0p = torch.clamp(cos_sza, min=0.0)[:, None]
@@ -513,4 +535,21 @@ def _solver_tripleclouds_sw_fused(config, od, ssa, g, od_cloud_b,
         sw_dn_diffuse_surf_clear_g=r["fdn_surf_c"],
         sw_dn_direct_surf_clear_g=mu0[:, None] * r["fdir_surf_c"],
         sw_up_toa_clear_g=up_toa_c_g,
-        cloud_cover=P["cloud_cover"]))
+        cloud_cover=P["cloud_cover"],
+        **_sw_spectral(proj, mu0p, mu0[:, None])))
+
+
+def _sw_spectral(proj, mu0_t, mu0_c) -> dict:
+    """The spectral SwFluxes fields of the fused SW path from its projected
+    planes (proj(name), None without a projection): the direct flux times
+    mu0 (mu0_t, mu0_c (ncol, 1) for the three regions and the clear
+    scene), added to the diffuse flux for the total down flux."""
+    out = {}
+    for tag, mu0, sfx in (("t", mu0_t, "_s"), ("c", mu0_c, "_clear_s")):
+        up, dn, dr = (proj(f"{k}_g_{tag}") for k in ("up", "dn", "dir"))
+        if up is None:
+            return {}
+        dr = dr * mu0[:, :, None]
+        out.update({f"flux_up{sfx}": up, f"flux_dn{sfx}": dn + dr,
+                    f"flux_dn_direct{sfx}": dr})
+    return out

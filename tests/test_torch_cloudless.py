@@ -218,7 +218,7 @@ def test_setup_flags_match_jax(name):
     assert step.config.do_clouds == (name != "cloudless_rrtmg")
     assert step.config.is_homogeneous == (name == "homogeneous_rrtmg")
     assert (step.tables.pdf_sampler is None) == (
-        name not in ("mcica_rrtmg", "ecckd_mcica"))
+        name not in ("mcica_rrtmg", "ecckd_mcica", "mcica_rrtmg_spectral"))
 
 
 def test_radiation_without_clouds_runs_cloudless():

@@ -29,6 +29,7 @@ from ecrad_torch import config as tconfig
 from ecrad_torch import flagship, pipeline
 from ecrad_torch.data import DATA_DIR
 from ecrad_torch.interface import _spartacus_perm, setup_radiation
+from tests.torch_steps import window
 
 torch.set_num_threads(2)
 
@@ -175,35 +176,11 @@ SPARTACUS = dict(sw_solver_name="SPARTACUS", lw_solver_name="SPARTACUS",
                  **ECCKD)
 
 
-def _window(args, to):
-    """The step's arguments cut to the LEVELS_SP layers (their half levels,
-    overlap parameters between them), converted by ``to``."""
-    lo, hi = LEVELS_SP.start, LEVELS_SP.stop
-
-    def cut(name, x):
-        x = np.asarray(x)
-        if name in ("pressure_hl", "temperature_hl"):
-            return to(x[:, lo:hi + 1])
-        if name == "overlap_param":
-            return to(x[:, lo:hi - 1])
-        if x.ndim >= 2 and x.shape[1] == 137:
-            return to(x[:, lo:hi])
-        return to(x)
-
-    out = []
-    for name, x in zip(flagship.ARG_ORDER, args):
-        if isinstance(x, dict):
-            out.append({k: cut(k, v) for k, v in x.items()})
-        else:
-            out.append(cut(name, x))
-    return out
-
-
 def test_spartacus_ecckd_step_matches_jax():
     over = _resolved(SPARTACUS)
     jstep, jargs = __graft_entry__._build(ncol=NCOL_SP, dtype="float64",
                                           nam_overrides=over)
-    jw = _window(jargs, jax.numpy.asarray)
+    jw = window(jargs, LEVELS_SP, jax.numpy.asarray)
     assert float(np.asarray(jw[-2]["fraction"]).max()) > 0.1
     ref = _fields(jax.jit(jstep)(*jw))
 
@@ -218,7 +195,8 @@ def test_spartacus_ecckd_step_matches_jax():
                                       np.arange(32))
     _, args = flagship.build(ncol=NCOL_SP, dtype=torch.float64,
                              device="cpu")
-    kwargs = dict(zip(flagship.ARG_ORDER, _window(args, torch.as_tensor)))
+    kwargs = dict(zip(flagship.ARG_ORDER,
+                      window(args, LEVELS_SP, torch.as_tensor)))
     got = pipeline.radiation_step(config, tables, solar_irradiance=jstep.solar,
                                   **kwargs).fields()
     assert set(got) == set(ref)

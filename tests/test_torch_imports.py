@@ -33,6 +33,8 @@ import ecrad_torch.solvers.matrix, ecrad_torch.solvers.spartacus
 import ecrad_torch.solvers.cuda_spartacus
 import ecrad_torch.optics.ecckd, ecrad_torch.optics.general_cloud
 import ecrad_torch.optics.aerosol_description
+import ecrad_torch.containers, ecrad_torch.solvers.outputs
+import ecrad_torch.solvers.adding, ecrad_torch.solvers.mcica
 import chip_smoke
 new = set(sys.modules) - before
 bad = sorted(m for m in new

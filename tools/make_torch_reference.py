@@ -33,7 +33,17 @@ commit of the tree:
   ``tests/data/torch_ecckd_mcica_meridian32.npz``;
 * ``tripleclouds_baran2016`` (Tripleclouds SW and LW with Slingo liquid and
   Baran2016 ice, the flagship's aerosols) to
-  ``tests/data/torch_tripleclouds_baran2016_meridian32.npz``.
+  ``tests/data/torch_tripleclouds_baran2016_meridian32.npz``;
+* ``mcica_rrtmg_spectral`` (the flagship with flux profiles and TOA fluxes
+  per band, with its float32 sample) to
+  ``tests/data/torch_mcica_spectral_meridian32.npz``;
+* ``tripleclouds_ecckd_gpoint`` (``tripleclouds_ecckd`` with flux profiles
+  per g-point) to
+  ``tests/data/torch_tripleclouds_ecckd_gpoint_meridian32.npz``.
+
+The spectral flux profiles ``(32, nlev+1, nspec)`` are kept for the
+columns ``PROFILE_COLUMNS`` only (stored as ``profile_columns``), so that
+each file stays small; every other field is kept for all 32 columns.
 
 ``tools/bench_matrix.py`` names only the McICA, Tripleclouds and
 SPARTACUS solvers, so the solvers are given here by the name of the JAX
@@ -82,7 +92,17 @@ OUTPUTS = {
                                     liquid_model="SLINGO",
                                     ice_model="BARAN2016"),
                                "torch_tripleclouds_baran2016_meridian32.npz"),
+    "mcica_rrtmg_spectral": (dict(do_save_spectral_flux=True,
+                                  do_toa_spectral_flux=True),
+                             "torch_mcica_spectral_meridian32.npz"),
+    "tripleclouds_ecckd_gpoint": (
+        dict(sw_solver_name="Tripleclouds", lw_solver_name="Tripleclouds",
+             do_save_gpoint_flux=True, **ECCKD),
+        "torch_tripleclouds_ecckd_gpoint_meridian32.npz"),
 }
+# the columns whose spectral flux profiles a reference file keeps (night,
+# low, high and setting sun)
+PROFILE_COLUMNS = (2, 9, 17, 26)
 # Config fields given by the name of a member of the JAX package's enum
 ENUM_FIELDS = {"sw_solver": "Solver", "lw_solver": "Solver",
                "gas_model_sw": "GasModel", "gas_model_lw": "GasModel",
@@ -115,6 +135,9 @@ def run_jax(dtype: str, config_name: str) -> dict:
     flux = jax.jit(step)(*args)
     out = {k: np.asarray(getattr(flux, k))
            for k in flux.__dataclass_fields__ if getattr(flux, k) is not None}
+    # spectral profiles: (ncol, nlev+1, nspec)
+    out = {k: v[list(PROFILE_COLUMNS)] if v.ndim == 3 else v
+           for k, v in out.items()}
     if dtype == "float32":
         cloud = dict(zip(
             ["pressure_hl", "temperature_hl", "gas_mmr", "cos_sza",
@@ -147,6 +170,8 @@ def write(config_name: str) -> None:
     commit = subprocess.run(["git", "-C", REPO, "rev-parse", "HEAD"],
                             capture_output=True, text=True).stdout.strip()
     data["commit"] = np.asarray(commit)
+    if any(v.ndim == 3 for k, v in data.items() if k.startswith("f64/")):
+        data["profile_columns"] = np.asarray(PROFILE_COLUMNS)
     np.savez_compressed(out_path, **data)
     print(f"wrote {out_path} ({os.path.getsize(out_path)} bytes, "
           f"commit {commit})")

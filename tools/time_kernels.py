@@ -3,7 +3,7 @@ median of 5 CUDA-event timings each, and those of other checkouts on the
 same inputs in turns, on one NVIDIA GPU.
 
     python3 tools/time_kernels.py [--other DIR ...] [--rounds N]
-        [--kernels NAME ...] [--steps [--configs NAME ...]]
+        [--kernels NAME ...] [--planes] [--steps [--configs NAME ...]]
 
 Times each kernel (or those --kernels names) on every input set of
 chip_smoke.kernel_inputs ("meridian": the bundled slice tiled, a random
@@ -28,11 +28,14 @@ each checkout saves its float32 outputs of every case under
 build/time_kernels/ of this checkout; the summary line then says, per
 case and per other checkout, whether its outputs equal this checkout's
 bit for bit ("equal") or by how much they differ at most.  With
+--planes, only the kernels that write per-g planes (chip_smoke.PLANES)
+run, with their planes (planes=True; every checkout must have them).  With
 --steps, each run times the main paths' steps instead (chip_smoke.py's
 full size: 6144 columns in blocks of 2048, f32, the median of three steps
 after one, host clock around a synchronised step, and the peak device
 memory of those steps) of the configurations named by --configs (by
-default all eight).  Prints one JSON line per run and a summary line
+default all ten; an older checkout may lack the last two).  Prints one
+JSON line per run and a summary line
 {"card": ..., "median_ms": {checkout: {case: ms}}, "f32_outputs_vs_this":
 {checkout: {case: "equal" or max_abs_diff}}}.
 """
@@ -51,7 +54,8 @@ ROOT = os.path.dirname(HERE)
 NCOL = 2048
 STEP_CONFIGS = ("mcica_rrtmg", "tripleclouds_rrtmg", "homogeneous_rrtmg",
                 "spartacus_3d", "cloudless_rrtmg", "tripleclouds_ecckd",
-                "ecckd_mcica", "tripleclouds_baran2016")
+                "ecckd_mcica", "tripleclouds_baran2016",
+                "mcica_rrtmg_spectral", "tripleclouds_ecckd_gpoint")
 
 
 def time_steps(chip_smoke, configs):
@@ -87,10 +91,11 @@ def case_file(save, case):
     return os.path.join(save, case.replace("/", "__") + ".pt")
 
 
-def worker(check, configs, names, save):
+def worker(check, configs, names, save, planes=False):
     """Time this process's ecrad_torch (the first on sys.path) on the
     inputs of chip_smoke.py from ROOT, the kernels names lists (all when
-    empty); with check, first hold each kernel against its plain version
+    empty; with planes, those of chip_smoke.PLANES, with their per-g
+    planes); with check, first hold each kernel against its plain version
     in float64 (chip_smoke._compare_f64), and save each case's float32
     outputs into the directory save; with configs, time those
     configurations' main-path steps instead."""
@@ -125,9 +130,12 @@ def worker(check, configs, names, save):
                         ("ecckd", chip_smoke.ecckd_inputs)):
         inputs = make(NCOL, torch.float64, NCOL)
         for name, sets in inputs.items():
-            if names and name not in names:
+            if (names and name not in names) or (
+                    planes and name not in chip_smoke.PLANES):
                 continue
-            fn, plain = k[name]["wrapper"], k[name]["plain"]
+            kw = dict(planes=True) if planes else {}
+            fn = lambda *a, f=k[name]["wrapper"]: f(*a, **kw)  # noqa: E731
+            plain = lambda *a, f=k[name]["plain"]: f(*a, **kw)  # noqa: E731
             for i, (label, args) in enumerate(sets):
                 case = name if i == 0 else f"{name}_{label}"
                 key = f"{case}/{state}"
@@ -159,6 +167,9 @@ def main():
     parser.add_argument("--rounds", type=int, default=1)
     parser.add_argument("--kernels", nargs="+", default=[],
                         help="the kernels to time (default: all)")
+    parser.add_argument("--planes", action="store_true",
+                        help="time the kernels that write per-g planes, "
+                        "with them")
     parser.add_argument("--steps", action="store_true",
                         help="time the main paths' steps, not the kernels")
     parser.add_argument("--configs", nargs="+", default=list(STEP_CONFIGS),
@@ -171,7 +182,7 @@ def main():
     args = parser.parse_args()
     if args.worker:
         worker(args.check, args.configs if args.steps else (), args.kernels,
-               args.save)
+               args.save, args.planes)
         return
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -195,6 +206,7 @@ def main():
                 [sys.executable, os.path.abspath(__file__), "--worker",
                  *(["--check", "--save", save[label]] if r == 0 else []),
                  *(["--kernels", *args.kernels] if args.kernels else []),
+                 *(["--planes"] if args.planes else []),
                  *(["--steps", "--configs", *args.configs]
                    if args.steps else [])],
                 env=env, capture_output=True, text=True, cwd=tree)
