@@ -83,6 +83,23 @@ the script exits non-zero:
                profiles per g-point: its broadband fields against
                tests/data/torch_spartacus_meridian32.npz, and its g-point
                profiles summed over g against its broadband fluxes.
+14. driver_f64, driver_f32 - the offline driver (ecrad_torch.driver.run,
+               the host generator) on the 32 meridian columns with the
+               namelist flagship.namelist_text writes: McICA in float64
+               and float32, Tripleclouds in float64, every variable of
+               the output file against the JAX driver's
+               (tests/data/torch_driver_meridian32.npz).
+15. driver_f32_full - the offline driver in float32 at 6144 columns (the
+               meridian file tiled, written by io/save_extras.save_inputs),
+               nrepeat 3, with the host and with the device generator:
+               cols/s, stage times (profiling hooks), peak device memory;
+               every tiled copy of a column against the first.
+16. ifs_f64, ifs_f32_full - the IFS driver (ecrad_torch.ifs.driver.run_ifs)
+               on the 32 columns in float64, with --bitidentity and
+               without (device generator), against the JAX IFS driver's
+               outputs (tests/data/torch_ifs_meridian32.npz), and with
+               --nproma 8 against the unblocked run; then at 6144 columns
+               in float32 with --nproma 2048: cols/s, peak memory.
 The full phases from 6 on also report the peak device memory of the run.
 The kernels' launch counters are reset just before each main path (5b and
 the *_full phases) and read just after it.
@@ -91,16 +108,19 @@ Then one JSON line with the per-kernel results, the nvidia-smi line, and
 as the last line {"ok": true, "device": {...}}.
 """
 
+import dataclasses
 import json
 import os
 import statistics
 import subprocess
+import tempfile
 import time
 
 import numpy as np
 import torch
 
-from ecrad_torch import constants, flagship, kernels, pipeline
+from ecrad_torch import constants, driver, flagship, kernels, pipeline
+from ecrad_torch import profiling
 from ecrad_torch.config import Entrapment, Solver
 from ecrad_torch.containers import Flux
 from ecrad_torch.interface import (_optical_properties, radiation,
@@ -108,6 +128,10 @@ from ecrad_torch.interface import (_optical_properties, radiation,
 from ecrad_torch.solvers import cloud_generator, cuda_adding, cuda_generator
 from ecrad_torch.solvers import cuda_mcica, cuda_spartacus, cuda_tripleclouds
 from ecrad_torch.solvers import mcica, spartacus, tripleclouds, two_stream
+from ecrad_torch.data import DATA_DIR, MERIDIAN_INPUT
+from ecrad_torch.ifs.driver import run_ifs
+from ecrad_torch.io.input import DriverConfig, read_input
+from ecrad_torch.io.save_extras import save_inputs
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 DATA = os.path.join(HERE, "tests", "data")
@@ -166,6 +190,24 @@ SLICE_F32_ATOL, SLICE_F32_ATOL_DIMLESS = 0.5, 1e-4
 # distance to the JAX float32 fluxes is only reported.
 F32_HELD_TO = {"spartacus_3d": "f64/"}
 DIMLESS = ("lw_derivatives", "cloud_cover_lw", "cloud_cover_sw")
+# The drivers' output files against the JAX drivers': float64 within 1e-6
+# W m-2 and 1e-9 for the dimensionless fields (DRIVER_DIMLESS), float32
+# within ecRad's 0.5 W m-2 (1e-4 dimensionless, as the slices); blocked
+# IFS runs against the unblocked one within 1e-9; the tiled copies of a
+# column in the full runs against the first within 1e-3 W m-2
+DRIVER_F64_ATOL, DRIVER_F64_ATOL_DIMLESS = 1e-6, 1e-9
+DRIVER_DIMLESS = ("lw_derivative", "cloud_cover_lw", "cloud_cover_sw",
+                  "emissivity_out")
+NPROMA_ATOL = 1e-9
+TILE_ATOL = 1e-3
+DRIVER_NREPEAT = 3
+# the driver stages read from the profiling hooks
+DRIVER_STAGES = ("ecrad_driver:read_input", "ecrad_driver:check_inputs",
+                 "ecrad_driver:cloud_generator_exact",
+                 "ecrad_driver:copy_to_device",
+                 "ecrad_driver:radiation[first_call+compile]",
+                 "ecrad_driver:radiation", "ecrad_driver:copy_to_host",
+                 "ecrad_driver:save_fluxes")
 # The g-point profiles of the SPARTACUS step summed over g against its
 # broadband fluxes (the same fluxes summed in another order): W m-2
 GPOINT_SUM_ATOL = 1e-9
@@ -997,6 +1039,224 @@ def spartacus_gpoint_phase(ref):
           launches=n)
 
 
+# --- the command-line entry points -------------------------------------------
+
+def write_namelist(tmp, config_name):
+    path = os.path.join(tmp, f"{config_name}.nam")
+    with open(path, "w") as f:
+        f.write(flagship.namelist_text(config_name, DATA_DIR, iverbose=1,
+                                       do_write_double_precision=True))
+    return path
+
+
+def read_nc(path):
+    from scipy.io import netcdf_file
+    with netcdf_file(path, "r", mmap=False) as f:
+        return {k: np.array(v.data) for k, v in f.variables.items()}
+
+
+def _check_outputs(got, ref, prefix, atol, atol_dimless):
+    """Every output (a file's variables, or run_ifs's) against a reference
+    file's; returns the worst errors by name."""
+    want = {k[len(prefix):] for k in ref if k.startswith(prefix)}
+    if set(got) != want:
+        raise AssertionError(f"{prefix}: outputs differ: {set(got) ^ want}")
+    worst = {}
+    for name, v in got.items():
+        worst[name] = float(np.abs(np.asarray(v, np.float64)
+                                   - ref[prefix + name]).max())
+        bar = atol_dimless if name in DRIVER_DIMLESS else atol
+        if not worst[name] <= bar:
+            raise AssertionError(f"{prefix}{name}: max abs error "
+                                 f"{worst[name]} > {bar}")
+    return worst
+
+
+def driver_phases(tmp, ref):
+    """driver_f64 and driver_f32: the offline driver on the 32 meridian
+    columns against the JAX driver's output files."""
+    runs = (("driver_f64", "mcica_rrtmg", "float64", DRIVER_F64_ATOL,
+             DRIVER_F64_ATOL_DIMLESS),
+            ("driver_f32", "mcica_rrtmg", "float32", SLICE_F32_ATOL,
+             SLICE_F32_ATOL_DIMLESS),
+            ("driver_f32", "tripleclouds_rrtmg", "float64", DRIVER_F64_ATOL,
+             DRIVER_F64_ATOL_DIMLESS))
+    for name, config_name, dtype, atol, atol_dimless in runs:
+        out = os.path.join(tmp, f"{config_name}_{dtype}.nc")
+        nam = write_namelist(tmp, config_name)
+        reset_counts()
+        driver.run(nam, MERIDIAN_INPUT, out, dtype=dtype, generator="exact",
+                   device=DEV)
+        torch.cuda.synchronize()
+        n = counts()
+        want = per_block(config_name)
+        want.pop("generator_scan", None)
+        expect_counts(n, f"{name} {config_name}", **want)
+        tag = "f64" if dtype == "float64" else "f32"
+        worst = _check_outputs(read_nc(out), ref, f"{config_name}/{tag}/",
+                               atol, atol_dimless)
+        phase(name, configuration=config_name, dtype=dtype,
+              max_abs_err=worst, launches=n)
+
+
+def full_input(tmp, ncol):
+    """The meridian file tiled to ncol columns, written by save_inputs
+    (with lat/lon, which the IFS driver reads)."""
+    from ecrad_torch.io.netcdf import NcFile
+    inp = read_input(MERIDIAN_INPUT, DriverConfig(**flagship.DRIVER_SETTINGS))
+    with NcFile(MERIDIAN_INPUT) as f:
+        lat, lon = f.get("lat"), f.get("lon")
+    reps = -(-ncol // inp.ncol)
+
+    def tile(x):
+        return None if x is None else np.concatenate([x] * reps)[:ncol]
+
+    tiled = dataclasses.replace(inp, **{
+        k: tile(getattr(inp, k)) for k in (
+            "gas_mmr", "cloud_mixing_ratio", "cloud_effective_radius",
+            "cloud_fraction", "fractional_std", "overlap_param",
+            "inv_cloud_effective_size", "inv_inhom_effective_size",
+            "aerosol_mmr", "cos_sza", "skin_temperature", "sw_albedo",
+            "sw_albedo_direct", "lw_emissivity", "iseed")},
+        thermodynamics=dataclasses.replace(
+            inp.thermodynamics,
+            pressure_hl=tile(inp.thermodynamics.pressure_hl),
+            temperature_hl=tile(inp.thermodynamics.temperature_hl)))
+    path = os.path.join(tmp, f"meridian_{ncol}.nc")
+    save_inputs(path, flagship.flagship_config("float32"), tiled,
+                lat=tile(lat), lon=tile(lon))
+    return path
+
+
+def _check_tiles(fields, ncol, what):
+    """Every tiled copy of the 32 meridian columns against the first:
+    the same seeds give the same sample, so the same fluxes."""
+    worst = 0.0
+    for name, v in fields.items():
+        v = np.asarray(v, np.float64)
+        if v.shape[0] != ncol or not np.isfinite(v).all():
+            raise AssertionError(f"{what} {name}: bad shape or non-finite")
+        tiles = v[:ncol - ncol % 32].reshape((-1, 32) + v.shape[1:])
+        worst = max(worst, float(np.abs(tiles - tiles[:1]).max()))
+    if not worst <= TILE_ATOL:
+        raise AssertionError(f"{what}: tiled copies differ by {worst}")
+    return worst
+
+
+def driver_full_phase(tmp, path, smi):
+    """driver_f32_full: the offline driver at full size with each
+    generator."""
+    nam = write_namelist(tmp, "mcica_rrtmg")
+    for generator in ("exact", "device"):
+        out = os.path.join(tmp, f"full_{generator}.nc")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        profiling.enable()
+        profiling.reset()
+        reset_counts()
+        t0 = time.perf_counter()
+        flux = driver.run(nam, path, out, dtype="float32",
+                          nrepeat=DRIVER_NREPEAT, generator=generator,
+                          device=DEV)
+        run_s = time.perf_counter() - t0
+        n = counts()
+        prof = profiling.get_profile()
+        profiling.enable(False)
+        peak = torch.cuda.max_memory_allocated()
+        want = per_block("mcica_rrtmg", DRIVER_NREPEAT)
+        if generator == "exact":
+            want.pop("generator_scan")
+        expect_counts(n, f"driver {generator} at {FULL_NCOL} columns",
+                      **want)
+        worst = _check_tiles(flux.fields(), FULL_NCOL, f"driver {generator}")
+        repeats_s = prof["ecrad_driver:radiation"][1]
+        stages = {k: prof[k][1] for k in DRIVER_STAGES if k in prof}
+        setup_s = prof["radiation_interface:setup_radiation"][1]
+        # one pass: the run without its setup and its repeats
+        pass_s = run_s - setup_s - repeats_s
+        phase("driver_f32_full", generator=generator, ncol=FULL_NCOL,
+              nrepeat=DRIVER_NREPEAT,
+              cols_per_s_repeats=FULL_NCOL * (DRIVER_NREPEAT - 1)
+              / repeats_s,
+              pass_s=pass_s, cols_per_s_pass=FULL_NCOL / pass_s,
+              setup_s=setup_s, stages_s=stages, tile_max_abs_err=worst,
+              launches=n, peak_memory_bytes=peak, card=smi)
+
+
+def ifs_f64_phase(tmp, ref):
+    """ifs_f64: the IFS driver on the 32 meridian columns, with and
+    without --bitidentity, against the JAX IFS driver, and blocked."""
+    nam = write_namelist(tmp, "mcica_rrtmg")
+    results = {}
+    for mode in ("bitidentity", "device"):
+        reset_counts()
+        out = run_ifs(nam, MERIDIAN_INPUT, None, dtype="float64",
+                      bitidentity=mode == "bitidentity", device=DEV)
+        n = counts()
+        want = per_block("mcica_rrtmg")
+        if mode == "bitidentity":
+            want.pop("generator_scan")
+        expect_counts(n, f"ifs {mode}", **want)
+        results[mode] = out
+        worst = _check_outputs({k: v for k, v in out.items()
+                                if k != "_flux"}, ref, f"{mode}/",
+                               DRIVER_F64_ATOL, DRIVER_F64_ATOL_DIMLESS)
+        phase("ifs_f64", mode=mode, max_abs_err=worst, launches=n)
+    reset_counts()
+    blocked = run_ifs(nam, MERIDIAN_INPUT, None, dtype="float64", nproma=8,
+                      device=DEV)
+    n = counts()
+    expect_counts(n, "ifs nproma 8", **per_block("mcica_rrtmg", 4))
+    diff = {k: float(np.abs(v - results["device"][k]).max())
+            for k, v in blocked.items() if k != "_flux"}
+    if not max(diff.values()) <= NPROMA_ATOL:
+        raise AssertionError(f"ifs nproma 8 against unblocked: {diff}")
+    phase("ifs_f64", mode="device", nproma=8,
+          max_abs_err_vs_unblocked=max(diff.values()), launches=n)
+
+
+def ifs_full_phase(tmp, path, smi):
+    """ifs_f32_full: the IFS driver at full size in blocks of 2048, run
+    twice (the second timed)."""
+    nam = write_namelist(tmp, "mcica_rrtmg")
+    for run in range(2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        profiling.enable()
+        profiling.reset()
+        reset_counts()
+        out = run_ifs(nam, path, None, dtype="float32", nproma=FULL_BLOCK,
+                      device=DEV)
+        n = counts()
+        prof = profiling.get_profile()
+        profiling.enable(False)
+    peak = torch.cuda.max_memory_allocated()
+    expect_counts(n, f"ifs at {FULL_NCOL} columns",
+                  **per_block("mcica_rrtmg", FULL_NCOL // FULL_BLOCK))
+    worst = _check_tiles({k: v for k, v in out.items() if k != "_flux"},
+                         FULL_NCOL, "ifs")
+    scheme_s = prof["ecrad_ifs_driver:radiation_scheme"][1]
+    phase("ifs_f32_full", ncol=FULL_NCOL, nproma=FULL_BLOCK,
+          scheme_s=scheme_s, cols_per_s=FULL_NCOL / scheme_s,
+          stages_s={k: v[1] for k, v in prof.items()},
+          tile_max_abs_err=worst, launches=n, peak_memory_bytes=peak,
+          card=smi)
+
+
+def entry_point_phases(smi):
+    """The phases of the two command-line entry points (14-16)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        with np.load(os.path.join(DATA, "torch_driver_meridian32.npz")) as z:
+            ref = {k: z[k] for k in z.files}
+        driver_phases(tmp, ref)
+        path = full_input(tmp, FULL_NCOL)
+        driver_full_phase(tmp, path, smi)
+        with np.load(os.path.join(DATA, "torch_ifs_meridian32.npz")) as z:
+            ref = {k: z[k] for k in z.files}
+        ifs_f64_phase(tmp, ref)
+        ifs_full_phase(tmp, path, smi)
+
+
 def main():
     smi = device_phase()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1013,6 +1273,7 @@ def main():
         path_counts[config_name] = slice_phases(config_name, ref, smi)
         if config_name == "spartacus_3d":
             spartacus_gpoint_phase(ref)
+    entry_point_phases(smi)
     # each kernel's launches in the first main path that runs it
     launches = {}
     for config_name, path in MAIN_PATHS.items():

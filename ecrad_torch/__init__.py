@@ -12,11 +12,21 @@ the generic LW/SW adding sweeps behind Cloudless, Homogeneous LW and the
 unfused paths, and the SPARTACUS LW/SW adding sweeps.  On CPU tensors each
 kernel's wrapper runs its plain torch version instead.
 
-Entry point: :func:`ecrad_torch.flagship.build`, on the card by default,
-with the named configurations ``mcica_rrtmg`` (the flagship),
-``tripleclouds_rrtmg``, ``cloudless_rrtmg``, ``homogeneous_rrtmg``,
-``spartacus_3d``, ``tripleclouds_ecckd``, ``ecckd_mcica`` and
-``tripleclouds_baran2016``.
+Entry points, each on the card unless told otherwise:
+
+* ``python -m ecrad_torch.driver config.nam input.nc output.nc`` (the
+  offline driver, :mod:`ecrad_torch.driver`; ``--device cpu`` on the
+  CPU), with the bit-exact host McICA generator or the device one;
+* ``python -m ecrad_torch.ifs.driver config.nam input.nc output.nc``
+  (the IFS layer, :mod:`ecrad_torch.ifs`; ``--nproma``,
+  ``--bitidentity``);
+* :func:`ecrad_torch.flagship.build`, the step of a named configuration:
+  ``mcica_rrtmg`` (the flagship), ``tripleclouds_rrtmg``,
+  ``cloudless_rrtmg``, ``homogeneous_rrtmg``, ``spartacus_3d``,
+  ``tripleclouds_ecckd``, ``ecckd_mcica``, ``tripleclouds_baran2016``,
+  ``mcica_rrtmg_spectral`` and ``tripleclouds_ecckd_gpoint``
+  (``flagship.namelist_text`` writes any of them as the drivers'
+  namelist).
 The JAX package ``ecrad_tpu`` is the reference; this package imports
 nothing of it.
 """

@@ -14,6 +14,14 @@ import numpy as np
 import torch
 
 
+def to_numpy(x):
+    """A tensor on any device, or an array, as a numpy array on the
+    host."""
+    if torch.is_tensor(x):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
 @dataclasses.dataclass
 class Thermodynamics:
     """radiation_thermodynamics.F90:29-48 (host-side numpy arrays)."""

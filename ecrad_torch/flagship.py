@@ -42,8 +42,9 @@ import numpy as np
 import torch
 
 from ecrad_torch import pipeline
-from ecrad_torch.config import (Config, GasModel, IceModel, LiquidModel,
-                                Solver)
+from ecrad_torch.config import (GAS_MODEL_NAMES, ICE_MODEL_NAMES,
+                                LIQUID_MODEL_NAMES, SOLVER_NAMES, Config,
+                                GasModel, IceModel, LiquidModel, Solver)
 from ecrad_torch.data import DATA_DIR, MERIDIAN_INPUT
 from ecrad_torch.interface import setup_radiation
 from ecrad_torch.io.input import DriverConfig, read_input
@@ -89,6 +90,76 @@ CONFIGS = {
 }
 
 
+# The flagship's Config fields (__graft_entry__._build)
+_FLAGSHIP_FIELDS = dict(
+    liquid_model=LiquidModel.SOCRATES, ice_model=IceModel.FU,
+    # the CY49R1 operational namelist runs absorption-only LW aerosols
+    # (test/ifs/configCY49R1.nam:45)
+    do_lw_aerosol_scattering=False,
+    do_lw_derivatives=True, do_canopy_fluxes_sw=True,
+    do_canopy_fluxes_lw=True, do_nearest_spectral_lw_emiss=True,
+    i_lw_emiss_index=(1, 2, 1),
+    lw_emiss_wavelength_bound=(8.0e-6, 13.0e-6),
+    i_sw_albedo_index=(1, 2, 3, 4, 5, 6),
+    sw_albedo_wavelength_bound=(0.25e-6, 0.44e-6, 0.69e-6, 1.19e-6,
+                                2.38e-6),
+    use_aerosols=True, n_aerosol_types=12,
+    i_aerosol_type_map=(-1, -2, -3, 7, 8, 9, -4, 10, 11, 11, -5, 14),
+    use_general_cloud_optics=False)
+# The flagship's &radiation_driver settings: the cloud separation scales
+# from which read_input derives the cloud effective sizes
+DRIVER_SETTINGS = dict(cloud_separation_scale_toa=14000.0,
+                       cloud_separation_scale_surface=2500.0,
+                       cloud_separation_scale_power=3.5,
+                       cloud_inhom_separation_factor=0.75)
+# Config enum fields -> (namelist key, its names)
+_NAMELIST_ENUMS = {
+    "sw_solver": ("sw_solver_name", SOLVER_NAMES),
+    "lw_solver": ("lw_solver_name", SOLVER_NAMES),
+    "gas_model_sw": ("sw_gas_model_name", GAS_MODEL_NAMES),
+    "gas_model_lw": ("lw_gas_model_name", GAS_MODEL_NAMES),
+    "liquid_model": ("liquid_model_name", LIQUID_MODEL_NAMES),
+    "ice_model": ("ice_model_name", ICE_MODEL_NAMES),
+}
+
+
+def _namelist_value(v) -> str:
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if isinstance(v, str):
+        return f'"{v}"'
+    if isinstance(v, tuple):
+        return ", ".join(_namelist_value(x) for x in v)
+    return repr(v)
+
+
+def namelist_text(config_name: str = "mcica_rrtmg",
+                  data_dir: str = DATA_DIR, **driver) -> str:
+    """A namelist file's text for a named configuration (CONFIGS), for
+    the drivers: a &radiation group with its Config fields (enums by
+    their namelist names) and ``directory_name``, and a
+    &radiation_driver group with DRIVER_SETTINGS and ``driver``'s
+    entries.  Config.from_namelist reads it back as
+    flagship_config(..., config_name) with that directory_name."""
+    config = flagship_config("float64", config_name)
+    fields = {**_FLAGSHIP_FIELDS, **CONFIGS[config_name]}
+    lines = ["&radiation", f'directory_name = "{data_dir}",']
+    for name in fields:
+        if name == "dtype_name" or getattr(config, name) == ():
+            continue
+        value = getattr(config, name)
+        if name in _NAMELIST_ENUMS:
+            key, names = _NAMELIST_ENUMS[name]
+            label = next(k for k, v in names.items() if v == value)
+            lines.append(f'{key} = "{label}",')
+        else:
+            lines.append(f"{name} = {_namelist_value(value)},")
+    lines += ["/", "&radiation_driver"]
+    lines += [f"{k} = {_namelist_value(v)},"
+              for k, v in {**DRIVER_SETTINGS, **driver}.items()]
+    return "\n".join(lines + ["/", ""])
+
+
 def flagship_config(dtype_name: str,
                     config_name: str = "mcica_rrtmg") -> Config:
     """The Config of a named configuration before setup
@@ -96,23 +167,8 @@ def flagship_config(dtype_name: str,
     if config_name not in CONFIGS:
         raise ValueError(f"unknown configuration {config_name!r}; "
                          f"known: {sorted(CONFIGS)}")
-    kw = dict(
-        liquid_model=LiquidModel.SOCRATES, ice_model=IceModel.FU,
-        # the CY49R1 operational namelist runs absorption-only LW
-        # aerosols (test/ifs/configCY49R1.nam:45)
-        do_lw_aerosol_scattering=False,
-        do_lw_derivatives=True, do_canopy_fluxes_sw=True,
-        do_canopy_fluxes_lw=True, do_nearest_spectral_lw_emiss=True,
-        i_lw_emiss_index=(1, 2, 1),
-        lw_emiss_wavelength_bound=(8.0e-6, 13.0e-6),
-        i_sw_albedo_index=(1, 2, 3, 4, 5, 6),
-        sw_albedo_wavelength_bound=(0.25e-6, 0.44e-6, 0.69e-6, 1.19e-6,
-                                    2.38e-6),
-        use_aerosols=True, n_aerosol_types=12,
-        i_aerosol_type_map=(-1, -2, -3, 7, 8, 9, -4, 10, 11, 11, -5, 14),
-        use_general_cloud_optics=False,
-        dtype_name=dtype_name)
-    return Config(**{**kw, **CONFIGS[config_name]})
+    return Config(**{**_FLAGSHIP_FIELDS, **CONFIGS[config_name],
+                     "dtype_name": dtype_name})
 
 
 def build(ncol=32, dtype=torch.float32, device="cuda", block_size=None,
@@ -130,11 +186,7 @@ def build(ncol=32, dtype=torch.float32, device="cuda", block_size=None,
     config, tables = setup_radiation(
         flagship_config(dtype_name, config_name), device, dtype,
         data_dir=DATA_DIR)
-    dc = DriverConfig(cloud_separation_scale_toa=14000.0,
-                      cloud_separation_scale_surface=2500.0,
-                      cloud_separation_scale_power=3.5,
-                      cloud_inhom_separation_factor=0.75)
-    inp = read_input(MERIDIAN_INPUT, dc)
+    inp = read_input(MERIDIAN_INPUT, DriverConfig(**DRIVER_SETTINGS))
 
     def tile(x, dt=dtype):
         """Tile the 32-column meridian slice up/down to ncol columns."""

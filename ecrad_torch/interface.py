@@ -51,6 +51,10 @@ class Tables(NamedTuple):
     aerosol: Optional[Dict] = None             # aerosol-optics tables
     pdf_sampler: Optional[Dict] = None         # McICA PDF LUT + fit
     gas_meta: Optional[Dict] = None            # {"sw"/"lw": ecCKD meta}
+    # the spectral definitions, host objects (the drivers' UV, PAR and
+    # SW diagnostic mappings)
+    specdef_sw: Optional[SpectralDefinition] = None
+    specdef_lw: Optional[SpectralDefinition] = None
 
 
 def _to_tensors(x, device, dtype):
@@ -77,9 +81,12 @@ def tables_from_numpy(jax_tables, device, dtype) -> Tables:
     """The JAX package's ``Tables`` (numpy or jnp leaves) as the port's
     Tables: same leaves, converted with ``np.asarray``.  The TPU-only
     level windows (``gas["rrtmg"]["windows"]``) are dropped, and so are
-    the spectral definitions, which only setup reads."""
+    the spectral definitions, which are host objects of the JAX
+    package."""
     kw = {}
     for name in Tables._fields:
+        if name.startswith("specdef"):
+            continue
         value = getattr(jax_tables, name)
         if name == "gas":
             value = {k: {kk: vv for kk, vv in v.items() if kk != "windows"}
@@ -106,6 +113,25 @@ def _check_supported(config: Config):
             and config.nregions != 3:
         raise NotImplementedError("the port's SPARTACUS solvers take three "
                                   "regions only")
+
+
+def pdf_file_name(config: Config) -> str:
+    """The McICA PDF table's file (radiation_config.F90 setup_pdf)."""
+    if config.cloud_pdf_override_file_name:
+        return config.cloud_pdf_override_file_name
+    if config.cloud_pdf_shape == PdfShape.GAMMA:
+        return "mcica_gamma.nc"
+    return "mcica_lognormal.nc"
+
+
+def crop_cloud_fraction(config: Config, cloud: dict):
+    """The cloud fraction with layers below the fraction or total water
+    thresholds cleared (radiation_cloud.F90 crop_cloud_fraction)."""
+    total_water = cloud["q_liq"] + cloud["q_ice"]
+    keep = ((cloud["fraction"] >= config.cloud_fraction_threshold)
+            & (total_water >= config.cloud_mixing_ratio_threshold))
+    return torch.where(keep, cloud["fraction"],
+                       torch.zeros_like(cloud["fraction"]))
 
 
 def _gas_model_setup(config: Config, band: str, ddir: str, gas_tables,
@@ -232,13 +258,7 @@ def setup_radiation(config: Config, device, dtype, data_dir: str = None):
     if kw["do_clouds"] and Solver.MCICA in (config.sw_solver,
                                              config.lw_solver):
         from ecrad_torch.io.netcdf import NcFile
-        if config.cloud_pdf_override_file_name:
-            pdf_file = config.cloud_pdf_override_file_name
-        elif config.cloud_pdf_shape == PdfShape.GAMMA:
-            pdf_file = "mcica_gamma.nc"
-        else:
-            pdf_file = "mcica_lognormal.nc"
-        with NcFile(find_data_file(ddir, pdf_file)) as f:
+        with NcFile(find_data_file(ddir, pdf_file_name(config))) as f:
             pdf_tables = {"fsd": f.get("fsd"), "val": f.get("x").T}
         pdf_tables["cheb_fit"] = fit_pdf_cheb(pdf_tables)
 
@@ -275,7 +295,8 @@ def setup_radiation(config: Config, device, dtype, data_dir: str = None):
         pdf_sampler=pdf_tables,
         gas_meta=gas_meta,
     )
-    return new_config, tables_from_numpy(host, device, dtype)
+    return new_config, tables_from_numpy(host, device, dtype)._replace(
+        specdef_sw=specdef_sw, specdef_lw=specdef_lw)
 
 
 # ---------------------------------------------------------------------------
@@ -450,12 +471,7 @@ def _optical_properties(config: Config, tables: Tables, *,
     do_clouds = config.do_clouds and cloud is not None
     frac = cl = None
     if do_clouds:
-        # crop_cloud_fraction (radiation_cloud.F90)
-        total_water = cloud["q_liq"] + cloud["q_ice"]
-        keep = ((cloud["fraction"] >= config.cloud_fraction_threshold)
-                & (total_water >= config.cloud_mixing_ratio_threshold))
-        frac = torch.where(keep, cloud["fraction"],
-                           torch.zeros_like(cloud["fraction"]))
+        frac = crop_cloud_fraction(config, cloud)
         if config.use_general_cloud_optics:
             cl = general_cloud_mod.general_cloud_optics(
                 config, tables.cloud, pressure_hl, frac,
@@ -793,3 +809,39 @@ def radiation(config: Config, tables: Tables, *,
 
     return Flux(**flux_kw)
 
+
+
+def compute_radiative_properties(config: Config, tables: Tables, **kw):
+    """Debug dump of the per-g and per-band optical properties
+    (radiation_save.F90:716-1025 save_radiative_properties contract).
+    Same keyword inputs as radiation(); returns a dict of tensors."""
+    kw.pop("iseed", None)
+    op = _optical_properties(config, tables, **kw)
+    go = op["go"]
+    out = {}
+    if config.do_sw:
+        out["od_sw"] = op["od_sw"]
+        out["ssa_sw"] = op["ssa_sw"]
+        out["asymmetry_sw"] = op["g_sw_arr"]
+        out["incoming_sw"] = go.incoming_sw
+        out["sw_albedo"] = op["sw_albedo_diffuse_g"]
+        out["sw_albedo_direct"] = op["sw_albedo_direct_g"]
+    if config.do_lw:
+        out["od_lw"] = op["od_lw"]
+        out["ssa_lw"] = op["ssa_lw"]
+        out["asymmetry_lw"] = op["g_lw_arr"]
+        out["planck_hl"] = go.planck_hl
+        out["lw_emission"] = go.lw_emission * (1.0 - op["lw_albedo_g"])
+        out["lw_emissivity"] = 1.0 - op["lw_albedo_g"]
+    if op["do_clouds"]:
+        cl = op["cl"]
+        out["cloud_fraction"] = op["frac"]
+        if config.do_sw:
+            out["od_sw_cloud"] = cl["od_sw"]
+            out["ssa_sw_cloud"] = cl["ssa_sw"]
+            out["asymmetry_sw_cloud"] = cl["g_sw"]
+        if config.do_lw:
+            out["od_lw_cloud"] = cl["od_lw"]
+            out["ssa_lw_cloud"] = cl["ssa_lw"]
+            out["asymmetry_lw_cloud"] = cl["g_lw"]
+    return out

@@ -4,6 +4,7 @@ reproduces the JAX package's tables exactly."""
 
 import dataclasses
 import os
+import re
 import subprocess
 import sys
 
@@ -35,6 +36,13 @@ import ecrad_torch.optics.ecckd, ecrad_torch.optics.general_cloud
 import ecrad_torch.optics.aerosol_description
 import ecrad_torch.containers, ecrad_torch.solvers.outputs
 import ecrad_torch.solvers.adding, ecrad_torch.solvers.mcica
+import ecrad_torch.driver, ecrad_torch.gas, ecrad_torch.check
+import ecrad_torch.profiling, ecrad_torch.native
+import ecrad_torch.solvers.cloud_generator_exact
+import ecrad_torch.io.output, ecrad_torch.io.save_optics
+import ecrad_torch.io.save_extras
+import ecrad_torch.ifs, ecrad_torch.ifs.driver, ecrad_torch.ifs.scheme
+import ecrad_torch.ifs.blocking
 import chip_smoke
 new = set(sys.modules) - before
 bad = sorted(m for m in new
@@ -49,6 +57,27 @@ def test_port_imports_no_jax():
                          timeout=120)
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
+
+
+def test_port_sources_import_no_jax():
+    """Nor inside a function: no import statement of the port's sources
+    (and of chip_smoke.py) names JAX or the JAX package."""
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|ecrad_tpu)\b",
+                         re.M)
+    sources = [os.path.join(REPO, "chip_smoke.py")] + [
+        os.path.join(d, f)
+        for d, _, files in os.walk(os.path.join(REPO, "ecrad_torch"))
+        for f in files if f.endswith(".py")]
+    assert len(sources) > 50
+    bad = [p for p in sources if pattern.search(open(p).read())]
+    assert not bad, bad
+
+
+def test_native_holds_no_binary():
+    """The native generator's directory holds its source and loader only:
+    the library is built into build/ecrad_torch/."""
+    files = set(os.listdir(os.path.join(REPO, "ecrad_torch", "native")))
+    assert files - {"__pycache__"} == {"__init__.py", "cloud_generator.cc"}
 
 
 def _assert_same(a, b, path="tables"):
@@ -77,6 +106,10 @@ def _same_config(port, jax):
         assert a == b, f.name
 
 
+SPECDEF_ARRAYS = ("wavenumber1", "wavenumber2", "gpoint_fraction",
+                  "wavenumber1_band", "wavenumber2_band", "band_number")
+
+
 def _setup_both(config):
     """setup_radiation of the port and of the JAX package for the same
     port Config: (port config, port tables, JAX config, JAX tables)."""
@@ -92,6 +125,14 @@ def _setup_both(config):
     assert isinstance(port_tables, Tables)
     converted = tables_from_numpy(jax_tables, "cpu", torch.float64)
     for name in Tables._fields:
+        if name.startswith("specdef"):
+            # host objects of each package: the same arrays
+            for attr in SPECDEF_ARRAYS:
+                np.testing.assert_array_equal(
+                    getattr(getattr(port_tables, name), attr),
+                    getattr(getattr(jax_tables, name), attr),
+                    err_msg=f"{name}.{attr}")
+            continue
         _assert_same(getattr(port_tables, name), getattr(converted, name),
                      name)
     return port_config, port_tables, jax_config, jax_tables

@@ -45,14 +45,30 @@ The spectral flux profiles ``(32, nlev+1, nspec)`` are kept for the
 columns ``PROFILE_COLUMNS`` only (stored as ``profile_columns``), so that
 each file stays small; every other field is kept for all 32 columns.
 
+The two command-line entry points have references of their own, each
+run on the 32 meridian columns with the namelist that
+``ecrad_torch.flagship.namelist_text`` writes for the configuration
+(double-precision output, the flagship's cloud separation scales):
+
+* ``driver``: the offline driver (``ecrad_tpu.driver.run``, host
+  generator) of ``mcica_rrtmg`` and ``tripleclouds_rrtmg``, float64 and
+  float32, every variable of its output file as
+  ``<configuration>/<f64|f32>/<variable>``, to
+  ``tests/data/torch_driver_meridian32.npz``;
+* ``ifs``: the IFS driver (``ecrad_tpu.ifs.driver.run_ifs``) of
+  ``mcica_rrtmg`` in float64, with ``--bitidentity`` and without (the
+  device generator), every output but ``_flux`` as
+  ``<bitidentity|device>/<output>``, to
+  ``tests/data/torch_ifs_meridian32.npz``.
+
 ``tools/bench_matrix.py`` names only the McICA, Tripleclouds and
 SPARTACUS solvers, so the solvers are given here by the name of the JAX
 package's ``Solver`` member, and so are the cloud optics models (its
 ``LiquidModel`` and ``IceModel``).
 
-    python tools/make_torch_reference.py [configuration ...]
+    python tools/make_torch_reference.py [configuration|driver|ifs ...]
 
-writes every file, or only those of the configurations named.
+writes every file, or only those named.
 """
 
 import os
@@ -150,6 +166,79 @@ def run_jax(dtype: str, config_name: str) -> dict:
     return out
 
 
+# entry point -> (runs: (name, dtype), output file)
+ENTRY_POINTS = {
+    "driver": ((("mcica_rrtmg", "float64"), ("mcica_rrtmg", "float32"),
+                ("tripleclouds_rrtmg", "float64"),
+                ("tripleclouds_rrtmg", "float32")),
+               "torch_driver_meridian32.npz"),
+    "ifs": ((("bitidentity", "float64"), ("device", "float64")),
+            "torch_ifs_meridian32.npz"),
+}
+
+
+def write_namelist(path: str, config_name: str) -> None:
+    """The drivers' namelist of a configuration (ecrad_torch.flagship)."""
+    sys.path.insert(0, REPO)
+    from ecrad_torch.data import DATA_DIR
+    from ecrad_torch.flagship import namelist_text
+    with open(path, "w") as f:
+        f.write(namelist_text(config_name, DATA_DIR, iverbose=1,
+                              do_write_double_precision=True))
+
+
+def run_jax_entry(entry: str, name: str, dtype: str) -> dict:
+    """One run of a JAX entry point (ENTRY_POINTS) in this process on the
+    meridian file; returns {"<variable or output>": array}."""
+    os.environ["JAX_PLATFORMS"] = "cpu"
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    jax.config.update("jax_enable_x64", dtype == "float64")
+    import numpy as np
+    from scipy.io import netcdf_file
+
+    sys.path.insert(0, REPO)
+    from ecrad_tpu.data import MERIDIAN_INPUT
+    with tempfile.TemporaryDirectory() as tmp:
+        nam = os.path.join(tmp, "config.nam")
+        out = os.path.join(tmp, "out.nc")
+        if entry == "driver":
+            from ecrad_tpu.driver import run
+            write_namelist(nam, name)
+            run(nam, MERIDIAN_INPUT, out, dtype=dtype)
+            with netcdf_file(out, "r", mmap=False) as f:
+                return {k: np.array(v.data) for k, v in f.variables.items()}
+        from ecrad_tpu.ifs.driver import run_ifs
+        write_namelist(nam, "mcica_rrtmg")
+        res = run_ifs(nam, MERIDIAN_INPUT, None, dtype=dtype,
+                      bitidentity=name == "bitidentity")
+        return {k: np.asarray(v) for k, v in res.items() if k != "_flux"}
+
+
+def write_entry(entry: str) -> None:
+    import numpy as np
+
+    runs, fname = ENTRY_POINTS[entry]
+    out_path = os.path.join(DATA, fname)
+    data = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, dtype in runs:
+            part = os.path.join(tmp, f"{name}_{dtype}.npz")
+            subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--entry-worker", entry, name, dtype, part],
+                           check=True)
+            prefix = (f"{name}/{'f64' if dtype == 'float64' else 'f32'}/"
+                      if entry == "driver" else f"{name}/")
+            with np.load(part) as z:
+                data.update({prefix + k: z[k] for k in z.files})
+    commit = subprocess.run(["git", "-C", REPO, "rev-parse", "HEAD"],
+                            capture_output=True, text=True).stdout.strip()
+    data["commit"] = np.asarray(commit)
+    np.savez_compressed(out_path, **data)
+    print(f"wrote {out_path} ({os.path.getsize(out_path)} bytes, "
+          f"commit {commit})")
+
+
 def write(config_name: str) -> None:
     import numpy as np
 
@@ -181,6 +270,12 @@ if __name__ == "__main__":
     if len(sys.argv) == 5 and sys.argv[1] == "--worker":
         import numpy as np
         np.savez(sys.argv[4], **run_jax(sys.argv[2], sys.argv[3]))
+    elif len(sys.argv) == 6 and sys.argv[1] == "--entry-worker":
+        import numpy as np
+        np.savez(sys.argv[5], **run_jax_entry(*sys.argv[2:5]))
     else:
-        for name in sys.argv[1:] or OUTPUTS:
-            write(name)
+        for name in sys.argv[1:] or (*OUTPUTS, *ENTRY_POINTS):
+            if name in ENTRY_POINTS:
+                write_entry(name)
+            else:
+                write(name)
