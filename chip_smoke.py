@@ -33,12 +33,17 @@ the script exits non-zero:
                five kernels of the ecCKD paths (generator_scan, lw_fused,
                sw_fused, tripleclouds_lw, tripleclouds_sw) also on the
                ecckd_mcica state (32 g-points, per-g-point cloud optics:
-               32 bands, band_of_g the identity; one warp per block);
-               kernel and plain median times (the kernel's on each input
-               set TIMED names), and the least time the card could take
-               for the same work.  The four kernels that write per-g
-               planes for spectral flux output (PLANES: lw_fused,
-               sw_fused, tripleclouds_lw, tripleclouds_sw) are checked
+               32 bands, band_of_g the identity; one warp per block); and
+               the six kernels of the monochromatic paths
+               (generator_scan, lw_fused, sw_fused and the three adding
+               sweeps) at one g-point (mono_inputs: monochromatic optics
+               on the McICA solvers; one live lane per block); kernel and
+               plain median times (the kernel's on each input set TIMED
+               names), and the least time the card could take for the
+               same work.  The seven kernels that write per-g planes for
+               spectral flux output (PLANES: lw_fused, sw_fused,
+               tripleclouds_lw, tripleclouds_sw and the three adding
+               sweeps) are checked
                again on every input set with their planes against the
                plain versions' (the same bars), their broadband outputs
                with planes against those without, bit for bit, and a
@@ -79,6 +84,13 @@ the script exits non-zero:
                _meridian32.npz, whose spectral profiles hold the columns
                profile_columns), every per-band and per-g field held to
                the same bars as the broadband ones.
+    slice_cl_spec_*, slice_hom_spec_*, slice_mono_* - the same three for
+               cloudless_rrtmg_spectral and homogeneous_rrtmg_spectral
+               (flux profiles and TOA fluxes per band through the adding
+               sweeps' planes) and monochromatic_homogeneous (every kernel
+               of its path at one g-point)
+               (tests/data/torch_{cloudless_spectral,homogeneous_spectral,
+               monochromatic}_meridian32.npz).
 13. slice_sp_gpt_f64 - a 32-column float64 spartacus_3d step with flux
                profiles per g-point: its broadband fields against
                tests/data/torch_spartacus_meridian32.npz, and its g-point
@@ -100,9 +112,18 @@ the script exits non-zero:
                outputs (tests/data/torch_ifs_meridian32.npz), and with
                --nproma 8 against the unblocked run; then at 6144 columns
                in float32 with --nproma 2048: cols/s, peak memory.
+17. sharded    - pipeline.radiation_sharded of the flagship at 6144 columns
+               in float32 over pipeline.make_mesh() (the one card, blocks
+               of 2048) and over (cuda:0,) * 3 (three slabs of 2048),
+               each equal to radiation_blocked's fluxes bit for bit.
+18. distributed - two ranks (tests/torch_dist_worker.py) spawned on the
+               one card, joined with gloo (ecrad_torch.distributed), each
+               reading its slab of the 6144-column file the script wrote;
+               their fluxes concatenated equal one process's
+               radiation_sharded over two slabs, bit for bit.
 The full phases from 6 on also report the peak device memory of the run.
-The kernels' launch counters are reset just before each main path (5b and
-the *_full phases) and read just after it.
+The kernels' launch counters are reset just before each main path (5b,
+the *_full phases, sharded) and read just after it.
 
 Then one JSON line with the per-kernel results, the nvidia-smi line, and
 as the last line {"ok": true, "device": {...}}.
@@ -111,10 +132,13 @@ as the last line {"ok": true, "device": {...}}.
 import dataclasses
 import json
 import os
+import socket
 import statistics
 import subprocess
+import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 import torch
@@ -124,7 +148,8 @@ from ecrad_torch import profiling
 from ecrad_torch.config import Entrapment, Solver
 from ecrad_torch.containers import Flux
 from ecrad_torch.interface import (_optical_properties, radiation,
-                                   spartacus_lw_inputs, spartacus_sw_inputs)
+                                   setup_radiation, spartacus_lw_inputs,
+                                   spartacus_sw_inputs)
 from ecrad_torch.solvers import cloud_generator, cuda_adding, cuda_generator
 from ecrad_torch.solvers import cuda_mcica, cuda_spartacus, cuda_tripleclouds
 from ecrad_torch.solvers import mcica, spartacus, tripleclouds, two_stream
@@ -149,7 +174,13 @@ SLICES = {"tripleclouds_rrtmg": ("tc", "torch_tripleclouds_meridian32.npz"),
           "mcica_rrtmg_spectral": ("spec",
                                    "torch_mcica_spectral_meridian32.npz"),
           "tripleclouds_ecckd_gpoint": (
-              "tc_gpt", "torch_tripleclouds_ecckd_gpoint_meridian32.npz")}
+              "tc_gpt", "torch_tripleclouds_ecckd_gpoint_meridian32.npz"),
+          "cloudless_rrtmg_spectral": (
+              "cl_spec", "torch_cloudless_spectral_meridian32.npz"),
+          "homogeneous_rrtmg_spectral": (
+              "hom_spec", "torch_homogeneous_spectral_meridian32.npz"),
+          "monochromatic_homogeneous": (
+              "mono", "torch_monochromatic_meridian32.npz")}
 # the JAX float32 stochastic sample of a McICA reference file
 SAMPLE_KEYS = ("od_scaling_sw", "od_scaling_lw", "total_cloud_cover_sw",
                "total_cloud_cover_lw")
@@ -274,9 +305,13 @@ MAIN_PATHS = {
     "tripleclouds_baran2016": dict(tripleclouds_lw=1, tripleclouds_sw=1),
     "mcica_rrtmg_spectral": dict(generator_scan=2, lw_fused=1, sw_fused=1),
     "tripleclouds_ecckd_gpoint": dict(tripleclouds_lw=1, tripleclouds_sw=1),
+    "cloudless_rrtmg_spectral": dict(lw_noscat_sweeps=1, sw_sweeps=1),
+    "homogeneous_rrtmg_spectral": dict(scat_sweeps=2, sw_fused=1),
+    "monochromatic_homogeneous": dict(lw_fused=1, sw_fused=1),
 }
 # The kernels that write per-g planes on request (planes=True)
-PLANES = ("lw_fused", "sw_fused", "tripleclouds_lw", "tripleclouds_sw")
+PLANES = ("lw_fused", "sw_fused", "tripleclouds_lw", "tripleclouds_sw",
+          "lw_noscat_sweeps", "scat_sweeps", "sw_sweeps")
 
 # The least time of a kernel's work on one H100 SXM (NVIDIA's published
 # peaks, dense, at 700 W): each input read once and each output
@@ -487,6 +522,28 @@ def total_scene_inputs(step, kw, cloud, op):
     return {"scat_sweeps": scat, "sw_sweeps": sw}
 
 
+def clear_sky_inputs(kw, op):
+    """The lw_noscat_sweeps, scat_sweeps and sw_sweeps arguments on the
+    clear-sky two-stream coefficients of a step's optical properties, as
+    the Cloudless path (and the clear scene of the unfused McICA path)
+    builds them."""
+    go = op["go"]
+    c = lambda xs: tuple(x.contiguous() for x in xs)  # noqa: E731
+    ptop, pbot = go.planck_hl[:, :-1], go.planck_hl[:, 1:]
+    emission = go.lw_emission * (1.0 - op["lw_albedo_g"])
+    mu0 = torch.clamp(kw["cos_sza"], min=1.0e-10)[:, None]
+    noscat = c(two_stream.lw_no_scattering_trans(op["od_lw"], ptop, pbot)
+               + (emission, op["lw_albedo_g"]))
+    scat = c(two_stream.lw_ref_trans(op["od_lw"], op["ssa_lw"], op["g_lw_arr"],
+                                     ptop, pbot)
+             + (op["lw_albedo_g"], emission))
+    sw_clear = c(two_stream.sw_ref_trans(mu0[:, :, None], op["od_sw"],
+                                         op["ssa_sw"], op["g_sw_arr"])
+                 + (go.incoming_sw, op["sw_albedo_diffuse_g"],
+                    op["sw_albedo_direct_g"] * mu0))
+    return noscat, scat, sw_clear
+
+
 def solver_inputs(ncol, dtype, seed, min_cloud=0.0):
     """The lw_fused, sw_fused, tripleclouds_lw, tripleclouds_sw,
     spartacus_sw (Explicit entrapment) and spartacus_lw (without multilayer
@@ -548,6 +605,48 @@ def ecckd_inputs(ncol, dtype, seed):
     return {name: [("ecckd", args)] for name, args in out.items()}
 
 
+def mono_inputs(ncol, dtype, seed):
+    """{kernel: [("ng1", arguments)]} for the six kernels of the
+    monochromatic paths at one g-point and one band, from the random state
+    of random_state on monochromatic_homogeneous with McICA solvers (its
+    own setup, so that the PDF table loads): generator_scan at ng = 1, the
+    fused McICA kernels' arguments (fused_inputs) and the adding sweeps'
+    on the clear sky (clear_sky_inputs), scat_sweeps and sw_sweeps also on
+    the total scene (total_scene_inputs, "ng1_total_scene"); the width is
+    checked."""
+    step, kw, cloud = random_state(ncol, dtype, seed,
+                                   "monochromatic_homogeneous")
+    config, tables = setup_radiation(
+        flagship.flagship_config(step.config.dtype_name,
+                                 "monochromatic_homogeneous").replace(
+            sw_solver=Solver.MCICA, lw_solver=Solver.MCICA),
+        DEV, dtype, data_dir=DATA_DIR)
+    step = types.SimpleNamespace(config=config, tables=tables,
+                                 solar=step.solar)
+    gen = cloud_generator.scan_inputs(config, cloud["iseed"],
+                                      cloud["fraction"],
+                                      cloud["overlap_param"], 1)[:6]
+    cloud = pipeline.add_cloud_sample(config, tables, cloud)
+    op = _optical_properties(config, tables, solar_irradiance=step.solar,
+                             cloud=cloud, **kw)
+    fused = fused_inputs(step, kw, cloud, op)
+    noscat, scat, sw_clear = clear_sky_inputs(kw, op)
+    total = total_scene_inputs(step, kw, cloud, op)
+    if config.n_g_sw != 1 or config.n_g_lw != 1 \
+            or fused["lw_fused"][0].shape[-1] != 1 \
+            or op["cl"]["od_sw"].shape[-1] != 1:
+        raise AssertionError("the monochromatic inputs are not at one "
+                             "g-point and one band")
+    return {"generator_scan": [("ng1", gen)],
+            "lw_fused": [("ng1", fused["lw_fused"])],
+            "sw_fused": [("ng1", fused["sw_fused"])],
+            "lw_noscat_sweeps": [("ng1", noscat)],
+            "scat_sweeps": [("ng1", scat),
+                            ("ng1_total_scene", total["scat_sweeps"])],
+            "sw_sweeps": [("ng1", sw_clear),
+                          ("ng1_total_scene", total["sw_sweeps"])]}
+
+
 def kernel_inputs(ncol, dtype, seed):
     """Each kernel's inputs as the main path builds them, for the random
     state of random_state.  Returns {kernel: [(label, arguments)]}, the
@@ -569,23 +668,10 @@ def kernel_inputs(ncol, dtype, seed):
     cloud = pipeline.add_cloud_sample(config, tables, cloud)
     op = _optical_properties(config, tables, solar_irradiance=step.solar,
                              cloud=cloud, **kw)
-    go = op["go"]
     fused = fused_inputs(step, kw, cloud, op)
     sw, tc_lw, tc_sw = (fused[k] for k in ("sw_fused", "tripleclouds_lw",
                                            "tripleclouds_sw"))
-    c = lambda xs: tuple(x.contiguous() for x in xs)
-    ptop, pbot = go.planck_hl[:, :-1], go.planck_hl[:, 1:]
-    emission = go.lw_emission * (1.0 - op["lw_albedo_g"])
-    mu0 = torch.clamp(kw["cos_sza"], min=1.0e-10)[:, None]
-    noscat = c(two_stream.lw_no_scattering_trans(op["od_lw"], ptop, pbot)
-               + (emission, op["lw_albedo_g"]))
-    scat = c(two_stream.lw_ref_trans(op["od_lw"], op["ssa_lw"], op["g_lw_arr"],
-                                     ptop, pbot)
-             + (op["lw_albedo_g"], emission))
-    sw_clear = c(two_stream.sw_ref_trans(mu0[:, :, None], op["od_sw"],
-                                         op["ssa_sw"], op["g_sw_arr"])
-                 + (go.incoming_sw, op["sw_albedo_diffuse_g"],
-                    op["sw_albedo_direct_g"] * mu0))
+    noscat, scat, sw_clear = clear_sky_inputs(kw, op)
     total = total_scene_inputs(step, kw, cloud, op)
     sp_sw, sp_lw = spartacus_inputs(ncol, dtype, seed)
     one = lambda args: [("meridian", args)]  # noqa: E731
@@ -721,15 +807,16 @@ def bound(name, args, out):
 
 
 # Input sets timed besides the main path's (the first of kernel_inputs)
-TIMED = {"generator_scan": ("ecckd",),
+TIMED = {"generator_scan": ("ecckd", "ng1"),
          "spartacus_sw": ("all_cloudy",),
          "spartacus_lw": ("multilayer", "all_cloudy"),
          "tripleclouds_sw": ("all_cloudy", "ecckd"),
-         "lw_fused": ("no_derivatives", "all_cloudy", "ecckd"),
-         "sw_fused": ("delta_gases", "all_cloudy", "ecckd"),
+         "lw_fused": ("no_derivatives", "all_cloudy", "ecckd", "ng1"),
+         "sw_fused": ("delta_gases", "all_cloudy", "ecckd", "ng1"),
          "tripleclouds_lw": ("no_derivatives", "all_cloudy", "ecckd"),
-         "scat_sweeps": ("total_scene", "all_cloudy"),
-         "sw_sweeps": ("total_scene", "all_cloudy")}
+         "lw_noscat_sweeps": ("ng1",),
+         "scat_sweeps": ("total_scene", "all_cloudy", "ng1"),
+         "sw_sweeps": ("total_scene", "all_cloudy", "ng1")}
 
 
 def check_kernel(name, inputs, ncol, err, checked):
@@ -822,13 +909,14 @@ def time_kernel(name, inputs, res, main):
 
 def kernels_phase(smi):
     """Check each kernel on its input sets at each of SHAPES, and time it
-    at the first; the all-cloudy and ecCKD sets are built once the main
-    path's are freed, which keeps the float64 inputs within the card's
-    memory (each group's peak device memory is reported)."""
+    at the first; the all-cloudy, ecCKD and one-g-point sets are built
+    once the main path's are freed, which keeps the float64 inputs within
+    the card's memory (each group's peak device memory is reported)."""
     results = {name: {"max_abs_err": {}, "checked": set(), "variants": {}}
                for name in KERNELS}
     for ncol in SHAPES:
-        for make in (kernel_inputs, all_cloudy_inputs, ecckd_inputs):
+        for make in (kernel_inputs, all_cloudy_inputs, ecckd_inputs,
+                     mono_inputs):
             torch.cuda.reset_peak_memory_stats()
             inputs = make(ncol, torch.float64, seed=ncol)
             for name, sets in inputs.items():
@@ -927,15 +1015,29 @@ def slice_f32_phase(ref, smi):
     return main_counts
 
 
-def check_and_time(step, args, flux):
+# Configurations whose SW scattering is nearly conservative
+# (monochromatic optics: gas and cloud single-scattering albedo 0.999999),
+# where light trapped between a cloud and the surface lifts the up flux
+# below the cloud above the incoming flux (the JAX package's too); there
+# the up flux is held to the incoming one at TOA only.
+NEAR_CONSERVATIVE = ("monochromatic_homogeneous",)
+
+
+def check_and_time(step, args, flux, config_name="mcica_rrtmg"):
     """Check a full-size main-path result (shape, finite, sw_up within the
-    incoming flux) and time three more steps; returns their seconds."""
+    incoming flux, and within the down flux at every level: the net down
+    flux is what the layers below absorb) and time three more steps;
+    returns their seconds."""
     for name, v in flux.fields().items():
         if v.shape[0] != FULL_NCOL or not bool(torch.isfinite(v).all()):
             raise AssertionError(f"{name}: bad shape or non-finite values")
     incoming = flux.sw_dn[:, :1]
-    if not bool((flux.sw_up <= incoming + 1e-3).all()):
+    up = flux.sw_up[:, :1] if config_name in NEAR_CONSERVATIVE \
+        else flux.sw_up
+    if not bool((up <= incoming + 1e-3).all()):
         raise AssertionError("sw_up exceeds the incoming flux")
+    if not bool((flux.sw_up <= flux.sw_dn + 1e-3).all()):
+        raise AssertionError("sw_up exceeds sw_dn")
     steps = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -996,7 +1098,7 @@ def slice_phases(config_name, ref, smi):
     peak = torch.cuda.max_memory_allocated()
     expect_counts(main_counts, f"{config_name} main path",
                   **per_block(config_name, FULL_NCOL // FULL_BLOCK))
-    steps = check_and_time(step, args, flux)
+    steps = check_and_time(step, args, flux, config_name)
     step_s = statistics.median(steps)
     phase(f"slice_{tag}_full", ncol=FULL_NCOL, block=FULL_BLOCK,
           first_step_s=first_s, step_s=step_s, step_s_all=steps,
@@ -1243,8 +1345,95 @@ def ifs_full_phase(tmp, path, smi):
           card=smi)
 
 
+def _equal_fluxes(got, ref, what):
+    """Two sets of fields (tensors or arrays, by name) equal bit for bit."""
+    if set(got) != set(ref):
+        raise AssertionError(f"{what}: fields differ: {set(got) ^ set(ref)}")
+    differ = [k for k in ref if not np.array_equal(
+        np.asarray(torch.as_tensor(got[k]).cpu()),
+        np.asarray(torch.as_tensor(ref[k]).cpu()))]
+    if differ:
+        raise AssertionError(f"{what}: not bit-equal in {differ}")
+
+
+def sharded_phase(smi):
+    """sharded: radiation_sharded of the flagship at full size over the
+    card's mesh (blocks of 2048) and over three slabs of the one card,
+    each against radiation_blocked, bit for bit (the same column blocks),
+    timed."""
+    step, args = flagship.build(ncol=FULL_NCOL, dtype=torch.float32,
+                                device=DEV, block_size=FULL_BLOCK)
+    kw = dict(zip(flagship.ARG_ORDER, args))
+    ref = step(*args).fields()
+    torch.cuda.synchronize()
+    for label, mesh, block in (
+            ("make_mesh", pipeline.make_mesh(), FULL_BLOCK),
+            ("cuda0x3", (torch.device("cuda", 0),) * 3, None)):
+        reset_counts()
+        t0 = time.perf_counter()
+        flux = pipeline.radiation_sharded(
+            step.config, step.tables, mesh, solar_irradiance=step.solar,
+            block_size=block, **kw)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        n = counts()
+        expect_counts(n, f"sharded {label}",
+                      **per_block("mcica_rrtmg", FULL_NCOL // FULL_BLOCK))
+        _equal_fluxes(flux.fields(), ref, f"sharded {label}")
+        phase("sharded", mesh=[str(d) for d in mesh], block=block,
+              ncol=FULL_NCOL, equal_to_blocked=True, run_s=run_s,
+              cols_per_s=FULL_NCOL / run_s, launches=n, card=smi)
+
+
+def distributed_phase(tmp, path, smi, world=2):
+    """distributed: two ranks on the one card (gloo), each reading its
+    slab of the file at path, against one process's radiation_sharded
+    over two slabs with the same column blocks, bit for bit."""
+    from ecrad_torch.io.input import DriverConfig as DC
+    worker = os.path.join(HERE, "tests", "torch_dist_worker.py")
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, worker, str(r), str(world), str(port), path, tmp,
+         "local", "float32", str(FULL_BLOCK)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    try:
+        outs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    run_s = time.perf_counter() - t0
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"rank {r} failed:\n{out[-4000:]}")
+    shards = [dict(np.load(os.path.join(tmp, f"shard{r}.npz")))
+              for r in range(world)]
+    if [int(s.pop("start")) for s in shards] != [0, FULL_NCOL // world] \
+            or int(shards[-1].pop("stop")) != FULL_NCOL:
+        raise AssertionError("the ranks' slabs do not tile the columns")
+    shards[0].pop("stop")
+    got = {k: np.concatenate([s[k] for s in shards]) for k in shards[0]}
+    config, tables = setup_radiation(flagship.flagship_config("float32"),
+                                     DEV, torch.float32, data_dir=DATA_DIR)
+    inp = read_input(path, DC(**flagship.DRIVER_SETTINGS))
+    kw = dict(zip(flagship.ARG_ORDER,
+                  flagship.inputs_from(inp, torch.float32, DEV)))
+    ref = pipeline.radiation_sharded(
+        config, tables, (DEV,) * world, block_size=FULL_BLOCK,
+        solar_irradiance=float(inp.solar_irradiance), **kw).fields()
+    _equal_fluxes(got, ref, "distributed")
+    phase("distributed", ranks=world, backend="gloo", ncol=FULL_NCOL,
+          block=FULL_BLOCK, equal_to_one_process=True, run_s=run_s,
+          outputs=[o.strip().splitlines()[-1] for o in outs], card=smi)
+
+
 def entry_point_phases(smi):
-    """The phases of the two command-line entry points (14-16)."""
+    """The phases of the two command-line entry points (14-16) and the
+    distributed run (18), which reads the full-size file they write."""
     with tempfile.TemporaryDirectory() as tmp:
         with np.load(os.path.join(DATA, "torch_driver_meridian32.npz")) as z:
             ref = {k: z[k] for k in z.files}
@@ -1255,6 +1444,7 @@ def entry_point_phases(smi):
             ref = {k: z[k] for k in z.files}
         ifs_f64_phase(tmp, ref)
         ifs_full_phase(tmp, path, smi)
+        distributed_phase(tmp, path, smi)
 
 
 def main():
@@ -1273,6 +1463,7 @@ def main():
         path_counts[config_name] = slice_phases(config_name, ref, smi)
         if config_name == "spartacus_3d":
             spartacus_gpoint_phase(ref)
+    sharded_phase(smi)
     entry_point_phases(smi)
     # each kernel's launches in the first main path that runs it
     launches = {}

@@ -1,6 +1,6 @@
 """ecrad_torch: the PyTorch/CUDA port of ecrad_tpu.
 
-RRTMG or ecCKD gas optics, IFS general or legacy band-wise aerosols (types
+RRTMG, ecCKD or monochromatic gas optics, IFS general or legacy band-wise aerosols (types
 by index or by name) or directly specified aerosol optics, the band-wise
 cloud optics models (SOCRATES or Slingo/Lindner-Li liquid; Fu, Baran,
 Baran2016, Baran2017 or Yi ice) or general cloud optics, LW
@@ -24,9 +24,12 @@ Entry points, each on the card unless told otherwise:
   ``mcica_rrtmg`` (the flagship), ``tripleclouds_rrtmg``,
   ``cloudless_rrtmg``, ``homogeneous_rrtmg``, ``spartacus_3d``,
   ``tripleclouds_ecckd``, ``ecckd_mcica``, ``tripleclouds_baran2016``,
-  ``mcica_rrtmg_spectral`` and ``tripleclouds_ecckd_gpoint``
-  (``flagship.namelist_text`` writes any of them as the drivers'
-  namelist).
+  ``mcica_rrtmg_spectral``, ``tripleclouds_ecckd_gpoint``,
+  ``cloudless_rrtmg_spectral``, ``homogeneous_rrtmg_spectral`` and
+  ``monochromatic_homogeneous`` (``flagship.namelist_text`` writes any of
+  them as the drivers' namelist);
+* :func:`ecrad_torch.pipeline.radiation_sharded`, columns over several
+  devices, and :mod:`ecrad_torch.distributed`, over processes.
 The JAX package ``ecrad_tpu`` is the reference; this package imports
 nothing of it.
 """

@@ -71,6 +71,18 @@
 // (3 plane passes, 2 blocks per SM) measured no faster.  A barrier per
 // level inside the `if (k < ch.n)` guard made the up pass's sums wrong;
 // after the guard it gave the right sums.
+//
+// Spectral flux output: each kernel is a template on kPlanes.  The build
+// with planes also stores each thread's (g-point's) fluxes at every
+// half-level into per-g planes (ncol, nlev+1, ng), TOA first, where the
+// level loops already hold them: lw_noscat_sweeps the down flux in its down
+// pass and the up flux in its up pass (row nlev fup_surf), scat_sweeps and
+// sw_sweeps the down and up fluxes in the down pass, inside each chunk's
+// recompute (row 0: 0 and src_top), sw_sweeps also the direct flux (normal
+// to the beam; row 0 the incoming flux).  These are the values the plain
+// versions return with planes=True.  The stores are contiguous over g (one
+// row of a plane per level), with no atomics and no barrier; the build
+// without planes is the kernel above, unchanged.
 #include "common.cuh"
 
 namespace {
@@ -87,6 +99,7 @@ template <typename T> struct NoscatArgs {
   const T *trans, *s_up, *s_dn;           // (ncol, nlev, ng)
   const T *emission, *albedo;             // (ncol, ng)
   T *dn_bb, *fdn_surf, *up_bb, *fup_toa, *fup_surf;
+  T *dn_g, *up_g;                         // (ncol, nlev+1, ng), kPlanes
   int nlev, ng;
 };
 
@@ -95,6 +108,7 @@ template <typename T> struct ScatArgs {
   const T *alb0, *src0;                   // (ncol, ng)
   T *dn_bb, *up_bb, *src_top, *fdn_surf;
   T *ckpt;                                // (ncol, nchunk, 2, ng)
+  T *dn_g, *up_g;                         // (ncol, nlev+1, ng), kPlanes
   int nlev, ng;
 };
 
@@ -103,6 +117,7 @@ template <typename T> struct SwArgs {
   const T *incoming, *alb0_dif, *alb0_dir_x_mu0;      // (ncol, ng)
   T *dir_bb, *dn_bb, *up_bb, *fdir_surf, *fdn_surf, *src_top;
   T *ckpt;                                            // (ncol, nchunk, 2, ng)
+  T *dir_g, *dn_g, *up_g;                  // (ncol, nlev+1, ng), kPlanes
   int nlev, ng;
 };
 
@@ -130,7 +145,13 @@ __device__ __forceinline__ Chunk chunk_at(int c, int nlev) {
   return {c * K, min(K, nlev - c * K)};
 }
 
-template <typename T>
+// The index of this thread's entry at half-level l of a per-g plane
+// (ncol, nlev+1, ng).
+__device__ __forceinline__ size_t half_level(int l, int nlev, int ng) {
+  return ((size_t)blockIdx.x * (nlev + 1) + l) * ng + threadIdx.x;
+}
+
+template <typename T, bool kPlanes>
 __global__ void lw_noscat_kernel(NoscatArgs<T> a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T *part = reinterpret_cast<T *>(smem_raw);
@@ -141,10 +162,12 @@ __global__ void lw_noscat_kernel(NoscatArgs<T> a) {
   const size_t cl0 = (size_t)blockIdx.x * nlev;
   const size_t cg = (size_t)blockIdx.x * ng + g;
   auto lg = [&](int l) { return (cl0 + l) * (size_t)ng + g; };
+  auto hl = [&](int l) { return half_level(l, nlev, ng); };
 
   // --- down pass, TOA -> surface
   T t[kNoscatChunk], s[kNoscatChunk];
   T fdn = T(0);
+  if (kPlanes && on) a.dn_g[hl(0)] = T(0);
   for (int c = 0; c < nchunk; ++c) {
     const Chunk ch = chunk_at<kNoscatChunk>(c, nlev);
     if (on) {
@@ -160,7 +183,10 @@ __global__ void lw_noscat_kernel(NoscatArgs<T> a) {
 #pragma unroll
     for (int k = 0; k < kNoscatChunk; ++k) {
       if (k < ch.n) {
-        if (on) fdn = t[k] * fdn + s[k];
+        if (on) {
+          fdn = t[k] * fdn + s[k];
+          if (kPlanes) a.dn_g[hl(ch.lo + k + 1)] = fdn;
+        }
         warp_partial(on ? fdn : T(0), part, 2 * (ch.lo + k), nwarp);
       }
     }
@@ -170,6 +196,7 @@ __global__ void lw_noscat_kernel(NoscatArgs<T> a) {
     fup = a.emission[cg] + a.albedo[cg] * fdn;
     a.fdn_surf[cg] = fdn;
     a.fup_surf[cg] = fup;
+    if (kPlanes) a.up_g[hl(nlev)] = fup;
   }
   // --- up pass, surface -> TOA; t still holds the surface chunk's trans
   for (int c = nchunk - 1; c >= 0; --c) {
@@ -187,7 +214,10 @@ __global__ void lw_noscat_kernel(NoscatArgs<T> a) {
 #pragma unroll
     for (int k = kNoscatChunk - 1; k >= 0; --k) {
       if (k < ch.n) {
-        if (on) fup = t[k] * fup + s[k];
+        if (on) {
+          fup = t[k] * fup + s[k];
+          if (kPlanes) a.up_g[hl(ch.lo + k)] = fup;
+        }
         warp_partial(on ? fup : T(0), part, 2 * (ch.lo + k) + 1, nwarp);
       }
     }
@@ -197,7 +227,7 @@ __global__ void lw_noscat_kernel(NoscatArgs<T> a) {
   store_level_sums(part, outs, nlev, nwarp);
 }
 
-template <typename T>
+template <typename T, bool kPlanes>
 __global__ void scat_kernel(ScatArgs<T> a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T *part = reinterpret_cast<T *>(smem_raw);
@@ -210,6 +240,7 @@ __global__ void scat_kernel(ScatArgs<T> a) {
   // this thread's checkpoints: (alb, src) of chunk c at ck[2c ng], +ng
   T *ck = a.ckpt + (size_t)blockIdx.x * nchunk * 2 * ng + g;
   auto lg = [&](int l) { return (cl0 + l) * (size_t)ng + g; };
+  auto hl = [&](int l) { return half_level(l, nlev, ng); };
 
   // --- up pass, surface -> TOA: only the checkpoints are stored
   if (on) {
@@ -234,6 +265,10 @@ __global__ void scat_kernel(ScatArgs<T> a) {
         if (k < ch.n) moebius_up(r[k], t[k], su[k], sd[k], alb, src);
     }
     a.src_top[cg] = src;
+    if (kPlanes) {
+      a.dn_g[hl(0)] = T(0);
+      a.up_g[hl(0)] = src;
+    }
   }
 
   // --- down pass, TOA -> surface, chunk by chunk
@@ -271,6 +306,10 @@ __global__ void scat_kernel(ScatArgs<T> a) {
         if (on) {
           fdn = (t[k] * fdn + r[k] * sb[k] + sd[k]) * inv[k];
           fup = ab[k] * fdn + sb[k];
+          if (kPlanes) {
+            a.dn_g[hl(ch.lo + k + 1)] = fdn;
+            a.up_g[hl(ch.lo + k + 1)] = fup;
+          }
         }
         const int l = ch.lo + k;
         warp_partial(on ? fdn : T(0), part, 2 * l, nwarp);
@@ -293,7 +332,7 @@ __device__ __forceinline__ void load_coef(const SwArgs<T> &a, size_t i,
   c.tdir = a.tdirdir[i];
 }
 
-template <typename T>
+template <typename T, bool kPlanes>
 __global__ void sw_kernel(SwArgs<T> a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T *part = reinterpret_cast<T *>(smem_raw);
@@ -306,6 +345,7 @@ __global__ void sw_kernel(SwArgs<T> a) {
   // this thread's checkpoints: (alb, albd) of chunk c at ck[2c ng], +ng
   T *ck = a.ckpt + (size_t)blockIdx.x * nchunk * 2 * ng + g;
   auto lg = [&](int l) { return (cl0 + l) * (size_t)ng + g; };
+  auto hl = [&](int l) { return half_level(l, nlev, ng); };
 
   // --- up pass, surface -> TOA: the diffuse and direct albedos
   if (on) {
@@ -323,6 +363,12 @@ __global__ void sw_kernel(SwArgs<T> a) {
         if (k < ch.n) albedo_up(cf[k], alb, albd, alb, albd);
     }
     a.src_top[cg] = albd * a.incoming[cg];
+    if (kPlanes) {
+      const T incoming = a.incoming[cg];
+      a.dir_g[hl(0)] = incoming;
+      a.dn_g[hl(0)] = T(0);
+      a.up_g[hl(0)] = albd * incoming;
+    }
   }
 
   // --- down pass, TOA -> surface: the direct beam and the diffuse flux.
@@ -364,6 +410,12 @@ __global__ void sw_kernel(SwArgs<T> a) {
           fdir = td[k] * fdir_top;
           fdn = A[k] * fdn + B[k] * fdir_top;
           fup = Y[k] * fdir_top + fdn * ab[k];
+          if (kPlanes) {
+            const size_t h = hl(ch.lo + k + 1);
+            a.dir_g[h] = fdir;
+            a.dn_g[h] = fdn;
+            a.up_g[h] = fup;
+          }
         }
         const int l = ch.lo + k;
         warp_partial(on ? fdir : T(0), part, 3 * l, nwarp);
@@ -399,7 +451,8 @@ int launch_chunked(Kernel kernel, const Args &a, int ncol, int nsums,
 }
 
 template <typename T>
-int launch_noscat(void *const *p, int ncol, int nlev, int ng, void *stream) {
+int launch_noscat(void *const *p, int ncol, int nlev, int ng, int planes,
+                  void *stream) {
   NoscatArgs<T> a;
   a.trans = (const T *)p[0];
   a.s_up = (const T *)p[1];
@@ -411,13 +464,19 @@ int launch_noscat(void *const *p, int ncol, int nlev, int ng, void *stream) {
   a.up_bb = (T *)p[7];
   a.fup_toa = (T *)p[8];
   a.fup_surf = (T *)p[9];
+  a.dn_g = (T *)p[10];
+  a.up_g = (T *)p[11];
   a.nlev = nlev;
   a.ng = ng;
-  return launch_chunked(lw_noscat_kernel<T>, a, ncol, 2, sizeof(T), stream);
+  return planes ? launch_chunked(lw_noscat_kernel<T, true>, a, ncol, 2,
+                                 sizeof(T), stream)
+                : launch_chunked(lw_noscat_kernel<T, false>, a, ncol, 2,
+                                 sizeof(T), stream);
 }
 
 template <typename T>
-int launch_scat(void *const *p, int ncol, int nlev, int ng, void *stream) {
+int launch_scat(void *const *p, int ncol, int nlev, int ng, int planes,
+                void *stream) {
   ScatArgs<T> a;
   a.refl = (const T *)p[0];
   a.trans = (const T *)p[1];
@@ -430,13 +489,19 @@ int launch_scat(void *const *p, int ncol, int nlev, int ng, void *stream) {
   a.src_top = (T *)p[8];
   a.fdn_surf = (T *)p[9];
   a.ckpt = (T *)p[10];
+  a.dn_g = (T *)p[11];
+  a.up_g = (T *)p[12];
   a.nlev = nlev;
   a.ng = ng;
-  return launch_chunked(scat_kernel<T>, a, ncol, 2, sizeof(T), stream);
+  return planes ? launch_chunked(scat_kernel<T, true>, a, ncol, 2, sizeof(T),
+                                 stream)
+                : launch_chunked(scat_kernel<T, false>, a, ncol, 2,
+                                 sizeof(T), stream);
 }
 
 template <typename T>
-int launch_sw(void *const *p, int ncol, int nlev, int ng, void *stream) {
+int launch_sw(void *const *p, int ncol, int nlev, int ng, int planes,
+              void *stream) {
   SwArgs<T> a;
   a.refl = (const T *)p[0];
   a.trans = (const T *)p[1];
@@ -453,38 +518,46 @@ int launch_sw(void *const *p, int ncol, int nlev, int ng, void *stream) {
   a.fdn_surf = (T *)p[12];
   a.src_top = (T *)p[13];
   a.ckpt = (T *)p[14];
+  a.dir_g = (T *)p[15];
+  a.dn_g = (T *)p[16];
+  a.up_g = (T *)p[17];
   a.nlev = nlev;
   a.ng = ng;
-  return launch_chunked(sw_kernel<T>, a, ncol, 3, sizeof(T), stream);
+  return planes ? launch_chunked(sw_kernel<T, true>, a, ncol, 3, sizeof(T),
+                                 stream)
+                : launch_chunked(sw_kernel<T, false>, a, ncol, 3, sizeof(T),
+                                 stream);
 }
 
 }  // namespace
 
 // p: the tensor pointers in the order of the Args struct (inputs, outputs,
-// checkpoints), as solvers/cuda_adding.py passes them.
+// checkpoints, then the per-g planes, null unless planes), as
+// solvers/cuda_adding.py passes them; planes selects the build that writes
+// them.
 extern "C" int ecrad_lw_noscat_sweeps_f32(void *const *p, int ncol, int nlev,
-                                          int ng, void *stream) {
-  return launch_noscat<float>(p, ncol, nlev, ng, stream);
+                                          int ng, int planes, void *stream) {
+  return launch_noscat<float>(p, ncol, nlev, ng, planes, stream);
 }
 extern "C" int ecrad_lw_noscat_sweeps_f64(void *const *p, int ncol, int nlev,
-                                          int ng, void *stream) {
-  return launch_noscat<double>(p, ncol, nlev, ng, stream);
+                                          int ng, int planes, void *stream) {
+  return launch_noscat<double>(p, ncol, nlev, ng, planes, stream);
 }
 extern "C" int ecrad_scat_sweeps_f32(void *const *p, int ncol, int nlev,
-                                     int ng, void *stream) {
-  return launch_scat<float>(p, ncol, nlev, ng, stream);
+                                     int ng, int planes, void *stream) {
+  return launch_scat<float>(p, ncol, nlev, ng, planes, stream);
 }
 extern "C" int ecrad_scat_sweeps_f64(void *const *p, int ncol, int nlev,
-                                     int ng, void *stream) {
-  return launch_scat<double>(p, ncol, nlev, ng, stream);
+                                     int ng, int planes, void *stream) {
+  return launch_scat<double>(p, ncol, nlev, ng, planes, stream);
 }
 extern "C" int ecrad_sw_sweeps_f32(void *const *p, int ncol, int nlev,
-                                   int ng, void *stream) {
-  return launch_sw<float>(p, ncol, nlev, ng, stream);
+                                   int ng, int planes, void *stream) {
+  return launch_sw<float>(p, ncol, nlev, ng, planes, stream);
 }
 extern "C" int ecrad_sw_sweeps_f64(void *const *p, int ncol, int nlev,
-                                   int ng, void *stream) {
-  return launch_sw<double>(p, ncol, nlev, ng, stream);
+                                   int ng, int planes, void *stream) {
+  return launch_sw<double>(p, ncol, nlev, ng, planes, stream);
 }
 // The levels per checkpoint of scat_sweeps and sw_sweeps: the wrapper
 // allocates (ncol, ceil(nlev / chunk), 2, ng) checkpoints.

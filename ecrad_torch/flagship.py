@@ -24,7 +24,16 @@ configurations change the solvers:
   per-g planes, projected onto the 14 SW / 16 LW bands;
 * ``tripleclouds_ecckd_gpoint``: ``tripleclouds_ecckd`` with flux
   profiles per g-point (do_save_gpoint_flux): the Tripleclouds kernels
-  write their per-g planes at 32 g-points.
+  write their per-g planes at 32 g-points;
+* ``cloudless_rrtmg_spectral``, ``homogeneous_rrtmg_spectral``:
+  ``cloudless_rrtmg`` and ``homogeneous_rrtmg`` with flux profiles and TOA
+  fluxes per band: the adding sweeps (and the McICA SW kernel of the
+  Homogeneous path) write their per-g planes;
+* ``monochromatic_homogeneous``: monochromatic gas and cloud optics (one
+  g-point in each band set; column optical depths 1.0 LW and 0.2 SW, as
+  tests/test_monochromatic.py) with Homogeneous SW and LW and no
+  aerosols, on the meridian slice's clouds: every kernel of the path at
+  ng = 1.
 
 The fields a configuration's Flux sets (``Flux.fields()``) depend on it:
 the spectral ones only with the flags above.
@@ -87,6 +96,21 @@ CONFIGS = {
     "tripleclouds_ecckd_gpoint": dict(sw_solver=Solver.TRIPLECLOUDS,
                                       lw_solver=Solver.TRIPLECLOUDS,
                                       do_save_gpoint_flux=True, **ECCKD),
+    "cloudless_rrtmg_spectral": dict(sw_solver=Solver.CLOUDLESS,
+                                     lw_solver=Solver.CLOUDLESS,
+                                     do_save_spectral_flux=True,
+                                     do_toa_spectral_flux=True),
+    "homogeneous_rrtmg_spectral": dict(sw_solver=Solver.HOMOGENEOUS,
+                                       lw_solver=Solver.HOMOGENEOUS,
+                                       do_lw_aerosol_scattering=True,
+                                       do_save_spectral_flux=True,
+                                       do_toa_spectral_flux=True),
+    "monochromatic_homogeneous": dict(
+        gas_model_sw=GasModel.MONOCHROMATIC,
+        gas_model_lw=GasModel.MONOCHROMATIC,
+        sw_solver=Solver.HOMOGENEOUS, lw_solver=Solver.HOMOGENEOUS,
+        mono_lw_total_od=1.0, mono_sw_total_od=0.2, use_aerosols=False,
+        n_aerosol_types=0, i_aerosol_type_map=()),
 }
 
 
@@ -187,12 +211,32 @@ def build(ncol=32, dtype=torch.float32, device="cuda", block_size=None,
         flagship_config(dtype_name, config_name), device, dtype,
         data_dir=DATA_DIR)
     inp = read_input(MERIDIAN_INPUT, DriverConfig(**DRIVER_SETTINGS))
+    inputs = inputs_from(inp, dtype, device, ncol)
+    solar = float(inp.solar_irradiance)
+
+    def step(*args) -> "pipeline.Flux":
+        kw = dict(zip(ARG_ORDER, args))
+        if block_size is not None:
+            return pipeline.radiation_blocked(
+                config, tables, solar_irradiance=solar,
+                block_size=block_size, **kw)
+        return pipeline.radiation_step(config, tables,
+                                       solar_irradiance=solar, **kw)
+
+    step.config, step.tables, step.solar = config, tables, solar
+    return step, inputs
+
+
+def inputs_from(inp, dtype, device, ncol=None):
+    """A step's arguments (ARG_ORDER) from a RadiationInput
+    (io/input.read_input), as tensors on ``device`` in ``dtype`` (the seeds
+    int64), its columns tiled up or down to ncol when given."""
 
     def tile(x, dt=dtype):
-        """Tile the 32-column meridian slice up/down to ncol columns."""
         x = np.asarray(x)
-        reps = (ncol + x.shape[0] - 1) // x.shape[0]
-        x = np.concatenate([x] * reps, axis=0)[:ncol]
+        if ncol is not None:
+            reps = (ncol + x.shape[0] - 1) // x.shape[0]
+            x = np.concatenate([x] * reps, axis=0)[:ncol]
         return torch.as_tensor(x, device=device).to(dt)
 
     cloud = {
@@ -223,16 +267,4 @@ def build(ncol=32, dtype=torch.float32, device="cuda", block_size=None,
         cloud=cloud,
         aerosol={"mixing_ratio": tile(inp.aerosol_mmr)},
     )
-    solar = float(inp.solar_irradiance)
-
-    def step(*args) -> "pipeline.Flux":
-        kw = dict(zip(ARG_ORDER, args))
-        if block_size is not None:
-            return pipeline.radiation_blocked(
-                config, tables, solar_irradiance=solar,
-                block_size=block_size, **kw)
-        return pipeline.radiation_step(config, tables,
-                                       solar_irradiance=solar, **kw)
-
-    step.config, step.tables, step.solar = config, tables, solar
-    return step, tuple(inputs[k] for k in ARG_ORDER)
+    return tuple(inputs[k] for k in ARG_ORDER)

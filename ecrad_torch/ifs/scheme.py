@@ -21,7 +21,7 @@ import torch
 
 from ecrad_torch import constants
 from ecrad_torch.cloud_size import param_cloud_effective_separation_eta
-from ecrad_torch.config import Config, Solver
+from ecrad_torch.config import Config, GasModel, Solver
 from ecrad_torch.containers import to_numpy
 from ecrad_torch.gas import Gas
 from ecrad_torch.ifs import parameterizations as P
@@ -59,7 +59,13 @@ def setup_radiation_scheme(config: Config, device, dtype,
     definition built at setup (tables.specdef_sw): band-wise for RRTMG,
     per g-point when do_cloud_aerosol_per_sw_g_point (ecCKD), matching
     get_sw_weights' use_bands choice (radiation_config.F90:1666-1668).
+    Monochromatic optics have no spectral definition, so no UV or PAR
+    weights: they raise, as they fail in the JAX package's IFS layer.
     """
+    if config.gas_model_sw == GasModel.MONOCHROMATIC:
+        raise NotImplementedError(
+            "the IFS layer's UV and PAR weights need a spectral definition, "
+            "which monochromatic gas optics do not have")
     cfg = config.replace(do_surface_sw_spectral_flux=True,
                          do_canopy_fluxes_sw=True,
                          do_canopy_fluxes_lw=True)

@@ -1,13 +1,16 @@
 """Radiation scheme orchestration (port of ``ecrad_tpu/interface.py``
-for the RRTMG and ecCKD configurations, in either band, with the Cloudless,
-Homogeneous, McICA, Tripleclouds and SPARTACUS solvers).
+for the RRTMG and ecCKD configurations, in either band, and monochromatic
+optics, with the Cloudless, Homogeneous, McICA, Tripleclouds and
+SPARTACUS solvers).
 
 Equivalent of radiation/radiation_interface.F90: ``setup_radiation``
 (host-side: loads the LUTs, computes the spectral mappings, and returns
 the consolidated Config plus a :class:`Tables` of torch tensors on one
 device) and ``radiation`` (gas optics, aerosol, cloud optics, the
-solvers).  Configurations outside the port's slice raise
-NotImplementedError.
+solvers).  Configurations the JAX package rejects raise
+NotImplementedError here too, and so do ecCKD gas optics with the
+band-wise cloud optics, which the JAX package runs into non-finite
+fluxes.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from ecrad_torch.optics import aerosol as aerosol_mod
 from ecrad_torch.optics import cloud as cloud_optics_mod
 from ecrad_torch.optics import ecckd as ecckd_mod
 from ecrad_torch.optics import general_cloud as general_cloud_mod
+from ecrad_torch.optics import monochromatic as mono_mod
 from ecrad_torch.optics import rrtmg, rrtmg_data
 from ecrad_torch.optics.aerosol_description import resolve_aerosol_type_names
 from ecrad_torch.optics.spectral_def import SpectralDefinition
@@ -40,7 +44,8 @@ class Tables(NamedTuple):
     """Setup-time derived arrays, as tensors on one device (integer
     index arrays int64, everything else in the working dtype; scalars,
     strings and the ecCKD metadata stay Python values)."""
-    gas: Dict                      # {"rrtmg": tables, "sw"/"lw": ecCKD}
+    gas: Optional[Dict]            # {"rrtmg": tables, "sw"/"lw": ecCKD};
+    #                                None for monochromatic optics
     sw_albedo_weights: torch.Tensor            # (nalbedo, nbands_sw)
     lw_emiss_weights: torch.Tensor             # (nemiss, nbands_lw)
     i_albedo_from_band_sw: Optional[torch.Tensor]
@@ -88,7 +93,7 @@ def tables_from_numpy(jax_tables, device, dtype) -> Tables:
         if name.startswith("specdef"):
             continue
         value = getattr(jax_tables, name)
-        if name == "gas":
+        if name == "gas" and value is not None:
             value = {k: {kk: vv for kk, vv in v.items() if kk != "windows"}
                      for k, v in value.items()}
         kw[name] = _to_tensors(value, device, dtype)
@@ -96,19 +101,15 @@ def tables_from_numpy(jax_tables, device, dtype) -> Tables:
 
 
 def _check_supported(config: Config):
-    """The configurations this port covers."""
-    models = (GasModel.RRTMG, GasModel.ECCKD)
-    if (config.gas_model_sw not in models
-            or config.gas_model_lw not in models):
-        raise NotImplementedError("the port has RRTMG and ecCKD gas optics "
-                                  "only")
-    ported = (Solver.CLOUDLESS, Solver.HOMOGENEOUS, Solver.MCICA,
-              Solver.TRIPLECLOUDS, Solver.SPARTACUS)
-    if (config.do_sw and config.sw_solver not in ported) or (
-            config.do_lw and config.lw_solver not in ported):
+    """The configurations this port covers: what the JAX package covers
+    (monochromatic optics in both band sets or in neither,
+    ecrad_tpu/interface.py setup_radiation; every solver), and SPARTACUS
+    with three regions only (the reference fixes NREG = 3)."""
+    if (GasModel.MONOCHROMATIC in (config.gas_model_sw,
+                                   config.gas_model_lw)
+            and config.gas_model_sw != config.gas_model_lw):
         raise NotImplementedError(
-            "the port has the Cloudless, Homogeneous, McICA, Tripleclouds "
-            "and SPARTACUS solvers only")
+            "monochromatic gas optics cannot be mixed with other models")
     if Solver.SPARTACUS in (config.sw_solver, config.lw_solver) \
             and config.nregions != 3:
         raise NotImplementedError("the port's SPARTACUS solvers take three "
@@ -138,10 +139,16 @@ def _gas_model_setup(config: Config, band: str, ddir: str, gas_tables,
                      gas_meta):
     """One band set's gas model ("sw" or "lw"; radiation_interface.F90
     setup_radiation): returns (its Config fields, band_from_g (0-based),
-    spectral definition); the model's tables go into gas_tables, an ecCKD
-    model's metadata into gas_meta."""
+    spectral definition, None for monochromatic); the model's tables go
+    into gas_tables, an ecCKD model's metadata into gas_meta."""
     is_sw = band == "sw"
     model = config.gas_model_sw if is_sw else config.gas_model_lw
+    if model == GasModel.MONOCHROMATIC:
+        # radiation_monochromatic.F90:20-40: one g-point, one band, no
+        # tables and no spectral definition
+        return ({f"n_g_{band}": 1, f"n_bands_{band}": 1,
+                 f"do_cloud_aerosol_per_{band}_g_point": False},
+                np.zeros(1, np.int32), None)
     if model == GasModel.RRTMG:
         # RRTMG supports only band-wise cloud/aerosol/surface optics, on a
         # band-bounds-only spectral definition
@@ -180,10 +187,11 @@ def _gas_model_setup(config: Config, band: str, ddir: str, gas_tables,
 
 def setup_radiation(config: Config, device, dtype, data_dir: str = None):
     """Host-side setup (radiation_interface.F90:37-156) for the RRTMG and
-    ecCKD gas models (per band set), band-wise or general cloud optics and
-    general or legacy band-wise aerosols, their types given by index or by
-    name, with the ported solvers.  Cloud tables load only
-    when a solver needs clouds, the McICA PDF table only when McICA is one
+    ecCKD gas models (per band set) or monochromatic optics, band-wise or
+    general cloud optics and general or legacy band-wise aerosols, their
+    types given by index or by name, with the ported solvers.  Cloud
+    tables load only when a solver needs clouds (never for monochromatic
+    optics, which needs none), the McICA PDF table only when McICA is one
     of the solvers.
 
     data_dir overrides config.directory_name for locating optics files.
@@ -211,9 +219,9 @@ def setup_radiation(config: Config, device, dtype, data_dir: str = None):
     # (radiation_config.F90:1947-2103), per band or per g-point
     i_sw_idx = [i for i in config.i_sw_albedo_index if i and i > 0] or [1]
     sw_bounds = list(config.sw_albedo_wavelength_bound[:len(i_sw_idx) - 1])
-    sw_albedo_weights = specdef_sw.calc_mapping_from_bands(
-        sw_bounds, i_sw_idx,
-        use_bands=not config.do_cloud_aerosol_per_sw_g_point)
+    sw_albedo_weights = _surface_weights(
+        specdef_sw, sw_bounds, i_sw_idx,
+        config.do_cloud_aerosol_per_sw_g_point)
     kw["n_albedo_intervals"] = int(max(i_sw_idx))
     kw["n_canopy_bands_sw"] = (kw["n_g_sw"]
                                if config.use_canopy_full_spectrum_sw
@@ -224,9 +232,9 @@ def setup_radiation(config: Config, device, dtype, data_dir: str = None):
 
     i_lw_idx = [i for i in config.i_lw_emiss_index if i and i > 0] or [1]
     lw_bounds = list(config.lw_emiss_wavelength_bound[:len(i_lw_idx) - 1])
-    lw_emiss_weights = specdef_lw.calc_mapping_from_bands(
-        lw_bounds, i_lw_idx,
-        use_bands=not config.do_cloud_aerosol_per_lw_g_point)
+    lw_emiss_weights = _surface_weights(
+        specdef_lw, lw_bounds, i_lw_idx,
+        config.do_cloud_aerosol_per_lw_g_point)
     kw["n_emiss_intervals"] = int(max(i_lw_idx))
     kw["n_canopy_bands_lw"] = (kw["n_g_lw"]
                                if config.use_canopy_full_spectrum_lw
@@ -245,7 +253,10 @@ def setup_radiation(config: Config, device, dtype, data_dir: str = None):
 
     # --- cloud optics + McICA PDF LUT
     cloud_tables = pdf_tables = None
-    if kw["do_clouds"] and config.use_general_cloud_optics:
+    mono = config.gas_model_sw == GasModel.MONOCHROMATIC
+    if mono:
+        pass        # monochromatic cloud optics need no tables
+    elif kw["do_clouds"] and config.use_general_cloud_optics:
         cloud_tables = general_cloud_mod.setup_general_cloud_optics(
             config, ddir, specdef_sw, specdef_lw)
         kw["n_cloud_types"] = len(cloud_tables["type_names"])
@@ -275,15 +286,16 @@ def setup_radiation(config: Config, device, dtype, data_dir: str = None):
             i_aerosol_type_map=kw["i_aerosol_type_map"],
             n_aerosol_types=kw["n_aerosol_types"])
     if config.use_aerosols and config.n_aerosol_types > 0:
+        # no band bounds without a spectral definition (monochromatic)
+        wn = [w for d in (specdef_sw, specdef_lw)
+              for w in ((None, None) if d is None
+                        else (d.wavenumber1_band, d.wavenumber2_band))]
         aerosol_tables = aerosol_mod.setup_aerosol_optics(
-            config, ddir, specdef_sw.wavenumber1_band,
-            specdef_sw.wavenumber2_band, specdef_lw.wavenumber1_band,
-            specdef_lw.wavenumber2_band, specdef_sw=specdef_sw,
-            specdef_lw=specdef_lw)
+            config, ddir, *wn, specdef_sw=specdef_sw, specdef_lw=specdef_lw)
 
     new_config = config.replace(**kw)
     host = Tables(
-        gas=gas_tables,
+        gas=None if mono else gas_tables,
         sw_albedo_weights=sw_albedo_weights,
         lw_emiss_weights=lw_emiss_weights,
         i_albedo_from_band_sw=i_albedo_from_band_sw,
@@ -297,6 +309,17 @@ def setup_radiation(config: Config, device, dtype, data_dir: str = None):
     )
     return new_config, tables_from_numpy(host, device, dtype)._replace(
         specdef_sw=specdef_sw, specdef_lw=specdef_lw)
+
+
+def _surface_weights(specdef, bounds, idx, per_g):
+    """The (n_intervals, nbands) surface albedo or emissivity weights
+    (radiation_config.F90:1947-2103); without a spectral definition
+    (monochromatic optics) all the weight on the first interval."""
+    if specdef is None:
+        w = np.zeros((int(max(idx)), 1))
+        w[0, 0] = 1.0
+        return w
+    return specdef.calc_mapping_from_bands(bounds, idx, use_bands=not per_g)
 
 
 # ---------------------------------------------------------------------------
@@ -409,9 +432,16 @@ def _optical_properties(config: Config, tables: Tables, *,
     gdict = {name: gas_mmr[:, :, constants.GAS_INDEX[name]]
              for name in ("h2o", "co2", "ch4", "n2o", "cfc11", "cfc12",
                           "hcfc22", "ccl4", "o3")}
-    # RRTMG and/or ecCKD, possibly mixed per band set
+    # RRTMG and/or ecCKD, possibly mixed per band set, or monochromatic
     # (radiation_interface.F90 gas_optics dispatch)
     go_kw = {}
+    mono = config.gas_model_sw == GasModel.MONOCHROMATIC
+    if mono:
+        m = mono_mod.gas_optics(config, pressure_hl, temperature_hl,
+                                skin_temperature, solar_irradiance)
+        go_kw = {k: m[k] for k in (
+            *(("od_lw", "planck_hl", "lw_emission") if config.do_lw else ()),
+            *(("od_sw", "ssa_sw", "incoming_sw") if config.do_sw else ()))}
     do_lw_rrtmg = config.do_lw and config.gas_model_lw == GasModel.RRTMG
     do_sw_rrtmg = config.do_sw and config.gas_model_sw == GasModel.RRTMG
     if do_lw_rrtmg or do_sw_rrtmg:
@@ -452,7 +482,7 @@ def _optical_properties(config: Config, tables: Tables, *,
         # directly specified band-wise optics
         aer = aerosol_mod.direct_aerosol_properties(config, aerosol)
     elif config.use_aerosols and aerosol is not None \
-            and tables.aerosol is not None:
+            and tables.aerosol is not None and not mono:
         # RH-dependent aerosol merge (radiation_aerosol_optics.F90:487+)
         p_fl = 0.5 * (pressure_hl[:, :-1] + pressure_hl[:, 1:])
         t_fl = 0.5 * (temperature_hl[:, :-1] + temperature_hl[:, 1:])
@@ -472,7 +502,11 @@ def _optical_properties(config: Config, tables: Tables, *,
     frac = cl = None
     if do_clouds:
         frac = crop_cloud_fraction(config, cloud)
-        if config.use_general_cloud_optics:
+        if mono:
+            cl = mono_mod.cloud_optics(
+                config, pressure_hl, frac, cloud["q_liq"], cloud["q_ice"],
+                cloud["re_liq"], cloud["re_ice"])
+        elif config.use_general_cloud_optics:
             cl = general_cloud_mod.general_cloud_optics(
                 config, tables.cloud, pressure_hl, frac,
                 torch.stack([cloud["q_liq"], cloud["q_ice"]], dim=-1),
@@ -582,11 +616,10 @@ def radiation(config: Config, tables: Tables, *,
     shifts the ecCKD solar spectrum along the solar cycle (with
     use_spectral_solar_cycle).  With do_save_spectral_flux or
     do_save_gpoint_flux the *_band profile fields are set, per band or per
-    g-point, from the per-g planes of the fused McICA and Tripleclouds
-    kernels or the SPARTACUS profiles; the routes through the adding
-    sweeps (Cloudless, unfused McICA, the Tripleclouds scan form) raise
-    NotImplementedError for them.  do_toa_spectral_flux sets the TOA band
-    fields.  For a McICA solver cloud must carry the
+    g-point, from the per-g planes of the kernels (the fused McICA and
+    Tripleclouds kernels, or the adding sweeps on the Cloudless, unfused
+    McICA and Tripleclouds scan routes) or the SPARTACUS profiles.
+    do_toa_spectral_flux sets the TOA band fields.  For a McICA solver cloud must carry the
     stochastic sample (od_scaling_*, total_cloud_cover_*; see
     pipeline.add_cloud_sample); Tripleclouds reads fractional_std and
     overlap_param, SPARTACUS also inv_cloud_effective_size (and

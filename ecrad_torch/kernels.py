@@ -44,14 +44,15 @@ _I = ctypes.c_int
 _D = ctypes.c_double
 _SIGNATURES = {
     "ecrad_generator_scan": [_P] * 6 + [_I] * 4 + [_P],
-    # the four fused kernels take a last int: write the per-g planes
+    # the fused kernels take a last int: write the per-g planes
     "ecrad_lw_fused": [_P] + [_I] * 5 + [_P],
     "ecrad_sw_fused": [_P] + [_I] * 6 + [_P],
     "ecrad_tripleclouds_lw": [_P] + [_I] * 5 + [_P],
     "ecrad_tripleclouds_sw": [_P] + [_I] * 6 + [_P],
-    "ecrad_lw_noscat_sweeps": [_P] + [_I] * 3 + [_P],
-    "ecrad_scat_sweeps": [_P] + [_I] * 3 + [_P],
-    "ecrad_sw_sweeps": [_P] + [_I] * 3 + [_P],
+    # the three adding sweeps too
+    "ecrad_lw_noscat_sweeps": [_P] + [_I] * 4 + [_P],
+    "ecrad_scat_sweeps": [_P] + [_I] * 4 + [_P],
+    "ecrad_sw_sweeps": [_P] + [_I] * 4 + [_P],
     "ecrad_spartacus_sw": [_P] + [_I] * 5 + [_D] * 3 + [_P],
     "ecrad_spartacus_lw": [_P] + [_I] * 4 + [_P],
 }

@@ -1,13 +1,17 @@
-"""Column-blocked execution of the radiation scheme (port of
-``ecrad_tpu/pipeline.py``: the cloud generator followed by
-``interface.radiation``, per step or per column block).
+"""Column-blocked and column-parallel execution of the radiation scheme
+(port of ``ecrad_tpu/pipeline.py``: the cloud generator followed by
+``interface.radiation``, per step, per column block, or per slab of
+columns on each device of a mesh).
 
 The stochastic McICA sample is generated on the device inside the step
-(threefry keyed per column via ``cloud["iseed"]``), so the result does
-not depend on the blocking.
+(threefry keyed per column via ``cloud["iseed"]``), and every column is
+computed on its own, so the result does not depend on the blocking or on
+the number of devices.
 """
 
 from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -104,4 +108,101 @@ def radiation_blocked(config: Config, tables: Tables, *, solar_irradiance,
             **block))
     return Flux(**{name: torch.cat([f.fields()[name] for f in fluxes],
                                    dim=0)[:ncol]
+                   for name in fluxes[0].fields()})
+
+
+# --- column parallelism over devices ------------------------------------
+
+def make_mesh(n_devices: Optional[int] = None,
+              devices: Optional[Sequence] = None) -> Tuple[torch.device, ...]:
+    """The devices columns are split over (the analogue of the JAX
+    package's 1-D ``columns`` mesh): the given ``devices``, or every CUDA
+    device, the first ``n_devices`` of them when given.  Raises when no
+    card is present and no devices are named; a device may repeat (e.g.
+    ``(torch.device("cpu"),) * 8``, or one card three times)."""
+    if devices is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("make_mesh: no CUDA device; name the devices "
+                               "(e.g. devices=[torch.device('cpu')] * 8)")
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    mesh = tuple(torch.device(d) for d in devices)
+    if n_devices is not None:
+        if not 1 <= n_devices <= len(mesh):
+            raise ValueError(f"make_mesh: {n_devices} devices asked for, "
+                             f"{len(mesh)} present")
+        mesh = mesh[:n_devices]
+    return mesh
+
+
+def _to_device(x, device):
+    """A tree of tensors (dicts, lists, tuples, NamedTuples) with every
+    tensor moved to ``device``; other leaves unchanged."""
+    if torch.is_tensor(x):
+        return x.to(device)
+    if isinstance(x, dict):
+        return {k: _to_device(v, device) for k, v in x.items()}
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(_to_device(v, device) for v in x))
+    if isinstance(x, (list, tuple)):
+        return type(x)(_to_device(v, device) for v in x)
+    return x
+
+
+def shard_inputs(mesh, tree, ncol: int):
+    """The column slabs of ``tree`` for the devices of ``mesh``: every
+    tensor whose leading axis is the ncol columns, padded to a multiple of
+    the mesh size by repeating the last column, cut into len(mesh) equal
+    contiguous slabs, slab i on mesh[i]; every other tensor copied to each
+    device.  Returns a list of trees, one per device."""
+    n = len(mesh)
+    per = -(-ncol // n)
+    padded = _pad_columns(tree, ncol, per * n)
+
+    def slab(x, i):
+        if not torch.is_tensor(x):
+            return x
+        if x.dim() > 0 and x.shape[0] == per * n:
+            x = x[i * per:(i + 1) * per]
+        return x.to(mesh[i])
+
+    return [_map(lambda x, i=i: slab(x, i), padded) for i in range(n)]
+
+
+def radiation_sharded(config: Config, tables: Tables, mesh, *,
+                      solar_irradiance, block_size: Optional[int] = None,
+                      cloud=None, aerosol=None, spectral_solar_scaling=None,
+                      **inputs) -> Flux:
+    """Column parallelism over the devices of ``mesh`` (make_mesh): the
+    columns padded to a multiple of the mesh size and cut into contiguous
+    slabs (shard_inputs), each slab run through radiation_step (or
+    radiation_blocked with block_size) on its device with the tables moved
+    there once per device, and the fluxes gathered on mesh[0] and cropped
+    to the ncol columns.  Each slab is issued in turn from this thread;
+    on distinct cards their kernels run asynchronously on each card.  Every
+    column is computed on its own and the McICA sample is keyed per
+    column, so the result equals radiation_blocked's over the same column
+    blocks bit for bit (a slab of each device), and radiation_step's over
+    all columns to the last bits of torch's CPU elementwise kernels, which
+    round a tensor's vectorised body and its tail differently."""
+    ncol = inputs["pressure_hl"].shape[0]
+    slabs = shard_inputs(mesh, dict(inputs, cloud=cloud, aerosol=aerosol),
+                         ncol)
+    on_device = {}
+    fluxes = []
+    for device, slab in zip(mesh, slabs):
+        if device not in on_device:
+            on_device[device] = _to_device(tables, device)
+        cl, aer = slab.pop("cloud"), slab.pop("aerosol")
+        kw = dict(solar_irradiance=solar_irradiance, cloud=cl, aerosol=aer,
+                  spectral_solar_scaling=_to_device(spectral_solar_scaling,
+                                                    device), **slab)
+        if block_size is None:
+            fluxes.append(radiation_step(config, on_device[device], **kw))
+        else:
+            fluxes.append(radiation_blocked(config, on_device[device],
+                                            block_size=block_size, **kw))
+    home = mesh[0]
+    return Flux(**{name: torch.cat([f.fields()[name].to(home)
+                                    for f in fluxes], dim=0)[:ncol]
                    for name in fluxes[0].fields()})

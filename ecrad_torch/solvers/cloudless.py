@@ -23,26 +23,27 @@ def solver_cloudless_lw(od, ssa, g, planck_hl, emission, albedo,
                         spec_matrix=None) -> LwFluxes:
     """Args: od/ssa/g (ncol, nlev, ng); planck_hl (ncol, nlev+1, ng);
     emission/albedo (ncol, ng).  ssa and g are read only with aerosol
-    scattering.  Spectral flux output (spec_matrix) raises: the adding
-    sweeps write no per-g planes."""
-    adding.no_spectral_projection(spec_matrix, "Cloudless LW")
+    scattering.  spec_matrix: optional (ng, nspec) 0/1 projection for the
+    spectral profiles."""
     planck_top, planck_bot = planck_hl[:, :-1], planck_hl[:, 1:]
     if do_lw_aerosol_scattering:
         refl, trans, src_up, src_dn = two_stream.lw_ref_trans(
             od, ssa, g, planck_top, planck_bot)
         r = adding.adding_lw_reduced(refl, trans, src_up, src_dn, emission,
-                                     albedo)
+                                     albedo, spec_matrix)
     else:
         trans, src_up, src_dn = two_stream.lw_no_scattering_trans(
             od, planck_top, planck_bot)
         r = adding.lw_no_scattering_reduced(trans, src_up, src_dn,
-                                            emission, albedo)
+                                            emission, albedo, spec_matrix)
     out = LwFluxes(
         flux_up=r.up, flux_dn=r.dn, flux_up_clear=r.up, flux_dn_clear=r.dn,
         lw_dn_surf_g=r.dn_surf_g, lw_up_toa_g=r.up_toa_g,
         lw_dn_surf_clear_g=r.dn_surf_g, lw_up_toa_clear_g=r.up_toa_g,
         cloud_cover=torch.zeros(od.shape[0], dtype=od.dtype,
-                                device=od.device))
+                                device=od.device),
+        flux_up_s=r.up_s, flux_dn_s=r.dn_s,
+        flux_up_clear_s=r.up_s, flux_dn_clear_s=r.dn_s)
     if do_lw_derivatives:
         out = out._replace(lw_derivatives=lw_derivatives_ica(
             trans, r.up_surf_g))
@@ -54,9 +55,7 @@ def solver_cloudless_sw(od, ssa, g, incoming_sw, cos_sza, albedo_diffuse,
                         do_sw_delta_scaling_with_gases=False,
                         spec_matrix=None) -> SwFluxes:
     """Args: od/ssa/g (ncol, nlev, ng); incoming_sw (ncol, ng); cos_sza
-    (ncol,); albedos (ncol, ng).  Spectral flux output (spec_matrix)
-    raises, as in solver_cloudless_lw."""
-    adding.no_spectral_projection(spec_matrix, "Cloudless SW")
+    (ncol,); albedos (ncol, ng); spec_matrix as in solver_cloudless_lw."""
     if do_sw_delta_scaling_with_gases:
         od, ssa, g = two_stream.delta_eddington(od, ssa, g)
     mu0 = torch.clamp(cos_sza, min=1.0e-10)[:, None]        # (ncol, 1)
@@ -64,16 +63,20 @@ def solver_cloudless_sw(od, ssa, g, incoming_sw, cos_sza, albedo_diffuse,
         two_stream.sw_ref_trans(mu0[:, :, None], od, ssa, g)
     r = adding.adding_sw_reduced(
         incoming_sw, albedo_diffuse, albedo_direct, mu0, refl, trans,
-        ref_dir, trans_dir_diff, trans_dir_dir)
+        ref_dir, trans_dir_diff, trans_dir_dir, spec_matrix)
 
     day = cos_sza > 0.0
 
     def zn(x):
-        """Zero night columns (radiation_cloudless_sw.F90:120-160)."""
+        """Zero night columns (radiation_cloudless_sw.F90:120-160); None
+        stays None."""
+        if x is None:
+            return None
         d = day.reshape(day.shape + (1,) * (x.dim() - 1))
         return torch.where(d, x, torch.zeros_like(x))
 
     dn = r.dn_diffuse + r.dn_direct
+    dn_s = None if r.up_s is None else r.dn_diffuse_s + r.dn_direct_s
     return SwFluxes(
         flux_up=zn(r.up), flux_dn=zn(dn), flux_dn_direct=zn(r.dn_direct),
         flux_up_clear=zn(r.up), flux_dn_clear=zn(dn),
@@ -84,4 +87,8 @@ def solver_cloudless_sw(od, ssa, g, incoming_sw, cos_sza, albedo_diffuse,
         sw_dn_diffuse_surf_clear_g=zn(r.dn_diffuse_surf_g),
         sw_dn_direct_surf_clear_g=zn(r.dn_direct_surf_g),
         sw_up_toa_clear_g=zn(r.up_toa_g),
-        cloud_cover=torch.zeros_like(cos_sza))
+        cloud_cover=torch.zeros_like(cos_sza),
+        flux_up_s=zn(r.up_s), flux_dn_s=zn(dn_s),
+        flux_dn_direct_s=zn(r.dn_direct_s),
+        flux_up_clear_s=zn(r.up_s), flux_dn_clear_s=zn(dn_s),
+        flux_dn_direct_clear_s=zn(r.dn_direct_s))

@@ -13,8 +13,10 @@ two sum both fluxes at half-levels 1..nlev (TOA is ``src_top``).  On
 request (``planes=True``) the plain versions also return their per-g
 fluxes at every half-level, ``(ncol, nlev+1, ng)``, TOA first: ``dn_g`` and
 ``up_g``, and for ``sw_sweeps_plain`` the direct flux ``dir_g`` (normal to
-the beam, as ``dir_bb``) beside the diffuse ``dn_g``.  The fused kernels'
-plain versions are built from them; the kernels here do not write planes.
+the beam, as ``dir_bb``) beside the diffuse ``dn_g``.  The kernels write
+the same planes from their build with planes (the wrappers' ``planes=True``,
+one launch as without); the broadband outputs do not change.  The fused
+kernels' plain versions are built from these plain versions.
 """
 
 from __future__ import annotations
@@ -140,12 +142,14 @@ def sw_sweeps_plain(refl, trans, rdir, tdd, tdirdir, incoming, alb0_dif,
                    planes, dir_g=ftop + [fdir], dn_g=dn_g, up_g=up_g)
 
 
-def _launch(name, planes, surfaces, outputs, checkpoints):
+def _launch(name, planes, surfaces, outputs, checkpoints, per_g=()):
     """Check the inputs, allocate outputs (and, with checkpoints, the up
     pass's (ncol, ceil(nlev / chunk), 2, ng) carries at every chunk of
     levels), launch ``ecrad_<name>`` and return the outputs by name.
     planes: layer planes (ncol, nlev, ng); surfaces: (ncol, ng); outputs:
-    {name: "bb" (ncol, nlev) or "g" (ncol, ng)}."""
+    {name: "bb" (ncol, nlev) or "g" (ncol, ng)}; per_g: the names of the
+    per-g planes (ncol, nlev+1, ng) to write, none for the build without
+    them."""
     ref = planes[0]
     ncol, nlev, ng = ref.shape
     kernels.check_inputs(name, ref, {
@@ -155,31 +159,36 @@ def _launch(name, planes, surfaces, outputs, checkpoints):
     e = lambda *shape: torch.empty(shape, dtype=ref.dtype, device=ref.device)
     out = {k: e(ncol, nlev) if kind == "bb" else e(ncol, ng)
            for k, kind in outputs.items()}
+    plane_out = {k: e(ncol, nlev + 1, ng) for k in per_g}
     if ncol == 0:
-        return out
+        return {**out, **plane_out}
     lib = kernels.library()
     scratch = ([e(ncol, -(-nlev // lib.ecrad_adding_chunk_levels()), 2, ng)]
                if checkpoints else [])
     ptrs = kernels.pointer_array([*planes, *surfaces, *out.values(),
-                                  *scratch])
+                                  *scratch, *plane_out.values()])
     fn = getattr(lib, f"ecrad_{name}_"
                  + ("f32" if ref.dtype == torch.float32 else "f64"))
     with torch.cuda.device(ref.device):
-        code = fn(ptrs, ncol, nlev, ng, kernels.stream_of(ref))
+        code = fn(ptrs, ncol, nlev, ng, int(bool(per_g)),
+                  kernels.stream_of(ref))
     kernels.check(code, name)
-    return out
+    return {**out, **plane_out}
 
 
-def lw_noscat_sweeps(trans, s_up, s_dn, emission, albedo):
+def lw_noscat_sweeps(trans, s_up, s_dn, emission, albedo, planes=False):
     """LW sweeps without scattering.  CPU tensors run
     lw_noscat_sweeps_plain; CUDA tensors launch the kernel
-    (csrc/adding_sweeps.cu) or raise."""
+    (csrc/adding_sweeps.cu, its build with per-g planes when planes is
+    asked for) or raise."""
     if trans.device.type == "cpu":
-        return lw_noscat_sweeps_plain(trans, s_up, s_dn, emission, albedo)
+        return lw_noscat_sweeps_plain(trans, s_up, s_dn, emission, albedo,
+                                      planes)
     out = _launch("lw_noscat_sweeps", [trans, s_up, s_dn],
                   [emission, albedo],
                   dict(dn_bb="bb", fdn_surf="g", up_bb="bb", fup_toa="g",
-                       fup_surf="g"), checkpoints=False)
+                       fup_surf="g"), checkpoints=False,
+                  per_g=("dn_g", "up_g") if planes else ())
     lw_noscat_sweeps.launches += 1
     return out
 
@@ -187,14 +196,16 @@ def lw_noscat_sweeps(trans, s_up, s_dn, emission, albedo):
 lw_noscat_sweeps.launches = 0
 
 
-def scat_sweeps(refl, trans, s_up, s_dn, alb0, src0):
+def scat_sweeps(refl, trans, s_up, s_dn, alb0, src0, planes=False):
     """The scattering adding sweeps.  CPU tensors run scat_sweeps_plain;
-    CUDA tensors launch the kernel (csrc/adding_sweeps.cu) or raise."""
+    CUDA tensors launch the kernel (csrc/adding_sweeps.cu, its build with
+    per-g planes when planes is asked for) or raise."""
     if refl.device.type == "cpu":
-        return scat_sweeps_plain(refl, trans, s_up, s_dn, alb0, src0)
+        return scat_sweeps_plain(refl, trans, s_up, s_dn, alb0, src0, planes)
     out = _launch("scat_sweeps", [refl, trans, s_up, s_dn], [alb0, src0],
                   dict(dn_bb="bb", up_bb="bb", src_top="g", fdn_surf="g"),
-                  checkpoints=True)
+                  checkpoints=True,
+                  per_g=("dn_g", "up_g") if planes else ())
     scat_sweeps.launches += 1
     return out
 
@@ -203,17 +214,19 @@ scat_sweeps.launches = 0
 
 
 def sw_sweeps(refl, trans, rdir, tdd, tdirdir, incoming, alb0_dif,
-              alb0_dir_x_mu0):
+              alb0_dir_x_mu0, planes=False):
     """The three SW sweeps.  CPU tensors run sw_sweeps_plain; CUDA
     tensors launch the kernel (csrc/adding_sweeps.cu: the same function in
-    two passes, with direct albedos) or raise."""
+    two passes, with direct albedos; its build with per-g planes when
+    planes is asked for) or raise."""
     if refl.device.type == "cpu":
         return sw_sweeps_plain(refl, trans, rdir, tdd, tdirdir, incoming,
-                               alb0_dif, alb0_dir_x_mu0)
+                               alb0_dif, alb0_dir_x_mu0, planes)
     out = _launch("sw_sweeps", [refl, trans, rdir, tdd, tdirdir],
                   [incoming, alb0_dif, alb0_dir_x_mu0],
                   dict(dir_bb="bb", dn_bb="bb", up_bb="bb", fdir_surf="g",
-                       fdn_surf="g", src_top="g"), checkpoints=True)
+                       fdn_surf="g", src_top="g"), checkpoints=True,
+                  per_g=("dir_g", "dn_g", "up_g") if planes else ())
     sw_sweeps.launches += 1
     return out
 

@@ -8,9 +8,9 @@ csrc/sw_fused.cu, through solvers/cuda_mcica.py) go there; the others
 run the unfused two-stream + adding path.  The rule is the JAX
 package's, without its platform test: band-contiguous g ordering, and
 for LW cloud scattering on with aerosol scattering off.  Spectral flux
-output (``spec_matrix``) goes through the fused kernels' per-g planes,
-projected outside them (unlike the JAX package, which sends it to its
-scan path); the unfused path raises for it.
+output (``spec_matrix``) goes through the kernels' per-g planes (the fused
+kernels', or the adding sweeps' on the unfused path), projected outside
+them (unlike the JAX package, which sends it to its scan path).
 """
 
 from __future__ import annotations
@@ -60,7 +60,7 @@ def solver_mcica_lw(od, ssa, g, od_cloud_b, ssa_cloud_b, g_cloud_b,
       cloud_fraction: (ncol, nlev); planck_hl (ncol, nlev+1, ng)
       emission/albedo: (ncol, ng)
       spec_matrix: optional (ng, nspec) 0/1 projection for the spectral
-        profiles (fused route only)
+        profiles
     """
     if (_gcounts(band_from_g) is not None and do_lw_cloud_scattering
             and not do_lw_aerosol_scattering):
@@ -69,7 +69,6 @@ def solver_mcica_lw(od, ssa, g, od_cloud_b, ssa_cloud_b, g_cloud_b,
             od_scaling, total_cloud_cover, cloud_fraction, planck_hl,
             emission, albedo, cloud_fraction_threshold, do_lw_derivatives,
             spec_matrix)
-    adding.no_spectral_projection(spec_matrix, "unfused McICA LW")
     planck_top, planck_bot = planck_hl[:, :-1], planck_hl[:, 1:]
     bb = band_from_g
 
@@ -79,13 +78,14 @@ def solver_mcica_lw(od, ssa, g, od_cloud_b, ssa_cloud_b, g_cloud_b,
             two_stream.lw_ref_trans(od, ssa, g, planck_top, planck_bot)
         clear = adding.adding_lw_reduced(
             ref_clear, trans_clear, src_up_clear, src_dn_clear,
-            emission, albedo)
+            emission, albedo, spec_matrix)
     else:
         trans_clear, src_up_clear, src_dn_clear = \
             two_stream.lw_no_scattering_trans(od, planck_top, planck_bot)
         ref_clear = torch.zeros_like(trans_clear)
         clear = adding.lw_no_scattering_reduced(
-            trans_clear, src_up_clear, src_dn_clear, emission, albedo)
+            trans_clear, src_up_clear, src_dn_clear, emission, albedo,
+            spec_matrix)
 
     # --- total sky
     cloudy_layer = cloud_fraction >= cloud_fraction_threshold
@@ -108,7 +108,7 @@ def solver_mcica_lw(od, ssa, g, od_cloud_b, ssa_cloud_b, g_cloud_b,
         src_up = torch.where(mask, src_up_c, src_up_clear)
         src_dn = torch.where(mask, src_dn_c, src_dn_clear)
         tot = adding.adding_lw_reduced(refl, trans, src_up, src_dn,
-                                       emission, albedo)
+                                       emission, albedo, spec_matrix)
     else:
         trans_c, src_up_c, src_dn_c = \
             two_stream.lw_no_scattering_trans(od_total, planck_top,
@@ -117,7 +117,7 @@ def solver_mcica_lw(od, ssa, g, od_cloud_b, ssa_cloud_b, g_cloud_b,
         src_up = torch.where(mask, src_up_c, src_up_clear)
         src_dn = torch.where(mask, src_dn_c, src_dn_clear)
         tot = adding.lw_no_scattering_reduced(trans, src_up, src_dn,
-                                              emission, albedo)
+                                              emission, albedo, spec_matrix)
 
     deriv_cloudy = deriv_clear = None
     if do_lw_derivatives:
@@ -128,13 +128,10 @@ def solver_mcica_lw(od, ssa, g, od_cloud_b, ssa_cloud_b, g_cloud_b,
 
 
 def _finish_lw(clear, tot, total_cloud_cover, cloud_fraction_threshold,
-               deriv_cloudy=None, deriv_clear=None, spectral=None) -> LwFluxes:
+               deriv_cloudy=None, deriv_clear=None) -> LwFluxes:
     """Blend total/clear scenes by cloud cover and pack LwFluxes
-    (radiation_mcica_lw.F90:236-248).  spectral: the projected profiles of
-    the clear ("c") and total ("t") scene, {scene: {"up", "dn"}}, blended
-    the same way; None without spectral flux output."""
-    sp = spectral or {"c": {}, "t": {}}
-    c_s, t_s = sp["c"].get, sp["t"].get
+    (radiation_mcica_lw.F90:236-248), the spectral profiles (None without
+    spectral flux output) the same way."""
     tcc = total_cloud_cover
     has_cloud = tcc >= cloud_fraction_threshold
     w = torch.where(has_cloud, tcc, torch.zeros_like(tcc))
@@ -149,9 +146,9 @@ def _finish_lw(clear, tot, total_cloud_cover, cloud_fraction_threshold,
         lw_dn_surf_clear_g=clear.dn_surf_g,
         lw_up_toa_clear_g=clear.up_toa_g,
         cloud_cover=w,
-        flux_up_s=_mix(w, t_s("up"), c_s("up")),
-        flux_dn_s=_mix(w, t_s("dn"), c_s("dn")),
-        flux_up_clear_s=c_s("up"), flux_dn_clear_s=c_s("dn"))
+        flux_up_s=_mix(w, tot.up_s, clear.up_s),
+        flux_dn_s=_mix(w, tot.dn_s, clear.dn_s),
+        flux_up_clear_s=clear.up_s, flux_dn_clear_s=clear.dn_s)
 
     if deriv_cloudy is not None:
         # cloudy-scene derivative, then blend with clear
@@ -201,15 +198,13 @@ def _solver_mcica_lw_fused(od, od_cloud_b, ssa_cloud_b, g_cloud_b,
         up=_stack_bot(r["up_bb_c"], fup_surf_c.sum(-1)),
         dn=_stack_top(zeros, r["dn_bb_c"]),
         up_toa_g=r["fup_toa_c"], dn_surf_g=r["fdn_surf_c"],
-        up_surf_g=fup_surf_c)
+        up_surf_g=fup_surf_c, up_s=proj("up_g_c"), dn_s=proj("dn_g_c"))
     src_top_t = r["src_top_t"]
     tot = LwAdding(
         up=_stack_top(src_top_t.sum(-1), r["up_bb_t"]),
         dn=_stack_top(zeros, r["dn_bb_t"]),
         up_toa_g=src_top_t, dn_surf_g=r["fdn_surf_t"],
-        up_surf_g=r["fup_surf_t"])
-    spectral = None if spec_matrix is None else {
-        s: {"up": proj(f"up_g_{s}"), "dn": proj(f"dn_g_{s}")} for s in "ct"}
+        up_surf_g=r["fup_surf_t"], up_s=proj("up_g_t"), dn_s=proj("dn_g_t"))
 
     deriv_cloudy = deriv_clear = None
     if do_lw_derivatives:
@@ -217,8 +212,7 @@ def _solver_mcica_lw_fused(od, od_cloud_b, ssa_cloud_b, g_cloud_b,
         deriv_cloudy = torch.cat([r["deriv_t"], ones], dim=1)
         deriv_clear = torch.cat([r["deriv_c"], ones], dim=1)
     return _finish_lw(clear, tot, total_cloud_cover,
-                      cloud_fraction_threshold, deriv_cloudy, deriv_clear,
-                      spectral)
+                      cloud_fraction_threshold, deriv_cloudy, deriv_clear)
 
 
 def solver_mcica_sw(od, ssa, g, od_cloud_b, ssa_cloud_b, g_cloud_b,
@@ -235,7 +229,6 @@ def solver_mcica_sw(od, ssa, g, od_cloud_b, ssa_cloud_b, g_cloud_b,
             cos_sza, albedo_diffuse, albedo_direct,
             cloud_fraction_threshold, do_sw_delta_scaling_with_gases,
             spec_matrix)
-    adding.no_spectral_projection(spec_matrix, "unfused McICA SW")
     mu0 = torch.clamp(cos_sza, min=1.0e-10)[:, None, None]
     bb = band_from_g
 
@@ -247,7 +240,7 @@ def solver_mcica_sw(od, ssa, g, od_cloud_b, ssa_cloud_b, g_cloud_b,
         mu0, od_c, ssa_c, g_c)
     clear = adding.adding_sw_reduced(
         incoming_sw, albedo_diffuse, albedo_direct, mu0[:, :, 0],
-        r_cl, t_cl, rdir_cl, tdd_cl, tdir_cl)
+        r_cl, t_cl, rdir_cl, tdd_cl, tdir_cl, spec_matrix)
 
     # --- total sky: merge cloud into gas optics per g
     m = (cloud_fraction >= cloud_fraction_threshold)[..., None]
@@ -263,21 +256,17 @@ def solver_mcica_sw(od, ssa, g, od_cloud_b, ssa_cloud_b, g_cloud_b,
             mg, (r_cl, t_cl, rdir_cl, tdd_cl, tdir_cl)))
     tot = adding.adding_sw_reduced(
         incoming_sw, albedo_diffuse, albedo_direct, mu0[:, :, 0],
-        refl, trans, rdir, tdd, tdir)
+        refl, trans, rdir, tdd, tdir, spec_matrix)
 
     return _finish_sw(clear, tot, total_cloud_cover,
                       cloud_fraction_threshold, cos_sza)
 
 
 def _finish_sw(clear, tot, total_cloud_cover, cloud_fraction_threshold,
-               cos_sza, spectral=None) -> SwFluxes:
+               cos_sza) -> SwFluxes:
     """Blend total/clear SW scenes by cloud cover, zero night columns,
-    and pack SwFluxes (radiation_mcica_sw.F90 output section).  spectral:
-    the projected profiles of the clear ("c") and total ("t") scene,
-    {scene: {"up", "dn_diffuse", "dn_direct"}}, blended and zeroed the
-    same way; None without spectral flux output."""
-    sp = spectral or {"c": {}, "t": {}}
-    c_s, t_s = sp["c"].get, sp["t"].get
+    and pack SwFluxes (radiation_mcica_sw.F90 output section), the
+    spectral profiles (None without spectral flux output) the same way."""
     tcc = total_cloud_cover
     has_cloud = tcc >= cloud_fraction_threshold
     day = cos_sza > 0.0
@@ -291,9 +280,9 @@ def _finish_sw(clear, tot, total_cloud_cover, cloud_fraction_threshold,
         d = day.reshape(day.shape + (1,) * (x.dim() - 1))
         return torch.where(d, x, torch.zeros_like(x))
 
-    def total_dn(get):
-        return None if get("up") is None \
-            else get("dn_diffuse") + get("dn_direct")
+    def total_dn(scene):
+        return None if scene.up_s is None \
+            else scene.dn_diffuse_s + scene.dn_direct_s
 
     return SwFluxes(
         flux_up=zn(_mix(w, tot.up, clear.up)),
@@ -315,12 +304,12 @@ def _finish_sw(clear, tot, total_cloud_cover, cloud_fraction_threshold,
         # (radiation_flux.F90 reset; radiation_mcica_sw.F90 only assigns
         # for cos_sza > 0)
         cloud_cover=torch.where(day, tcc, torch.full_like(tcc, -1.0)),
-        flux_up_s=zn(_mix(w, t_s("up"), c_s("up"))),
-        flux_dn_s=zn(_mix(w, total_dn(t_s), total_dn(c_s))),
-        flux_dn_direct_s=zn(_mix(w, t_s("dn_direct"), c_s("dn_direct"))),
-        flux_up_clear_s=zn(c_s("up")),
-        flux_dn_clear_s=zn(total_dn(c_s)),
-        flux_dn_direct_clear_s=zn(c_s("dn_direct")))
+        flux_up_s=zn(_mix(w, tot.up_s, clear.up_s)),
+        flux_dn_s=zn(_mix(w, total_dn(tot), total_dn(clear))),
+        flux_dn_direct_s=zn(_mix(w, tot.dn_direct_s, clear.dn_direct_s)),
+        flux_up_clear_s=zn(clear.up_s),
+        flux_dn_clear_s=zn(total_dn(clear)),
+        flux_dn_direct_clear_s=zn(clear.dn_direct_s))
 
 
 def sw_fused_args(od, ssa, g, od_cloud_b, ssa_cloud_b, g_cloud_b,
@@ -367,17 +356,16 @@ def _solver_mcica_sw_fused(od, ssa, g, od_cloud_b, ssa_cloud_b,
 
     def scene(tag):
         src_top = r[f"src_top_{tag}"]
+        dir_s = proj(f"dir_g_{tag}")
         return SwAdding(
             up=_stack_top(src_top.sum(-1), r[f"up_bb_{tag}"]),
             dn_diffuse=_stack_top(zeros_bb, r[f"dn_bb_{tag}"]),
             dn_direct=_stack_top(dir_toa_bb, r[f"dir_bb_{tag}"]) * mu0,
             up_toa_g=src_top,
             dn_diffuse_surf_g=r[f"fdn_surf_{tag}"],
-            dn_direct_surf_g=r[f"fdir_surf_{tag}"] * mu0)
+            dn_direct_surf_g=r[f"fdir_surf_{tag}"] * mu0,
+            up_s=proj(f"up_g_{tag}"), dn_diffuse_s=proj(f"dn_g_{tag}"),
+            dn_direct_s=None if dir_s is None else dir_s * mu0[:, :, None])
 
-    spectral = None if spec_matrix is None else {
-        s: {"up": proj(f"up_g_{s}"), "dn_diffuse": proj(f"dn_g_{s}"),
-            "dn_direct": proj(f"dir_g_{s}") * mu0[:, :, None]}
-        for s in "ct"}
     return _finish_sw(scene("c"), scene("t"), total_cloud_cover,
-                      cloud_fraction_threshold, cos_sza, spectral)
+                      cloud_fraction_threshold, cos_sza)

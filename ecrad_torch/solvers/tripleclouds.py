@@ -13,7 +13,9 @@ its platform test).  The others run the scan form: torch loops over
 levels carrying ``(ncol, 3, ng)`` states, mixed across regions at every
 interface through the overlap matrices.  Spectral flux output
 (``spec_matrix``) goes through the fused kernels' per-g planes, the
-regions summed, projected outside them; the scan form raises for it.
+regions summed, projected outside them; the scan form projects its own
+per-g fluxes, the regions summed, and the clear scene's from the adding
+sweeps' planes, as the JAX package's scan form does.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import torch
 
 from ecrad_torch.config import Config, PdfShape
 from ecrad_torch.solvers import adding, cuda_tripleclouds, two_stream
+from ecrad_torch.solvers.cuda_adding import keeper
 from ecrad_torch.solvers.adding import _stack_bot, _stack_top
 from ecrad_torch.solvers.cuda_tripleclouds import (
     merge_regions, mix_u, mix_v, mix_v_dn, skip_mix, with_regions,
@@ -166,14 +169,13 @@ def solver_tripleclouds_sw(config: Config, od, ssa, g, od_cloud_b,
                            albedo_direct, spec_matrix=None) -> SwFluxes:
     """radiation_tripleclouds_sw.F90:42-663 (batched, dense).
     spec_matrix: optional (ng, nspec) 0/1 projection for the spectral
-    profiles (fused route only)."""
+    profiles."""
     if _use_fused(config, band_from_g):
         return _solver_tripleclouds_sw_fused(
             config, od, ssa, g, od_cloud_b, ssa_cloud_b, g_cloud_b,
             band_from_g, cloud_fraction, fractional_std, overlap_param,
             incoming_sw, cos_sza, albedo_diffuse, albedo_direct,
             spec_matrix)
-    adding.no_spectral_projection(spec_matrix, "Tripleclouds SW scan")
     ncol, nlev, ng = od.shape
     mu0 = torch.clamp(cos_sza, min=1.0e-10)[:, None, None]
     reg_fracs, od_scaling, u_mat, v_mat, cloud_cover = _regions(
@@ -221,13 +223,16 @@ def solver_tripleclouds_sw(config: Config, od, ssa, g, od_cloud_b,
     # clear-sky one-region fluxes
     clear = adding.adding_sw_reduced(
         incoming_sw, albedo_diffuse, albedo_direct, mu0[:, :, 0],
-        r_cl, t_cl, rd_cl, tdd_cl, tdir_cl)
+        r_cl, t_cl, rd_cl, tdd_cl, tdir_cl, spec_matrix)
 
-    # downward sweep, reduced per level
+    # downward sweep, reduced per level (and kept per g, the regions
+    # summed, for spectral flux output)
     fdir = incoming_sw[:, None, :] * reg_fracs[:, 0, :, None]
     fdir0, fup0 = fdir, fdir * albd_top
     fdn = torch.zeros_like(fdir)
     up_bb, dn_bb, dir_bb = [], [], []
+    keep = keeper(spec_matrix is not None)
+    up_g, dn_g, dir_g = [fup0.sum(1)], [fdn.sum(1)], [fdir0.sum(1)]
     for l in range(nlev):
         fdn = (trans[:, l] * fdn + fdir * (tdir[:, l] * albd_below[l]
                                            * refl[:, l] + tdd[:, l])) \
@@ -240,6 +245,9 @@ def solver_tripleclouds_sw(config: Config, od, ssa, g, od_cloud_b,
         dn_bb.append(fdn.sum((1, 2)))
         dir_bb.append(fdir.sum((1, 2)))
         fdn_surf_g, fdir_surf_g = fdn.sum(1), fdir.sum(1)
+        keep(up_g, fup.sum(1))
+        keep(dn_g, fdn_surf_g)
+        keep(dir_g, fdir_surf_g)
         # mix through the interface below this layer
         skip = skip_mix(clear_layer, l, l + 1)
         fdn = torch.where(skip, fdn, mix_v_dn(v_mat[:, l + 1], fdn))
@@ -249,6 +257,16 @@ def solver_tripleclouds_sw(config: Config, od, ssa, g, od_cloud_b,
     stack = lambda xs: torch.stack(xs, dim=1)
     up0_bb = fup0.sum((1, 2))
     fdir_bb = mu0p[:, None] * _stack_top(fdir0.sum((1, 2)), stack(dir_bb))
+    spectral = {}
+    if spec_matrix is not None:
+        up_s, dn_s, dir_s = (project(stack(x), spec_matrix)
+                             for x in (up_g, dn_g, dir_g))
+        dir_s = mu0p[:, None, None] * dir_s
+        spectral = dict(
+            flux_up_s=up_s, flux_dn_s=dn_s + dir_s, flux_dn_direct_s=dir_s,
+            flux_up_clear_s=clear.up_s,
+            flux_dn_clear_s=clear.dn_diffuse_s + clear.dn_direct_s,
+            flux_dn_direct_clear_s=clear.dn_direct_s)
     return _zero_night(cos_sza, SwFluxes(
         flux_up=_stack_top(up0_bb, stack(up_bb)),
         flux_dn=_stack_top(torch.zeros_like(up0_bb), stack(dn_bb)) + fdir_bb,
@@ -262,7 +280,7 @@ def solver_tripleclouds_sw(config: Config, od, ssa, g, od_cloud_b,
         sw_dn_diffuse_surf_clear_g=clear.dn_diffuse_surf_g,
         sw_dn_direct_surf_clear_g=clear.dn_direct_surf_g,
         sw_up_toa_clear_g=clear.up_toa_g,
-        cloud_cover=cloud_cover))
+        cloud_cover=cloud_cover, **spectral))
 
 
 def _zero_night(cos_sza, out: SwFluxes) -> SwFluxes:
@@ -288,13 +306,12 @@ def solver_tripleclouds_lw(config: Config, od, ssa, g, od_cloud_b,
                            spec_matrix=None) -> LwFluxes:
     """radiation_tripleclouds_lw.F90:38-607 (batched, dense).
     spec_matrix: optional (ng, nspec) 0/1 projection for the spectral
-    profiles (fused route only)."""
+    profiles."""
     if _use_fused_lw(config, band_from_g):
         return _solver_tripleclouds_lw_fused(
             config, od, od_cloud_b, ssa_cloud_b, g_cloud_b, band_from_g,
             cloud_fraction, fractional_std, overlap_param, planck_hl,
             emission, albedo, spec_matrix)
-    adding.no_spectral_projection(spec_matrix, "Tripleclouds LW scan")
     ncol, nlev, ng = od.shape
     reg_fracs, od_scaling, u_mat, v_mat, cloud_cover = _regions(
         config, cloud_fraction, fractional_std, overlap_param)
@@ -307,13 +324,14 @@ def solver_tripleclouds_lw(config: Config, od, ssa, g, od_cloud_b,
         r_cl, t_cl, su_cl, sd_cl = two_stream.lw_ref_trans(
             od, ssa, g, planck_top, planck_bot)
         clear = adding.adding_lw_reduced(r_cl, t_cl, su_cl, sd_cl,
-                                         emission, albedo)
+                                         emission, albedo, spec_matrix)
     else:
         t_cl, su_cl, sd_cl = two_stream.lw_no_scattering_trans(
             od, planck_top, planck_bot)
         r_cl = torch.zeros_like(t_cl)
         clear = adding.lw_no_scattering_reduced(t_cl, su_cl, sd_cl,
-                                                emission, albedo)
+                                                emission, albedo,
+                                                spec_matrix)
 
     # cloudy regions
     od_r, ssa_r, g_r = merge_regions(
@@ -350,10 +368,13 @@ def solver_tripleclouds_lw(config: Config, od, ssa, g, od_cloud_b,
         src = torch.where(skip, s, mix_u(u_mat[:, l], s))
     alb_top, src_top = alb, src
 
-    # downward sweep, reduced per level
+    # downward sweep, reduced per level (and kept per g, the regions
+    # summed, for spectral flux output)
     fdn = torch.zeros((ncol, NREG, ng), dtype=od.dtype, device=od.device)
     fup0 = src_top + alb_top * fdn
     up_bb, dn_bb = [], []
+    keep = keeper(spec_matrix is not None)
+    up_g, dn_g = [fup0.sum(1)], [fdn.sum(1)]
     for l in range(nlev):
         fdn = (trans[:, l] * fdn + refl[:, l] * src_below[l]
                + src_dn[:, l]) / (1.0 - refl[:, l] * alb_below[l])
@@ -363,6 +384,8 @@ def solver_tripleclouds_lw(config: Config, od, ssa, g, od_cloud_b,
         up_bb.append(fup.sum((1, 2)))
         dn_bb.append(fdn.sum((1, 2)))
         fup_surf_g, fdn_surf_g = fup.sum(1), fdn.sum(1)
+        keep(up_g, fup_surf_g)
+        keep(dn_g, fdn_surf_g)
         skip = skip_mix(clear_layer, l, l + 1)
         fdn = torch.where(skip, fdn, mix_v_dn(v_mat[:, l + 1], fdn))
 
@@ -375,7 +398,11 @@ def solver_tripleclouds_lw(config: Config, od, ssa, g, od_cloud_b,
         lw_dn_surf_g=fdn_surf_g, lw_up_toa_g=fup0.sum(1),
         lw_dn_surf_clear_g=clear.dn_surf_g,
         lw_up_toa_clear_g=clear.up_toa_g,
-        cloud_cover=cloud_cover)
+        cloud_cover=cloud_cover,
+        flux_up_clear_s=clear.up_s, flux_dn_clear_s=clear.dn_s)
+    if spec_matrix is not None:
+        out = out._replace(flux_up_s=project(stack(up_g), spec_matrix),
+                           flux_dn_s=project(stack(dn_g), spec_matrix))
 
     if config.do_lw_derivatives:
         # region-coupled Hogan-Bozzo derivatives

@@ -116,7 +116,14 @@ def test_plain_matches_pallas(props, name):
 
 
 def _compare(got, ref):
+    """Every field of the port's result against the JAX package's; the
+    spectral profiles (``*_s``) are absent from both without a
+    spec_matrix."""
+    assert got._fields == ref._fields
     for field in got._fields:
+        if getattr(ref, field) is None:
+            assert getattr(got, field) is None, field
+            continue
         a, b = np.asarray(getattr(got, field)), np.asarray(getattr(ref, field))
         assert a.shape == b.shape, field
         np.testing.assert_allclose(a, b, rtol=RTOL, atol=ATOL, err_msg=field)
@@ -157,6 +164,34 @@ def test_sw_adding_matches_jax(props, monkeypatch, mode):
     _compare(got, ref)
 
 
+# (ng, nspec) projections of the spectral profiles: g-points into three
+# bands, and the identity (g-point output)
+SPEC = {"bands": np.eye(3)[np.arange(NG) % 3],
+        "gpoints": np.eye(NG)}
+
+
+@pytest.mark.parametrize("spec", list(SPEC))
+@pytest.mark.parametrize("fn", ["lw_no_scattering_reduced",
+                                "adding_lw_reduced", "adding_sw_reduced"])
+def test_adding_spectral_matches_jax(props, monkeypatch, fn, spec):
+    """With a spec_matrix: the projected profiles from the sweeps' per-g
+    planes against the JAX package's scan form (which its Pallas mode
+    falls back to), every field."""
+    p = props
+    if fn == "adding_sw_reduced":
+        args = (p["incoming"], p["albedo_col"], p["alb_dir"], p["mu0"],
+                p["refl"], p["trans"], p["rdir"], p["tdd"], p["tdirdir"])
+    else:
+        args = ((p["trans"], p["s_up"], p["s_dn"]) if fn.startswith("lw_no")
+                else (p["refl"], p["trans"], p["s_up"], p["s_dn"]))
+        args += (p["emission"], p["albedo"])
+    args += (SPEC[spec],)
+    ref = _jax_adding(monkeypatch, "scan", fn, *args)
+    got = getattr(tadding, fn)(*_t(*args))
+    assert got.up_s.shape == (NCOL, NLEV + 1, SPEC[spec].shape[1])
+    _compare(got, ref)
+
+
 def test_wrappers_run_plain_only_on_cpu(props):
     """A CPU tensor takes the plain version and counts no launch; a tensor
     on any other device goes to the kernel path, which refuses what it
@@ -173,6 +208,24 @@ def test_wrappers_run_plain_only_on_cpu(props):
         cuda_adding.lw_noscat_sweeps(*meta)
     assert cuda_adding.lw_noscat_sweeps.launches == before
 
+
+
+@pytest.mark.parametrize("name", list(KERNELS))
+def test_wrappers_pass_planes_on_cpu(props, name):
+    """planes=True reaches the plain version on CPU tensors (the per-g
+    planes beside the same broadband outputs) and counts no launch."""
+    p = dict(props, alb_dir_mu0=props["alb_dir"] * props["mu0"])
+    names, _, outs = KERNELS[name]
+    args = _t(*(p[n] for n in names))
+    wrapper = getattr(cuda_adding, name)
+    before = wrapper.launches
+    got = wrapper(*args, planes=True)
+    ref = getattr(cuda_adding, f"{name}_plain")(*args, planes=True)
+    assert wrapper.launches == before
+    planes = {"dn_g", "up_g"} | ({"dir_g"} if name == "sw_sweeps" else set())
+    assert set(got) == set(ref) == set(outs) | planes
+    assert all(torch.equal(got[k], ref[k]) for k in ref)
+    assert all(got[k].shape == (NCOL, NLEV + 1, NG) for k in planes)
 
 # --- the orders of csrc/adding_sweeps.cu --------------------------------------
 

@@ -215,8 +215,11 @@ def test_setup_flags_match_jax(name):
     assert step.config.is_homogeneous == jconfig.is_homogeneous
     assert (step.tables.cloud is None) == (jtables.cloud is None)
     assert (step.tables.pdf_sampler is None) == (jtables.pdf_sampler is None)
-    assert step.config.do_clouds == (name != "cloudless_rrtmg")
-    assert step.config.is_homogeneous == (name == "homogeneous_rrtmg")
+    assert step.config.do_clouds == (
+        name not in ("cloudless_rrtmg", "cloudless_rrtmg_spectral"))
+    assert step.config.is_homogeneous == (
+        name in ("homogeneous_rrtmg", "homogeneous_rrtmg_spectral",
+                 "monochromatic_homogeneous"))
     assert (step.tables.pdf_sampler is None) == (
         name not in ("mcica_rrtmg", "ecckd_mcica", "mcica_rrtmg_spectral"))
 

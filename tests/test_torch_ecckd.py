@@ -443,3 +443,25 @@ def test_mixed_gas_models_differ_and_are_sane(mixed_port):
             assert np.isfinite(flux[k]).all(), k
         olr = flux["lw_up"][:, 0]
         assert (olr > 80.0).all() and (olr < 400.0).all()
+
+
+def test_ecckd_with_band_wise_cloud_optics():
+    """ecCKD gas optics with the band-wise cloud optics (RRTMG bands): the
+    port raises at setup; the JAX package runs, indexing the RRTMG-band
+    tables with ecCKD's band numbers, and gives non-finite fluxes."""
+    from ecrad_torch.interface import setup_radiation as tsetup
+    from tests.torch_steps import jax_step
+    over = dict(gas_model_sw="ECCKD", gas_model_lw="ECCKD",
+                use_general_cloud_optics=False,
+                do_nearest_spectral_lw_emiss=False, use_aerosols=False,
+                n_aerosol_types=0, i_aerosol_type_map=(),
+                sw_solver="TRIPLECLOUDS", lw_solver="TRIPLECLOUDS")
+    config = flagship.flagship_config("float64").replace(
+        gas_model_sw=tconfig.GasModel.ECCKD,
+        gas_model_lw=tconfig.GasModel.ECCKD, use_general_cloud_optics=False,
+        use_aerosols=False, n_aerosol_types=0, i_aerosol_type_map=())
+    with pytest.raises(NotImplementedError, match="general cloud optics"):
+        tsetup(config, "cpu", torch.float64, data_dir=DATA_DIR)
+    ref = jax_step(over)
+    assert not np.isfinite(ref["sw_up"]).all()
+    assert not np.isfinite(ref["lw_up"]).all()

@@ -87,8 +87,30 @@ def test_cloud_generator_matches_jax(pdf_tables, overlap, sampler):
                                rtol=RTOL_OD_SCALING, atol=0)
 
 
+@pytest.mark.parametrize("overlap", OVERLAPS)
+def test_cloud_generator_one_gpoint_matches_jax(pdf_tables, overlap):
+    """At one g-point (monochromatic optics on McICA): the threefry draws,
+    the scan and the Chebyshev sampling at (ncol, nlev, 1), as above."""
+    iseed, frac, op, fsd = _inputs(2)
+    jcfg = JaxConfig(overlap_scheme=JaxOverlap[overlap])
+    pdf = tables_from_numpy(pdf_tables, "cpu", torch.float64).pdf_sampler
+    od_ref, tcc_ref = jax_generator(
+        jcfg, dict(pdf_tables.pdf_sampler), jnp.asarray(iseed),
+        jnp.asarray(frac), jnp.asarray(op), jnp.asarray(fsd), 1)
+    od, tcc = cloud_generator.cloud_generator_device(
+        Config(overlap_scheme=Overlap[overlap]), pdf, torch.as_tensor(iseed),
+        torch.as_tensor(frac), torch.as_tensor(op), torch.as_tensor(fsd), 1)
+    assert od.shape == (NCOL, NLEV, 1)
+    np.testing.assert_allclose(tcc.numpy(), np.asarray(tcc_ref),
+                               rtol=RTOL_TCC_EXP_EXP, atol=0)
+    np.testing.assert_array_equal(od.numpy() > 0, np.asarray(od_ref) > 0)
+    assert (od.numpy() > 0).any()
+    np.testing.assert_allclose(od.numpy(), np.asarray(od_ref),
+                               rtol=RTOL_OD_SCALING, atol=0)
+
+
 @pytest.mark.parametrize("exp_exp", [False, True])
-@pytest.mark.parametrize("ng", [NG, 112])
+@pytest.mark.parametrize("ng", [NG, 112, 1])
 def test_generator_scan_plain_matches_pallas(exp_exp, ng):
     iseed, frac, op, _ = _inputs(1)
     cfg = Config(overlap_scheme=Overlap.EXPONENTIAL if exp_exp

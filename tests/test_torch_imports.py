@@ -43,6 +43,8 @@ import ecrad_torch.io.output, ecrad_torch.io.save_optics
 import ecrad_torch.io.save_extras
 import ecrad_torch.ifs, ecrad_torch.ifs.driver, ecrad_torch.ifs.scheme
 import ecrad_torch.ifs.blocking
+import ecrad_torch.optics.monochromatic, ecrad_torch.distributed
+import ecrad_torch.utils
 import chip_smoke
 new = set(sys.modules) - before
 bad = sorted(m for m in new

@@ -13,10 +13,15 @@ spectral flux outputs (CPU, f64).
   at RRTMG and ecCKD widths: the broadband outputs with planes are those
   without, and the planes summed over g and at TOA and the surface are
   the kernels' broadband sums and boundary planes.
-* The routes through the adding sweeps, whose kernels write no planes
-  (Cloudless, Homogeneous LW with aerosol scattering, the Tripleclouds
-  scan form), raise NotImplementedError for spectral flux output, naming
-  the adding-sweep kernels.
+* The plain versions of the three adding sweeps with their per-g planes
+  (the values their kernels' build with planes writes), on the clear-sky
+  and total-scene inputs the Cloudless and unfused McICA paths build: the
+  same broadband outputs as without planes, the planes summed over g the
+  per-level sums, and their TOA and surface rows the boundary planes.
+* The routes through the adding sweeps (Cloudless, Homogeneous LW with
+  aerosol scattering, the Tripleclouds scan form) with flux profiles and
+  TOA fluxes per band against the JAX package's step, every field within
+  1e-9 W m-2.
 """
 
 import numpy as np
@@ -32,9 +37,10 @@ from ecrad_tpu.optics import rrtmg as jrrtmg
 from ecrad_torch import flagship, pipeline
 from ecrad_torch.interface import _optical_properties
 from ecrad_torch.optics import rrtmg as trrtmg
-from ecrad_torch.solvers import cuda_mcica, cuda_tripleclouds
+from ecrad_torch.solvers import cuda_adding, cuda_mcica, cuda_tripleclouds
 from tests.torch_steps import (FLAGSHIP_FIELDS, PROFILE_FIELDS, TOA_FIELDS,
-                               assert_fluxes, columns, port_args)
+                               assert_fluxes, columns, jax_step, port_args,
+                               port_step)
 
 import chip_smoke
 
@@ -207,18 +213,97 @@ def test_plain_planes_sum_to_broadband(fused_args, name):
                                    atol=1e-13, msg=f"{p}[{row}]")
 
 
-# --- routes without planes raise ---------------------------------------------
+# --- the adding sweeps' planes -----------------------------------------------
+
+SWEEPS = {"lw_noscat_sweeps": cuda_adding.lw_noscat_sweeps_plain,
+          "scat_sweeps": cuda_adding.scat_sweeps_plain,
+          "sw_sweeps": cuda_adding.sw_sweeps_plain}
+
+
+@pytest.fixture(scope="module")
+def sweep_args():
+    """The three sweeps' arguments on the clear sky
+    (chip_smoke.clear_sky_inputs) and scat_sweeps' and sw_sweeps' on the
+    total scene (chip_smoke.total_scene_inputs) of a McICA step's state (3
+    meridian columns, one at night)."""
+    step, args = flagship.build(ncol=3, dtype=torch.float64, device="cpu")
+    kw = dict(zip(flagship.ARG_ORDER, args))
+    cloud = pipeline.add_cloud_sample(step.config, step.tables,
+                                      kw.pop("cloud"))
+    op = _optical_properties(step.config, step.tables,
+                             solar_irradiance=step.solar, cloud=cloud, **kw)
+    clear = dict(zip(SWEEPS, chip_smoke.clear_sky_inputs(kw, op)))
+    total = chip_smoke.total_scene_inputs(step, kw, cloud, op)
+    return {"clear": clear, "total": total}
+
+
+# (plane, row) -> the output that row of the plane must equal
+SWEEP_BOUNDARIES = {
+    "lw_noscat_sweeps": {("dn_g", -1): "fdn_surf", ("up_g", 0): "fup_toa",
+                         ("up_g", -1): "fup_surf"},
+    "scat_sweeps": {("dn_g", -1): "fdn_surf", ("up_g", 0): "src_top"},
+    "sw_sweeps": {("dn_g", -1): "fdn_surf", ("dir_g", -1): "fdir_surf",
+                  ("up_g", 0): "src_top"},
+}
+
+
+@pytest.mark.parametrize("name, scene", [
+    ("lw_noscat_sweeps", "clear"), ("scat_sweeps", "clear"),
+    ("scat_sweeps", "total"), ("sw_sweeps", "clear"), ("sw_sweeps", "total")])
+def test_plain_sweep_planes_sum_to_broadband(sweep_args, name, scene):
+    args = sweep_args[scene][name]
+    plain = SWEEPS[name]
+    base = plain(*args)
+    r = plain(*args, planes=True)
+    names = {"dn_g", "up_g"} | ({"dir_g"} if name == "sw_sweeps" else set())
+    assert set(r) == set(base) | names
+    for k, v in base.items():
+        assert torch.equal(r[k], v), k
+    ncol, nlev, ng = args[0].shape
+    for p in names:
+        plane = r[p]
+        assert plane.shape == (ncol, nlev + 1, ng), p
+        # lw_noscat_sweeps sums the up flux at half-levels 0..nlev-1, the
+        # others every flux at 1..nlev
+        rows = slice(0, nlev) if (name, p) == ("lw_noscat_sweeps", "up_g") \
+            else slice(1, nlev + 1)
+        torch.testing.assert_close(plane[:, rows].sum(-1),
+                                   r[f"{p[:-2]}_bb"], rtol=1e-12,
+                                   atol=1e-12, msg=p)
+    assert not r["dn_g"][:, 0].any()
+    if name == "sw_sweeps":
+        assert torch.equal(r["dir_g"][:, 0], args[5])
+    for (p, row), out in SWEEP_BOUNDARIES[name].items():
+        torch.testing.assert_close(r[p][:, row], r[out], rtol=1e-13,
+                                   atol=1e-13, msg=f"{p}[{row}]")
+
+
+# --- the routes through the adding sweeps against JAX ------------------------
+
+# CPU, f64: the JAX package's scan path and the port's sweeps agree to
+# ~2e-11 W m-2 on these columns
+ATOL_ROUTES = 1e-9
+
+
+def config_over(config_name, **extra):
+    """A configuration's Config fields over the flagship's, enums by member
+    name (as tests.torch_steps takes them)."""
+    return {k: getattr(v, "name", v)
+            for k, v in {**flagship.CONFIGS[config_name], **extra}.items()}
+
 
 @pytest.mark.parametrize("config_name, over", [
     ("cloudless_rrtmg", {}),
     ("homogeneous_rrtmg", {}),
     ("tripleclouds_rrtmg", dict(do_lw_aerosol_scattering=True)),
 ])
-def test_adding_sweep_routes_raise(config_name, over):
-    step, args = flagship.build(ncol=2, dtype=torch.float64, device="cpu",
-                                config_name=config_name)
-    config = step.config.replace(do_save_spectral_flux=True, **over)
-    with pytest.raises(NotImplementedError, match="adding-sweep kernels"):
-        pipeline.radiation_step(config, step.tables,
-                                solar_irradiance=step.solar,
-                                **dict(zip(flagship.ARG_ORDER, args)))
+def test_adding_sweep_routes_match_jax(config_name, over):
+    over = config_over(config_name, do_save_spectral_flux=True,
+                       do_toa_spectral_flux=True, **over)
+    ref, got = jax_step(over), port_step(over)
+    for k in PROFILE_FIELDS:
+        width = 14 if k.startswith("sw") else 16
+        assert got[k].shape == (4, 138, width), k
+        assert np.abs(ref[k]).max() > 1.0, k
+    assert_fluxes(got, ref, FLAGSHIP_FIELDS + PROFILE_FIELDS + TOA_FIELDS,
+                  atol=ATOL_ROUTES)

@@ -118,10 +118,12 @@ def jax_step(over, aerosol=None, levels=None):
             if getattr(flux, k) is not None}
 
 
-def assert_fluxes(got, ref, fields=FLAGSHIP_FIELDS):
+def assert_fluxes(got, ref, fields=FLAGSHIP_FIELDS, atol=ATOL_FLUX):
     """Exactly the fields ``fields`` (the flagship's 20 unless given), each
-    within ATOL_FLUX W m-2 (ATOL_DIMLESS for DIMLESS)."""
+    within ``atol`` W m-2 (ATOL_FLUX unless given; ATOL_DIMLESS for
+    DIMLESS)."""
     assert set(got) == set(ref) == set(fields)
+    flux_atol = atol
     for k, r in ref.items():
-        atol = ATOL_DIMLESS if k in DIMLESS else ATOL_FLUX
+        atol = ATOL_DIMLESS if k in DIMLESS else flux_atol
         np.testing.assert_allclose(got[k], r, rtol=0, atol=atol, err_msg=k)

@@ -39,7 +39,13 @@ commit of the tree:
   ``tests/data/torch_mcica_spectral_meridian32.npz``;
 * ``tripleclouds_ecckd_gpoint`` (``tripleclouds_ecckd`` with flux profiles
   per g-point) to
-  ``tests/data/torch_tripleclouds_ecckd_gpoint_meridian32.npz``.
+  ``tests/data/torch_tripleclouds_ecckd_gpoint_meridian32.npz``;
+* ``cloudless_rrtmg_spectral`` and ``homogeneous_rrtmg_spectral``
+  (``cloudless_rrtmg`` and ``homogeneous_rrtmg`` with flux profiles and TOA
+  fluxes per band) to ``tests/data/torch_cloudless_spectral_meridian32.npz``
+  and ``tests/data/torch_homogeneous_spectral_meridian32.npz``;
+* ``monochromatic_homogeneous`` (monochromatic optics, Homogeneous SW and
+  LW, no aerosols) to ``tests/data/torch_monochromatic_meridian32.npz``.
 
 The spectral flux profiles ``(32, nlev+1, nspec)`` are kept for the
 columns ``PROFILE_COLUMNS`` only (stored as ``profile_columns``), so that
@@ -115,6 +121,21 @@ OUTPUTS = {
         dict(sw_solver_name="Tripleclouds", lw_solver_name="Tripleclouds",
              do_save_gpoint_flux=True, **ECCKD),
         "torch_tripleclouds_ecckd_gpoint_meridian32.npz"),
+    "cloudless_rrtmg_spectral": (
+        dict(sw_solver="CLOUDLESS", lw_solver="CLOUDLESS",
+             do_save_spectral_flux=True, do_toa_spectral_flux=True),
+        "torch_cloudless_spectral_meridian32.npz"),
+    "homogeneous_rrtmg_spectral": (
+        dict(sw_solver="HOMOGENEOUS", lw_solver="HOMOGENEOUS",
+             do_lw_aerosol_scattering=True, do_save_spectral_flux=True,
+             do_toa_spectral_flux=True),
+        "torch_homogeneous_spectral_meridian32.npz"),
+    "monochromatic_homogeneous": (
+        dict(gas_model_sw="MONOCHROMATIC", gas_model_lw="MONOCHROMATIC",
+             sw_solver="HOMOGENEOUS", lw_solver="HOMOGENEOUS",
+             mono_lw_total_od=1.0, mono_sw_total_od=0.2, use_aerosols=False,
+             n_aerosol_types=0, i_aerosol_type_map=()),
+        "torch_monochromatic_meridian32.npz"),
 }
 # the columns whose spectral flux profiles a reference file keeps (night,
 # low, high and setting sun)

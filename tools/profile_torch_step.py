@@ -2,7 +2,8 @@
 
     python3 tools/profile_torch_step.py [ncol] [float32|float64] \
         [mcica_rrtmg|tripleclouds_rrtmg|cloudless_rrtmg|homogeneous_rrtmg|
-         spartacus_3d|tripleclouds_ecckd|ecckd_mcica|tripleclouds_baran2016]
+         spartacus_3d|tripleclouds_ecckd|ecckd_mcica|tripleclouds_baran2016|
+         ... any name of ecrad_torch.flagship.CONFIGS]
 
 Builds the step of a named configuration (ecrad_torch.flagship, default
 the McICA flagship) at ncol columns (default 2048, the bench block) on the
@@ -35,7 +36,7 @@ sys.path.insert(0, __import__("os").path.dirname(
 from ecrad_torch import flagship, pipeline  # noqa: E402
 from ecrad_torch.interface import (  # noqa: E402
     _optical_properties, homogeneous_sample, spartacus_lw_inputs,
-    spartacus_sw_inputs)
+    spartacus_sw_inputs, spectral_matrix)
 from ecrad_torch.config import Solver  # noqa: E402
 from ecrad_torch.solvers import (  # noqa: E402
     cloudless, cuda_spartacus, mcica, spartacus, tripleclouds)
@@ -76,10 +77,14 @@ def time_inner_stages(record):
 
 
 def solver_stages(cfg, tab, op, cloud, kw):
-    """{stage: thunk} for the solvers of the configuration."""
+    """{stage: thunk} for the solvers of the configuration (with the
+    spectral projection of its spectral flux output, but for SPARTACUS)."""
     go, cl = op["go"], op["cl"]
     cos_sza = kw["cos_sza"]
     lw_emission = go.lw_emission * (1.0 - op["lw_albedo_g"])
+    spec_lw, spec_sw = (spectral_matrix(
+        cfg, getattr(tab, f"band_from_g_{b}"), getattr(cfg, f"n_bands_{b}"),
+        go.planck_hl.dtype) for b in ("lw", "sw"))
     if cfg.sw_solver == Solver.SPARTACUS:
         levels = (kw["pressure_hl"], kw["temperature_hl"])
         lw = spartacus_lw_inputs(cfg, tab, op, cloud, *levels)[1]
@@ -95,25 +100,28 @@ def solver_stages(cfg, tab, op, cloud, kw):
                 cfg, op["od_lw"], op["ssa_lw"], op["g_lw_arr"], cl["od_lw"],
                 cl["ssa_lw"], cl["g_lw"], tab.band_from_g_lw, op["frac"],
                 cloud["fractional_std"], cloud["overlap_param"],
-                go.planck_hl, lw_emission, op["lw_albedo_g"]),
+                go.planck_hl, lw_emission, op["lw_albedo_g"],
+                spec_matrix=spec_lw),
             "sw solver": lambda: tripleclouds.solver_tripleclouds_sw(
                 cfg, op["od_sw"], op["ssa_sw"], op["g_sw_arr"], cl["od_sw"],
                 cl["ssa_sw"], cl["g_sw"], tab.band_from_g_sw, op["frac"],
                 cloud["fractional_std"], cloud["overlap_param"],
                 go.incoming_sw, cos_sza, op["sw_albedo_diffuse_g"],
-                op["sw_albedo_direct_g"])}
+                op["sw_albedo_direct_g"], spec_matrix=spec_sw)}
     if cfg.sw_solver == Solver.CLOUDLESS:
         return {
             "lw solver": lambda: cloudless.solver_cloudless_lw(
                 op["od_lw"], op["ssa_lw"], op["g_lw_arr"], go.planck_hl,
                 lw_emission, op["lw_albedo_g"],
                 do_lw_aerosol_scattering=cfg.do_lw_aerosol_scattering,
-                do_lw_derivatives=cfg.do_lw_derivatives),
+                do_lw_derivatives=cfg.do_lw_derivatives,
+                spec_matrix=spec_lw),
             "sw solver": lambda: cloudless.solver_cloudless_sw(
                 op["od_sw"], op["ssa_sw"], op["g_sw_arr"], go.incoming_sw,
                 cos_sza, op["sw_albedo_diffuse_g"], op["sw_albedo_direct_g"],
                 do_sw_delta_scaling_with_gases=(
-                    cfg.do_sw_delta_scaling_with_gases))}
+                    cfg.do_sw_delta_scaling_with_gases),
+                spec_matrix=spec_sw)}
     if cfg.sw_solver == Solver.HOMOGENEOUS:
         cloud = dict(cloud)
         for band in ("lw", "sw"):
@@ -128,7 +136,7 @@ def solver_stages(cfg, tab, op, cloud, kw):
             cloud_fraction_threshold=cfg.cloud_fraction_threshold,
             do_lw_cloud_scattering=cfg.do_lw_cloud_scattering,
             do_lw_aerosol_scattering=cfg.do_lw_aerosol_scattering,
-            do_lw_derivatives=cfg.do_lw_derivatives),
+            do_lw_derivatives=cfg.do_lw_derivatives, spec_matrix=spec_lw),
         "sw solver": lambda: mcica.solver_mcica_sw(
             op["od_sw"], op["ssa_sw"], op["g_sw_arr"], cl["od_sw"],
             cl["ssa_sw"], cl["g_sw"], tab.band_from_g_sw,
@@ -137,7 +145,8 @@ def solver_stages(cfg, tab, op, cloud, kw):
             op["sw_albedo_direct_g"],
             cloud_fraction_threshold=cfg.cloud_fraction_threshold,
             do_sw_delta_scaling_with_gases=(
-                cfg.do_sw_delta_scaling_with_gases))}
+                cfg.do_sw_delta_scaling_with_gases),
+            spec_matrix=spec_sw)}
 
 
 def main(ncol=2048, dtype_name="float32", config_name="mcica_rrtmg"):

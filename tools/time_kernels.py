@@ -28,13 +28,15 @@ each checkout saves its float32 outputs of every case under
 build/time_kernels/ of this checkout; the summary line then says, per
 case and per other checkout, whether its outputs equal this checkout's
 bit for bit ("equal") or by how much they differ at most.  With
---planes, only the kernels that write per-g planes (chip_smoke.PLANES)
-run, with their planes (planes=True; every checkout must have them).  With
+--planes, only the kernels that write per-g planes (chip_smoke.PLANES:
+the four fused McICA and Tripleclouds kernels and the three adding
+sweeps) run, with their planes (planes=True; every checkout must have
+them).  With
 --steps, each run times the main paths' steps instead (chip_smoke.py's
 full size: 6144 columns in blocks of 2048, f32, the median of three steps
 after one, host clock around a synchronised step, and the peak device
 memory of those steps) of the configurations named by --configs (by
-default all ten; an older checkout may lack the last two).  Prints one
+default all thirteen; an older checkout may lack the later ones).  Prints one
 JSON line per run and a summary line
 {"card": ..., "median_ms": {checkout: {case: ms}}, "f32_outputs_vs_this":
 {checkout: {case: "equal" or max_abs_diff}}}.
@@ -55,7 +57,9 @@ NCOL = 2048
 STEP_CONFIGS = ("mcica_rrtmg", "tripleclouds_rrtmg", "homogeneous_rrtmg",
                 "spartacus_3d", "cloudless_rrtmg", "tripleclouds_ecckd",
                 "ecckd_mcica", "tripleclouds_baran2016",
-                "mcica_rrtmg_spectral", "tripleclouds_ecckd_gpoint")
+                "mcica_rrtmg_spectral", "tripleclouds_ecckd_gpoint",
+                "cloudless_rrtmg_spectral", "homogeneous_rrtmg_spectral",
+                "monochromatic_homogeneous")
 
 
 def time_steps(chip_smoke, configs):
