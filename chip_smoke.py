@@ -33,7 +33,9 @@ the script exits non-zero:
                five kernels of the ecCKD paths (generator_scan, lw_fused,
                sw_fused, tripleclouds_lw, tripleclouds_sw) also on the
                ecckd_mcica state (32 g-points, per-g-point cloud optics:
-               32 bands, band_of_g the identity; one warp per block); and
+               32 bands, band_of_g the identity; one warp per block), and
+               spartacus_sw and spartacus_lw on the spartacus_ecckd state
+               as its path runs them (32 g-points); and
                the six kernels of the monochromatic paths
                (generator_scan, lw_fused, sw_fused and the three adding
                sweeps) at one g-point (mono_inputs: monochromatic optics
@@ -91,6 +93,10 @@ the script exits non-zero:
                of its path at one g-point)
                (tests/data/torch_{cloudless_spectral,homogeneous_spectral,
                monochromatic}_meridian32.npz).
+    slice_sp_ecckd_* - the same three for spartacus_ecckd (SPARTACUS with
+               3D effects on ecCKD at 32 g-points, general cloud optics;
+               tests/data/torch_spartacus_ecckd_meridian32.npz), the
+               float32 slice held to the float64 fluxes as spartacus_3d's.
 13. slice_sp_gpt_f64 - a 32-column float64 spartacus_3d step with flux
                profiles per g-point: its broadband fields against
                tests/data/torch_spartacus_meridian32.npz, and its g-point
@@ -105,7 +111,11 @@ the script exits non-zero:
                meridian file tiled, written by io/save_extras.save_inputs),
                nrepeat 3, with the host and with the device generator:
                cols/s, stage times (profiling hooks), peak device memory;
-               every tiled copy of a column against the first.
+               every tiled copy of a column against the first; then
+               python -m ecrad_torch.evaluate.compare_output on the host
+               generator's float32 file against a float64 run's, with
+               heating rates, at --threshold-lw 0.5 --threshold-sw 0.5
+               (ecRad's evaluation layer, without JAX).
 16. ifs_f64, ifs_f32_full - the IFS driver (ecrad_torch.ifs.driver.run_ifs)
                on the 32 columns in float64, with --bitidentity and
                without (device generator), against the JAX IFS driver's
@@ -180,7 +190,9 @@ SLICES = {"tripleclouds_rrtmg": ("tc", "torch_tripleclouds_meridian32.npz"),
           "homogeneous_rrtmg_spectral": (
               "hom_spec", "torch_homogeneous_spectral_meridian32.npz"),
           "monochromatic_homogeneous": (
-              "mono", "torch_monochromatic_meridian32.npz")}
+              "mono", "torch_monochromatic_meridian32.npz"),
+          "spartacus_ecckd": ("sp_ecckd",
+                              "torch_spartacus_ecckd_meridian32.npz")}
 # the JAX float32 stochastic sample of a McICA reference file
 SAMPLE_KEYS = ("od_scaling_sw", "od_scaling_lw", "total_cloud_cover_sw",
                "total_cloud_cover_lw")
@@ -215,11 +227,12 @@ SLICE_F64_ATOL, SLICE_F64_ATOL_DIMLESS = 1e-6, 1e-10
 SLICE_F32_ATOL, SLICE_F32_ATOL_DIMLESS = 0.5, 1e-4
 # ... except where the JAX float32 run (on the CPU, as the reference file
 # holds it) is itself further than that from the JAX float64 one: in
-# spartacus_3d by 8 W m-2 in lw_dn (the 6x6 LW exponential's sources in
-# single precision, which the port computes in float64).  There the
-# float32 slice is held to the float64 fluxes at the same bar, and its
-# distance to the JAX float32 fluxes is only reported.
-F32_HELD_TO = {"spartacus_3d": "f64/"}
+# spartacus_3d by 8 W m-2 in lw_dn, in spartacus_ecckd by 3.0e4 W m-2 in
+# lw_up (the 6x6 LW exponential's sources in single precision, which the
+# port computes in float64).  There the float32 slice is held to the
+# float64 fluxes at the same bar, and its distance to the JAX float32
+# fluxes is only reported.
+F32_HELD_TO = {"spartacus_3d": "f64/", "spartacus_ecckd": "f64/"}
 DIMLESS = ("lw_derivatives", "cloud_cover_lw", "cloud_cover_sw")
 # The drivers' output files against the JAX drivers': float64 within 1e-6
 # W m-2 and 1e-9 for the dimensionless fields (DRIVER_DIMLESS), float32
@@ -308,6 +321,7 @@ MAIN_PATHS = {
     "cloudless_rrtmg_spectral": dict(lw_noscat_sweeps=1, sw_sweeps=1),
     "homogeneous_rrtmg_spectral": dict(scat_sweeps=2, sw_fused=1),
     "monochromatic_homogeneous": dict(lw_fused=1, sw_fused=1),
+    "spartacus_ecckd": dict(spartacus_sw=1, spartacus_lw=1),
 }
 # The kernels that write per-g planes on request (planes=True)
 PLANES = ("lw_fused", "sw_fused", "tripleclouds_lw", "tripleclouds_sw",
@@ -424,12 +438,14 @@ def random_state(ncol, dtype, seed, config_name="mcica_rrtmg",
     return step, kw, cloud
 
 
-def spartacus_inputs(ncol, dtype, seed, min_cloud=0.0):
-    """The SPARTACUS sweeps' inputs as the spartacus_3d path builds them
-    for the random state of random_state: [SW in Explicit (the path's),
-    Maximum and Edge-only entrapment], [LW without (the path's) and with
-    multilayer effects], each (label, arguments)."""
-    step, kw, cloud = random_state(ncol, dtype, seed, "spartacus_3d",
+def spartacus_inputs(ncol, dtype, seed, min_cloud=0.0,
+                     config_name="spartacus_3d"):
+    """The SPARTACUS sweeps' inputs as the path of config_name
+    (spartacus_3d or spartacus_ecckd) builds them for the random state of
+    random_state: [SW in Explicit (the path's), Maximum and Edge-only
+    entrapment], [LW without (the path's) and with multilayer effects],
+    each (label, arguments)."""
+    step, kw, cloud = random_state(ncol, dtype, seed, config_name,
                                    min_cloud)
     config, tables = step.config, step.tables
     op = _optical_properties(config, tables, solar_irradiance=step.solar,
@@ -440,7 +456,7 @@ def spartacus_inputs(ncol, dtype, seed, min_cloud=0.0):
     lw_opts, lw, _ = spartacus.lw_sweep_args(*spartacus_lw_inputs(
         config, tables, op, cloud, *levels)[1])
     if sw_opts.mode != Entrapment.EXPLICIT or lw_opts.multilayer:
-        raise AssertionError(f"spartacus_3d runs {sw_opts}, {lw_opts}")
+        raise AssertionError(f"{config_name} runs {sw_opts}, {lw_opts}")
     return ([(m.name.lower(), (sw_opts._replace(mode=m), *sw))
              for m in (Entrapment.EXPLICIT, Entrapment.MAXIMUM,
                        Entrapment.EDGE_ONLY)],
@@ -586,7 +602,9 @@ def ecckd_inputs(ncol, dtype, seed):
     ecckd_mcica configuration: generator_scan at 32 g-points, and the
     fused McICA and Tripleclouds kernels' arguments (fused_inputs) with
     32 g-points and per-g-point cloud optics (32 bands, band_of_g the
-    identity), which is checked."""
+    identity), which is checked; and on spartacus_ecckd the SPARTACUS
+    sweeps' arguments as its path builds them (spartacus_inputs: SW in
+    Explicit entrapment, LW without multilayer effects) at 32 g-points."""
     step, kw, cloud = random_state(ncol, dtype, seed, "ecckd_mcica")
     config, tables = step.config, step.tables
     gen = cloud_generator.scan_inputs(config, cloud["iseed"],
@@ -602,6 +620,13 @@ def ecckd_inputs(ncol, dtype, seed):
                 or op["cl"]["od_sw"].shape[-1] != 32:
             raise AssertionError("ecckd_mcica is not at 32 g-points and "
                                  "bands")
+    sp_sw, sp_lw = spartacus_inputs(ncol, dtype, seed,
+                                    config_name="spartacus_ecckd")
+    out["spartacus_sw"], out["spartacus_lw"] = sp_sw[0][1], sp_lw[0][1]
+    for name in ("spartacus_sw", "spartacus_lw"):   # (opts, mats (.., ng))
+        if out[name][1].shape[-1] != 32:
+            raise AssertionError(f"spartacus_ecckd's {name} is not at 32 "
+                                 f"g-points")
     return {name: [("ecckd", args)] for name, args in out.items()}
 
 
@@ -808,8 +833,8 @@ def bound(name, args, out):
 
 # Input sets timed besides the main path's (the first of kernel_inputs)
 TIMED = {"generator_scan": ("ecckd", "ng1"),
-         "spartacus_sw": ("all_cloudy",),
-         "spartacus_lw": ("multilayer", "all_cloudy"),
+         "spartacus_sw": ("all_cloudy", "ecckd"),
+         "spartacus_lw": ("multilayer", "all_cloudy", "ecckd"),
          "tripleclouds_sw": ("all_cloudy", "ecckd"),
          "lw_fused": ("no_derivatives", "all_cloudy", "ecckd", "ng1"),
          "sw_fused": ("delta_gases", "all_cloudy", "ecckd", "ng1"),
@@ -1247,7 +1272,10 @@ def _check_tiles(fields, ncol, what):
 
 def driver_full_phase(tmp, path, smi):
     """driver_f32_full: the offline driver at full size with each
-    generator."""
+    generator; then ecRad's evaluation tool (python -m
+    ecrad_torch.evaluate.compare_output, which runs without JAX) on the
+    host generator's float32 output against a float64 run, at the
+    single-precision bar."""
     nam = write_namelist(tmp, "mcica_rrtmg")
     for generator in ("exact", "device"):
         out = os.path.join(tmp, f"full_{generator}.nc")
@@ -1283,6 +1311,20 @@ def driver_full_phase(tmp, path, smi):
               pass_s=pass_s, cols_per_s_pass=FULL_NCOL / pass_s,
               setup_s=setup_s, stages_s=stages, tile_max_abs_err=worst,
               launches=n, peak_memory_bytes=peak, card=smi)
+    out64 = os.path.join(tmp, "full_f64.nc")
+    driver.run(nam, path, out64, dtype="float64", generator="exact",
+               device=DEV)
+    cmd = [sys.executable, "-m", "ecrad_torch.evaluate.compare_output",
+           os.path.join(tmp, "full_exact.nc"), out64, "--input", path,
+           "--threshold-lw", str(SLICE_F32_ATOL),
+           "--threshold-sw", str(SLICE_F32_ATOL)]
+    r = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
+                       timeout=600)
+    if r.returncode != 0:
+        raise AssertionError(f"compare_output exited {r.returncode}:\n"
+                             f"{r.stdout[-4000:]}{r.stderr[-4000:]}")
+    phase("driver_f32_full", evaluation=" ".join(cmd[1:]),
+          returncode=r.returncode, report=r.stdout.splitlines())
 
 
 def ifs_f64_phase(tmp, ref):

@@ -26,10 +26,14 @@ Entry points, each on the card unless told otherwise:
   ``tripleclouds_ecckd``, ``ecckd_mcica``, ``tripleclouds_baran2016``,
   ``mcica_rrtmg_spectral``, ``tripleclouds_ecckd_gpoint``,
   ``cloudless_rrtmg_spectral``, ``homogeneous_rrtmg_spectral`` and
-  ``monochromatic_homogeneous`` (``flagship.namelist_text`` writes any of
-  them as the drivers' namelist);
+  ``monochromatic_homogeneous``, ``spartacus_ecckd``
+  (``flagship.namelist_text`` writes any of them as the drivers'
+  namelist);
 * :func:`ecrad_torch.pipeline.radiation_sharded`, columns over several
-  devices, and :mod:`ecrad_torch.distributed`, over processes.
+  devices, and :mod:`ecrad_torch.distributed`, over processes;
+* ``python -m ecrad_torch.evaluate.compare_output out.nc ref.nc`` and
+  ``python -m ecrad_torch.evaluate.plot_input in.nc`` (host tools on
+  NetCDF files, :mod:`ecrad_torch.evaluate`).
 The JAX package ``ecrad_tpu`` is the reference; this package imports
 nothing of it.
 """

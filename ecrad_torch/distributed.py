@@ -13,8 +13,9 @@ parallel over columns.  Here:
 * Columns are split into one contiguous slab per rank (``column_slab``);
   each rank reads only its slab of the input file
   (``read_input_distributed``, through io/netcdf.NcFile's col_range), runs
-  it on its own device (``global_mesh``) and keeps only its slab of the
-  fluxes (``local_flux``).  There is no collective in the hot path.
+  it on its own device (``global_mesh``: a card, or the CPU when the
+  caller names it) and keeps only its slab of the fluxes
+  (``local_flux``).  There is no collective in the hot path.
 """
 
 from __future__ import annotations
@@ -79,17 +80,19 @@ def _world() -> Tuple[int, int]:
 
 def global_mesh() -> Tuple[torch.device, ...]:
     """One device per rank, in rank order: card r modulo the cards of the
-    host (ranks share cards when there are fewer cards than ranks), or the
-    CPU without a card.  Rank r runs its slab on entry r."""
+    host (ranks share cards when there are fewer cards than ranks).  Rank
+    r runs its slab on entry r.  Raises when no card is present: the CPU
+    is reached only by naming it (make_global_inputs(..., device="cpu"))."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("global_mesh: no CUDA device; name the device "
+                           "(e.g. make_global_inputs(..., device='cpu'))")
     world, _ = _world()
-    if torch.cuda.is_available():
-        n = torch.cuda.device_count()
-        return tuple(torch.device("cuda", r % n) for r in range(world))
-    return (torch.device("cpu"),) * world
+    n = torch.cuda.device_count()
+    return tuple(torch.device("cuda", r % n) for r in range(world))
 
 
 def local_device() -> torch.device:
-    """This rank's entry of global_mesh()."""
+    """This rank's entry of global_mesh(); raises without a card."""
     return global_mesh()[_world()[1]]
 
 
@@ -125,8 +128,8 @@ def make_global_inputs(tree, ncol_local: int, ncol_global: int,
     """The local slab (a tree of tensors, e.g. flagship.inputs_from's) as
     the rank's share of the padded global columns: every tensor whose
     leading axis is the ncol_local columns padded to the equal share by
-    repeating its last column, on ``device`` (local_device() by default).
-    Returns (tree, ncol_padded)."""
+    repeating its last column, on ``device`` (local_device() by default,
+    which raises without a card).  Returns (tree, ncol_padded)."""
     device = local_device() if device is None else torch.device(device)
     world, _ = _world()
     per = -(-ncol_global // world)

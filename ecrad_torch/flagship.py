@@ -15,6 +15,9 @@ configurations change the solvers:
   g-points in each band set) with general cloud optics per g-point,
   Planck-weighted LW emissivities and no aerosols;
 * ``ecckd_mcica``: the same on the McICA solvers;
+* ``spartacus_ecckd``: ``spartacus_3d``'s solvers on ``tripleclouds_ecckd``'s
+  optics (ecCKD at 32 g-points, general cloud optics, no aerosols): the
+  SPARTACUS kernels at one warp per block;
 * ``tripleclouds_baran2016``: Tripleclouds SW and LW with Slingo liquid
   (Slingo SW, Lindner-Li LW) and Baran2016 ice, the band-wise cloud optics
   models other than SOCRATES/Fu, with the flagship's aerosols;
@@ -69,6 +72,10 @@ ECCKD = dict(gas_model_sw=GasModel.ECCKD, gas_model_lw=GasModel.ECCKD,
              use_general_cloud_optics=True,
              do_nearest_spectral_lw_emiss=False, use_aerosols=False,
              n_aerosol_types=0, i_aerosol_type_map=())
+# SPARTACUS in both band sets with 3D effects and no SW delta scaling with
+# gases
+SPARTACUS_3D = dict(sw_solver=Solver.SPARTACUS, lw_solver=Solver.SPARTACUS,
+                    do_3d_effects=True, do_sw_delta_scaling_with_gases=False)
 
 # Named configurations: Config fields over the flagship's
 CONFIGS = {
@@ -80,13 +87,12 @@ CONFIGS = {
     "homogeneous_rrtmg": dict(sw_solver=Solver.HOMOGENEOUS,
                               lw_solver=Solver.HOMOGENEOUS,
                               do_lw_aerosol_scattering=True),
-    "spartacus_3d": dict(sw_solver=Solver.SPARTACUS,
-                         lw_solver=Solver.SPARTACUS, do_3d_effects=True,
-                         do_sw_delta_scaling_with_gases=False),
+    "spartacus_3d": SPARTACUS_3D,
     "tripleclouds_ecckd": dict(sw_solver=Solver.TRIPLECLOUDS,
                                lw_solver=Solver.TRIPLECLOUDS,
                                **ECCKD),
     "ecckd_mcica": ECCKD,
+    "spartacus_ecckd": dict(**SPARTACUS_3D, **ECCKD),
     "tripleclouds_baran2016": dict(sw_solver=Solver.TRIPLECLOUDS,
                                    lw_solver=Solver.TRIPLECLOUDS,
                                    liquid_model=LiquidModel.SLINGO,

@@ -45,6 +45,7 @@ import ecrad_torch.ifs, ecrad_torch.ifs.driver, ecrad_torch.ifs.scheme
 import ecrad_torch.ifs.blocking
 import ecrad_torch.optics.monochromatic, ecrad_torch.distributed
 import ecrad_torch.utils
+import ecrad_torch.evaluate.compare_output, ecrad_torch.evaluate.plot_input
 import chip_smoke
 new = set(sys.modules) - before
 bad = sorted(m for m in new

@@ -167,6 +167,30 @@ def test_make_global_inputs_pads_the_slab(monkeypatch):
     assert out["c"]["y"].shape == (4,) and out["s"] == 1.5
 
 
+def _without_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    return {"x": torch.arange(6.0).view(3, 2)}
+
+
+@pytest.mark.parametrize("call", [
+    lambda tree: distributed.global_mesh(),
+    lambda tree: distributed.local_device(),
+    lambda tree: distributed.make_global_inputs(tree, 3, 3)],
+    ids=["global_mesh", "local_device", "make_global_inputs"])
+def test_no_cpu_fallback_without_a_card(monkeypatch, call):
+    """Without a card the process-parallel path raises unless the CPU is
+    named: it does not carry on on the CPU."""
+    tree = _without_card(monkeypatch)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call(tree)
+
+
+def test_named_cpu_without_a_card(monkeypatch):
+    tree = _without_card(monkeypatch)
+    out, padded = distributed.make_global_inputs(tree, 3, 3, device="cpu")
+    assert padded == 3 and out["x"].device.type == "cpu"
+
+
 def _free_port():
     with socket.socket() as s:
         s.bind(("localhost", 0))

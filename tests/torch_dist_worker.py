@@ -6,7 +6,7 @@ file, runs the flagship on it and saves its slab of the fluxes.
         DTYPE BLOCK
 
 DEVICE is "cpu" or "local" (the rank's entry of
-distributed.global_mesh()); DTYPE float32 or float64; BLOCK the column
+distributed.global_mesh(), a card; it raises without one); DTYPE float32 or float64; BLOCK the column
 block of radiation_blocked (0: one radiation_step).  Writes
 OUTDIR/shard<RANK>.npz with the slab's start and stop and every Flux
 field.  The CPU uses one thread, so that a one-process run with one thread

@@ -31,6 +31,9 @@ commit of the tree:
   ``tests/data/torch_tripleclouds_ecckd_meridian32.npz``;
 * ``ecckd_mcica`` (the same on McICA, with its float32 sample) to
   ``tests/data/torch_ecckd_mcica_meridian32.npz``;
+* ``spartacus_ecckd`` (``spartacus_3d``'s solvers on the ecCKD optics of
+  ``tripleclouds_ecckd``) to
+  ``tests/data/torch_spartacus_ecckd_meridian32.npz``;
 * ``tripleclouds_baran2016`` (Tripleclouds SW and LW with Slingo liquid and
   Baran2016 ice, the flagship's aerosols) to
   ``tests/data/torch_tripleclouds_baran2016_meridian32.npz``;
@@ -89,6 +92,9 @@ ECCKD = dict(gas_model_sw_name="ECCKD", gas_model_lw_name="ECCKD",
              use_general_cloud_optics=True,
              do_nearest_spectral_lw_emiss=False, use_aerosols=False,
              n_aerosol_types=0, i_aerosol_type_map=())
+# the SPARTACUS configurations' solvers (tools/bench_matrix.py CONFIGS)
+SPARTACUS = dict(sw_solver_name="SPARTACUS", lw_solver_name="SPARTACUS",
+                 do_3d_effects=True, do_sw_delta_scaling_with_gases=False)
 # configuration -> (nam_overrides, output file)
 OUTPUTS = {
     "mcica_rrtmg": ({}, "torch_flagship_meridian32.npz"),
@@ -101,14 +107,13 @@ OUTPUTS = {
                                lw_solver="HOMOGENEOUS",
                                do_lw_aerosol_scattering=True),
                           "torch_homogeneous_meridian32.npz"),
-    "spartacus_3d": (dict(sw_solver_name="SPARTACUS",
-                          lw_solver_name="SPARTACUS", do_3d_effects=True,
-                          do_sw_delta_scaling_with_gases=False),
-                     "torch_spartacus_meridian32.npz"),
+    "spartacus_3d": (SPARTACUS, "torch_spartacus_meridian32.npz"),
     "tripleclouds_ecckd": (dict(sw_solver_name="Tripleclouds",
                                 lw_solver_name="Tripleclouds", **ECCKD),
                            "torch_tripleclouds_ecckd_meridian32.npz"),
     "ecckd_mcica": (ECCKD, "torch_ecckd_mcica_meridian32.npz"),
+    "spartacus_ecckd": (dict(**SPARTACUS, **ECCKD),
+                        "torch_spartacus_ecckd_meridian32.npz"),
     "tripleclouds_baran2016": (dict(sw_solver_name="Tripleclouds",
                                     lw_solver_name="Tripleclouds",
                                     liquid_model="SLINGO",

@@ -36,7 +36,7 @@ them).  With
 full size: 6144 columns in blocks of 2048, f32, the median of three steps
 after one, host clock around a synchronised step, and the peak device
 memory of those steps) of the configurations named by --configs (by
-default all thirteen; an older checkout may lack the later ones).  Prints one
+default all fourteen; an older checkout may lack the later ones).  Prints one
 JSON line per run and a summary line
 {"card": ..., "median_ms": {checkout: {case: ms}}, "f32_outputs_vs_this":
 {checkout: {case: "equal" or max_abs_diff}}}.
@@ -59,7 +59,7 @@ STEP_CONFIGS = ("mcica_rrtmg", "tripleclouds_rrtmg", "homogeneous_rrtmg",
                 "ecckd_mcica", "tripleclouds_baran2016",
                 "mcica_rrtmg_spectral", "tripleclouds_ecckd_gpoint",
                 "cloudless_rrtmg_spectral", "homogeneous_rrtmg_spectral",
-                "monochromatic_homogeneous")
+                "monochromatic_homogeneous", "spartacus_ecckd")
 
 
 def time_steps(chip_smoke, configs):
