@@ -7,13 +7,17 @@ Phases, each printing its result on its own line; any failure raises and
 the script exits non-zero:
 
 1. device    - a CUDA device must be present; prints the card's name and
-               power limit (nvidia-smi), torch and CUDA versions.
+               power limit (nvidia-smi), torch and CUDA versions, and the
+               maximum SM clock (nvidia-smi) that sets the integer
+               issue rate of the bounds.
 2. build     - builds the CUDA kernels of ecrad_torch/csrc from this
                checkout.
-3. kernels   - each kernel (generator_scan, lw_fused, sw_fused of the
-               McICA path; tripleclouds_lw, tripleclouds_sw of the
-               Tripleclouds path; lw_noscat_sweeps, scat_sweeps, sw_sweeps,
-               the adding sweeps of the Cloudless and Homogeneous paths;
+3. kernels   - each kernel (generator_draw_scan, lw_fused, sw_fused of
+               the McICA path; generator_scan, the generator's planes-in
+               build, which no main path runs; tripleclouds_lw,
+               tripleclouds_sw of the Tripleclouds path; lw_noscat_sweeps,
+               scat_sweeps, sw_sweeps, the adding sweeps of the Cloudless
+               and Homogeneous paths;
                spartacus_sw, spartacus_lw of the SPARTACUS path, in
                Explicit entrapment without LW multilayer effects as the
                path runs them, and again in Maximum and Edge-only
@@ -51,7 +55,13 @@ the script exits non-zero:
                with planes against those without, bit for bit, and a
                second float32 launch with planes against the first; they
                are timed with planes too, beside a bound that counts the
-               planes' bytes.
+               planes' bytes.  The generator's draw build
+               (generator_draw_scan), which draws its threefry sample in
+               the kernel, is held to its plain version bit for bit, and
+               to the planes-in build fed draw_planes bit for bit, at ng
+               140, 112, 32 and 1, in the three overlap schemes, on the
+               meridian file's seeds, those + 997 (the LW stream), and
+               seeds 0 and at or above 2^31.
 4. slice_f64 - the flagship (McICA) step (ecrad_torch.flagship) on the
                32-column meridian slice in float64 against the JAX package's
                float64 fluxes (tests/data/torch_flagship_meridian32.npz).
@@ -140,6 +150,7 @@ as the last line {"ok": true, "device": {...}}.
 """
 
 import dataclasses
+import functools
 import json
 import os
 import socket
@@ -155,7 +166,7 @@ import torch
 
 from ecrad_torch import constants, driver, flagship, kernels, pipeline
 from ecrad_torch import profiling
-from ecrad_torch.config import Entrapment, Solver
+from ecrad_torch.config import Entrapment, Overlap, Solver
 from ecrad_torch.containers import Flux
 from ecrad_torch.interface import (_optical_properties, radiation,
                                    setup_radiation, spartacus_lw_inputs,
@@ -257,6 +268,12 @@ DRIVER_STAGES = ("ecrad_driver:read_input", "ecrad_driver:check_inputs",
 GPOINT_SUM_ATOL = 1e-9
 
 KERNELS = {
+    "generator_draw_scan": dict(
+        wrapper=cuda_generator.generator_draw_scan,
+        plain=cuda_generator.generator_draw_scan_plain,
+        source="ecrad_torch/csrc/generator_scan.cu",
+        replaces="ecrad_tpu/solvers/pallas_generator.py:98 and the draw at "
+                 "ecrad_tpu/solvers/cloud_generator.py:451"),
     "generator_scan": dict(
         wrapper=cuda_generator.generator_scan,
         plain=cuda_generator.generator_scan_plain,
@@ -305,24 +322,28 @@ KERNELS = {
         replaces="ecrad_tpu/solvers/pallas_spartacus.py:346"),
 }
 # Each main path's launches per 2048-column block (all others 0); a
-# kernel's reported launches are those of the first path listed here that
-# runs it.
+# kernel's reported launches are those read in the first path listed here
+# that names it (generator_scan, which no main path runs, in the flagship's).
 MAIN_PATHS = {
-    "mcica_rrtmg": dict(generator_scan=2, lw_fused=1, sw_fused=1),
+    "mcica_rrtmg": dict(generator_draw_scan=2, generator_scan=0, lw_fused=1,
+                        sw_fused=1),
     "tripleclouds_rrtmg": dict(tripleclouds_lw=1, tripleclouds_sw=1),
     "cloudless_rrtmg": dict(lw_noscat_sweeps=1, sw_sweeps=1),
     "homogeneous_rrtmg": dict(scat_sweeps=2, sw_fused=1),
     "spartacus_3d": dict(spartacus_sw=1, spartacus_lw=1),
     "tripleclouds_ecckd": dict(tripleclouds_lw=1, tripleclouds_sw=1),
-    "ecckd_mcica": dict(generator_scan=2, lw_fused=1, sw_fused=1),
+    "ecckd_mcica": dict(generator_draw_scan=2, lw_fused=1, sw_fused=1),
     "tripleclouds_baran2016": dict(tripleclouds_lw=1, tripleclouds_sw=1),
-    "mcica_rrtmg_spectral": dict(generator_scan=2, lw_fused=1, sw_fused=1),
+    "mcica_rrtmg_spectral": dict(generator_draw_scan=2, lw_fused=1,
+                                 sw_fused=1),
     "tripleclouds_ecckd_gpoint": dict(tripleclouds_lw=1, tripleclouds_sw=1),
     "cloudless_rrtmg_spectral": dict(lw_noscat_sweeps=1, sw_sweeps=1),
     "homogeneous_rrtmg_spectral": dict(scat_sweeps=2, sw_fused=1),
     "monochromatic_homogeneous": dict(lw_fused=1, sw_fused=1),
     "spartacus_ecckd": dict(spartacus_sw=1, spartacus_lw=1),
 }
+# The kernels whose outputs must equal their plain versions' bit for bit
+EXACT = ("generator_draw_scan", "generator_scan")
 # The kernels that write per-g planes on request (planes=True)
 PLANES = ("lw_fused", "sw_fused", "tripleclouds_lw", "tripleclouds_sw",
           "lw_noscat_sweeps", "scat_sweeps", "sw_sweeps")
@@ -332,6 +353,33 @@ PLANES = ("lw_fused", "sw_fused", "tripleclouds_lw", "tripleclouds_sw",
 # written once at 3.35 TB/s, or its operations at 67 TFLOP/s (float32
 # outside the tensor cores), whichever is longer.
 PEAK_BYTES_S, PEAK_F32_OPS_S = 3.35e12, 67e12
+# The integer issue rate: an SM of compute capability 9.0 issues one warp
+# instruction per clock in each of its 4 partitions, 128 thread
+# instructions per clock whatever pipe runs them, times the SMs torch
+# reports (132 on an H100 SXM) and the maximum SM clock nvidia-smi reports
+# (clocks.max.sm, 1980 MHz there): 132 x 128 x 1.98e9 = 33.5e12
+# instructions per second.  (The integer ALU pipe has 64 lanes per SM, the
+# CUDA C++ Programming Guide's throughput table; but adds also run on the
+# FMA pipe as IMAD.IADD and rotates as IMAD.SHL with IMAD.HI, so only the
+# xors are tied to it: 20 of a hash's 70 instructions at half the rate,
+# which never takes longer than the 70 at the issue rate.)
+ISSUE_PER_SM_CLOCK = 128
+
+
+@functools.lru_cache(maxsize=None)
+def sm_clock_mhz():
+    """The card's maximum SM clock, as nvidia-smi reports it."""
+    return float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0])
+
+
+def issue_per_s():
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * ISSUE_PER_SM_CLOCK * sm_clock_mhz() * 1e6
+
+
 # Operations per (column, layer, g-point), counted from the plain
 # versions' arithmetic done once (each add, multiply, divide, comparison,
 # select, exp and sqrt one operation), and the extra per cloudy (column,
@@ -343,6 +391,8 @@ PEAK_BYTES_S, PEAK_F32_OPS_S = 3.35e12, 67e12
 OPS = {
     # selections and compares of the overlap scan
     "generator_scan": lambda args, f: 20,
+    # the scan, and the exact "- 1" of each of the three draws
+    "generator_draw_scan": lambda args, f: 23,
     # clear 15 + sweeps 3+3+12+12 + derivatives 4; cloudy: merge + ref_trans
     "lw_fused": lambda args, f: 49 + 54 * f(args[5]),
     # clear ref_trans 105 + two scenes' SW sweeps 2 x 29; cloudy: merge +
@@ -367,6 +417,19 @@ OPS = {
     # below the bytes of the 50 (SW) and 24 (LW) layer planes
     "spartacus_sw": lambda args, f: 700,
     "spartacus_lw": lambda args, f: 400,
+}
+# Integer instructions of the draw build's work, at the least: a
+# Threefry-2x32 hash of 20 rounds (csrc/generator_scan.cu threefry2x32)
+# takes 3 a round (an add, a rotate, an xor: no instruction does two of
+# them) and 7 adds that inject the key (x1's first and four middle
+# injections, both words' last; x0's middle ones fold into the next
+# round's three-input add), 67; a draw adds 3 for the mantissa, 70.  The
+# work is 3 draws per (column, layer, g-point), the trigger's per
+# (column, g-point) and the 4 key splits per column.
+HASH_INSTR, DRAW_INSTR = 20 * 3 + 7, 20 * 3 + 7 + 3
+INT_OPS = {
+    "generator_draw_scan": lambda ncol, nlev, ng: (
+        ncol * ng * (nlev * 3 + 1) * DRAW_INSTR + ncol * 4 * HASH_INSTR),
 }
 
 
@@ -462,6 +525,36 @@ def spartacus_inputs(ncol, dtype, seed, min_cloud=0.0,
                        Entrapment.EDGE_ONLY)],
             [("meridian", (lw_opts, *lw)),
              ("multilayer", (lw_opts._replace(multilayer=True), *lw))])
+
+
+def seed_sets(ncol):
+    """The seeds of the draw build's input sets, (ncol,) on the card: the
+    meridian file's (tiled), the same + 997 (the LW stream,
+    pipeline.LW_SEED_OFFSET), and "edge": 0, from 2^31 up and from
+    2^32 - 1 down, in turns with the meridian file's."""
+    inp = read_input(MERIDIAN_INPUT, DriverConfig(**flagship.DRIVER_SETTINGS))
+    real = np.resize(inp.iseed.astype(np.int64), ncol)
+    edge = real.copy()
+    edge[0::4] = 0
+    edge[1::4] = 2**31 + np.arange(edge[1::4].size)
+    edge[2::4] = 2**32 - 1 - np.arange(edge[2::4].size)
+    return {k: torch.as_tensor(v, device=DEV) for k, v in (
+        ("meridian", real), ("meridian_lw", real + pipeline.LW_SEED_OFFSET),
+        ("edge", edge))}
+
+
+def draw_inputs(config, cloud, sets):
+    """[(label, arguments)] of the generator's draw build for the cloud of
+    random_state, one per (label, overlap scheme, seed_sets key, ng) of
+    sets."""
+    seeds = seed_sets(cloud["fraction"].shape[0])
+    out = []
+    for label, overlap, seed, ng in sets:
+        scalars, exp_exp, tcc = cloud_generator.scan_scalars(
+            config.replace(overlap_scheme=overlap), cloud["fraction"],
+            cloud["overlap_param"])
+        out.append((label, (seeds[seed], scalars, tcc, ng, exp_exp)))
+    return out
 
 
 def fused_inputs(step, kw, cloud, op):
@@ -599,7 +692,8 @@ def all_cloudy_inputs(ncol, dtype, seed):
 def ecckd_inputs(ncol, dtype, seed):
     """{kernel: [("ecckd", arguments)]} for the kernels of the ecCKD paths
     at their widths, from the random state of random_state on the
-    ecckd_mcica configuration: generator_scan at 32 g-points, and the
+    ecckd_mcica configuration: generator_scan and generator_draw_scan
+    (also in Exponential overlap on edge seeds) at 32 g-points, and the
     fused McICA and Tripleclouds kernels' arguments (fused_inputs) with
     32 g-points and per-g-point cloud optics (32 bands, band_of_g the
     identity), which is checked; and on spartacus_ecckd the SPARTACUS
@@ -611,6 +705,10 @@ def ecckd_inputs(ncol, dtype, seed):
                                       cloud["fraction"],
                                       cloud["overlap_param"],
                                       config.n_g_lw)[:6]
+    draw = draw_inputs(config, cloud, (
+        ("ecckd", Overlap.EXPONENTIAL_RANDOM, "meridian_lw", config.n_g_lw),
+        ("ecckd_exp_exp_edge_seeds", Overlap.EXPONENTIAL, "edge",
+         config.n_g_lw)))
     cloud = pipeline.add_cloud_sample(config, tables, cloud)
     op = _optical_properties(config, tables, solar_irradiance=step.solar,
                              cloud=cloud, **kw)
@@ -627,14 +725,17 @@ def ecckd_inputs(ncol, dtype, seed):
         if out[name][1].shape[-1] != 32:
             raise AssertionError(f"spartacus_ecckd's {name} is not at 32 "
                                  f"g-points")
-    return {name: [("ecckd", args)] for name, args in out.items()}
+    return {"generator_draw_scan": draw,
+            **{name: [("ecckd", args)] for name, args in out.items()}}
 
 
 def mono_inputs(ncol, dtype, seed):
     """{kernel: [("ng1", arguments)]} for the six kernels of the
     monochromatic paths at one g-point and one band, from the random state
     of random_state on monochromatic_homogeneous with McICA solvers (its
-    own setup, so that the PDF table loads): generator_scan at ng = 1, the
+    own setup, so that the PDF table loads): generator_scan and
+    generator_draw_scan (also in Maximum-Random overlap on edge seeds) at
+    ng = 1, the
     fused McICA kernels' arguments (fused_inputs) and the adding sweeps'
     on the clear sky (clear_sky_inputs), scat_sweeps and sw_sweeps also on
     the total scene (total_scene_inputs, "ng1_total_scene"); the width is
@@ -651,6 +752,9 @@ def mono_inputs(ncol, dtype, seed):
     gen = cloud_generator.scan_inputs(config, cloud["iseed"],
                                       cloud["fraction"],
                                       cloud["overlap_param"], 1)[:6]
+    draw = draw_inputs(config, cloud, (
+        ("ng1", Overlap.EXPONENTIAL_RANDOM, "meridian", 1),
+        ("ng1_max_ran_edge_seeds", Overlap.MAXIMUM_RANDOM, "edge", 1)))
     cloud = pipeline.add_cloud_sample(config, tables, cloud)
     op = _optical_properties(config, tables, solar_irradiance=step.solar,
                              cloud=cloud, **kw)
@@ -662,7 +766,8 @@ def mono_inputs(ncol, dtype, seed):
             or op["cl"]["od_sw"].shape[-1] != 1:
         raise AssertionError("the monochromatic inputs are not at one "
                              "g-point and one band")
-    return {"generator_scan": [("ng1", gen)],
+    return {"generator_draw_scan": draw,
+            "generator_scan": [("ng1", gen)],
             "lw_fused": [("ng1", fused["lw_fused"])],
             "sw_fused": [("ng1", fused["sw_fused"])],
             "lw_noscat_sweeps": [("ng1", noscat)],
@@ -675,7 +780,9 @@ def mono_inputs(ncol, dtype, seed):
 def kernel_inputs(ncol, dtype, seed):
     """Each kernel's inputs as the main path builds them, for the random
     state of random_state.  Returns {kernel: [(label, arguments)]}, the
-    main path's first: the McICA kernels' (lw_fused also without
+    main path's first: the McICA kernels' (generator_draw_scan on the
+    LW stream's seeds at 140 g-points, then the SW stream's at 112 and the
+    other overlap schemes and seeds; lw_fused also without
     derivatives, sw_fused also with delta-Eddington scaling of the gases)
     and, from the same optical properties, the Tripleclouds kernels'
     (tripleclouds_sw also with delta-Eddington scaling of the gases,
@@ -690,6 +797,12 @@ def kernel_inputs(ncol, dtype, seed):
                                        cloud["overlap_param"], ng)[:6]
            for ng in (config.n_g_lw, config.n_g_sw)]
     gen.append(gen[0][:5] + (True,))              # the exp-exp variant
+    draw = draw_inputs(config, cloud, (
+        ("lw", Overlap.EXPONENTIAL_RANDOM, "meridian_lw", config.n_g_lw),
+        ("sw", Overlap.EXPONENTIAL_RANDOM, "meridian", config.n_g_sw),
+        ("exp_exp", Overlap.EXPONENTIAL, "meridian_lw", config.n_g_lw),
+        ("max_ran", Overlap.MAXIMUM_RANDOM, "meridian", config.n_g_sw),
+        ("edge_seeds", Overlap.EXPONENTIAL_RANDOM, "edge", config.n_g_lw)))
     cloud = pipeline.add_cloud_sample(config, tables, cloud)
     op = _optical_properties(config, tables, solar_irradiance=step.solar,
                              cloud=cloud, **kw)
@@ -700,7 +813,8 @@ def kernel_inputs(ncol, dtype, seed):
     total = total_scene_inputs(step, kw, cloud, op)
     sp_sw, sp_lw = spartacus_inputs(ncol, dtype, seed)
     one = lambda args: [("meridian", args)]  # noqa: E731
-    return {"generator_scan": list(zip(("lw", "sw", "exp_exp"), gen)),
+    return {"generator_draw_scan": draw,
+            "generator_scan": list(zip(("lw", "sw", "exp_exp"), gen)),
             "lw_fused": [("meridian", fused["lw_fused"]),
                          ("no_derivatives",
                           fused["lw_fused"][:-1] + (False,))],
@@ -727,7 +841,8 @@ def device_phase():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    phase("device", nvidia_smi=smi, torch=torch.__version__,
+    phase("device", nvidia_smi=smi, clocks_max_sm_mhz=sm_clock_mhz(),
+          issue_per_s=issue_per_s(), torch=torch.__version__,
           cuda=torch.version.cuda, gpu=torch.cuda.get_device_name(0),
           count=torch.cuda.device_count())
     return smi
@@ -808,8 +923,10 @@ def bound(name, args, out):
     input and output tensor once; for the SPARTACUS sweeps only the
     layer-matrix entries clear layers use, cuda_spartacus.sw_needed_bytes
     and lw_needed_bytes) over the memory rate, or the operations (OPS, with
-    the cloudy fraction of these inputs) over the float32 rate.  bytes_all_tensors counts every byte of
-    every tensor."""
+    the cloudy fraction of these inputs) over the float32 rate or the
+    integer instructions (INT_OPS) over the issue rate, whichever is
+    longer: each is a floor on its own.  bytes_all_tensors
+    counts every byte of every tensor."""
     every = sum(t.numel() * t.element_size()
                 for t in (*_outputs(args).values(), *_outputs(out).values())
                 if torch.is_tensor(t))
@@ -820,19 +937,24 @@ def bound(name, args, out):
         nbytes = cuda_spartacus.lw_needed_bytes(*args)
     if name.startswith("spartacus"):      # (opts, (nlev, 9, ncol, ng), ...)
         nlev, _, ncol, ng = args[1].shape
+    elif name == "generator_draw_scan":   # (iseed, scalars, tcc, ng, ...)
+        (ncol, nlev), ng = args[1].shape[:2], args[3]
     else:
         ncol, nlev, ng = args[0].shape
     ops = OPS[name](args, lambda m: float(m.float().mean())) * ncol * nlev * ng
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_F32_OPS_S
+    int_ops = INT_OPS[name](ncol, nlev, ng) if name in INT_OPS else 0
+    t_bytes = nbytes / PEAK_BYTES_S
+    t_ops = max(ops / PEAK_F32_OPS_S, int_ops / issue_per_s())
     return dict(bound_ms=1e3 * max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 bytes=nbytes, bytes_all_tensors=every,
                 bound_ms_all_tensors=1e3 * max(every / PEAK_BYTES_S, t_ops),
-                operations=ops)
+                operations=ops, int_operations=int_ops)
 
 
 # Input sets timed besides the main path's (the first of kernel_inputs)
-TIMED = {"generator_scan": ("ecckd", "ng1"),
+TIMED = {"generator_draw_scan": ("sw", "ecckd", "ng1"),
+         "generator_scan": ("ecckd", "ng1"),
          "spartacus_sw": ("all_cloudy", "ecckd"),
          "spartacus_lw": ("multilayer", "all_cloudy", "ecckd"),
          "tripleclouds_sw": ("all_cloudy", "ecckd"),
@@ -857,9 +979,12 @@ def check_kernel(name, inputs, ncol, err, checked):
         args32 = _f32(args)
         got32, ref32 = k["wrapper"](*args32), k["plain"](*args32)
         _same_launches(got32, k["wrapper"](*args32), f"{name}/{label}/{ncol}")
-        if name == "generator_scan" and (
+        if name in EXACT and (
                 err64 != 0.0 or not torch.equal(got32, ref32)):
-            raise AssertionError("generator_scan is not exact")
+            raise AssertionError(f"{name}/{label}/{ncol} is not exact")
+        if name == "generator_draw_scan":
+            for a, got in ((args, got64), (args32, got32)):
+                _same_as_planes_in(a, got, f"{name}/{label}/{ncol}")
         err32 = _compare_f32(got32, ref32, ref64)
         for key, v in ((f"float64/{ncol}", err64),
                        *((f"float32/{ncol}/{n}", e)
@@ -869,6 +994,19 @@ def check_kernel(name, inputs, ncol, err, checked):
             del ref64, ref32
             check_planes(name, label, args, args32, ncol, err, got64, got32)
         checked.add(label)
+
+
+def _same_as_planes_in(args, got, what):
+    """The draw build's CDF must equal the planes-in build's fed
+    draw_planes and the trigger, on the same seeds, bit for bit."""
+    iseed, scalars, total_cloud_cover, ng, exp_exp = args
+    trig, rc, ri, ri2 = cloud_generator.draw_planes(
+        iseed, scalars.shape[1], ng, scalars.dtype)
+    fed = cuda_generator.generator_scan(
+        rc, ri, ri2, scalars, trig * total_cloud_cover[:, None], exp_exp)
+    if not torch.equal(fed, got):
+        raise AssertionError(f"{what} {scalars.dtype}: differs from the "
+                             f"planes-in build fed draw_planes")
 
 
 def _same_launches(first, again, what):
@@ -960,6 +1098,7 @@ def kernels_phase(smi):
               ms_f32_2048=res["ms"], plain_ms_f32_2048=res["plain_ms"],
               bound_ms=res["bound_ms"], bound_by=res["bound_by"],
               bytes=res["bytes"], operations=res["operations"],
+              int_operations=res["int_operations"],
               bound_ms_all_tensors=res["bound_ms_all_tensors"],
               ms_planes_f32_2048=res.get("ms_planes"),
               bound_ms_planes=res.get("bound_ms_planes"),
@@ -1095,7 +1234,7 @@ def slice_phases(config_name, ref, smi):
         torch.cuda.synchronize()
         n = counts()
         if fed:
-            want.pop("generator_scan")
+            want.pop("generator_draw_scan")
         expect_counts(n, f"one {name} step", **want)
         held_to = prefix
         if dtype == torch.float32:
@@ -1217,7 +1356,7 @@ def driver_phases(tmp, ref):
         torch.cuda.synchronize()
         n = counts()
         want = per_block(config_name)
-        want.pop("generator_scan", None)
+        want.pop("generator_draw_scan", None)
         expect_counts(n, f"{name} {config_name}", **want)
         tag = "f64" if dtype == "float64" else "f32"
         worst = _check_outputs(read_nc(out), ref, f"{config_name}/{tag}/",
@@ -1295,7 +1434,7 @@ def driver_full_phase(tmp, path, smi):
         peak = torch.cuda.max_memory_allocated()
         want = per_block("mcica_rrtmg", DRIVER_NREPEAT)
         if generator == "exact":
-            want.pop("generator_scan")
+            want.pop("generator_draw_scan")
         expect_counts(n, f"driver {generator} at {FULL_NCOL} columns",
                       **want)
         worst = _check_tiles(flux.fields(), FULL_NCOL, f"driver {generator}")
@@ -1339,7 +1478,7 @@ def ifs_f64_phase(tmp, ref):
         n = counts()
         want = per_block("mcica_rrtmg")
         if mode == "bitidentity":
-            want.pop("generator_scan")
+            want.pop("generator_draw_scan")
         expect_counts(n, f"ifs {mode}", **want)
         results[mode] = out
         worst = _check_outputs({k: v for k, v in out.items()
@@ -1507,7 +1646,7 @@ def main():
             spartacus_gpoint_phase(ref)
     sharded_phase(smi)
     entry_point_phases(smi)
-    # each kernel's launches in the first main path that runs it
+    # each kernel's launches in the first main path that names it
     launches = {}
     for config_name, path in MAIN_PATHS.items():
         for n in path:

@@ -13,8 +13,9 @@ it raises and names the flag.  The McICA sample comes from the bit-exact
 host generator by default (the reference's lagged-Fibonacci stream,
 ``solvers/cloud_generator_exact``, native C++/OpenMP), copied to the
 device once in the dtype of the run; ``--generator device`` draws it on
-the device inside the step instead (``pipeline.add_cloud_sample``:
-threefry draws and the ``generator_scan`` kernel).
+the device inside the step instead (``pipeline.add_cloud_sample``: the
+threefry draws and the overlap scan in one kernel, the draw build of
+``generator_scan.cu``).
 """
 
 from __future__ import annotations

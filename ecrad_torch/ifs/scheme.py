@@ -179,7 +179,7 @@ def radiation_scheme(scheme: RadiationScheme, *,
     if Solver.MCICA in (cfg.sw_solver, cfg.lw_solver) \
             and "od_scaling_sw" not in cloud \
             and "od_scaling_lw" not in cloud:
-        # the device generator (threefry draws, generator_scan kernel)
+        # the device generator (threefry draws and scan in one kernel)
         if iseed is None:
             iseed = torch.arange(1, ncol + 1, device=cloud_frac.device)
         cloud = add_device_sample(cfg, tables, dict(cloud, iseed=iseed))

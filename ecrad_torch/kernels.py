@@ -44,6 +44,8 @@ _I = ctypes.c_int
 _D = ctypes.c_double
 _SIGNATURES = {
     "ecrad_generator_scan": [_P] * 6 + [_I] * 4 + [_P],
+    # the draw build: seeds, scalars, total cloud cover, CDF
+    "ecrad_generator_draw_scan": [_P] * 4 + [_I] * 4 + [_P],
     # the fused kernels take a last int: write the per-g planes
     "ecrad_lw_fused": [_P] + [_I] * 5 + [_P],
     "ecrad_sw_fused": [_P] + [_I] * 6 + [_P],

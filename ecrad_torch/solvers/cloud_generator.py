@@ -4,8 +4,11 @@
 Random fields come from the threefry port (solvers/threefry.py), keyed
 per column exactly as the JAX package keys them, so the sample is the
 JAX package's sample bit for bit (up to roundoff in the cumulators).
-The per-level overlap scan runs in the ``generator_scan`` kernel
-(solvers/cuda_generator.py); the PDF sampling epilogue is plain torch.
+The draws and the per-level overlap scan run in one kernel, the draw
+build ``generator_draw_scan`` (solvers/cuda_generator.py), which makes
+the random numbers in registers; the cumulators and the PDF sampling
+epilogue are plain torch.  ``draw_planes`` and ``scan_inputs`` give the
+planes-in build's inputs.
 """
 
 from __future__ import annotations
@@ -14,8 +17,8 @@ import numpy as np
 import torch
 
 from ecrad_torch.config import Config, Overlap
-from ecrad_torch.solvers import threefry
-from ecrad_torch.solvers.cuda_generator import generator_scan
+from ecrad_torch.solvers.cuda_generator import (draw_planes,
+                                                generator_draw_scan)
 
 MAX_CLOUD_FRAC = 1.0 - 2.0e-6
 MIN_FRAC = 1.0e-6          # radiation_cloud_cover.F90:380
@@ -386,23 +389,10 @@ def _m1_fields(frac, cum, pair, overhang, op_inhom):
     return frac_m1, cum_m1, pair_m1, over_m1, op_m1
 
 
-def draw_planes(iseed, nlev, ng, dtype):
-    """The per-column random planes of the JAX generator's ``draw``:
-    key(seed) -> split(4) -> trigger (ncol, ng), rc/ri/ri2
-    (ncol, nlev, ng)."""
-    k1, k2, k3, k4 = threefry.split(threefry.seed_keys(iseed), 4)
-    return (threefry.uniform(k1, (ng,), dtype),
-            threefry.uniform(k2, (nlev, ng), dtype),
-            threefry.uniform(k3, (nlev, ng), dtype),
-            threefry.uniform(k4, (nlev, ng), dtype))
-
-
-def scan_inputs(config: Config, iseed, frac, overlap_param, ng: int):
-    """The generator scan's inputs for a cloud-fraction profile: random
-    planes rc/ri/ri2 (ncol, nlev, ng), the packed per-level scalars
-    (ncol, nlev, 8), the trigger (ncol, ng), the exp-exp flag, and the
+def scan_scalars(config: Config, frac, overlap_param):
+    """The generator scan's per-level inputs for a cloud-fraction profile:
+    the packed per-level scalars (ncol, nlev, 8), the exp-exp flag and the
     total cloud cover (ncol,)."""
-    nlev = frac.shape[1]
     exp_exp = config.overlap_scheme == Overlap.EXPONENTIAL
     if exp_exp:
         cum, pair = cum_cloud_cover_exp_exp_jnp(frac, overlap_param)
@@ -410,7 +400,7 @@ def scan_inputs(config: Config, iseed, frac, overlap_param, ng: int):
         max_ran = config.overlap_scheme == Overlap.MAXIMUM_RANDOM
         cum, pair = cum_cloud_cover_exp_ran_jnp(frac, overlap_param,
                                                 max_ran=max_ran)
-    total_cloud_cover = cum[:, -1]
+    total_cloud_cover = cum[:, -1].contiguous()
     overhang = cum[:, 1:] - cum[:, :-1]
 
     decorr = config.cloud_inhom_decorr_scaling
@@ -419,13 +409,23 @@ def scan_inputs(config: Config, iseed, frac, overlap_param, ng: int):
                            ** (1.0 / decorr),
                            overlap_param)
 
-    trig, rc, ri, ri2 = draw_planes(iseed, nlev, ng, frac.dtype)
     is_any_cloud = frac >= config.cloud_fraction_threshold
     frac_m1, cum_m1, pair_m1, over_m1, op_m1 = _m1_fields(
         frac, cum, pair, overhang, op_inhom)
     scalars = torch.stack(
         [is_any_cloud.to(frac.dtype), frac, frac_m1, cum, cum_m1,
          pair_m1, over_m1, op_m1], dim=-1).contiguous()
+    return scalars, exp_exp, total_cloud_cover
+
+
+def scan_inputs(config: Config, iseed, frac, overlap_param, ng: int):
+    """The planes-in generator scan's inputs for a cloud-fraction profile:
+    random planes rc/ri/ri2 (ncol, nlev, ng), the packed per-level scalars
+    (ncol, nlev, 8), the trigger (ncol, ng), the exp-exp flag, and the
+    total cloud cover (ncol,)."""
+    scalars, exp_exp, total_cloud_cover = scan_scalars(config, frac,
+                                                       overlap_param)
+    trig, rc, ri, ri2 = draw_planes(iseed, frac.shape[1], ng, frac.dtype)
     trigger = trig * total_cloud_cover[:, None]
     return rc, ri, ri2, scalars, trigger, exp_exp, total_cloud_cover
 
@@ -441,10 +441,19 @@ def cloud_generator_device(config: Config, pdf_tables, iseed, frac,
       fractional_std: (ncol, nlev).
     Returns (od_scaling (ncol, nlev, ng), total_cloud_cover (ncol,)).
     """
-    rc, ri, ri2, scalars, trigger, exp_exp, total_cloud_cover = \
-        scan_inputs(config, iseed, frac, overlap_param, ng)
-    cdf = generator_scan(rc, ri, ri2, scalars, trigger, exp_exp)
+    scalars, exp_exp, total_cloud_cover = scan_scalars(config, frac,
+                                                       overlap_param)
+    cdf = generator_draw_scan(iseed, scalars, total_cloud_cover, ng, exp_exp)
+    return sample_od_scaling(config, pdf_tables, frac, fractional_std, cdf,
+                             total_cloud_cover)
 
+
+def sample_od_scaling(config: Config, pdf_tables, frac, fractional_std, cdf,
+                      total_cloud_cover):
+    """The sampling epilogue of the generator: od_scaling (ncol, nlev, ng)
+    from the CDF plane through the PDF sampler, zero where a layer or the
+    column is clear, and the total cloud cover below the threshold set to
+    0.  Returns (od_scaling, total_cloud_cover)."""
     thr = config.cloud_fraction_threshold
     tcc = torch.where(total_cloud_cover >= thr, total_cloud_cover,
                       torch.zeros_like(total_cloud_cover))

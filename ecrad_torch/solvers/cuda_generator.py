@@ -1,12 +1,20 @@
-"""McICA cloud-generator level scan: CUDA kernel wrapper and its plain
-torch version.
+"""McICA cloud-generator level scan: the two builds of its CUDA kernel,
+their wrappers and their plain torch versions.
 
-Replaces ``ecrad_tpu/solvers/pallas_generator.py:generator_scan``; the
-kernel is ``ecrad_torch/csrc/generator_scan.cu``.  Layout is the port's
-classic one: random planes and the CDF ``(ncol, nlev, ng)``, the eight
-packed per-level scalars ``(ncol, nlev, 8)`` in the order
+Replaces ``ecrad_tpu/solvers/pallas_generator.py:generator_scan`` and the
+threefry draws that feed it (``ecrad_tpu/solvers/cloud_generator.py``
+draw); the kernel is ``ecrad_torch/csrc/generator_scan.cu``.  Layout is
+the port's classic one: random planes and the CDF ``(ncol, nlev, ng)``,
+the eight packed per-level scalars ``(ncol, nlev, 8)`` in the order
 (any_cloud, frac, frac_m1, cum, cum_m1, pair_m1, overhang_m1,
 op_inhom_m1), the trigger ``(ncol, ng)``.
+
+* ``generator_scan``: the planes-in build, the counterpart of the Pallas
+  function, fed the random planes and the trigger.
+* ``generator_draw_scan``: the draw build, which the McICA paths run: fed
+  the per-column seeds and the total cloud cover, it draws the sample of
+  ``draw_planes`` itself, element by element (``threefry.uniform_at``),
+  so the planes never reach device memory.
 """
 
 from __future__ import annotations
@@ -14,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from ecrad_torch import kernels
+from ecrad_torch.solvers import threefry
 
 _ANY, _F, _FM1, _C, _CM1, _PM1, _OM1, _OPIM1 = range(8)
 
@@ -80,3 +89,65 @@ def generator_scan(rc, ri, ri2, scalars, trigger, exp_exp):
 
 
 generator_scan.launches = 0
+
+
+def draw_planes(iseed, nlev, ng, dtype):
+    """The per-column random planes of the JAX generator's ``draw``:
+    key(seed) -> split(4) -> trigger (ncol, ng), rc/ri/ri2
+    (ncol, nlev, ng)."""
+    k1, k2, k3, k4 = threefry.split(threefry.seed_keys(iseed), 4)
+    return (threefry.uniform(k1, (ng,), dtype),
+            threefry.uniform(k2, (nlev, ng), dtype),
+            threefry.uniform(k3, (nlev, ng), dtype),
+            threefry.uniform(k4, (nlev, ng), dtype))
+
+
+def generator_draw_scan_plain(iseed, scalars, total_cloud_cover, ng,
+                              exp_exp):
+    """The draws (``draw_planes``), the trigger scaled by the total cloud
+    cover, and the level scan, in plain torch (the reference for the draw
+    build)."""
+    trig, rc, ri, ri2 = draw_planes(iseed, scalars.shape[1], ng,
+                                    scalars.dtype)
+    trigger = trig * total_cloud_cover[:, None]
+    return generator_scan_plain(rc, ri, ri2, scalars, trigger, exp_exp)
+
+
+def generator_draw_scan(iseed, scalars, total_cloud_cover, ng, exp_exp):
+    """The CDF plane (ncol, nlev, ng) of the sample keyed by the seeds
+    iseed (ncol,) (any integer type; their low 32 bits), for the packed
+    per-level scalars (ncol, nlev, 8) and the total cloud cover (ncol,).
+    CPU tensors run the plain version; CUDA tensors launch the draw
+    build."""
+    if scalars.device.type == "cpu":
+        return generator_draw_scan_plain(iseed, scalars, total_cloud_cover,
+                                         ng, exp_exp)
+    ncol, nlev = scalars.shape[:2]
+    kernels.check_inputs("generator_draw_scan", scalars, {
+        "scalars": (scalars, (ncol, nlev, 8)),
+        "total_cloud_cover": (total_cloud_cover, (ncol,))})
+    if tuple(iseed.shape) != (ncol,) or iseed.device != scalars.device:
+        raise ValueError(f"generator_draw_scan: iseed must be ({ncol},) on "
+                         f"{scalars.device}")
+    if ncol * ng >= 2**31:
+        raise ValueError(f"generator_draw_scan: ncol * ng = {ncol * ng} "
+                         f"threads exceed the flat int index")
+    cdf = torch.empty((ncol, nlev, ng), dtype=scalars.dtype,
+                      device=scalars.device)
+    if ncol * ng == 0:
+        return cdf
+    words = threefry.seed_words(iseed)
+    lib = kernels.library()
+    fn = (lib.ecrad_generator_draw_scan_f32
+          if scalars.dtype == torch.float32
+          else lib.ecrad_generator_draw_scan_f64)
+    with torch.cuda.device(scalars.device):
+        code = fn(words.data_ptr(), scalars.data_ptr(),
+                  total_cloud_cover.data_ptr(), cdf.data_ptr(), ncol, nlev,
+                  ng, int(bool(exp_exp)), kernels.stream_of(scalars))
+    kernels.check(code, "generator_draw_scan")
+    generator_draw_scan.launches += 1
+    return cdf
+
+
+generator_draw_scan.launches = 0

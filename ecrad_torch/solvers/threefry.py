@@ -49,6 +49,13 @@ def seed_keys(seeds):
     return torch.zeros_like(s), s
 
 
+def seed_words(seeds):
+    """The uint32 seeds of ``seed_keys`` as an int32 tensor of the same
+    bits (what a kernel reads as uint32)."""
+    s = seeds.to(torch.int64) & _MASK
+    return torch.where(s >= 2**31, s - 2**32, s).to(torch.int32)
+
+
 def split(key, num):
     """``jax.random.split(key, num)`` for a batch of keys: returns a
     list of ``num`` (k1, k2) pairs, each (ncol,)."""
@@ -61,30 +68,33 @@ def split(key, num):
     return out
 
 
-def _bits(key, shape):
-    """Raw (bits1, bits2) for a batch of keys: (ncol,) + shape each."""
+def uniform_at(key, counter, dtype):
+    """``jax.random.uniform(key, shape, dtype)`` at one flat counter per
+    element: the Threefry-2x32 hash of (0, counter) under the key, whose
+    words (b1, b2) give the mantissa of a number in [1, 2), minus 1
+    (exact), as jax does.  float32 takes the top 23 bits of b1 ^ b2;
+    float64 the top 52 bits of (b1 << 32) | b2.  key (k1, k2) and counter
+    are int64 tensors of uint32 values that broadcast together (counter <
+    2**32, so the high counter word is 0); this is the formula the draw
+    build of ecrad_torch/csrc/generator_scan.cu computes per element."""
     k1, k2 = key
-    n = math.prod(shape)
-    counts = torch.arange(n, dtype=torch.int64, device=k1.device)
-    counts = counts.reshape(shape)
-    expand = (slice(None),) + (None,) * len(shape)
-    kk1, kk2 = k1[expand], k2[expand]
-    # counts < 2**32 here, so the high count word is 0
-    return threefry2x32(kk1, kk2, torch.zeros_like(counts), counts)
+    b1, b2 = threefry2x32(k1, k2, torch.zeros_like(counter), counter)
+    if dtype == torch.float32:
+        bits = ((b1 ^ b2) >> 9) | 0x3F800000
+        return bits.to(torch.int32).view(torch.float32) - 1.0
+    if dtype == torch.float64:
+        bits = ((((b1 >> 12) | 0x3FF00000) << 32)
+                | ((b1 << 20) & _MASK) | (b2 >> 12))
+        return bits.view(torch.float64) - 1.0
+    raise TypeError(f"uniform supports float32/float64, got {dtype}")
 
 
 def uniform(key, shape, dtype):
     """``jax.random.uniform(key, shape, dtype)`` on [0, 1) for a batch
-    of keys: returns (ncol,) + shape in ``dtype`` (float32 or float64).
-
-    float32 takes the top 23 bits of bits1 ^ bits2; float64 the top 52
-    bits of (bits1 << 32) | bits2.  The mantissa m gives m * 2**-nmant
-    exactly, which equals jax's bitcast(1.0 | m) - 1.0."""
-    b1, b2 = _bits(key, tuple(shape))
-    if dtype == torch.float32:
-        m = (b1 ^ b2) >> 9
-        return (m.to(torch.float64) * 2.0 ** -23).to(torch.float32)
-    if dtype == torch.float64:
-        m = (b1 << 20) | (b2 >> 12)
-        return m.to(torch.float64) * 2.0 ** -52
-    raise TypeError(f"uniform supports float32/float64, got {dtype}")
+    of keys (ncol,): returns (ncol,) + shape in ``dtype`` (float32 or
+    float64), uniform_at over the row-major counters of shape."""
+    k1, k2 = key
+    counts = torch.arange(math.prod(shape), dtype=torch.int64,
+                          device=k1.device).reshape(shape)
+    expand = (slice(None),) + (None,) * len(shape)
+    return uniform_at((k1[expand], k2[expand]), counts, dtype)

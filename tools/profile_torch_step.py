@@ -11,11 +11,14 @@ first CUDA device, warms up, then:
 
 * times the stages of one step with host clocks around synchronised
   calls: cloud generator (both samples; nothing for the other
-  configurations), optical properties, for Tripleclouds the region and
-  overlap preparation of one solver, LW solver, SW solver, and the whole
-  step; for SPARTACUS also, inside each solver, the region preparation,
-  the layer matrices, the sweeps (kernel launch and wait) and the rest
-  (argument assembly, for LW the derivative loop), each synchronised;
+  configurations), and inside it, per band set, the overlap cumulators,
+  the draw build of the scan kernel (the threefry draws and the level scan
+  in one launch) and the PDF-sampler epilogue; optical properties, for
+  Tripleclouds the region and overlap preparation of one solver, LW
+  solver, SW solver, and the whole step; for SPARTACUS also, inside each
+  solver, the region preparation, the layer matrices, the sweeps (kernel
+  launch and wait) and the rest (argument assembly, for LW the derivative
+  loop), each synchronised;
 * the peak device memory of one step;
 * traces one step with torch.profiler and prints the 25 ops with the
   most device time, and device-busy time against the step's wall time.
@@ -39,7 +42,8 @@ from ecrad_torch.interface import (  # noqa: E402
     spartacus_sw_inputs, spectral_matrix)
 from ecrad_torch.config import Solver  # noqa: E402
 from ecrad_torch.solvers import (  # noqa: E402
-    cloudless, cuda_spartacus, mcica, spartacus, tripleclouds)
+    cloud_generator, cloudless, cuda_generator, cuda_spartacus, mcica,
+    spartacus, tripleclouds)
 
 
 def timed(fn):
@@ -74,6 +78,30 @@ def time_inner_stages(record):
             return out
         setattr(module, name, wrapped)
     return lambda: [setattr(m, n, fn) for m, n, fn in saved]
+
+
+def generator_stages(cfg, tab, cloud):
+    """{band set: {stage: seconds}} inside the McICA generator, each stage
+    synchronised: the cumulators (scan_scalars), the draw build (draws and
+    scan in one kernel) and the sampler (sample_od_scaling)."""
+    out = {}
+    frac, op = cloud["fraction"], cloud["overlap_param"]
+    fsd = cloud["fractional_std"]
+    for band, ng, offset in (("sw", cfg.n_g_sw, 0),
+                             ("lw", cfg.n_g_lw, pipeline.LW_SEED_OFFSET)):
+        if getattr(cfg, f"{band}_solver") != Solver.MCICA:
+            continue
+        iseed = cloud["iseed"] + offset
+        t = {}
+        (scalars, exp_exp, tcc), t["cumulators"] = timed(
+            lambda: cloud_generator.scan_scalars(cfg, frac, op))
+        cdf, t["draws + scan (one kernel)"] = timed(
+            lambda: cuda_generator.generator_draw_scan(
+                iseed, scalars, tcc, ng, exp_exp))
+        _, t["sampler"] = timed(lambda: cloud_generator.sample_od_scaling(
+            cfg, tab.pdf_sampler, frac, fsd, cdf, tcc))
+        out[band] = t
+    return out
 
 
 def solver_stages(cfg, tab, op, cloud, kw):
@@ -178,6 +206,10 @@ def main(ncol=2048, dtype_name="float32", config_name="mcica_rrtmg"):
           f"{t_op * 1e3:.1f}, " + ", ".join(
               f"{k} {v * 1e3:.1f}" for k, v in stages.items()) + " ms; "
           f"peak device memory {peak / 1e9:.2f} GB")
+    for band, t in generator_stages(cfg, tab, kw["cloud"]).items():
+        print(f"  generator {band} {sum(t.values()) * 1e3:.1f} ms: "
+              + ", ".join(f"{k} {v * 1e3:.1f}" for k, v in t.items())
+              + " ms")
     if cfg.sw_solver == Solver.SPARTACUS:
         for name, fn in solver_stages(cfg, tab, op, cloud, kw).items():
             record = {}
