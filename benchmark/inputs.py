@@ -1,0 +1,112 @@
+"""The benchmark's inputs: the bundled meridian profiles, and a pool of
+distinct calls drawn from them on the device from the run's seed.
+
+Each column of a call is one of the 32 bundled meridian profiles
+(thermodynamics, gases, clouds, aerosols, surface), drawn with
+replacement; its cosine of the solar zenith angle is drawn uniformly on
+[-1, 1] (the distribution over a uniformly sampled sphere: half the
+columns are in night), and it gets a fresh McICA seed.  Both the program
+and the reference are handed the same tensors.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+from scipy.io import netcdf_file
+
+from benchmark.reference import constants
+
+REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+MERIDIAN = os.path.join(REPO_ROOT, "ecrad_tpu", "data", "io",
+                        "ecrad_meridian.nc")
+# McICA seeds are drawn on [1, 2**31 - 1), the range of ecRad's integer
+# seeds
+SEED_HIGH = 2**31 - 1
+
+
+def read_profiles(path: str = MERIDIAN) -> dict:
+    """The columns of an ecRad input file as float64 numpy arrays, levels
+    top of atmosphere first, in the keyword layout of
+    ``pipeline.radiation_blocked``: gases as mass mixing ratios in
+    ``constants.GAS_NAMES`` order, the cloud and aerosol groups as dicts,
+    and ``solar_irradiance`` a float."""
+    with netcdf_file(path, "r", mmap=False) as f:
+        v = {k: np.array(x.data, dtype=np.float64)
+             for k, x in f.variables.items()}
+    if v["pressure_hl"][0, 0] > v["pressure_hl"][0, -1]:
+        raise ValueError(f"{path}: levels must run from the top down")
+    ncol, nlev = v["cloud_fraction"].shape
+    gas = np.zeros((ncol, nlev, constants.NUM_GASES))
+    gas[..., constants.GAS_INDEX["h2o"]] = v["q"]
+    gas[..., constants.GAS_INDEX["o3"]] = v["o3_mmr"]
+    for name in constants.GAS_NAMES:
+        if f"{name}_vmr" in v:
+            gas[..., constants.GAS_INDEX[name]] = (
+                v[f"{name}_vmr"] * constants.MOLAR_MASS[name]
+                / constants.MOLAR_MASS_DRY_AIR)
+    return dict(
+        pressure_hl=v["pressure_hl"], temperature_hl=v["temperature_hl"],
+        gas_mmr=gas, skin_temperature=v["skin_temperature"],
+        sw_albedo=v["sw_albedo"], sw_albedo_direct=v["sw_albedo_direct"],
+        lw_emissivity=v["lw_emissivity"],
+        cloud=dict(fraction=v["cloud_fraction"], q_liq=v["q_liquid"],
+                   q_ice=v["q_ice"], re_liq=v["re_liquid"],
+                   re_ice=v["re_ice"], overlap_param=v["overlap_param"],
+                   fractional_std=v["fractional_std"]),
+        aerosol=dict(mixing_ratio=np.moveaxis(v["aerosol_mmr"], 1, 2)),
+        solar_irradiance=float(v["solar_irradiance"]))
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, x) for k, x in tree.items()}
+    return fn(tree)
+
+
+def profiles_on(profiles: dict, device, dtype) -> dict:
+    """The profiles' arrays as tensors on ``device`` in ``dtype``."""
+    return _map(lambda x: x if isinstance(x, float)
+                else torch.as_tensor(x, dtype=dtype, device=device),
+                profiles)
+
+
+def make_pool(profiles: dict, seed: int, ncall: int, ncol: int) -> list:
+    """``ncall`` distinct calls of ``ncol`` columns each, drawn from
+    ``seed`` on the profiles' device: a list of the keyword inputs of
+    ``pipeline.radiation_blocked`` (without ``solar_irradiance``)."""
+    base = {k: x for k, x in profiles.items() if k != "solar_irradiance"}
+    device = base["pressure_hl"].device
+    dtype = base["pressure_hl"].dtype
+    nprof = base["pressure_hl"].shape[0]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed))
+    pool = []
+    for _ in range(ncall):
+        idx = torch.randint(0, nprof, (ncol,), generator=gen, device=device)
+        call = _map(lambda x: x[idx], base)
+        call["cos_sza"] = (2.0 * torch.rand(
+            ncol, generator=gen, device=device, dtype=torch.float64)
+            - 1.0).to(dtype)
+        call["cloud"]["iseed"] = torch.randint(
+            1, SEED_HIGH, (ncol,), generator=gen, device=device,
+            dtype=torch.int64)
+        pool.append(call)
+    return pool
+
+
+def columns(call: dict, cols) -> dict:
+    """The inputs of the columns ``cols`` (an index tensor) of a call."""
+    return _map(lambda x: x[cols.to(x.device)], call)
+
+
+def cloudy_fraction(call: dict, fraction_threshold: float,
+                    mixing_ratio_threshold: float) -> float:
+    """The share of a call's (column, layer) pairs that hold cloud, by the
+    thresholds of ecRad's crop_cloud_fraction."""
+    c = call["cloud"]
+    cloudy = ((c["fraction"] >= fraction_threshold)
+              & (c["q_liq"] + c["q_ice"] >= mixing_ratio_threshold))
+    return float(cloudy.double().mean())
