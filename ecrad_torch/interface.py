@@ -20,7 +20,7 @@ from typing import Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
-from ecrad_torch import constants
+from ecrad_torch import constants, kernels, profiling
 from ecrad_torch.config import Config, GasModel, PdfShape, Solver
 from ecrad_torch.containers import Flux
 from ecrad_torch.data import find_data_file
@@ -207,10 +207,11 @@ def setup_radiation(config: Config, device, dtype, data_dir: str = None):
 
     # --- band structure, per band set
     gas_tables, gas_meta = {}, {}
-    kw_sw, band_from_g_sw, specdef_sw = _gas_model_setup(
-        config, "sw", ddir, gas_tables, gas_meta)
-    kw_lw, band_from_g_lw, specdef_lw = _gas_model_setup(
-        config, "lw", ddir, gas_tables, gas_meta)
+    with profiling.hook("radiation_interface:setup_gas_optics"):
+        kw_sw, band_from_g_sw, specdef_sw = _gas_model_setup(
+            config, "sw", ddir, gas_tables, gas_meta)
+        kw_lw, band_from_g_lw, specdef_lw = _gas_model_setup(
+            config, "lw", ddir, gas_tables, gas_meta)
     kw = {**kw_sw, **kw_lw}
     # the forced flags hold for the setup below
     config = config.replace(**kw)
@@ -257,21 +258,24 @@ def setup_radiation(config: Config, device, dtype, data_dir: str = None):
     if mono:
         pass        # monochromatic cloud optics need no tables
     elif kw["do_clouds"] and config.use_general_cloud_optics:
-        cloud_tables = general_cloud_mod.setup_general_cloud_optics(
-            config, ddir, specdef_sw, specdef_lw)
+        with profiling.hook("radiation_interface:setup_cloud_optics"):
+            cloud_tables = general_cloud_mod.setup_general_cloud_optics(
+                config, ddir, specdef_sw, specdef_lw)
         kw["n_cloud_types"] = len(cloud_tables["type_names"])
     elif kw["do_clouds"]:
         if GasModel.ECCKD in (config.gas_model_sw, config.gas_model_lw):
             raise NotImplementedError(
                 "the band-wise cloud optics take RRTMG bands; use general "
                 "cloud optics with ecCKD")
-        cloud_tables = cloud_optics_mod.setup_cloud_optics(config, ddir)
+        with profiling.hook("radiation_interface:setup_cloud_optics"):
+            cloud_tables = cloud_optics_mod.setup_cloud_optics(config, ddir)
     if kw["do_clouds"] and Solver.MCICA in (config.sw_solver,
                                              config.lw_solver):
         from ecrad_torch.io.netcdf import NcFile
-        with NcFile(find_data_file(ddir, pdf_file_name(config))) as f:
-            pdf_tables = {"fsd": f.get("fsd"), "val": f.get("x").T}
-        pdf_tables["cheb_fit"] = fit_pdf_cheb(pdf_tables)
+        with profiling.hook("radiation_interface:setup_pdf_sampler"):
+            with NcFile(find_data_file(ddir, pdf_file_name(config))) as f:
+                pdf_tables = {"fsd": f.get("fsd"), "val": f.get("x").T}
+            pdf_tables["cheb_fit"] = fit_pdf_cheb(pdf_tables)
 
     aerosol_tables = None
     if config.use_aerosols and config.aerosol_type_name:
@@ -290,8 +294,10 @@ def setup_radiation(config: Config, device, dtype, data_dir: str = None):
         wn = [w for d in (specdef_sw, specdef_lw)
               for w in ((None, None) if d is None
                         else (d.wavenumber1_band, d.wavenumber2_band))]
-        aerosol_tables = aerosol_mod.setup_aerosol_optics(
-            config, ddir, *wn, specdef_sw=specdef_sw, specdef_lw=specdef_lw)
+        with profiling.hook("radiation_interface:setup_aerosol_optics"):
+            aerosol_tables = aerosol_mod.setup_aerosol_optics(
+                config, ddir, *wn, specdef_sw=specdef_sw,
+                specdef_lw=specdef_lw)
 
     new_config = config.replace(**kw)
     host = Tables(
@@ -307,6 +313,8 @@ def setup_radiation(config: Config, device, dtype, data_dir: str = None):
         pdf_sampler=pdf_tables,
         gas_meta=gas_meta,
     )
+    if torch.device(device).type == "cuda":
+        kernels.library()       # built or loaded here, not in a first step
     return new_config, tables_from_numpy(host, device, dtype)._replace(
         specdef_sw=specdef_sw, specdef_lw=specdef_lw)
 
@@ -416,27 +424,15 @@ def _ecckd_gas_optics(config: Config, tables: Tables, pressure_hl,
     return out
 
 
-def _optical_properties(config: Config, tables: Tables, *,
-                        pressure_hl, temperature_hl, gas_mmr,
-                        cos_sza, skin_temperature, sw_albedo,
-                        sw_albedo_direct, lw_emissivity,
-                        solar_irradiance, cloud=None, aerosol=None,
-                        spectral_solar_scaling=None,
-                        spectral_solar_cycle_multiplier=0.0):
-    """Surface + gas + aerosol + cloud optical properties — the front
-    half of radiation() (radiation_interface.F90:200-383)."""
-    _check_supported(config)
-    sw_albedo_direct_g, sw_albedo_diffuse_g, lw_albedo_g = get_albedos(
-        config, tables, sw_albedo, sw_albedo_direct, lw_emissivity)
-
-    gdict = {name: gas_mmr[:, :, constants.GAS_INDEX[name]]
-             for name in ("h2o", "co2", "ch4", "n2o", "cfc11", "cfc12",
-                          "hcfc22", "ccl4", "o3")}
-    # RRTMG and/or ecCKD, possibly mixed per band set, or monochromatic
-    # (radiation_interface.F90 gas_optics dispatch)
+def _gas_optics(config: Config, tables: Tables, pressure_hl,
+                temperature_hl, gdict, cos_sza, skin_temperature,
+                solar_irradiance, spectral_solar_scaling,
+                spectral_solar_cycle_multiplier):
+    """The gas optics of both band sets: RRTMG and/or ecCKD, possibly
+    mixed per band set, or monochromatic (radiation_interface.F90
+    gas_optics dispatch), as one RRTMGGasOptics."""
     go_kw = {}
-    mono = config.gas_model_sw == GasModel.MONOCHROMATIC
-    if mono:
+    if config.gas_model_sw == GasModel.MONOCHROMATIC:
         m = mono_mod.gas_optics(config, pressure_hl, temperature_hl,
                                 skin_temperature, solar_irradiance)
         go_kw = {k: m[k] for k in (
@@ -466,56 +462,97 @@ def _optical_properties(config: Config, tables: Tables, *,
             config, tables, pressure_hl, temperature_hl, gdict, cos_sza,
             skin_temperature, solar_irradiance,
             spectral_solar_cycle_multiplier))
-    go = rrtmg.RRTMGGasOptics(**go_kw)
+    return rrtmg.RRTMGGasOptics(**go_kw)
 
-    od_lw, planck_hl = go.od_lw, go.planck_hl
-    od_sw, ssa_sw = go.od_sw, go.ssa_sw
-    ssa_lw = g_lw_arr = g_sw_arr = None
-    if config.do_lw:
-        ssa_lw = torch.zeros_like(od_lw)
-        g_lw_arr = torch.zeros_like(od_lw)
-    if config.do_sw:
-        g_sw_arr = torch.zeros_like(od_sw)
 
-    aer = None
-    if config.use_aerosols and aerosol is not None and "od_sw" in aerosol:
-        # directly specified band-wise optics
-        aer = aerosol_mod.direct_aerosol_properties(config, aerosol)
-    elif config.use_aerosols and aerosol is not None \
-            and tables.aerosol is not None and not mono:
-        # RH-dependent aerosol merge (radiation_aerosol_optics.F90:487+)
-        p_fl = 0.5 * (pressure_hl[:, :-1] + pressure_hl[:, 1:])
-        t_fl = 0.5 * (temperature_hl[:, :-1] + temperature_hl[:, 1:])
-        h2o_mmr = gas_mmr[:, :, constants.GAS_INDEX["h2o"]]
-        rh = h2o_mmr / aerosol_mod.h2o_sat_liq(p_fl, t_fl)
-        aer = aerosol_mod.aerosol_band_properties(
-            config, tables.aerosol, pressure_hl, aerosol["mixing_ratio"], rh)
-    if aer is not None:
-        # the merge skips a band set that is off
-        od_sw, ssa_sw, g_sw_arr, od_lw, ssa_lw, g_lw_arr = \
-            aerosol_mod.add_aerosol_optics(
-                config, aer, tables.band_from_g_sw, tables.band_from_g_lw,
-                od_sw, ssa_sw, g_sw_arr, od_lw, ssa_lw, g_lw_arr)
+def _aerosol_properties(config: Config, tables: Tables, pressure_hl,
+                        temperature_hl, gas_mmr, aerosol):
+    """The aerosols' band-wise optical properties, or None without
+    aerosols: directly specified, or merged from mixing ratios and
+    relative humidity (radiation_aerosol_optics.F90:487+)."""
+    if not config.use_aerosols or aerosol is None:
+        return None
+    if "od_sw" in aerosol:
+        return aerosol_mod.direct_aerosol_properties(config, aerosol)
+    if tables.aerosol is None \
+            or config.gas_model_sw == GasModel.MONOCHROMATIC:
+        return None
+    p_fl = 0.5 * (pressure_hl[:, :-1] + pressure_hl[:, 1:])
+    t_fl = 0.5 * (temperature_hl[:, :-1] + temperature_hl[:, 1:])
+    h2o_mmr = gas_mmr[:, :, constants.GAS_INDEX["h2o"]]
+    rh = h2o_mmr / aerosol_mod.h2o_sat_liq(p_fl, t_fl)
+    return aerosol_mod.aerosol_band_properties(
+        config, tables.aerosol, pressure_hl, aerosol["mixing_ratio"], rh)
 
-    # --- cloud optics (radiation_interface.F90:357-383)
-    do_clouds = config.do_clouds and cloud is not None
-    frac = cl = None
-    if do_clouds:
-        frac = crop_cloud_fraction(config, cloud)
-        if mono:
-            cl = mono_mod.cloud_optics(
-                config, pressure_hl, frac, cloud["q_liq"], cloud["q_ice"],
-                cloud["re_liq"], cloud["re_ice"])
-        elif config.use_general_cloud_optics:
-            cl = general_cloud_mod.general_cloud_optics(
-                config, tables.cloud, pressure_hl, frac,
-                torch.stack([cloud["q_liq"], cloud["q_ice"]], dim=-1),
-                torch.stack([cloud["re_liq"], cloud["re_ice"]], dim=-1))
-        else:
-            cl = cloud_optics_mod.cloud_optics(
-                config, tables.cloud, pressure_hl, temperature_hl,
-                frac, cloud["q_liq"], cloud["q_ice"],
-                cloud["re_liq"], cloud["re_ice"])
+
+def _cloud_optics(config: Config, tables: Tables, pressure_hl,
+                  temperature_hl, frac, cloud):
+    """In-cloud optical properties per band set
+    (radiation_interface.F90:357-383): monochromatic, general or the
+    band-wise liquid and ice models."""
+    if config.gas_model_sw == GasModel.MONOCHROMATIC:
+        return mono_mod.cloud_optics(
+            config, pressure_hl, frac, cloud["q_liq"], cloud["q_ice"],
+            cloud["re_liq"], cloud["re_ice"])
+    if config.use_general_cloud_optics:
+        return general_cloud_mod.general_cloud_optics(
+            config, tables.cloud, pressure_hl, frac,
+            torch.stack([cloud["q_liq"], cloud["q_ice"]], dim=-1),
+            torch.stack([cloud["re_liq"], cloud["re_ice"]], dim=-1))
+    return cloud_optics_mod.cloud_optics(
+        config, tables.cloud, pressure_hl, temperature_hl,
+        frac, cloud["q_liq"], cloud["q_ice"],
+        cloud["re_liq"], cloud["re_ice"])
+
+
+def _optical_properties(config: Config, tables: Tables, *,
+                        pressure_hl, temperature_hl, gas_mmr,
+                        cos_sza, skin_temperature, sw_albedo,
+                        sw_albedo_direct, lw_emissivity,
+                        solar_irradiance, cloud=None, aerosol=None,
+                        spectral_solar_scaling=None,
+                        spectral_solar_cycle_multiplier=0.0):
+    """Surface + gas + aerosol + cloud optical properties — the front
+    half of radiation() (radiation_interface.F90:200-383)."""
+    _check_supported(config)
+    with profiling.scope("ecrad.optics"):
+        sw_albedo_direct_g, sw_albedo_diffuse_g, lw_albedo_g = get_albedos(
+            config, tables, sw_albedo, sw_albedo_direct, lw_emissivity)
+        gdict = {name: gas_mmr[:, :, constants.GAS_INDEX[name]]
+                 for name in ("h2o", "co2", "ch4", "n2o", "cfc11", "cfc12",
+                              "hcfc22", "ccl4", "o3")}
+        with profiling.scope("ecrad.optics.gas"):
+            go = _gas_optics(config, tables, pressure_hl, temperature_hl,
+                             gdict, cos_sza, skin_temperature,
+                             solar_irradiance, spectral_solar_scaling,
+                             spectral_solar_cycle_multiplier)
+
+        od_lw, od_sw, ssa_sw = go.od_lw, go.od_sw, go.ssa_sw
+        ssa_lw = g_lw_arr = g_sw_arr = None
+        if config.do_lw:
+            ssa_lw = torch.zeros_like(od_lw)
+            g_lw_arr = torch.zeros_like(od_lw)
+        if config.do_sw:
+            g_sw_arr = torch.zeros_like(od_sw)
+
+        with profiling.scope("ecrad.optics.aerosol"):
+            aer = _aerosol_properties(config, tables, pressure_hl,
+                                      temperature_hl, gas_mmr, aerosol)
+            if aer is not None:
+                # the merge skips a band set that is off
+                od_sw, ssa_sw, g_sw_arr, od_lw, ssa_lw, g_lw_arr = \
+                    aerosol_mod.add_aerosol_optics(
+                        config, aer, tables.band_from_g_sw,
+                        tables.band_from_g_lw, od_sw, ssa_sw, g_sw_arr,
+                        od_lw, ssa_lw, g_lw_arr)
+
+        do_clouds = config.do_clouds and cloud is not None
+        frac = cl = None
+        with profiling.scope("ecrad.optics.cloud"):
+            if do_clouds:
+                frac = crop_cloud_fraction(config, cloud)
+                cl = _cloud_optics(config, tables, pressure_hl,
+                                   temperature_hl, frac, cloud)
 
     return dict(
         sw_albedo_direct_g=sw_albedo_direct_g,
@@ -637,210 +674,233 @@ def radiation(config: Config, tables: Tables, *,
         cloud=cloud, aerosol=aerosol,
         spectral_solar_scaling=spectral_solar_scaling,
         spectral_solar_cycle_multiplier=spectral_solar_cycle_multiplier)
-    go, frac, cl = op["go"], op["frac"], op["cl"]
-    do_clouds = op["do_clouds"]
-    flux_kw = {}
     dt = pressure_hl.dtype
-    spec_lw = (spectral_matrix(config, tables.band_from_g_lw,
-                               config.n_bands_lw, dt)
-               if config.do_lw else None)
-    spec_sw = (spectral_matrix(config, tables.band_from_g_sw,
-                               config.n_bands_sw, dt)
-               if config.do_sw else None)
-    # SPARTACUS projects its permuted g-points with permuted rows
-    perm_rows = lambda m, perm: (None if m is None  # noqa: E731
-                                 else m[torch.as_tensor(perm,
-                                                        device=m.device)])
-
+    with profiling.scope("ecrad.outputs"):
+        spec_lw = (spectral_matrix(config, tables.band_from_g_lw,
+                                   config.n_bands_lw, dt)
+                   if config.do_lw else None)
+        spec_sw = (spectral_matrix(config, tables.band_from_g_sw,
+                                   config.n_bands_sw, dt)
+                   if config.do_sw else None)
+    flux_kw = {}
     if config.do_lw:
-        lw_albedo_g = op["lw_albedo_g"]
-        lw_emission = go.lw_emission * (1.0 - lw_albedo_g)
-        if config.lw_solver == Solver.CLOUDLESS or not do_clouds:
-            lw = cloudless.solver_cloudless_lw(
-                op["od_lw"], op["ssa_lw"], op["g_lw_arr"], go.planck_hl,
-                lw_emission, lw_albedo_g,
-                do_lw_aerosol_scattering=config.do_lw_aerosol_scattering,
-                do_lw_derivatives=config.do_lw_derivatives,
-                spec_matrix=spec_lw)
-        elif config.lw_solver == Solver.HOMOGENEOUS:
-            ones, any_cloud = homogeneous_sample(config, frac, op["od_lw"])
-            lw = mcica.solver_mcica_lw(
-                op["od_lw"], op["ssa_lw"], op["g_lw_arr"],
-                cl["od_lw"], cl["ssa_lw"], cl["g_lw"],
-                tables.band_from_g_lw, ones, any_cloud,
-                frac, go.planck_hl, lw_emission, lw_albedo_g,
-                cloud_fraction_threshold=config.cloud_fraction_threshold,
-                do_lw_cloud_scattering=config.do_lw_cloud_scattering,
-                do_lw_aerosol_scattering=config.do_lw_aerosol_scattering,
-                do_lw_derivatives=config.do_lw_derivatives,
-                spec_matrix=spec_lw)
-            lw = lw._replace(cloud_cover=torch.full_like(any_cloud, -1.0))
-        elif config.lw_solver == Solver.TRIPLECLOUDS:
-            lw = tripleclouds.solver_tripleclouds_lw(
-                config, op["od_lw"], op["ssa_lw"], op["g_lw_arr"],
-                cl["od_lw"], cl["ssa_lw"], cl["g_lw"],
-                tables.band_from_g_lw, frac, cloud["fractional_std"],
-                cloud["overlap_param"], go.planck_hl, lw_emission,
-                lw_albedo_g, spec_matrix=spec_lw)
-        elif config.lw_solver == Solver.SPARTACUS:
-            perm, args = spartacus_lw_inputs(config, tables, op, cloud,
-                                             pressure_hl, temperature_hl)
-            lw = _unpermute_g_fields(spartacus.solver_spartacus_lw(
-                *args, spec_matrix=perm_rows(spec_lw, perm)), perm)
-        else:
-            lw = mcica.solver_mcica_lw(
-                op["od_lw"], op["ssa_lw"], op["g_lw_arr"],
-                cl["od_lw"], cl["ssa_lw"], cl["g_lw"],
-                tables.band_from_g_lw,
-                cloud["od_scaling_lw"], cloud["total_cloud_cover_lw"],
-                frac, go.planck_hl, lw_emission, lw_albedo_g,
-                cloud_fraction_threshold=config.cloud_fraction_threshold,
-                do_lw_cloud_scattering=config.do_lw_cloud_scattering,
-                do_lw_aerosol_scattering=config.do_lw_aerosol_scattering,
-                do_lw_derivatives=config.do_lw_derivatives,
-                spec_matrix=spec_lw)
-        flux_kw.update(
-            lw_up=lw.flux_up, lw_dn=lw.flux_dn,
-            lw_up_clear=lw.flux_up_clear, lw_dn_clear=lw.flux_dn_clear,
-            cloud_cover_lw=lw.cloud_cover)
-        if config.do_lw_derivatives:
-            flux_kw["lw_derivatives"] = lw.lw_derivatives
-        if spec_lw is not None:
-            # with do_save_gpoint_flux the spectral axis is the g-points
-            flux_kw.update(lw_up_band=lw.flux_up_s, lw_dn_band=lw.flux_dn_s,
-                           lw_up_clear_band=lw.flux_up_clear_s,
-                           lw_dn_clear_band=lw.flux_dn_clear_s)
-        if config.do_toa_spectral_flux:
-            # radiation_flux.F90:579-660 calc_toa_spectral
-            bfg, nb = tables.band_from_g_lw, config.n_bands_lw
-            flux_kw["lw_up_toa_band"] = indexed_sum_g(lw.lw_up_toa_g, bfg, nb)
-            flux_kw["lw_up_toa_clear_band"] = indexed_sum_g(
-                lw.lw_up_toa_clear_g, bfg, nb)
-        if config.do_canopy_fluxes_lw:
-            lw_dn_surf_g = lw.lw_dn_surf_g
-            if config.use_canopy_full_spectrum_lw:
-                flux_kw["lw_dn_surf_canopy"] = lw_dn_surf_g
-            elif config.do_nearest_spectral_lw_emiss:
-                idx = tables.i_emiss_from_band_lw[tables.band_from_g_lw]
-                flux_kw["lw_dn_surf_canopy"] = indexed_sum_g(
-                    lw_dn_surf_g, idx, config.n_canopy_bands_lw)
-            else:
-                lw_dn_band = indexed_sum_g(
-                    lw_dn_surf_g, tables.band_from_g_lw, config.n_bands_lw)
-                flux_kw["lw_dn_surf_canopy"] = \
-                    lw_dn_band @ tables.lw_emiss_weights.T
-
+        with profiling.scope("ecrad.solvers"):
+            lw = _solve_lw(config, tables, op, cloud, spec_lw, pressure_hl,
+                           temperature_hl)
+        with profiling.scope("ecrad.outputs"):
+            flux_kw.update(_lw_fluxes(config, tables, lw, spec_lw))
     if config.do_sw:
-        if config.sw_solver == Solver.CLOUDLESS or not do_clouds:
-            sw = cloudless.solver_cloudless_sw(
-                op["od_sw"], op["ssa_sw"], op["g_sw_arr"], go.incoming_sw,
-                cos_sza, op["sw_albedo_diffuse_g"],
-                op["sw_albedo_direct_g"],
-                do_sw_delta_scaling_with_gases=(
-                    config.do_sw_delta_scaling_with_gases),
-                spec_matrix=spec_sw)
-        elif config.sw_solver == Solver.HOMOGENEOUS:
-            ones, any_cloud = homogeneous_sample(config, frac, op["od_sw"])
-            sw = mcica.solver_mcica_sw(
-                op["od_sw"], op["ssa_sw"], op["g_sw_arr"],
-                cl["od_sw"], cl["ssa_sw"], cl["g_sw"],
-                tables.band_from_g_sw, ones, any_cloud,
-                frac, go.incoming_sw, cos_sza,
-                op["sw_albedo_diffuse_g"], op["sw_albedo_direct_g"],
-                cloud_fraction_threshold=config.cloud_fraction_threshold,
-                do_sw_delta_scaling_with_gases=(
-                    config.do_sw_delta_scaling_with_gases),
-                spec_matrix=spec_sw)
-            sw = sw._replace(cloud_cover=torch.full_like(any_cloud, -1.0))
-        elif config.sw_solver == Solver.TRIPLECLOUDS:
-            # Tripleclouds sets the cloud cover of night columns too
-            sw = tripleclouds.solver_tripleclouds_sw(
-                config, op["od_sw"], op["ssa_sw"], op["g_sw_arr"],
-                cl["od_sw"], cl["ssa_sw"], cl["g_sw"],
-                tables.band_from_g_sw, frac, cloud["fractional_std"],
-                cloud["overlap_param"], go.incoming_sw, cos_sza,
-                op["sw_albedo_diffuse_g"], op["sw_albedo_direct_g"],
-                spec_matrix=spec_sw)
-        elif config.sw_solver == Solver.SPARTACUS:
-            perm, args = spartacus_sw_inputs(config, tables, op, cloud,
-                                             pressure_hl, temperature_hl,
-                                             cos_sza)
-            sw = _unpermute_g_fields(spartacus.solver_spartacus_sw(
-                *args, spec_matrix=perm_rows(spec_sw, perm)), perm)
-        else:
-            sw = mcica.solver_mcica_sw(
-                op["od_sw"], op["ssa_sw"], op["g_sw_arr"],
-                cl["od_sw"], cl["ssa_sw"], cl["g_sw"],
-                tables.band_from_g_sw,
-                cloud["od_scaling_sw"], cloud["total_cloud_cover_sw"],
-                frac, go.incoming_sw, cos_sza,
-                op["sw_albedo_diffuse_g"], op["sw_albedo_direct_g"],
-                cloud_fraction_threshold=config.cloud_fraction_threshold,
-                do_sw_delta_scaling_with_gases=(
-                    config.do_sw_delta_scaling_with_gases),
-                spec_matrix=spec_sw)
-        flux_kw.update(
-            sw_up=sw.flux_up, sw_dn=sw.flux_dn,
-            sw_dn_direct=sw.flux_dn_direct,
-            sw_up_clear=sw.flux_up_clear, sw_dn_clear=sw.flux_dn_clear,
-            sw_dn_direct_clear=sw.flux_dn_direct_clear,
-            cloud_cover_sw=sw.cloud_cover)
-
-        bfg = tables.band_from_g_sw
-        nb = config.n_bands_sw
-        if config.do_surface_sw_spectral_flux:
-            dir_band = indexed_sum_g(sw.sw_dn_direct_surf_g, bfg, nb)
-            diff_band = indexed_sum_g(sw.sw_dn_diffuse_surf_g, bfg, nb)
-            flux_kw["sw_dn_direct_surf_band"] = dir_band
-            flux_kw["sw_dn_surf_band"] = dir_band + diff_band
-            dir_clear_band = indexed_sum_g(sw.sw_dn_direct_surf_clear_g,
-                                           bfg, nb)
-            diff_clear_band = indexed_sum_g(sw.sw_dn_diffuse_surf_clear_g,
-                                            bfg, nb)
-            flux_kw["sw_dn_surf_clear_band"] = (dir_clear_band
-                                               + diff_clear_band)
-            flux_kw["sw_dn_direct_surf_clear_band"] = dir_clear_band
-        if spec_sw is not None:
-            flux_kw.update(
-                sw_up_band=sw.flux_up_s, sw_dn_band=sw.flux_dn_s,
-                sw_dn_direct_band=sw.flux_dn_direct_s,
-                sw_up_clear_band=sw.flux_up_clear_s,
-                sw_dn_clear_band=sw.flux_dn_clear_s,
-                sw_dn_direct_clear_band=sw.flux_dn_direct_clear_s)
-        if config.do_toa_spectral_flux:
-            # at TOA the downward flux is the direct beam only
-            sw_dn_toa_g = torch.where(
-                (cos_sza > 0.0)[:, None],
-                go.incoming_sw * torch.clamp(cos_sza, min=0.0)[:, None],
-                torch.zeros_like(go.incoming_sw))
-            flux_kw["sw_dn_toa_band"] = indexed_sum_g(sw_dn_toa_g, bfg, nb)
-            flux_kw["sw_up_toa_band"] = indexed_sum_g(sw.sw_up_toa_g, bfg,
-                                                      nb)
-            flux_kw["sw_up_toa_clear_band"] = indexed_sum_g(
-                sw.sw_up_toa_clear_g, bfg, nb)
-        if config.do_canopy_fluxes_sw:
-            if config.use_canopy_full_spectrum_sw:
-                flux_kw["sw_dn_diffuse_surf_canopy"] = \
-                    sw.sw_dn_diffuse_surf_g
-                flux_kw["sw_dn_direct_surf_canopy"] = sw.sw_dn_direct_surf_g
-            elif config.do_nearest_spectral_sw_albedo:
-                idx = tables.i_albedo_from_band_sw[bfg]
-                flux_kw["sw_dn_diffuse_surf_canopy"] = indexed_sum_g(
-                    sw.sw_dn_diffuse_surf_g, idx, config.n_canopy_bands_sw)
-                flux_kw["sw_dn_direct_surf_canopy"] = indexed_sum_g(
-                    sw.sw_dn_direct_surf_g, idx, config.n_canopy_bands_sw)
-            else:
-                # weights-based canopy mapping (radiation_flux.F90:498-518)
-                dir_band = indexed_sum_g(sw.sw_dn_direct_surf_g, bfg, nb)
-                tot_band = dir_band + indexed_sum_g(
-                    sw.sw_dn_diffuse_surf_g, bfg, nb)
-                w = tables.sw_albedo_weights                 # (nalb, nband)
-                canopy_dir = dir_band @ w.T
-                flux_kw["sw_dn_direct_surf_canopy"] = canopy_dir
-                flux_kw["sw_dn_diffuse_surf_canopy"] = (tot_band @ w.T
-                                                       - canopy_dir)
-
+        with profiling.scope("ecrad.solvers"):
+            sw = _solve_sw(config, tables, op, cloud, spec_sw, pressure_hl,
+                           temperature_hl, cos_sza)
+        with profiling.scope("ecrad.outputs"):
+            flux_kw.update(_sw_fluxes(config, tables, sw, spec_sw,
+                                      op["go"].incoming_sw, cos_sza))
     return Flux(**flux_kw)
+
+
+def _permuted_rows(m, perm):
+    """The rows of a spectral matrix in SPARTACUS g order (None stays
+    None)."""
+    if m is None:
+        return None
+    return m[torch.as_tensor(perm, device=m.device)]
+
+
+def _solve_lw(config: Config, tables: Tables, op, cloud, spec_lw,
+              pressure_hl, temperature_hl):
+    """The LW solver of the configuration on _optical_properties' output
+    (Cloudless without clouds)."""
+    go, frac, cl = op["go"], op["frac"], op["cl"]
+    lw_albedo_g = op["lw_albedo_g"]
+    lw_emission = go.lw_emission * (1.0 - lw_albedo_g)
+    if config.lw_solver == Solver.CLOUDLESS or not op["do_clouds"]:
+        return cloudless.solver_cloudless_lw(
+            op["od_lw"], op["ssa_lw"], op["g_lw_arr"], go.planck_hl,
+            lw_emission, lw_albedo_g,
+            do_lw_aerosol_scattering=config.do_lw_aerosol_scattering,
+            do_lw_derivatives=config.do_lw_derivatives,
+            spec_matrix=spec_lw)
+    if config.lw_solver == Solver.HOMOGENEOUS:
+        ones, any_cloud = homogeneous_sample(config, frac, op["od_lw"])
+        lw = mcica.solver_mcica_lw(
+            op["od_lw"], op["ssa_lw"], op["g_lw_arr"],
+            cl["od_lw"], cl["ssa_lw"], cl["g_lw"],
+            tables.band_from_g_lw, ones, any_cloud,
+            frac, go.planck_hl, lw_emission, lw_albedo_g,
+            cloud_fraction_threshold=config.cloud_fraction_threshold,
+            do_lw_cloud_scattering=config.do_lw_cloud_scattering,
+            do_lw_aerosol_scattering=config.do_lw_aerosol_scattering,
+            do_lw_derivatives=config.do_lw_derivatives,
+            spec_matrix=spec_lw)
+        return lw._replace(cloud_cover=torch.full_like(any_cloud, -1.0))
+    if config.lw_solver == Solver.TRIPLECLOUDS:
+        return tripleclouds.solver_tripleclouds_lw(
+            config, op["od_lw"], op["ssa_lw"], op["g_lw_arr"],
+            cl["od_lw"], cl["ssa_lw"], cl["g_lw"],
+            tables.band_from_g_lw, frac, cloud["fractional_std"],
+            cloud["overlap_param"], go.planck_hl, lw_emission,
+            lw_albedo_g, spec_matrix=spec_lw)
+    if config.lw_solver == Solver.SPARTACUS:
+        perm, args = spartacus_lw_inputs(config, tables, op, cloud,
+                                         pressure_hl, temperature_hl)
+        return _unpermute_g_fields(spartacus.solver_spartacus_lw(
+            *args, spec_matrix=_permuted_rows(spec_lw, perm)), perm)
+    return mcica.solver_mcica_lw(
+        op["od_lw"], op["ssa_lw"], op["g_lw_arr"],
+        cl["od_lw"], cl["ssa_lw"], cl["g_lw"],
+        tables.band_from_g_lw,
+        cloud["od_scaling_lw"], cloud["total_cloud_cover_lw"],
+        frac, go.planck_hl, lw_emission, lw_albedo_g,
+        cloud_fraction_threshold=config.cloud_fraction_threshold,
+        do_lw_cloud_scattering=config.do_lw_cloud_scattering,
+        do_lw_aerosol_scattering=config.do_lw_aerosol_scattering,
+        do_lw_derivatives=config.do_lw_derivatives,
+        spec_matrix=spec_lw)
+
+
+def _lw_fluxes(config: Config, tables: Tables, lw, spec_lw) -> dict:
+    """The Flux fields of the LW solver's output: profiles, cloud cover,
+    derivatives, per-band profiles and TOA fluxes, canopy fluxes."""
+    out = dict(lw_up=lw.flux_up, lw_dn=lw.flux_dn,
+               lw_up_clear=lw.flux_up_clear, lw_dn_clear=lw.flux_dn_clear,
+               cloud_cover_lw=lw.cloud_cover)
+    if config.do_lw_derivatives:
+        out["lw_derivatives"] = lw.lw_derivatives
+    if spec_lw is not None:
+        # with do_save_gpoint_flux the spectral axis is the g-points
+        out.update(lw_up_band=lw.flux_up_s, lw_dn_band=lw.flux_dn_s,
+                   lw_up_clear_band=lw.flux_up_clear_s,
+                   lw_dn_clear_band=lw.flux_dn_clear_s)
+    bfg, nb = tables.band_from_g_lw, config.n_bands_lw
+    if config.do_toa_spectral_flux:
+        # radiation_flux.F90:579-660 calc_toa_spectral
+        out["lw_up_toa_band"] = indexed_sum_g(lw.lw_up_toa_g, bfg, nb)
+        out["lw_up_toa_clear_band"] = indexed_sum_g(lw.lw_up_toa_clear_g,
+                                                    bfg, nb)
+    if config.do_canopy_fluxes_lw:
+        lw_dn_surf_g = lw.lw_dn_surf_g
+        if config.use_canopy_full_spectrum_lw:
+            out["lw_dn_surf_canopy"] = lw_dn_surf_g
+        elif config.do_nearest_spectral_lw_emiss:
+            idx = tables.i_emiss_from_band_lw[bfg]
+            out["lw_dn_surf_canopy"] = indexed_sum_g(
+                lw_dn_surf_g, idx, config.n_canopy_bands_lw)
+        else:
+            lw_dn_band = indexed_sum_g(lw_dn_surf_g, bfg, nb)
+            out["lw_dn_surf_canopy"] = lw_dn_band @ tables.lw_emiss_weights.T
+    return out
+
+
+def _solve_sw(config: Config, tables: Tables, op, cloud, spec_sw,
+              pressure_hl, temperature_hl, cos_sza):
+    """The SW solver of the configuration on _optical_properties' output
+    (Cloudless without clouds)."""
+    go, frac, cl = op["go"], op["frac"], op["cl"]
+    if config.sw_solver == Solver.CLOUDLESS or not op["do_clouds"]:
+        return cloudless.solver_cloudless_sw(
+            op["od_sw"], op["ssa_sw"], op["g_sw_arr"], go.incoming_sw,
+            cos_sza, op["sw_albedo_diffuse_g"], op["sw_albedo_direct_g"],
+            do_sw_delta_scaling_with_gases=(
+                config.do_sw_delta_scaling_with_gases),
+            spec_matrix=spec_sw)
+    if config.sw_solver == Solver.HOMOGENEOUS:
+        ones, any_cloud = homogeneous_sample(config, frac, op["od_sw"])
+        sw = mcica.solver_mcica_sw(
+            op["od_sw"], op["ssa_sw"], op["g_sw_arr"],
+            cl["od_sw"], cl["ssa_sw"], cl["g_sw"],
+            tables.band_from_g_sw, ones, any_cloud,
+            frac, go.incoming_sw, cos_sza,
+            op["sw_albedo_diffuse_g"], op["sw_albedo_direct_g"],
+            cloud_fraction_threshold=config.cloud_fraction_threshold,
+            do_sw_delta_scaling_with_gases=(
+                config.do_sw_delta_scaling_with_gases),
+            spec_matrix=spec_sw)
+        return sw._replace(cloud_cover=torch.full_like(any_cloud, -1.0))
+    if config.sw_solver == Solver.TRIPLECLOUDS:
+        # Tripleclouds sets the cloud cover of night columns too
+        return tripleclouds.solver_tripleclouds_sw(
+            config, op["od_sw"], op["ssa_sw"], op["g_sw_arr"],
+            cl["od_sw"], cl["ssa_sw"], cl["g_sw"],
+            tables.band_from_g_sw, frac, cloud["fractional_std"],
+            cloud["overlap_param"], go.incoming_sw, cos_sza,
+            op["sw_albedo_diffuse_g"], op["sw_albedo_direct_g"],
+            spec_matrix=spec_sw)
+    if config.sw_solver == Solver.SPARTACUS:
+        perm, args = spartacus_sw_inputs(config, tables, op, cloud,
+                                         pressure_hl, temperature_hl,
+                                         cos_sza)
+        return _unpermute_g_fields(spartacus.solver_spartacus_sw(
+            *args, spec_matrix=_permuted_rows(spec_sw, perm)), perm)
+    return mcica.solver_mcica_sw(
+        op["od_sw"], op["ssa_sw"], op["g_sw_arr"],
+        cl["od_sw"], cl["ssa_sw"], cl["g_sw"],
+        tables.band_from_g_sw,
+        cloud["od_scaling_sw"], cloud["total_cloud_cover_sw"],
+        frac, go.incoming_sw, cos_sza,
+        op["sw_albedo_diffuse_g"], op["sw_albedo_direct_g"],
+        cloud_fraction_threshold=config.cloud_fraction_threshold,
+        do_sw_delta_scaling_with_gases=(
+            config.do_sw_delta_scaling_with_gases),
+        spec_matrix=spec_sw)
+
+
+def _sw_fluxes(config: Config, tables: Tables, sw, spec_sw, incoming_sw,
+               cos_sza) -> dict:
+    """The Flux fields of the SW solver's output: profiles, cloud cover,
+    surface bands, per-band profiles and TOA fluxes, canopy fluxes."""
+    out = dict(sw_up=sw.flux_up, sw_dn=sw.flux_dn,
+               sw_dn_direct=sw.flux_dn_direct,
+               sw_up_clear=sw.flux_up_clear, sw_dn_clear=sw.flux_dn_clear,
+               sw_dn_direct_clear=sw.flux_dn_direct_clear,
+               cloud_cover_sw=sw.cloud_cover)
+    bfg, nb = tables.band_from_g_sw, config.n_bands_sw
+    if config.do_surface_sw_spectral_flux:
+        dir_band = indexed_sum_g(sw.sw_dn_direct_surf_g, bfg, nb)
+        diff_band = indexed_sum_g(sw.sw_dn_diffuse_surf_g, bfg, nb)
+        out["sw_dn_direct_surf_band"] = dir_band
+        out["sw_dn_surf_band"] = dir_band + diff_band
+        dir_clear_band = indexed_sum_g(sw.sw_dn_direct_surf_clear_g, bfg, nb)
+        diff_clear_band = indexed_sum_g(sw.sw_dn_diffuse_surf_clear_g,
+                                        bfg, nb)
+        out["sw_dn_surf_clear_band"] = dir_clear_band + diff_clear_band
+        out["sw_dn_direct_surf_clear_band"] = dir_clear_band
+    if spec_sw is not None:
+        out.update(sw_up_band=sw.flux_up_s, sw_dn_band=sw.flux_dn_s,
+                   sw_dn_direct_band=sw.flux_dn_direct_s,
+                   sw_up_clear_band=sw.flux_up_clear_s,
+                   sw_dn_clear_band=sw.flux_dn_clear_s,
+                   sw_dn_direct_clear_band=sw.flux_dn_direct_clear_s)
+    if config.do_toa_spectral_flux:
+        # at TOA the downward flux is the direct beam only
+        sw_dn_toa_g = torch.where(
+            (cos_sza > 0.0)[:, None],
+            incoming_sw * torch.clamp(cos_sza, min=0.0)[:, None],
+            torch.zeros_like(incoming_sw))
+        out["sw_dn_toa_band"] = indexed_sum_g(sw_dn_toa_g, bfg, nb)
+        out["sw_up_toa_band"] = indexed_sum_g(sw.sw_up_toa_g, bfg, nb)
+        out["sw_up_toa_clear_band"] = indexed_sum_g(sw.sw_up_toa_clear_g,
+                                                    bfg, nb)
+    if config.do_canopy_fluxes_sw:
+        if config.use_canopy_full_spectrum_sw:
+            out["sw_dn_diffuse_surf_canopy"] = sw.sw_dn_diffuse_surf_g
+            out["sw_dn_direct_surf_canopy"] = sw.sw_dn_direct_surf_g
+        elif config.do_nearest_spectral_sw_albedo:
+            idx = tables.i_albedo_from_band_sw[bfg]
+            out["sw_dn_diffuse_surf_canopy"] = indexed_sum_g(
+                sw.sw_dn_diffuse_surf_g, idx, config.n_canopy_bands_sw)
+            out["sw_dn_direct_surf_canopy"] = indexed_sum_g(
+                sw.sw_dn_direct_surf_g, idx, config.n_canopy_bands_sw)
+        else:
+            # weights-based canopy mapping (radiation_flux.F90:498-518)
+            dir_band = indexed_sum_g(sw.sw_dn_direct_surf_g, bfg, nb)
+            tot_band = dir_band + indexed_sum_g(sw.sw_dn_diffuse_surf_g,
+                                                bfg, nb)
+            w = tables.sw_albedo_weights                 # (nalb, nband)
+            canopy_dir = dir_band @ w.T
+            out["sw_dn_direct_surf_canopy"] = canopy_dir
+            out["sw_dn_diffuse_surf_canopy"] = tot_band @ w.T - canopy_dir
+    return out
 
 
 

@@ -2,11 +2,12 @@
 
 Each ``csrc/*.cu`` file compiles with its own ``nvcc`` for ``sm_90a``,
 all started together, and the objects link into one shared library with a
-plain C interface, loaded with ``ctypes``.  The
-library is built at first use into ``build/ecrad_torch/`` under the
-repository root, named by a hash of the sources and flags, so a checkout
-builds everything itself and a changed source is never served a stale
-library.  Nothing here runs at import time.
+plain C interface, loaded with ``ctypes``.  The library is built at
+first use (``interface.setup_radiation`` on a CUDA device) into
+``build/ecrad_torch/`` under the repository root, named by a hash of the
+sources and flags, so a checkout builds everything itself and a changed
+source is never served a stale library.  Nothing here runs at import
+time.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import time
 
 import torch
 
+from ecrad_torch import profiling
 from ecrad_torch.data import REPO_ROOT
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
@@ -123,8 +125,11 @@ def build() -> dict:
 
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
-    lib = ctypes.CDLL(build()["path"])
+    """The loaded kernel library (built on first call; the Dr Hook
+    profile says which of the two it was)."""
+    stage = "load" if os.path.exists(library_path()) else "build"
+    with profiling.hook(f"kernels:library[{stage}]"):
+        lib = ctypes.CDLL(build()["path"])
     for name, argtypes in _SIGNATURES.items():
         for suffix in ("_f32", "_f64"):
             fn = getattr(lib, name + suffix)

@@ -15,6 +15,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from ecrad_torch import profiling
 from ecrad_torch.config import Config, Solver
 from ecrad_torch.containers import Flux
 from ecrad_torch.interface import Tables, radiation
@@ -29,23 +30,24 @@ LW_SEED_OFFSET = 997
 def add_cloud_sample(config: Config, tables: Tables, cloud: dict) -> dict:
     """Attach the stochastic cloud sample (od_scaling (ncol, nlev, ng) +
     total_cloud_cover per band set) to the cloud dict."""
-    if cloud is None or not config.do_clouds:
-        return cloud
-    pdf = tables.pdf_sampler
-    out = dict(cloud)
-    if config.do_sw and config.sw_solver == Solver.MCICA:
-        out["od_scaling_sw"], out["total_cloud_cover_sw"] = \
-            cloud_generator_device(
-                config, pdf, cloud["iseed"], cloud["fraction"],
-                cloud["overlap_param"], cloud["fractional_std"],
-                config.n_g_sw)
-    if config.do_lw and config.lw_solver == Solver.MCICA:
-        out["od_scaling_lw"], out["total_cloud_cover_lw"] = \
-            cloud_generator_device(
-                config, pdf, cloud["iseed"] + LW_SEED_OFFSET,
-                cloud["fraction"], cloud["overlap_param"],
-                cloud["fractional_std"], config.n_g_lw)
-    return out
+    with profiling.scope("ecrad.generator"):
+        if cloud is None or not config.do_clouds:
+            return cloud
+        pdf = tables.pdf_sampler
+        out = dict(cloud)
+        if config.do_sw and config.sw_solver == Solver.MCICA:
+            out["od_scaling_sw"], out["total_cloud_cover_sw"] = \
+                cloud_generator_device(
+                    config, pdf, cloud["iseed"], cloud["fraction"],
+                    cloud["overlap_param"], cloud["fractional_std"],
+                    config.n_g_sw)
+        if config.do_lw and config.lw_solver == Solver.MCICA:
+            out["od_scaling_lw"], out["total_cloud_cover_lw"] = \
+                cloud_generator_device(
+                    config, pdf, cloud["iseed"] + LW_SEED_OFFSET,
+                    cloud["fraction"], cloud["overlap_param"],
+                    cloud["fractional_std"], config.n_g_lw)
+        return out
 
 
 def radiation_step(config: Config, tables: Tables, *, solar_irradiance,
@@ -54,10 +56,12 @@ def radiation_step(config: Config, tables: Tables, *, solar_irradiance,
     """Cloud generator + radiation() — the full per-block step.
     spectral_solar_scaling: the (n_bands_sw,) per-band solar scaling of
     use_spectral_solar_scaling, shared by all columns."""
-    cloud_in = add_cloud_sample(config, tables, cloud)
-    return radiation(config, tables, solar_irradiance=solar_irradiance,
-                     cloud=cloud_in, aerosol=aerosol,
-                     spectral_solar_scaling=spectral_solar_scaling, **inputs)
+    with profiling.scope("ecrad.step"):
+        cloud_in = add_cloud_sample(config, tables, cloud)
+        return radiation(config, tables, solar_irradiance=solar_irradiance,
+                         cloud=cloud_in, aerosol=aerosol,
+                         spectral_solar_scaling=spectral_solar_scaling,
+                         **inputs)
 
 
 def _map(fn, tree):
@@ -78,6 +82,19 @@ def _pad_columns(tree, ncol: int, target: int):
     return _map(pad, tree)
 
 
+def _column_blocks(tree, ncol: int, block_size: int) -> list:
+    """The trees of the column blocks of ``tree`` (block_size columns
+    each, the last padded by repeating the last column); ``[tree]`` when
+    one block holds every column."""
+    if block_size >= ncol:
+        return [tree]
+    nblocks = -(-ncol // block_size)
+    padded = _pad_columns(tree, ncol, nblocks * block_size)
+    return [_map(lambda x, b=b: x[b * block_size:(b + 1) * block_size]
+                 if torch.is_tensor(x) and x.dim() > 0 else x, padded)
+            for b in range(nblocks)]
+
+
 def radiation_blocked(config: Config, tables: Tables, *, solar_irradiance,
                       block_size: int, cloud=None, aerosol=None,
                       spectral_solar_scaling=None, **inputs) -> Flux:
@@ -86,29 +103,20 @@ def radiation_blocked(config: Config, tables: Tables, *, solar_irradiance,
     (driver/ecrad_driver.F90:339-384).  spectral_solar_scaling has no
     column axis: every block gets all of it."""
     ncol = inputs["pressure_hl"].shape[0]
-    if block_size >= ncol:
-        return radiation_step(config, tables,
-                              solar_irradiance=solar_irradiance,
-                              cloud=cloud, aerosol=aerosol,
-                              spectral_solar_scaling=spectral_solar_scaling,
-                              **inputs)
-    nblocks = -(-ncol // block_size)
-    tree = dict(inputs, cloud=cloud, aerosol=aerosol)
-    tree = _pad_columns(tree, ncol, nblocks * block_size)
-    fluxes = []
-    for b in range(nblocks):
-        sl = slice(b * block_size, (b + 1) * block_size)
-        block = _map(lambda x: x[sl] if torch.is_tensor(x)
-                     and x.dim() > 0 else x, tree)
-        cl = block.pop("cloud")
-        aer = block.pop("aerosol")
-        fluxes.append(radiation_step(
-            config, tables, solar_irradiance=solar_irradiance, cloud=cl,
-            aerosol=aer, spectral_solar_scaling=spectral_solar_scaling,
-            **block))
-    return Flux(**{name: torch.cat([f.fields()[name] for f in fluxes],
-                                   dim=0)[:ncol]
-                   for name in fluxes[0].fields()})
+    with profiling.scope("ecrad.blocking"):
+        blocks = _column_blocks(dict(inputs, cloud=cloud, aerosol=aerosol),
+                                ncol, block_size)
+    fluxes = [radiation_step(config, tables,
+                             solar_irradiance=solar_irradiance,
+                             spectral_solar_scaling=spectral_solar_scaling,
+                             **block)
+              for block in blocks]
+    if len(fluxes) == 1:
+        return fluxes[0]
+    with profiling.scope("ecrad.blocking"):
+        return Flux(**{name: torch.cat([f.fields()[name] for f in fluxes],
+                                       dim=0)[:ncol]
+                       for name in fluxes[0].fields()})
 
 
 # --- column parallelism over devices ------------------------------------

@@ -16,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ecrad_torch import profiling
 from ecrad_torch.config import Config, Overlap
 from ecrad_torch.solvers.cuda_generator import (draw_planes,
                                                 generator_draw_scan)
@@ -393,29 +394,30 @@ def scan_scalars(config: Config, frac, overlap_param):
     """The generator scan's per-level inputs for a cloud-fraction profile:
     the packed per-level scalars (ncol, nlev, 8), the exp-exp flag and the
     total cloud cover (ncol,)."""
-    exp_exp = config.overlap_scheme == Overlap.EXPONENTIAL
-    if exp_exp:
-        cum, pair = cum_cloud_cover_exp_exp_jnp(frac, overlap_param)
-    else:
-        max_ran = config.overlap_scheme == Overlap.MAXIMUM_RANDOM
-        cum, pair = cum_cloud_cover_exp_ran_jnp(frac, overlap_param,
-                                                max_ran=max_ran)
-    total_cloud_cover = cum[:, -1].contiguous()
-    overhang = cum[:, 1:] - cum[:, :-1]
+    with profiling.scope("ecrad.generator.cumulator"):
+        exp_exp = config.overlap_scheme == Overlap.EXPONENTIAL
+        if exp_exp:
+            cum, pair = cum_cloud_cover_exp_exp_jnp(frac, overlap_param)
+        else:
+            max_ran = config.overlap_scheme == Overlap.MAXIMUM_RANDOM
+            cum, pair = cum_cloud_cover_exp_ran_jnp(frac, overlap_param,
+                                                    max_ran=max_ran)
+        total_cloud_cover = cum[:, -1].contiguous()
+        overhang = cum[:, 1:] - cum[:, :-1]
 
-    decorr = config.cloud_inhom_decorr_scaling
-    op_inhom = torch.where(overlap_param > 0.0,
-                           torch.clamp(overlap_param, min=1e-30)
-                           ** (1.0 / decorr),
-                           overlap_param)
+        decorr = config.cloud_inhom_decorr_scaling
+        op_inhom = torch.where(overlap_param > 0.0,
+                               torch.clamp(overlap_param, min=1e-30)
+                               ** (1.0 / decorr),
+                               overlap_param)
 
-    is_any_cloud = frac >= config.cloud_fraction_threshold
-    frac_m1, cum_m1, pair_m1, over_m1, op_m1 = _m1_fields(
-        frac, cum, pair, overhang, op_inhom)
-    scalars = torch.stack(
-        [is_any_cloud.to(frac.dtype), frac, frac_m1, cum, cum_m1,
-         pair_m1, over_m1, op_m1], dim=-1).contiguous()
-    return scalars, exp_exp, total_cloud_cover
+        is_any_cloud = frac >= config.cloud_fraction_threshold
+        frac_m1, cum_m1, pair_m1, over_m1, op_m1 = _m1_fields(
+            frac, cum, pair, overhang, op_inhom)
+        scalars = torch.stack(
+            [is_any_cloud.to(frac.dtype), frac, frac_m1, cum, cum_m1,
+             pair_m1, over_m1, op_m1], dim=-1).contiguous()
+        return scalars, exp_exp, total_cloud_cover
 
 
 def scan_inputs(config: Config, iseed, frac, overlap_param, ng: int):
@@ -454,16 +456,18 @@ def sample_od_scaling(config: Config, pdf_tables, frac, fractional_std, cdf,
     from the CDF plane through the PDF sampler, zero where a layer or the
     column is clear, and the total cloud cover below the threshold set to
     0.  Returns (od_scaling, total_cloud_cover)."""
-    thr = config.cloud_fraction_threshold
-    tcc = torch.where(total_cloud_cover >= thr, total_cloud_cover,
-                      torch.zeros_like(total_cloud_cover))
-    if pdf_tables.get("cheb_fit") is not None:
-        sampled = sample_pdf_cheb(pdf_tables["cheb_fit"],
-                                  fractional_std[..., None], cdf)
-    else:
-        sampled = sample_pdf_jnp(pdf_tables, fractional_std[..., None], cdf)
-    zero = torch.zeros_like(cdf)
-    od_scaling = torch.where(cdf > 0.0, sampled, zero)
-    od_scaling = torch.where((frac >= thr)[..., None], od_scaling, zero)
-    od_scaling = torch.where(tcc[:, None, None] > 0.0, od_scaling, zero)
-    return od_scaling, tcc
+    with profiling.scope("ecrad.generator.sampler"):
+        thr = config.cloud_fraction_threshold
+        tcc = torch.where(total_cloud_cover >= thr, total_cloud_cover,
+                          torch.zeros_like(total_cloud_cover))
+        if pdf_tables.get("cheb_fit") is not None:
+            sampled = sample_pdf_cheb(pdf_tables["cheb_fit"],
+                                      fractional_std[..., None], cdf)
+        else:
+            sampled = sample_pdf_jnp(pdf_tables, fractional_std[..., None],
+                                     cdf)
+        zero = torch.zeros_like(cdf)
+        od_scaling = torch.where(cdf > 0.0, sampled, zero)
+        od_scaling = torch.where((frac >= thr)[..., None], od_scaling, zero)
+        od_scaling = torch.where(tcc[:, None, None] > 0.0, od_scaling, zero)
+        return od_scaling, tcc

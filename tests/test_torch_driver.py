@@ -197,10 +197,45 @@ def test_profiling_hooks(inputs, tmp_path, capsys):
         profiling.enable(False)
         profiling.reset()
     for name in ("radiation_interface:setup_radiation",
+                 "radiation_interface:setup_gas_optics",
+                 "radiation_interface:setup_cloud_optics",
+                 "radiation_interface:setup_aerosol_optics",
+                 "radiation_interface:setup_pdf_sampler",
                  "ecrad_driver:read_input", "ecrad_driver:check_inputs",
                  "ecrad_driver:cloud_generator_exact",
                  "ecrad_driver:copy_to_device", "ecrad_driver:radiation",
                  "ecrad_driver:save_fluxes"):
         assert prof[name][0] >= 1 and prof[name][1] >= 0.0, name
+        assert 0.0 <= prof[name][2] <= prof[name][1], name
     assert prof["ecrad_driver:radiation"][0] == 1
+    # the set-up's tables are hooks of their own inside it
+    setup = prof["radiation_interface:setup_radiation"]
+    assert setup[2] < setup[1]
     assert "Profiling information (DR_HOOK=1)" in capsys.readouterr().out
+
+
+def test_nested_hooks_report_self_time(monkeypatch, capsys):
+    """A hook's self time leaves out the time of the hooks opened inside
+    it, in the profile and in print_profile's self(s) column."""
+    from ecrad_torch import profiling
+    # outer opens at 0; inner at 1-3 and 4-8; outer closes at 10
+    clock = iter([0.0, 1.0, 3.0, 4.0, 8.0, 10.0])
+    monkeypatch.setattr(profiling.time, "perf_counter", lambda: next(clock))
+    profiling.enable()
+    profiling.reset()
+    try:
+        with profiling.hook("outer"):
+            for _ in range(2):
+                with profiling.hook("inner"):
+                    pass
+        prof = profiling.get_profile()
+        profiling.print_profile()
+    finally:
+        profiling.enable(False)
+        profiling.reset()
+    assert prof == {"outer": (1, 10.0, 4.0), "inner": (2, 6.0, 6.0)}
+    rows = {line.split()[-1]: line.split()
+            for line in capsys.readouterr().out.splitlines()
+            if line.endswith(("outer", "inner"))}
+    assert rows["outer"][1:4] == ["10.0000", "4.0000", "1"]
+    assert rows["inner"][1:4] == ["6.0000", "6.0000", "2"]
