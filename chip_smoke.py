@@ -18,6 +18,8 @@ the script exits non-zero:
                tripleclouds_sw of the Tripleclouds path; lw_noscat_sweeps,
                scat_sweeps, sw_sweeps, the adding sweeps of the Cloudless
                and Homogeneous paths;
+               rrtmg_lw_taumol, rrtmg_sw_taumol, the RRTMG gas optics of
+               every RRTMG path (f64 held to 1e-12 of the plain version);
                spartacus_sw, spartacus_lw of the SPARTACUS path, in
                Explicit entrapment without LW multilayer effects as the
                path runs them, and again in Maximum and Edge-only
@@ -171,6 +173,8 @@ from ecrad_torch.containers import Flux
 from ecrad_torch.interface import (_optical_properties, radiation,
                                    setup_radiation, spartacus_lw_inputs,
                                    spartacus_sw_inputs)
+from ecrad_torch.optics import cuda_rrtmg, rrtmg
+from ecrad_torch.optics.rrtmg_prepare import GasColumns
 from ecrad_torch.solvers import cloud_generator, cuda_adding, cuda_generator
 from ecrad_torch.solvers import cuda_mcica, cuda_spartacus, cuda_tripleclouds
 from ecrad_torch.solvers import mcica, spartacus, tripleclouds, two_stream
@@ -226,6 +230,9 @@ DEV = torch.device("cuda")
 # of the output's largest value, or else is no further from the plain f64
 # result than F32_VS_F64 times the plain f32 version is.
 F64_RTOL = 1e-10
+# ... and 1e-12 for the RRTMG gas optics, whose sums of table rows carry no
+# recurrence
+F64_RTOL_OF = {"rrtmg_lw_taumol": 1e-12, "rrtmg_sw_taumol": 1e-12}
 F32_RTOL, F32_ATOL = 1e-4, 1e-3
 F32_VS_F64 = 2.0
 # The f64 slice against the JAX f64 reference (same algorithm, f64
@@ -320,25 +327,39 @@ KERNELS = {
         plain=cuda_spartacus.lw_sweeps_plain,
         source="ecrad_torch/csrc/spartacus_lw.cu",
         replaces="ecrad_tpu/solvers/pallas_spartacus.py:346"),
+    "rrtmg_lw_taumol": dict(
+        wrapper=cuda_rrtmg.lw_taumol, plain=cuda_rrtmg.lw_taumol_plain,
+        source="ecrad_torch/csrc/rrtmg_gas.cu",
+        replaces="no TPU kernel (XLA runs ecrad_tpu/optics/rrtmg_lw.py)"),
+    "rrtmg_sw_taumol": dict(
+        wrapper=cuda_rrtmg.sw_taumol, plain=cuda_rrtmg.sw_taumol_plain,
+        source="ecrad_torch/csrc/rrtmg_gas.cu",
+        replaces="no TPU kernel (XLA runs ecrad_tpu/optics/rrtmg_sw.py)"),
 }
+# The RRTMG gas optics: one launch of each kernel a block on every path with
+# RRTMG gas optics, none on the ecCKD and monochromatic ones
+RRTMG = dict(rrtmg_lw_taumol=1, rrtmg_sw_taumol=1)
 # Each main path's launches per 2048-column block (all others 0); a
 # kernel's reported launches are those read in the first path listed here
 # that names it (generator_scan, which no main path runs, in the flagship's).
 MAIN_PATHS = {
     "mcica_rrtmg": dict(generator_draw_scan=2, generator_scan=0, lw_fused=1,
-                        sw_fused=1),
-    "tripleclouds_rrtmg": dict(tripleclouds_lw=1, tripleclouds_sw=1),
-    "cloudless_rrtmg": dict(lw_noscat_sweeps=1, sw_sweeps=1),
-    "homogeneous_rrtmg": dict(scat_sweeps=2, sw_fused=1),
-    "spartacus_3d": dict(spartacus_sw=1, spartacus_lw=1),
+                        sw_fused=1, **RRTMG),
+    "tripleclouds_rrtmg": dict(tripleclouds_lw=1, tripleclouds_sw=1,
+                               **RRTMG),
+    "cloudless_rrtmg": dict(lw_noscat_sweeps=1, sw_sweeps=1, **RRTMG),
+    "homogeneous_rrtmg": dict(scat_sweeps=2, sw_fused=1, **RRTMG),
+    "spartacus_3d": dict(spartacus_sw=1, spartacus_lw=1, **RRTMG),
     "tripleclouds_ecckd": dict(tripleclouds_lw=1, tripleclouds_sw=1),
     "ecckd_mcica": dict(generator_draw_scan=2, lw_fused=1, sw_fused=1),
-    "tripleclouds_baran2016": dict(tripleclouds_lw=1, tripleclouds_sw=1),
+    "tripleclouds_baran2016": dict(tripleclouds_lw=1, tripleclouds_sw=1,
+                                   **RRTMG),
     "mcica_rrtmg_spectral": dict(generator_draw_scan=2, lw_fused=1,
-                                 sw_fused=1),
+                                 sw_fused=1, **RRTMG),
     "tripleclouds_ecckd_gpoint": dict(tripleclouds_lw=1, tripleclouds_sw=1),
-    "cloudless_rrtmg_spectral": dict(lw_noscat_sweeps=1, sw_sweeps=1),
-    "homogeneous_rrtmg_spectral": dict(scat_sweeps=2, sw_fused=1),
+    "cloudless_rrtmg_spectral": dict(lw_noscat_sweeps=1, sw_sweeps=1,
+                                     **RRTMG),
+    "homogeneous_rrtmg_spectral": dict(scat_sweeps=2, sw_fused=1, **RRTMG),
     "monochromatic_homogeneous": dict(lw_fused=1, sw_fused=1),
     "spartacus_ecckd": dict(spartacus_sw=1, spartacus_lw=1),
 }
@@ -417,6 +438,11 @@ OPS = {
     # below the bytes of the 50 (SW) and 24 (LW) layer planes
     "spartacus_sw": lambda args, f: 700,
     "spartacus_lw": lambda args, f: 400,
+    # a multiply-add per term of the (row, band): ~16 (LW: od and Planck
+    # fraction) and ~10 (SW: od and Rayleigh) on the meridian state, and
+    # the clamp and the Planck product or the ssa division
+    "rrtmg_lw_taumol": lambda args, f: 35,
+    "rrtmg_sw_taumol": lambda args, f: 23,
 }
 # Integer instructions of the draw build's work, at the least: a
 # Threefry-2x32 hash of 20 rounds (csrc/generator_scan.cu threefry2x32)
@@ -555,6 +581,19 @@ def draw_inputs(config, cloud, sets):
             cloud["overlap_param"])
         out.append((label, (seeds[seed], scalars, tcc, ng, exp_exp)))
     return out
+
+
+def rrtmg_inputs(step, kw):
+    """The arguments of the two RRTMG gas optics kernels for a state of
+    random_state, as rrtmg.gas_optics passes them: (LW, SW)."""
+    config, tables = step.config, step.tables.gas["rrtmg"]
+    gas = {name: kw["gas_mmr"][:, :, i]
+           for name, i in constants.GAS_INDEX.items()}
+    cols = rrtmg.gas_columns(tables, kw["pressure_hl"], kw["temperature_hl"],
+                             gas)
+    return ((tables, cols, kw["temperature_hl"], kw["skin_temperature"],
+             config.min_gas_od_lw),
+            (tables, cols, config.min_gas_od_sw))
 
 
 def fused_inputs(step, kw, cloud, op):
@@ -789,7 +828,8 @@ def kernel_inputs(ncol, dtype, seed):
     tripleclouds_lw also without derivatives) and the adding sweeps' (on
     the clear-sky two-stream coefficients, as the Cloudless path builds
     them; scat_sweeps and sw_sweeps also on the total scene's,
-    total_scene_inputs); the SPARTACUS sweeps' from spartacus_inputs."""
+    total_scene_inputs); the SPARTACUS sweeps' from spartacus_inputs;
+    the RRTMG gas optics' from rrtmg_inputs."""
     step, kw, cloud = random_state(ncol, dtype, seed)
     config, tables = step.config, step.tables
     gen = [cloud_generator.scan_inputs(config, cloud["iseed"],
@@ -812,6 +852,7 @@ def kernel_inputs(ncol, dtype, seed):
     noscat, scat, sw_clear = clear_sky_inputs(kw, op)
     total = total_scene_inputs(step, kw, cloud, op)
     sp_sw, sp_lw = spartacus_inputs(ncol, dtype, seed)
+    rrtmg_lw, rrtmg_sw = rrtmg_inputs(step, kw)
     one = lambda args: [("meridian", args)]  # noqa: E731
     return {"generator_draw_scan": draw,
             "generator_scan": list(zip(("lw", "sw", "exp_exp"), gen)),
@@ -829,7 +870,9 @@ def kernel_inputs(ncol, dtype, seed):
             "sw_sweeps": [("meridian", sw_clear),
                           ("total_scene", total["sw_sweeps"])],
             "spartacus_sw": sp_sw,
-            "spartacus_lw": sp_lw}
+            "spartacus_lw": sp_lw,
+            "rrtmg_lw_taumol": one(rrtmg_lw),
+            "rrtmg_sw_taumol": one(rrtmg_sw)}
 
 
 # --- phases -----------------------------------------------------------------
@@ -871,7 +914,7 @@ def _outputs(x, key="out"):
     return {key: x}
 
 
-def _compare_f64(got, ref, what=""):
+def _compare_f64(got, ref, what="", rtol=F64_RTOL):
     """Max abs error of the f64 kernel against the f64 plain version."""
     got, ref = _outputs(got), _outputs(ref)
     if set(got) != set(ref):
@@ -881,7 +924,7 @@ def _compare_f64(got, ref, what=""):
         a, b = got[k], ref[k]
         err = (a - b).abs()
         worst = max(worst, float(err.max()))
-        if not bool((err <= F64_RTOL * (b.abs() + b.abs().max())).all()):
+        if not bool((err <= rtol * (b.abs() + b.abs().max())).all()):
             raise AssertionError(f"{what} {k}: f64 kernel differs from plain "
                                  f"by {float(err.max())}")
     return worst
@@ -912,9 +955,21 @@ def _compare_f32(got, ref, ref64):
 
 
 def _f32(args):
-    return tuple(a.float() if torch.is_tensor(a) and a.is_floating_point()
-                 else _f32(a) if isinstance(a, tuple) and not hasattr(
-                     a, "_fields") else a for a in args)
+    return tuple(_f32_one(a) for a in args)
+
+
+def _f32_one(a):
+    """One argument rounded to float32: a float tensor, the tensors of a
+    tuple, of the RRTMG gas columns and of a table dict; the rest as is."""
+    if torch.is_tensor(a) and a.is_floating_point():
+        return a.float()
+    if isinstance(a, GasColumns):
+        return GasColumns(*_f32(tuple(a)))
+    if isinstance(a, dict):
+        return {k: _f32_one(v) for k, v in a.items()}
+    if isinstance(a, tuple) and not hasattr(a, "_fields"):
+        return _f32(a)
+    return a
 
 
 def bound(name, args, out):
@@ -922,7 +977,9 @@ def bound(name, args, out):
     these inputs, and which side bounds it: the bytes it must move (every
     input and output tensor once; for the SPARTACUS sweeps only the
     layer-matrix entries clear layers use, cuda_spartacus.sw_needed_bytes
-    and lw_needed_bytes) over the memory rate, or the operations (OPS, with
+    and lw_needed_bytes; for the RRTMG gas optics the fields, tables and
+    outputs of rrtmg_needed_bytes) over the memory rate, or the
+    operations (OPS, with
     the cloudy fraction of these inputs) over the float32 rate or the
     integer instructions (INT_OPS) over the issue rate, whichever is
     longer: each is a floor on its own.  bytes_all_tensors
@@ -935,8 +992,12 @@ def bound(name, args, out):
         nbytes = cuda_spartacus.sw_needed_bytes(*args)
     elif name == "spartacus_lw":
         nbytes = cuda_spartacus.lw_needed_bytes(*args)
+    elif name.startswith("rrtmg"):        # (tables, cols, ...)
+        nbytes = rrtmg_needed_bytes(args, out)
     if name.startswith("spartacus"):      # (opts, (nlev, 9, ncol, ng), ...)
         nlev, _, ncol, ng = args[1].shape
+    elif name.startswith("rrtmg"):
+        (ncol, nlev), ng = args[1].colh2o.shape, out[0].shape[-1]
     elif name == "generator_draw_scan":   # (iseed, scalars, tcc, ng, ...)
         (ncol, nlev), ng = args[1].shape[:2], args[3]
     else:
@@ -950,6 +1011,20 @@ def bound(name, args, out):
                 bytes=nbytes, bytes_all_tensors=every,
                 bound_ms_all_tensors=1e3 * max(every / PEAK_BYTES_S, t_ops),
                 operations=ops, int_operations=int_ops)
+
+
+def rrtmg_needed_bytes(args, out):
+    """The bytes an RRTMG gas optics kernel must move: the gas columns'
+    fields it reads, the temperatures (LW), its band set's packed tables
+    once, and its outputs."""
+    tables, cols = args[:2]
+    band_set = "lw" if len(args) == 5 else "sw"
+    fields = [getattr(cols, f) for f in cuda_rrtmg.FLOAT_FIELDS
+              + cuda_rrtmg.INT_FIELDS + ("tropo",)]
+    tensors = fields + [tables[f"kernel:{band_set}"],
+                        *(a for a in args[2:4] if band_set == "lw"), *out]
+    return sum(t.numel() * t.element_size() for t in tensors
+               if torch.is_tensor(t))
 
 
 # Input sets timed besides the main path's (the first of kernel_inputs)
@@ -975,7 +1050,8 @@ def check_kernel(name, inputs, ncol, err, checked):
     for label, args in inputs:
         ref64 = k["plain"](*args)
         got64 = k["wrapper"](*args)
-        err64 = _compare_f64(got64, ref64, f"{name}/{label}/{ncol}")
+        err64 = _compare_f64(got64, ref64, f"{name}/{label}/{ncol}",
+                             F64_RTOL_OF.get(name, F64_RTOL))
         args32 = _f32(args)
         got32, ref32 = k["wrapper"](*args32), k["plain"](*args32)
         _same_launches(got32, k["wrapper"](*args32), f"{name}/{label}/{ncol}")

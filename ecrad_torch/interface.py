@@ -29,7 +29,7 @@ from ecrad_torch.optics import cloud as cloud_optics_mod
 from ecrad_torch.optics import ecckd as ecckd_mod
 from ecrad_torch.optics import general_cloud as general_cloud_mod
 from ecrad_torch.optics import monochromatic as mono_mod
-from ecrad_torch.optics import rrtmg, rrtmg_data
+from ecrad_torch.optics import cuda_rrtmg, rrtmg, rrtmg_data
 from ecrad_torch.optics.aerosol_description import resolve_aerosol_type_names
 from ecrad_torch.optics.spectral_def import SpectralDefinition
 from ecrad_torch.solvers import cloudless, mcica, spartacus, tripleclouds
@@ -87,7 +87,8 @@ def tables_from_numpy(jax_tables, device, dtype) -> Tables:
     Tables: same leaves, converted with ``np.asarray``.  The TPU-only
     level windows (``gas["rrtmg"]["windows"]``) are dropped, and so are
     the spectral definitions, which are host objects of the JAX
-    package."""
+    package.  RRTMG tables without the kernels' packed buffers get them
+    (``cuda_rrtmg.pack_tables``)."""
     kw = {}
     for name in Tables._fields:
         if name.startswith("specdef"):
@@ -96,6 +97,9 @@ def tables_from_numpy(jax_tables, device, dtype) -> Tables:
         if name == "gas" and value is not None:
             value = {k: {kk: vv for kk, vv in v.items() if kk != "windows"}
                      for k, v in value.items()}
+            rrtmg_tables = value.get("rrtmg")
+            if rrtmg_tables is not None and "kernel:lw" not in rrtmg_tables:
+                rrtmg_tables.update(cuda_rrtmg.pack_tables(rrtmg_tables))
         kw[name] = _to_tensors(value, device, dtype)
     return Tables(**kw)
 

@@ -59,6 +59,10 @@ _SIGNATURES = {
     "ecrad_sw_sweeps": [_P] + [_I] * 4 + [_P],
     "ecrad_spartacus_sw": [_P] + [_I] * 5 + [_D] * 3 + [_P],
     "ecrad_spartacus_lw": [_P] + [_I] * 4 + [_P],
+    # the RRTMG gas optics: pointers, the packed tables' layout, ncol,
+    # nlev, the least optical depth
+    "ecrad_rrtmg_lw_taumol": [_P, _P, _I, _I, _D, _P],
+    "ecrad_rrtmg_sw_taumol": [_P, _P, _I, _I, _D, _P],
 }
 
 

@@ -1,0 +1,58 @@
+// A stand-in for the CUDA runtime header that runs a kernel's own source on
+// the CPU: one std::thread per CUDA thread, a std::barrier for
+// __syncthreads, the blocks one after another, __shared__ a static.  A test
+// rewrites each launch `k<<<blocks, threads, ...>>>(args)` as
+// `shim_launch(k, blocks, threads, args)` and builds the source with
+// `g++ -std=c++20 -pthread -I tests/cuda_cpu`.  It checks a kernel's
+// arithmetic and indexing, not what nvcc makes of it.
+#pragma once
+#include <algorithm>
+#include <barrier>
+#include <cfloat>
+#include <cmath>
+#include <cstddef>
+#include <thread>
+#include <vector>
+
+#define __global__
+#define __device__
+#define __host__
+#define __shared__ static
+#define __forceinline__ inline
+#define __launch_bounds__(...)
+#define __restrict__ __restrict
+
+struct dim3 { unsigned x = 0, y = 0, z = 0; };
+inline thread_local dim3 threadIdx;
+inline dim3 blockIdx, blockDim, gridDim;
+inline std::barrier<> *shim_barrier = nullptr;
+inline void __syncthreads() { shim_barrier->arrive_and_wait(); }
+template <class T> T __shfl_down_sync(unsigned, T v, int) { return v; }
+using std::max;
+using std::min;
+typedef int cudaError_t;
+typedef void *cudaStream_t;
+enum { cudaSuccess = 0 };
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
+template <class F> cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return 0; }
+inline cudaError_t cudaGetLastError() { return 0; }
+inline const char *cudaGetErrorString(cudaError_t) { return "no error"; }
+
+template <class K, class... A>
+void shim_launch(K k, int blocks, int threads, A... args) {
+  blockDim.x = threads;
+  gridDim.x = blocks;
+  for (int b = 0; b < blocks; ++b) {
+    blockIdx.x = b;
+    std::barrier<> bar(threads);
+    shim_barrier = &bar;
+    std::vector<std::thread> ts;
+    for (int t = 0; t < threads; ++t)
+      ts.emplace_back([&, t] {
+        threadIdx.x = t;
+        k(args...);
+        bar.arrive_and_drop();
+      });
+    for (auto &th : ts) th.join();
+  }
+}
