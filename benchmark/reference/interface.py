@@ -1,14 +1,15 @@
 """Radiation scheme orchestration for the benchmark's plain reference: a
-frozen copy of the port's ``interface.py``, cut to the routes of the
-benchmark's McICA configurations (RRTMG or ecCKD gas optics, band-wise
-SOCRATES/Fu or general cloud optics, general aerosols by type index, the
-McICA solvers on their fused route, LW derivatives and canopy fluxes).
+frozen copy of the port's ``interface.py``, cut to what the benchmark's
+configurations take (RRTMG or ecCKD gas optics, band-wise SOCRATES/Fu or
+general cloud optics, general aerosols by type index, LW derivatives and
+canopy fluxes); the solvers are a route found by name (``routes/``).
 
 Equivalent of radiation/radiation_interface.F90: ``setup_radiation``
 (host side: reads the tables from the data files, computes the spectral
 mappings and returns the consolidated Config and a :class:`Tables` of
 torch tensors on one device) and ``radiation`` (gas optics, aerosol,
-cloud optics, the solvers).  Any other route raises NotImplementedError.
+cloud optics, the route's solvers, and the Flux fields of their outputs).
+Anything else raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import numpy as np
 import torch
 
 from benchmark.reference import constants
-from benchmark.reference.config import Config, GasModel, PdfShape, Solver
+from benchmark.reference.config import Config, GasModel, PdfShape
 from benchmark.reference.containers import Flux
 from benchmark.reference.data import find_data_file
 from benchmark.reference.optics import aerosol as aerosol_mod
@@ -28,8 +29,6 @@ from benchmark.reference.optics import ecckd as ecckd_mod
 from benchmark.reference.optics import general_cloud as general_cloud_mod
 from benchmark.reference.optics import rrtmg, rrtmg_data
 from benchmark.reference.optics.spectral_def import SpectralDefinition
-from benchmark.reference.solvers import mcica
-from benchmark.reference.solvers.cloud_generator import fit_pdf_cheb
 
 # The ecCKD definition files read unless the configuration names others
 ECCKD_SW_FILE = "ecckd-1.4_sw_climate_rgb-32b_ckd-definition.nc"
@@ -49,7 +48,6 @@ class Tables(NamedTuple):
     band_from_g_lw: torch.Tensor
     cloud: Optional[Dict] = None               # cloud-optics tables
     aerosol: Optional[Dict] = None             # aerosol-optics tables
-    pdf_sampler: Optional[Dict] = None         # McICA PDF LUT + fit
     gas_meta: Optional[Dict] = None            # {"sw"/"lw": ecCKD meta}
 
 
@@ -74,22 +72,17 @@ def _to_tensors(x, device, dtype):
 
 
 def _check_supported(config: Config):
-    """The routes this reference follows: RRTMG or ecCKD gas optics, the
-    McICA solvers in both band sets on their fused route, clouds on, no
-    spectral flux output and no solar cycle or spectral solar scaling."""
-    if (config.sw_solver != Solver.MCICA or config.lw_solver != Solver.MCICA
-            or GasModel.MONOCHROMATIC in (config.gas_model_sw,
-                                          config.gas_model_lw)
-            or config.do_save_spectral_flux or config.do_save_gpoint_flux
+    """What the shared part follows: RRTMG or ecCKD gas optics, both band
+    sets, clouds on, no TOA spectral fluxes, no solar cycle or spectral
+    solar scaling, aerosols by type index.  The route checks the rest."""
+    if (GasModel.MONOCHROMATIC in (config.gas_model_sw, config.gas_model_lw)
             or config.do_toa_spectral_flux
             or config.use_spectral_solar_scaling
             or config.use_spectral_solar_cycle
             or config.aerosol_type_name
-            or config.do_lw_aerosol_scattering
-            or not config.do_lw_cloud_scattering
             or not (config.do_sw and config.do_lw)):
-        raise NotImplementedError("the reference covers the McICA "
-                                  "configurations of the benchmark only")
+        raise NotImplementedError("the reference covers the configurations "
+                                  "of the benchmark only")
 
 
 def pdf_file_name(config: Config) -> str:
@@ -154,13 +147,14 @@ def _surface_weights(specdef, bounds, idx, per_g):
     return specdef.calc_mapping_from_bands(bounds, idx, use_bands=not per_g)
 
 
-def setup_radiation(config: Config, device, dtype, data_dir: str):
+def setup_radiation(config: Config, route, device, dtype, data_dir: str):
     """Host-side setup (radiation_interface.F90:37-156): the gas model of
-    each band set, the surface mappings, the cloud optics tables, the
-    McICA PDF table and the aerosol optics, read from the data files in
-    ``data_dir``.  Returns (consolidated config, Tables on ``device`` in
-    ``dtype``)."""
+    each band set, the surface mappings, the cloud optics tables and the
+    aerosol optics, read from the data files in ``data_dir``, for the
+    solvers' ``route`` (``routes.find``).  Returns (consolidated config,
+    Tables on ``device`` in ``dtype``)."""
     _check_supported(config)
+    route.check_supported(config)
     ddir = data_dir
 
     # --- band structure, per band set
@@ -204,7 +198,7 @@ def setup_radiation(config: Config, device, dtype, data_dir: str):
     kw["is_homogeneous"] = False
     kw["is_consolidated"] = True
 
-    # --- cloud optics + McICA PDF LUT
+    # --- cloud optics
     if config.use_general_cloud_optics:
         cloud_tables = general_cloud_mod.setup_general_cloud_optics(
             config, ddir, specdef_sw, specdef_lw)
@@ -215,10 +209,6 @@ def setup_radiation(config: Config, device, dtype, data_dir: str):
                 "the band-wise cloud optics take RRTMG bands; use general "
                 "cloud optics with ecCKD")
         cloud_tables = cloud_optics_mod.setup_cloud_optics(config, ddir)
-    from benchmark.reference.io.netcdf import NcFile
-    with NcFile(find_data_file(ddir, pdf_file_name(config))) as f:
-        pdf_tables = {"fsd": f.get("fsd"), "val": f.get("x").T}
-    pdf_tables["cheb_fit"] = fit_pdf_cheb(pdf_tables)
 
     aerosol_tables = None
     if config.use_aerosols and config.n_aerosol_types > 0:
@@ -238,7 +228,6 @@ def setup_radiation(config: Config, device, dtype, data_dir: str):
         band_from_g_lw=band_from_g_lw,
         cloud=cloud_tables,
         aerosol=aerosol_tables,
-        pdf_sampler=pdf_tables,
         gas_meta=gas_meta,
     )
     return new_config, Tables(**{k: _to_tensors(v, device, dtype)
@@ -277,13 +266,19 @@ def get_albedos(config: Config, tables: Tables, sw_albedo,
     return sw_albedo_direct_g, sw_albedo_diffuse_g, lw_albedo_g
 
 
+def band_map(band_from_g, nbands: int, dtype):
+    """The (ng, nbands) 0/1 matrix of g-points to their bands; band_from_g
+    0-based."""
+    bands = torch.arange(nbands, dtype=torch.int64,
+                         device=band_from_g.device)
+    return (band_from_g[:, None] == bands[None, :]).to(dtype)
+
+
 def indexed_sum_g(x_g, band_from_g, nbands: int):
     """Sum a g-point array into bands along the last axis
     (radiation_flux.F90 indexed_sum); band_from_g 0-based.  A 0/1 matrix
     product, which sums in a fixed order on every device."""
-    bands = torch.arange(nbands, dtype=torch.int64, device=x_g.device)
-    onehot = (band_from_g[:, None] == bands[None, :]).to(x_g.dtype)
-    return x_g @ onehot
+    return x_g @ band_map(band_from_g, nbands, x_g.dtype)
 
 
 def _ecckd_gas_optics(config: Config, tables: Tables, pressure_hl,
@@ -401,14 +396,16 @@ def optical_properties(config: Config, tables: Tables, *,
         frac=frac, cl=cl)
 
 
-def radiation(config: Config, tables: Tables, *,
+def radiation(config: Config, tables: Tables, route, *,
               pressure_hl, temperature_hl, gas_mmr,
               cos_sza, skin_temperature, sw_albedo, sw_albedo_direct,
               lw_emissivity, solar_irradiance, cloud, aerosol=None) -> Flux:
-    """The fluxes (radiation_interface.F90:200-517) of the McICA
-    configurations.  gas_mmr: (ncol, nlev, NUM_GASES) mass mixing ratios
-    in constants.GAS_NAMES order; ``cloud`` carries the stochastic sample
-    (od_scaling_*, total_cloud_cover_*; see reference.step)."""
+    """The fluxes (radiation_interface.F90:200-517): the optical
+    properties, the solvers of ``route`` (``routes.find``), and the Flux
+    fields of their outputs.  gas_mmr: (ncol, nlev, NUM_GASES) mass mixing
+    ratios in constants.GAS_NAMES order; ``cloud`` carries the stochastic
+    sample where the route needs it (od_scaling_*, total_cloud_cover_*;
+    see reference.step)."""
     op = optical_properties(
         config, tables, pressure_hl=pressure_hl,
         temperature_hl=temperature_hl, gas_mmr=gas_mmr,
@@ -416,27 +413,25 @@ def radiation(config: Config, tables: Tables, *,
         sw_albedo=sw_albedo, sw_albedo_direct=sw_albedo_direct,
         lw_emissivity=lw_emissivity, solar_irradiance=solar_irradiance,
         cloud=cloud, aerosol=aerosol)
-    go, frac, cl = op["go"], op["frac"], op["cl"]
-    flux_kw = {}
+    lw, sw = route.solve(config, tables, op, cloud, cos_sza)
+    return Flux(**_lw_fluxes(config, tables, lw),
+                **_sw_fluxes(config, tables, sw))
 
-    lw_albedo_g = op["lw_albedo_g"]
-    lw_emission = go.lw_emission * (1.0 - lw_albedo_g)
-    lw = mcica.solver_mcica_lw(
-        op["od_lw"], op["ssa_lw"], op["g_lw_arr"],
-        cl["od_lw"], cl["ssa_lw"], cl["g_lw"],
-        tables.band_from_g_lw,
-        cloud["od_scaling_lw"], cloud["total_cloud_cover_lw"],
-        frac, go.planck_hl, lw_emission, lw_albedo_g,
-        cloud_fraction_threshold=config.cloud_fraction_threshold,
-        do_lw_cloud_scattering=config.do_lw_cloud_scattering,
-        do_lw_aerosol_scattering=config.do_lw_aerosol_scattering,
-        do_lw_derivatives=config.do_lw_derivatives)
-    flux_kw.update(
+
+def _lw_fluxes(config: Config, tables: Tables, lw) -> dict:
+    """The Flux fields of the LW solvers' output: profiles, cloud cover,
+    derivatives, per-band profiles, canopy fluxes."""
+    flux_kw = dict(
         lw_up=lw.flux_up, lw_dn=lw.flux_dn,
         lw_up_clear=lw.flux_up_clear, lw_dn_clear=lw.flux_dn_clear,
         cloud_cover_lw=lw.cloud_cover)
     if config.do_lw_derivatives:
         flux_kw["lw_derivatives"] = lw.lw_derivatives
+    if lw.flux_up_s is not None:
+        # per band, or per g-point with do_save_gpoint_flux
+        flux_kw.update(lw_up_band=lw.flux_up_s, lw_dn_band=lw.flux_dn_s,
+                       lw_up_clear_band=lw.flux_up_clear_s,
+                       lw_dn_clear_band=lw.flux_dn_clear_s)
     if config.do_canopy_fluxes_lw:
         lw_dn_surf_g = lw.lw_dn_surf_g
         if config.use_canopy_full_spectrum_lw:
@@ -450,23 +445,24 @@ def radiation(config: Config, tables: Tables, *,
                 lw_dn_surf_g, tables.band_from_g_lw, config.n_bands_lw)
             flux_kw["lw_dn_surf_canopy"] = \
                 lw_dn_band @ tables.lw_emiss_weights.T
+    return flux_kw
 
-    sw = mcica.solver_mcica_sw(
-        op["od_sw"], op["ssa_sw"], op["g_sw_arr"],
-        cl["od_sw"], cl["ssa_sw"], cl["g_sw"],
-        tables.band_from_g_sw,
-        cloud["od_scaling_sw"], cloud["total_cloud_cover_sw"],
-        frac, go.incoming_sw, cos_sza,
-        op["sw_albedo_diffuse_g"], op["sw_albedo_direct_g"],
-        cloud_fraction_threshold=config.cloud_fraction_threshold,
-        do_sw_delta_scaling_with_gases=(
-            config.do_sw_delta_scaling_with_gases))
-    flux_kw.update(
+
+def _sw_fluxes(config: Config, tables: Tables, sw) -> dict:
+    """The Flux fields of the SW solvers' output: profiles, cloud cover,
+    per-band profiles, surface bands, canopy fluxes."""
+    flux_kw = dict(
         sw_up=sw.flux_up, sw_dn=sw.flux_dn,
         sw_dn_direct=sw.flux_dn_direct,
         sw_up_clear=sw.flux_up_clear, sw_dn_clear=sw.flux_dn_clear,
         sw_dn_direct_clear=sw.flux_dn_direct_clear,
         cloud_cover_sw=sw.cloud_cover)
+    if sw.flux_up_s is not None:
+        flux_kw.update(sw_up_band=sw.flux_up_s, sw_dn_band=sw.flux_dn_s,
+                       sw_dn_direct_band=sw.flux_dn_direct_s,
+                       sw_up_clear_band=sw.flux_up_clear_s,
+                       sw_dn_clear_band=sw.flux_dn_clear_s,
+                       sw_dn_direct_clear_band=sw.flux_dn_direct_clear_s)
 
     bfg = tables.band_from_g_sw
     nb = config.n_bands_sw
@@ -501,4 +497,4 @@ def radiation(config: Config, tables: Tables, *,
             flux_kw["sw_dn_direct_surf_canopy"] = canopy_dir
             flux_kw["sw_dn_diffuse_surf_canopy"] = (tot_band @ w.T
                                                    - canopy_dir)
-    return Flux(**flux_kw)
+    return flux_kw

@@ -2,11 +2,13 @@
 the configuration's physics, built from its configuration file and the
 raw data files, in plain torch on any device.
 
-The McICA sample is drawn from the columns' own seeds as the program
-draws it (threefry keyed per column, LW seeds offset by 997), in
-``sample_dtype``; the optics and the solvers run in ``dtype``.  Nothing
-here reads anything the program made: the tables are read again from the
-data files, the sample is drawn again from the seeds.
+The solvers are the route of the configuration's solvers, found by name
+(``routes/``).  Where the route needs it, the McICA sample is drawn from
+the columns' own seeds as the program draws it (threefry keyed per
+column, LW seeds offset by 997), in ``sample_dtype``; the optics and the
+solvers run in ``dtype``.  Nothing here reads anything the program made:
+the tables are read again from the data files, the sample is drawn again
+from the seeds.
 """
 
 from __future__ import annotations
@@ -14,11 +16,13 @@ from __future__ import annotations
 import dataclasses
 import enum
 import json
-from typing import NamedTuple
+from types import ModuleType
+from typing import NamedTuple, Optional
 
 import torch
 
 from benchmark.reference import config as config_mod
+from benchmark.reference import routes
 from benchmark.reference.config import Config
 from benchmark.reference.data import DATA_DIR, find_data_file
 from benchmark.reference.interface import (Tables, _to_tensors,
@@ -52,7 +56,10 @@ def config_from_fields(fields: dict, dtype_name: str,
 class Reference(NamedTuple):
     config: Config
     tables: Tables
-    pdf_sample: dict        # the McICA PDF tables in the sample's dtype
+    route: ModuleType       # routes.find(config)
+    # the McICA PDF tables in the sample's dtype; None where the route
+    # draws no sample
+    pdf_sample: Optional[dict]
     dtype: torch.dtype
     sample_dtype: torch.dtype
 
@@ -60,18 +67,21 @@ class Reference(NamedTuple):
 def setup(config_path: str, device, dtype=torch.float64,
           sample_dtype=torch.float32) -> Reference:
     """Read the configuration file and the data files: the consolidated
-    Config, its tables in ``dtype`` and the PDF tables in
-    ``sample_dtype``."""
+    Config, its route, its tables in ``dtype`` and, where the route draws
+    the McICA sample, the PDF tables in ``sample_dtype``."""
     with open(config_path) as f:
         fields = json.load(f)["config"]
     config = config_from_fields(fields, "float64" if dtype == torch.float64
                                 else "float32")
-    config, tables = setup_radiation(config, device, dtype, DATA_DIR)
-    with NcFile(find_data_file(DATA_DIR, pdf_file_name(config))) as f:
-        pdf = {"fsd": f.get("fsd"), "val": f.get("x").T}
-    pdf["cheb_fit"] = fit_pdf_cheb(pdf)
-    return Reference(config, tables, _to_tensors(pdf, device, sample_dtype),
-                     dtype, sample_dtype)
+    route = routes.find(config)
+    config, tables = setup_radiation(config, route, device, dtype, DATA_DIR)
+    pdf = None
+    if route.NEEDS_SAMPLE:
+        with NcFile(find_data_file(DATA_DIR, pdf_file_name(config))) as f:
+            pdf = {"fsd": f.get("fsd"), "val": f.get("x").T}
+        pdf["cheb_fit"] = fit_pdf_cheb(pdf)
+        pdf = _to_tensors(pdf, device, sample_dtype)
+    return Reference(config, tables, route, pdf, dtype, sample_dtype)
 
 
 def _cast(x, dtype):
@@ -100,11 +110,13 @@ def sample(ref: Reference, cloud: dict) -> dict:
 
 def fluxes(ref: Reference, inputs: dict, solar_irradiance: float) -> dict:
     """Every flux field of one call's columns, as {name: tensor} in the
-    reference's dtype: the sample from the seeds, then the optics and the
-    solvers.  ``inputs``: the program's keyword inputs (pressure_hl, ...,
-    cloud, aerosol) on the reference's device."""
-    drawn = sample(ref, inputs["cloud"])
+    reference's dtype: the sample from the seeds where the route needs it,
+    then the optics and the route's solvers.  ``inputs``: the program's
+    keyword inputs (pressure_hl, ..., cloud, aerosol) on the reference's
+    device."""
     kw = _cast(inputs, ref.dtype)
-    kw["cloud"] = dict(kw["cloud"], **_cast(drawn, ref.dtype))
-    return radiation(ref.config, ref.tables,
+    if ref.route.NEEDS_SAMPLE:
+        drawn = sample(ref, inputs["cloud"])
+        kw["cloud"] = dict(kw["cloud"], **_cast(drawn, ref.dtype))
+    return radiation(ref.config, ref.tables, ref.route,
                      solar_irradiance=solar_irradiance, **kw).fields()

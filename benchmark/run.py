@@ -327,8 +327,10 @@ def run_cell(cell, seed: int, seconds: float, traced: bool, device,
 def block_shapes(cell, config, pool, ncalls: int) -> list:
     """The shape of each block of the first ``ncalls`` calls, in launch
     order, for the kernels' work counts: columns, levels, g-points and
-    bands of each band set, the bytes of a float, and the block's share of
-    cloudy (column, layer) pairs (its padding repeats the last column)."""
+    bands of each band set, the bytes of a float, whether the solvers
+    write per-g flux planes (spectral flux output per band or per
+    g-point), and the block's share of cloudy (column, layer) pairs (its
+    padding repeats the last column)."""
     import torch
 
     from benchmark import inputs
@@ -337,6 +339,8 @@ def block_shapes(cell, config, pool, ncalls: int) -> list:
            cfg["config"]["cloud_mixing_ratio_threshold"])
     itemsize = torch.empty((), dtype=getattr(torch, cfg["dtype"])
                            ).element_size()
+    planes = bool(cfg["config"]["do_save_spectral_flux"]
+                  or cfg["config"]["do_save_gpoint_flux"])
     shapes = []
     for i in range(ncalls):
         call = pool[i % len(pool)]
@@ -346,6 +350,7 @@ def block_shapes(cell, config, pool, ncalls: int) -> list:
                 ncol=t["block"], nlev=cfg["nlev"], ng_sw=config.n_g_sw,
                 ng_lw=config.n_g_lw, nband_sw=config.n_bands_sw,
                 nband_lw=config.n_bands_lw, itemsize=itemsize,
+                planes=planes,
                 cloudy=inputs.cloudy_fraction(inputs.columns(call, cols),
                                               *thr)))
     return shapes

@@ -5,13 +5,14 @@ holds; on the card at the cells' size, ``python3 benchmark/calibrate.py``."""
 
 import pytest
 
-from benchmark import calibrate, check, run
+from benchmark import calibrate, check
 from bench_small import SMALL
+from test_bench_reference import CONFIGS, cell_of
 
 
-@pytest.mark.parametrize("name", ("mcica_rrtmg", "ecckd_mcica"))
+@pytest.mark.parametrize("name", CONFIGS)
 def test_control_fails_and_program_passes(name):
-    cell = run.load_cell(f"{name}.rank2k")
+    cell = cell_of(name)
     cell.traffic.update(SMALL)
     rows = list(calibrate.readings(cell, [2**31 + 5], 1, "cpu"))
     limits = cell.config["limits"]

@@ -2,9 +2,11 @@
 skips the look for a card and drives the rest of a run on the CPU at a
 small size, with ``program.call`` replaced by a broken one: a call that
 hands back the previous call's fluxes (its state unchanged), one that
-computes half the columns and repeats them over the rest, and one that
-alters one column's answer where it is produced.  The sound run comes out
-correct.  (One card, no exchange between cards to leave out.)"""
+computes half the columns and repeats them over the rest, one that
+alters one column's answer where it is produced, and, where the cell
+saves flux profiles per band, one that alters one band of one column's
+per-band profile.  The sound run comes out correct.  (One card, no
+exchange between cards to leave out.)"""
 
 import time
 
@@ -57,11 +59,31 @@ def _altered(call):
     return broken
 
 
-@pytest.mark.parametrize("fault", (None, _stale, _half, _altered),
-                         ids=("sound", "stale", "half", "altered"))
-@pytest.mark.parametrize("name", ("mcica_rrtmg.rank2k",
-                                  "ecckd_mcica.slab16k"))
+def _band_altered(call):
+    def broken(prog, inputs, block, solar):
+        flux = call(prog, inputs, block, solar)
+        fields = dict(flux.fields())
+        band = fields["sw_dn_direct_band"].clone()
+        band[3, 40, 9] += 1.0        # one column, level and band, 1 W m-2
+        fields["sw_dn_direct_band"] = band
+        return type(flux)(**fields)
+    return broken
+
+
+FAULTS = {"sound": None, "stale": _stale, "half": _half,
+          "altered": _altered}
+CASES = [(name, fault) for name in ("mcica_rrtmg.rank2k",
+                                    "ecckd_mcica.slab16k",
+                                    "mcica_rrtmg_spectral.slab16k")
+         for fault in FAULTS]
+CASES.append(("mcica_rrtmg_spectral.slab16k", "band_altered"))
+FAULTS["band_altered"] = _band_altered
+
+
+@pytest.mark.parametrize("name,fault", CASES,
+                         ids=[f"{n}-{f}" for n, f in CASES])
 def test_broken_timed_path_is_not_correct(monkeypatch, name, fault):
+    fault = FAULTS[fault]
     if fault is not None:
         monkeypatch.setattr(program, "call", fault(program.call))
     out = run.run_cell(_cell(name), 2**31 + 17, 0.5, False, "cpu",

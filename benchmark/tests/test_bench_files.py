@@ -48,7 +48,10 @@ def test_every_config_file_holds_its_reduced_keys():
 
 def test_work_counts_found_by_name():
     work = run.work_modules()
-    assert {"generator_draw_scan", "lw_fused", "sw_fused"} <= set(work)
+    assert {"generator_draw_scan", "lw_fused", "sw_fused", "rrtmg_lw_taumol",
+            "rrtmg_sw_taumol"} <= set(work)
+    for name, module in work.items():
+        assert name.endswith(module.KERNEL.removesuffix("_kernel")), name
 
 
 def test_new_files_found_by_name(tmp_path):

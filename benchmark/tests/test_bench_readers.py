@@ -6,7 +6,8 @@ import types
 import pytest
 
 from benchmark import peaks, run, trace
-from benchmark.work import generator_draw_scan, lw_fused, sw_fused
+from benchmark.work import (generator_draw_scan, lw_fused,
+                            rrtmg_lw_taumol, rrtmg_sw_taumol, sw_fused)
 
 MAIN, OTHER = 1, 2
 
@@ -200,6 +201,34 @@ def test_work_counts_by_hand():
     assert w["flops"] == pytest.approx((163 + 121 * 0.25) * 2 * 3 * 4)
     assert w["bytes"] == (4 * (4 * 24 + 3 * 36 + 2 + 3 * 8) + 6
                           + 4 * 2 * (3 * 6 + 3 * 8))
+
+
+def test_planes_and_gas_optics_work_by_hand():
+    """The fused kernels' builds with per-g planes write 4 (LW) and 6 (SW)
+    planes at the half-levels more than the builds without, which count
+    as before; the RRTMG gas optics kernels read the gas columns, their
+    temperatures and tables and write their outputs once."""
+    s = dict(ncol=2, nlev=3, ng_sw=4, ng_lw=5, nband_sw=6, nband_lw=7,
+             itemsize=4, cloudy=0.25)
+    (lw,), (sw,) = lw_fused.block_launches(s), sw_fused.block_launches(s)
+    for key in ({}, {"planes": False}):
+        assert lw_fused.block_launches({**s, **key}) == [lw]
+        assert sw_fused.block_launches({**s, **key}) == [sw]
+    (lwp,) = lw_fused.block_launches({**s, "planes": True})
+    (swp,) = sw_fused.block_launches({**s, "planes": True})
+    assert lwp["bytes"] - lw["bytes"] == 4 * 4 * 2 * 4 * 5
+    assert swp["bytes"] - sw["bytes"] == 4 * 6 * 2 * 4 * 4
+    assert lwp["flops"] == lw["flops"] and swp["flops"] == sw["flops"]
+    rows = 2 * 3
+    columns = rows * (4 * 38 + 8 * 6 + 1)
+    (w,) = rrtmg_lw_taumol.block_launches(s)
+    assert w["flops"] == 35 * rows * 5 and w["int_ops"] == 0
+    assert w["bytes"] == (columns + 4 * (2 * 4 + 2 + 145552)
+                          + 4 * (rows * 5 + 2 * 4 * 5 + 2 * 5))
+    (w,) = rrtmg_sw_taumol.block_launches(s)
+    assert w["flops"] == 23 * rows * 4 and w["int_ops"] == 0
+    assert w["bytes"] == (columns + 4 * 87469
+                          + 4 * (2 * rows * 4 + 2 * 4))
 
 
 def test_least_time_takes_the_longest_term():

@@ -1,18 +1,28 @@
 """The plain reference against the port's own CPU path, at 32 columns in
 float64, with the sample drawn at float64 on both sides."""
 
+import json
+
 import pytest
 import torch
 
 from benchmark import check, inputs, program, run
 from benchmark.reference import step
 
-CONFIGS = ("mcica_rrtmg", "ecckd_mcica")
+CONFIGS = ("mcica_rrtmg", "ecckd_mcica", "mcica_rrtmg_spectral")
+
+
+def cell_of(name: str):
+    """The first cell of BENCHMARK.json on the configuration ``name``."""
+    with open(f"{run.ROOT}/BENCHMARK.json") as f:
+        cells = json.load(f)["workloads"]
+    return run.load_cell(next(w["name"] for w in cells
+                              if w["config"] == name))
 
 
 @pytest.mark.parametrize("name", CONFIGS)
 def test_reference_matches_the_port_in_float64(name):
-    cell = run.load_cell(f"{name}.rank2k")
+    cell = cell_of(name)
     profiles = inputs.read_profiles()
     solar = profiles["solar_irradiance"]
     pool = inputs.make_pool(inputs.profiles_on(profiles, "cpu",
@@ -29,3 +39,8 @@ def test_reference_matches_the_port_in_float64(name):
     assert gaps["fraction_gap"] < 1e-12
     # the columns are not all alike: the sample and the sun differ
     assert float(want["sw_dn"][:, -1].std()) > 1.0
+    if cell.config["config"]["do_save_spectral_flux"]:
+        # the per-band profiles add up to the broadband ones
+        for k in ("lw_up", "sw_dn", "sw_dn_direct_clear"):
+            assert torch.allclose(want[k + "_band"].sum(-1), want[k],
+                                  rtol=1e-12, atol=1e-9), k

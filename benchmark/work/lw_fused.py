@@ -11,7 +11,10 @@ Counted from the shapes, whatever implements it; one launch per block.
   g-point, the band-wise cloud optical depth, albedo and asymmetry, a
   cloudy flag per layer, the Planck function at half-levels, the surface
   emission and albedo) and the outputs once (four broadband profiles, six
-  surface and TOA planes per g-point, two derivative profiles).
+  surface and TOA planes per g-point, two derivative profiles), and in
+  the build for spectral flux output (``planes`` in the block's shape)
+  its four per-g planes at every half-level, the clear and total-sky up
+  and down fluxes.
 """
 
 KERNEL = "lw_fused_kernel"
@@ -24,5 +27,7 @@ def block_launches(shape: dict) -> list:
     reads = s * (2 * n * l * g + 3 * n * l * b + n * (l + 1) * g
                  + 2 * n * g) + n * l
     writes = s * (4 * n * l + 6 * n * g + 2 * n * l)
+    if shape.get("planes"):
+        writes += s * 4 * n * (l + 1) * g
     return [dict(flops=(49 + 54 * f) * n * l * g, int_ops=0,
                  bytes=reads + writes)]

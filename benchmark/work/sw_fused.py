@@ -11,7 +11,10 @@ Counted from the shapes, whatever implements it; one launch per block.
   cloud scaling per g-point, the band-wise cloud properties, a cloudy
   flag per layer, mu0, the incoming flux and the two surface albedos per
   g-point) and the outputs once (per scene three broadband profiles and
-  three surface and TOA planes per g-point).
+  three surface and TOA planes per g-point), and in the build for
+  spectral flux output (``planes`` in the block's shape) its six per-g
+  planes at every half-level, per scene the up, diffuse down and direct
+  fluxes.
 """
 
 KERNEL = "sw_fused_kernel"
@@ -23,5 +26,7 @@ def block_launches(shape: dict) -> list:
     s, f = shape["itemsize"], shape["cloudy"]
     reads = s * (4 * n * l * g + 3 * n * l * b + n + 3 * n * g) + n * l
     writes = s * 2 * (3 * n * l + 3 * n * g)
+    if shape.get("planes"):
+        writes += s * 6 * n * (l + 1) * g
     return [dict(flops=(163 + 121 * f) * n * l * g, int_ops=0,
                  bytes=reads + writes)]
