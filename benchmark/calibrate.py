@@ -41,7 +41,7 @@ def readings(cell, seeds, control_seeds, device):
     dtype = getattr(torch, cfg["dtype"])
     device = torch.device(device)
     prog = program.build(cell.config_path, device, dtype)
-    profiles = inputs.read_profiles()
+    profiles = inputs.read_profiles(driver=cfg.get("driver"))
     solar = profiles["solar_irradiance"]
     on_device = inputs.profiles_on(profiles, device, dtype)
     ref = reference_step.setup(cell.config_path, device, torch.float64,

@@ -7,6 +7,11 @@ replacement; its cosine of the solar zenith angle is drawn uniformly on
 [-1, 1] (the distribution over a uniformly sampled sphere: half the
 columns are in night), and it gets a fresh McICA seed.  Both the program
 and the reference are handed the same tensors.
+
+Where a configuration file has a ``driver`` group, ecRad's
+``&radiation_driver`` cloud-separation settings, each profile also
+carries the cloud effective sizes that ecRad's offline driver derives
+from them (``effective_sizes``), as the SPARTACUS solvers read them.
 """
 
 from __future__ import annotations
@@ -25,14 +30,48 @@ MERIDIAN = os.path.join(REPO_ROOT, "ecrad_tpu", "data", "io",
 # McICA seeds are drawn on [1, 2**31 - 1), the range of ecRad's integer
 # seeds
 SEED_HIGH = 2**31 - 1
+# The keys of a configuration file's ``driver`` group, all required: the
+# &radiation_driver settings from which ecRad's offline driver derives
+# the cloud effective sizes (ecrad_driver_read_input.F90:290-465, where
+# they take precedence over the sizes in the input file)
+DRIVER_KEYS = ("cloud_separation_scale_toa", "cloud_separation_scale_surface",
+               "cloud_separation_scale_power", "cloud_inhom_separation_factor")
 
 
-def read_profiles(path: str = MERIDIAN) -> dict:
+def effective_sizes(pressure_hl, fraction, driver: dict):
+    """The inverse cloud effective size and inverse inhomogeneity size
+    (ncol, nlev) of each layer, from the half-level pressure (top first)
+    and the cloud fraction before cropping, by ecRad's
+    param_cloud_effective_separation_eta (radiation_cloud.F90:602-690):
+    the cloud separation scale runs from the surface's to the top's as
+    a + b exp(-eta^power) in eta, the mid-layer pressure over the
+    surface's."""
+    if set(driver) != set(DRIVER_KEYS):
+        raise ValueError(f"a driver group has exactly {sorted(DRIVER_KEYS)};"
+                         f" got {sorted(driver)}")
+    toa = driver["cloud_separation_scale_toa"]
+    surface = driver["cloud_separation_scale_surface"]
+    p = np.asarray(pressure_hl, dtype=np.float64)
+    f = np.asarray(fraction, dtype=np.float64)
+    eta = 0.5 * (p[:, :-1] + p[:, 1:]) / p[:, -1:]
+    b = (toa - surface) / (1.0 - np.exp(-1.0))
+    a = toa - b
+    separation = a + b * np.exp(-eta ** driver["cloud_separation_scale_power"])
+    inv_cloud = 1.0 / (separation * np.sqrt(np.maximum(1.0e-5, f * (1.0 - f))))
+    inv_inhom = 1.0 / (separation * driver["cloud_inhom_separation_factor"]
+                       * np.sqrt(np.maximum(1.0e-5,
+                                            0.5 * f * (1.0 - 0.5 * f))))
+    return inv_cloud, inv_inhom
+
+
+def read_profiles(path: str = MERIDIAN, driver: dict = None) -> dict:
     """The columns of an ecRad input file as float64 numpy arrays, levels
     top of atmosphere first, in the keyword layout of
     ``pipeline.radiation_blocked``: gases as mass mixing ratios in
     ``constants.GAS_NAMES`` order, the cloud and aerosol groups as dicts,
-    and ``solar_irradiance`` a float."""
+    and ``solar_irradiance`` a float.  With a configuration's ``driver``
+    group the cloud group also holds ``inv_cloud_effective_size`` and
+    ``inv_inhom_effective_size`` (``effective_sizes``)."""
     with netcdf_file(path, "r", mmap=False) as f:
         v = {k: np.array(x.data, dtype=np.float64)
              for k, x in f.variables.items()}
@@ -47,15 +86,18 @@ def read_profiles(path: str = MERIDIAN) -> dict:
             gas[..., constants.GAS_INDEX[name]] = (
                 v[f"{name}_vmr"] * constants.MOLAR_MASS[name]
                 / constants.MOLAR_MASS_DRY_AIR)
+    cloud = dict(fraction=v["cloud_fraction"], q_liq=v["q_liquid"],
+                 q_ice=v["q_ice"], re_liq=v["re_liquid"], re_ice=v["re_ice"],
+                 overlap_param=v["overlap_param"],
+                 fractional_std=v["fractional_std"])
+    if driver is not None:
+        cloud["inv_cloud_effective_size"], cloud["inv_inhom_effective_size"] \
+            = effective_sizes(v["pressure_hl"], v["cloud_fraction"], driver)
     return dict(
         pressure_hl=v["pressure_hl"], temperature_hl=v["temperature_hl"],
         gas_mmr=gas, skin_temperature=v["skin_temperature"],
         sw_albedo=v["sw_albedo"], sw_albedo_direct=v["sw_albedo_direct"],
-        lw_emissivity=v["lw_emissivity"],
-        cloud=dict(fraction=v["cloud_fraction"], q_liq=v["q_liquid"],
-                   q_ice=v["q_ice"], re_liq=v["re_liquid"],
-                   re_ice=v["re_ice"], overlap_param=v["overlap_param"],
-                   fractional_std=v["fractional_std"]),
+        lw_emissivity=v["lw_emissivity"], cloud=cloud,
         aerosol=dict(mixing_ratio=np.moveaxis(v["aerosol_mmr"], 1, 2)),
         solar_irradiance=float(v["solar_irradiance"]))
 

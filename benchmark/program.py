@@ -5,16 +5,18 @@ from the benchmark's configuration file and driven through
 ``spans`` wraps the entry points of three layers in
 ``torch.profiler.record_function`` ranges for a traced run: the cloud
 generator (``pipeline.add_cloud_sample``), the optics
-(``interface._optical_properties``) and the solvers
-(``mcica.solver_mcica_lw`` / ``solver_mcica_sw``).  They are module
-attributes looked up at call time, so the wrap reaches them; it adds no
-synchronisation.  An untraced run wraps nothing.
+(``interface._optical_properties``) and the solvers (the LW and SW
+solvers of every route: ``solver_<name>_lw`` / ``_sw`` of the McICA,
+Tripleclouds, SPARTACUS and Cloudless modules, ``SOLVER_MODULES``).  They
+are module attributes looked up at call time, so the wrap reaches them;
+it adds no synchronisation.  An untraced run wraps nothing.
 """
 
 from __future__ import annotations
 
 import contextlib
 import functools
+import importlib
 import json
 from typing import NamedTuple
 
@@ -26,6 +28,10 @@ from benchmark.reference.step import config_from_fields
 # Range names of the traced layers; metric readers find them by these
 GENERATOR, OPTICS, SOLVERS, CALL = ("bench.generator", "bench.optics",
                                     "bench.solvers", "bench.call")
+# The modules of ecrad_torch.solvers whose solver_<name>_lw and _sw the
+# solvers' range wraps: one for each route of the port's interface (none
+# calls another's)
+SOLVER_MODULES = ("mcica", "tripleclouds", "spartacus", "cloudless")
 
 
 class Program(NamedTuple):
@@ -78,12 +84,15 @@ def _ranged(name, fn):
 def spans():
     """Wrap the three layers' entry points in profiler ranges for the
     duration of the block, and restore them after."""
+    import importlib
+
     from ecrad_torch import interface, pipeline
-    from ecrad_torch.solvers import mcica
-    targets = ((pipeline, "add_cloud_sample", GENERATOR),
-               (interface, "_optical_properties", OPTICS),
-               (mcica, "solver_mcica_lw", SOLVERS),
-               (mcica, "solver_mcica_sw", SOLVERS))
+    targets = [(pipeline, "add_cloud_sample", GENERATOR),
+               (interface, "_optical_properties", OPTICS)]
+    for name in SOLVER_MODULES:
+        mod = importlib.import_module(f"ecrad_torch.solvers.{name}")
+        targets += [(mod, f"solver_{name}_{band}", SOLVERS)
+                    for band in ("lw", "sw")]
     saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in targets]
     try:
         for mod, attr, name in targets:

@@ -322,7 +322,9 @@ def optical_properties(config: Config, tables: Tables, *,
                        sw_albedo_direct, lw_emissivity,
                        solar_irradiance, cloud, aerosol=None):
     """Surface + gas + aerosol + cloud optical properties — the front
-    half of radiation() (radiation_interface.F90:200-383)."""
+    half of radiation() (radiation_interface.F90:200-383), with the
+    half-level pressure and temperature beside them for the routes that
+    read the layers' geometry."""
     _check_supported(config)
     sw_albedo_direct_g, sw_albedo_diffuse_g, lw_albedo_g = get_albedos(
         config, tables, sw_albedo, sw_albedo_direct, lw_emissivity)
@@ -393,7 +395,8 @@ def optical_properties(config: Config, tables: Tables, *,
         lw_albedo_g=lw_albedo_g, go=go,
         od_lw=od_lw, ssa_lw=ssa_lw, g_lw_arr=g_lw_arr,
         od_sw=od_sw, ssa_sw=ssa_sw, g_sw_arr=g_sw_arr,
-        frac=frac, cl=cl)
+        frac=frac, cl=cl, pressure_hl=pressure_hl,
+        temperature_hl=temperature_hl)
 
 
 def radiation(config: Config, tables: Tables, route, *,

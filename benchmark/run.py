@@ -212,7 +212,7 @@ def run_cell(cell, seed: int, seconds: float, traced: bool, device,
     stages = [("imports", time.time())]
     prog = program.build(cell.config_path, device, dtype)
     stages.append(("tables", time.time()))
-    profiles = inputs.read_profiles()
+    profiles = inputs.read_profiles(driver=cfg.get("driver"))
     solar = profiles["solar_irradiance"]
     pool = inputs.make_pool(inputs.profiles_on(profiles, device, dtype),
                             seed, t["pool_calls"], t["ncol"])

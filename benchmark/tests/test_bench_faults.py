@@ -3,10 +3,12 @@ skips the look for a card and drives the rest of a run on the CPU at a
 small size, with ``program.call`` replaced by a broken one: a call that
 hands back the previous call's fluxes (its state unchanged), one that
 computes half the columns and repeats them over the rest, one that
-alters one column's answer where it is produced, and, where the cell
+alters one column's answer where it is produced, where the cell
 saves flux profiles per band, one that alters one band of one column's
-per-band profile.  The sound run comes out correct.  (One card, no
-exchange between cards to leave out.)"""
+per-band profile, and, where the cell runs SPARTACUS, one whose solvers
+leave out the 3D effects (``do_3d_effects`` off, the 1D Tripleclouds-like
+solution).  The sound run comes out correct.  (One card, no exchange
+between cards to leave out.)"""
 
 import time
 
@@ -70,14 +72,24 @@ def _band_altered(call):
     return broken
 
 
+def _no_3d(call):
+    def broken(prog, inputs, block, solar):
+        flat = prog._replace(config=prog.config.replace(do_3d_effects=False))
+        return call(flat, inputs, block, solar)
+    return broken
+
+
 FAULTS = {"sound": None, "stale": _stale, "half": _half,
           "altered": _altered}
 CASES = [(name, fault) for name in ("mcica_rrtmg.rank2k",
                                     "ecckd_mcica.slab16k",
-                                    "mcica_rrtmg_spectral.slab16k")
+                                    "mcica_rrtmg_spectral.slab16k",
+                                    "spartacus_ecckd.slab16k")
          for fault in FAULTS]
 CASES.append(("mcica_rrtmg_spectral.slab16k", "band_altered"))
+CASES.append(("spartacus_ecckd.slab16k", "no_3d"))
 FAULTS["band_altered"] = _band_altered
+FAULTS["no_3d"] = _no_3d
 
 
 @pytest.mark.parametrize("name,fault", CASES,
@@ -102,3 +114,17 @@ def test_traced_run_reports_per_layer_metrics():
     assert out["attempted"] == SMALL["trace_calls"]
     assert out["device"]["window_s"] > 0
     assert "breakdown" in out
+
+
+def test_traced_spartacus_run_reads_its_solvers():
+    """A SPARTACUS cell's traced run reads the solvers' layer through the
+    wraps of its route, and no metric of the McICA generator."""
+    cell = _cell("spartacus_ecckd.slab16k")
+    out = run.run_cell(cell, 2**31 + 29, 0.5, True, "cpu", time.time())
+    assert out["correct"] is True
+    assert not any(k.startswith(("generator", "cumulator", "sampler"))
+                   for k in cell.per_layer)
+    for k in ("solvers_dev_ms_per_kcol", "solvers_host_ms_per_kcol",
+              "host_wait_ms_per_kcol"):
+        assert k in out["metrics"], k
+    assert out["metrics"]["solvers_host_ms_per_kcol"]["value"] > 0

@@ -49,7 +49,7 @@ def test_every_config_file_holds_its_reduced_keys():
 def test_work_counts_found_by_name():
     work = run.work_modules()
     assert {"generator_draw_scan", "lw_fused", "sw_fused", "rrtmg_lw_taumol",
-            "rrtmg_sw_taumol"} <= set(work)
+            "rrtmg_sw_taumol", "spartacus_lw", "spartacus_sw"} <= set(work)
     for name, module in work.items():
         assert name.endswith(module.KERNEL.removesuffix("_kernel")), name
 

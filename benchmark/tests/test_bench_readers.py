@@ -7,7 +7,8 @@ import pytest
 
 from benchmark import peaks, run, trace
 from benchmark.work import (generator_draw_scan, lw_fused,
-                            rrtmg_lw_taumol, rrtmg_sw_taumol, sw_fused)
+                            rrtmg_lw_taumol, rrtmg_sw_taumol, spartacus_lw,
+                            spartacus_sw, sw_fused)
 
 MAIN, OTHER = 1, 2
 
@@ -229,6 +230,29 @@ def test_planes_and_gas_optics_work_by_hand():
     assert w["flops"] == 23 * rows * 4 and w["int_ops"] == 0
     assert w["bytes"] == (columns + 4 * 87469
                           + 4 * (2 * rows * 4 + 2 * 4))
+
+
+def test_spartacus_work_by_hand():
+    """The SPARTACUS sweeps read every entry of their layer matrices in a
+    cloudy layer and those of region 0 (and Tdir's first column) in a clear
+    one, with the clear-sky coefficients, the per-level and the surface
+    inputs once, and write their profiles once."""
+    s = dict(ncol=2, nlev=3, ng_sw=4, ng_lw=5, nband_sw=6, nband_lw=7,
+             itemsize=4, cloudy=0.25)
+    (w,) = spartacus_sw.block_launches(s)
+    assert w["flops"] == 700 * 2 * 3 * 4 and w["int_ops"] == 0
+    assert w["bytes"] == pytest.approx(4 * (
+        (45 * 0.25 + 7 * 0.75 + 5) * 24 + (27 + 4 + 2 + 13) * 6
+        + (18 + 2 + 3 + 1) * 8 + (9 + 2 + 6 * 3) * 8))
+    (w,) = spartacus_lw.block_launches(s)
+    assert w["flops"] == 400 * 2 * 3 * 5 and w["int_ops"] == 0
+    assert w["bytes"] == pytest.approx(4 * (
+        (24 * 0.25 + 4 * 0.75 + 4) * 30 + (27 + 2 + 2) * 6
+        + (9 + 3 + 1 + 1) * 10 + (3 + 1 + 4 * 3) * 10))
+    # all-clear: the layer matrices' clear entries only
+    clear = spartacus_sw.block_launches({**s, "cloudy": 0.0})[0]["bytes"]
+    cloudy = spartacus_sw.block_launches({**s, "cloudy": 1.0})[0]["bytes"]
+    assert cloudy - clear == pytest.approx(4 * (45 - 7) * 24)
 
 
 def test_least_time_takes_the_longest_term():

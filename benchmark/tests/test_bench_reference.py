@@ -1,5 +1,8 @@
 """The plain reference against the port's own CPU path, at 32 columns in
-float64, with the sample drawn at float64 on both sides."""
+float64, with the sample drawn at float64 on both sides.  SPARTACUS's LW
+agrees to 1e-6 W m-2, the port's own bar against the JAX package for it:
+the 6x6 exponential's generator is near singular in thin regions, and its
+two solves lose digits there."""
 
 import json
 
@@ -9,7 +12,10 @@ import torch
 from benchmark import check, inputs, program, run
 from benchmark.reference import step
 
-CONFIGS = ("mcica_rrtmg", "ecckd_mcica", "mcica_rrtmg_spectral")
+CONFIGS = ("mcica_rrtmg", "ecckd_mcica", "mcica_rrtmg_spectral",
+           "spartacus_ecckd")
+# the largest gap of the LW fluxes, W m-2, where the others' 1e-9 is not
+LW_BOUND = {"spartacus_ecckd": 1e-6}
 
 
 def cell_of(name: str):
@@ -23,7 +29,7 @@ def cell_of(name: str):
 @pytest.mark.parametrize("name", CONFIGS)
 def test_reference_matches_the_port_in_float64(name):
     cell = cell_of(name)
-    profiles = inputs.read_profiles()
+    profiles = inputs.read_profiles(driver=cell.config.get("driver"))
     solar = profiles["solar_irradiance"]
     pool = inputs.make_pool(inputs.profiles_on(profiles, "cpu",
                                                torch.float64),
@@ -34,7 +40,8 @@ def test_reference_matches_the_port_in_float64(name):
     want = step.fluxes(ref, pool[0], solar)
     gaps = check.gaps(got, want)
     assert gaps["nonfinite"] == 0
-    for k in ("lw_gap_wm2", "sw_direct_gap_wm2", "sw_gap_wm2"):
+    assert gaps["lw_gap_wm2"] < LW_BOUND.get(name, 1e-9)
+    for k in ("sw_direct_gap_wm2", "sw_gap_wm2"):
         assert gaps[k] < 1e-9, k
     assert gaps["fraction_gap"] < 1e-12
     # the columns are not all alike: the sample and the sun differ

@@ -108,8 +108,9 @@ def test_a_new_route_is_found_by_name_and_dispatched_to(tmp_path,
 
 
 def test_solvers_without_a_route_raise_naming_the_file(tmp_path):
-    with pytest.raises(NotImplementedError, match=r"routes/spartacus\.py"):
-        step.setup(_config_file(tmp_path, "SPARTACUS"), "cpu",
+    with pytest.raises(NotImplementedError,
+                       match=r"routes/homogeneous\.py"):
+        step.setup(_config_file(tmp_path, "HOMOGENEOUS"), "cpu",
                    torch.float64, torch.float64)
     config = step.config_from_fields(
         dict(sw_solver="TRIPLECLOUDS", lw_solver="MCICA"), "float64")

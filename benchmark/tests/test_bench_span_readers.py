@@ -165,3 +165,23 @@ def test_nothing_read_without_the_spans(tr):
                                if not x[0].startswith(spans.PREFIX)])
     for name in READERS:
         assert _reader(name).read(_run(bare)) is None, name
+
+
+def test_spans_wrap_every_route_s_solvers():
+    """The solvers' range wraps the LW and SW solvers of every route of
+    the port's interface while open, and restores them after."""
+    import importlib
+
+    from benchmark import program
+    modules = {name: importlib.import_module(f"ecrad_torch.solvers.{name}")
+               for name in program.SOLVER_MODULES}
+    before = {(n, b): getattr(m, f"solver_{n}_{b}")
+              for n, m in modules.items() for b in ("lw", "sw")}
+    assert {"mcica", "tripleclouds", "spartacus", "cloudless"} \
+        == set(modules)
+    with program.spans():
+        for (n, b), fn in before.items():
+            wrapped = getattr(modules[n], f"solver_{n}_{b}")
+            assert wrapped is not fn and wrapped.__wrapped__ is fn
+    for (n, b), fn in before.items():
+        assert getattr(modules[n], f"solver_{n}_{b}") is fn
