@@ -63,10 +63,20 @@ the script exits non-zero:
                to the planes-in build fed draw_planes bit for bit, at ng
                140, 112, 32 and 1, in the three overlap schemes, on the
                meridian file's seeds, those + 997 (the LW stream), and
-               seeds 0 and at or above 2^31.
+               seeds 0 and at or above 2^31.  Its sampled build
+               (generator_draw_sample: the same kernel writing
+               od_scaling through the Chebyshev sampler, which the McICA
+               paths launch) is held to its plain version (the draw
+               build's, then cloud_generator.sample_od_scaling's sampler
+               and masks) on the same sets and on one whose fractional
+               standard deviation spans the fit's axis and beyond
+               (fsd_spread), zero exactly where the plain version is, and
+               also at 8192 columns (SAMPLED_NCOL) at ng 140, 112 and 32;
+               it is timed beside the draw build.
 4. slice_f64 - the flagship (McICA) step (ecrad_torch.flagship) on the
                32-column meridian slice in float64 against the JAX package's
-               float64 fluxes (tests/data/torch_flagship_meridian32.npz).
+               float64 fluxes (tests/data/torch_flagship_meridian32.npz);
+               its launch counts, the sampled build's among them.
 5. slice_f32 - (a) interface.radiation in float32 fed the JAX float32
                stochastic sample, against the JAX float32 fluxes;
                (b) the McICA main path at full size: radiation_blocked over
@@ -213,6 +223,7 @@ SAMPLE_KEYS = ("od_scaling_sw", "od_scaling_lw", "total_cloud_cover_sw",
                "total_cloud_cover_lw")
 NLEV = 137
 SHAPES = (2048, 2049)         # the bench block, and a ragged column count
+SAMPLED_NCOL = 8192           # the slab cells' block (generator_draw_sample)
 FULL_NCOL, FULL_BLOCK = 6144, 2048
 DEV = torch.device("cuda")
 
@@ -281,6 +292,16 @@ KERNELS = {
         source="ecrad_torch/csrc/generator_scan.cu",
         replaces="ecrad_tpu/solvers/pallas_generator.py:98 and the draw at "
                  "ecrad_tpu/solvers/cloud_generator.py:451"),
+    # the sampled build: the same wrapper with a last argument `sample`; its
+    # launches are the wrapper's sampled_launches
+    "generator_draw_sample": dict(
+        wrapper=cuda_generator.generator_draw_scan,
+        plain=cuda_generator.generator_draw_scan_plain,
+        counter="sampled_launches",
+        source="ecrad_torch/csrc/generator_scan.cu",
+        replaces="ecrad_tpu/solvers/pallas_generator.py:98, the draw at "
+                 "ecrad_tpu/solvers/cloud_generator.py:451 and its sampling "
+                 "epilogue"),
     "generator_scan": dict(
         wrapper=cuda_generator.generator_scan,
         plain=cuda_generator.generator_scan_plain,
@@ -339,11 +360,14 @@ KERNELS = {
 # The RRTMG gas optics: one launch of each kernel a block on every path with
 # RRTMG gas optics, none on the ecCKD and monochromatic ones
 RRTMG = dict(rrtmg_lw_taumol=1, rrtmg_sw_taumol=1)
+# The McICA generator on the card: two launches of the draw kernel a block,
+# both of its sampled build (generator_draw_scan counts every build's)
+GENERATOR = dict(generator_draw_scan=2, generator_draw_sample=2)
 # Each main path's launches per 2048-column block (all others 0); a
 # kernel's reported launches are those read in the first path listed here
 # that names it (generator_scan, which no main path runs, in the flagship's).
 MAIN_PATHS = {
-    "mcica_rrtmg": dict(generator_draw_scan=2, generator_scan=0, lw_fused=1,
+    "mcica_rrtmg": dict(**GENERATOR, generator_scan=0, lw_fused=1,
                         sw_fused=1, **RRTMG),
     "tripleclouds_rrtmg": dict(tripleclouds_lw=1, tripleclouds_sw=1,
                                **RRTMG),
@@ -351,10 +375,10 @@ MAIN_PATHS = {
     "homogeneous_rrtmg": dict(scat_sweeps=2, sw_fused=1, **RRTMG),
     "spartacus_3d": dict(spartacus_sw=1, spartacus_lw=1, **RRTMG),
     "tripleclouds_ecckd": dict(tripleclouds_lw=1, tripleclouds_sw=1),
-    "ecckd_mcica": dict(generator_draw_scan=2, lw_fused=1, sw_fused=1),
+    "ecckd_mcica": dict(**GENERATOR, lw_fused=1, sw_fused=1),
     "tripleclouds_baran2016": dict(tripleclouds_lw=1, tripleclouds_sw=1,
                                    **RRTMG),
-    "mcica_rrtmg_spectral": dict(generator_draw_scan=2, lw_fused=1,
+    "mcica_rrtmg_spectral": dict(**GENERATOR, lw_fused=1,
                                  sw_fused=1, **RRTMG),
     "tripleclouds_ecckd_gpoint": dict(tripleclouds_lw=1, tripleclouds_sw=1),
     "cloudless_rrtmg_spectral": dict(lw_noscat_sweeps=1, sw_sweeps=1,
@@ -414,6 +438,11 @@ OPS = {
     "generator_scan": lambda args, f: 20,
     # the scan, and the exact "- 1" of each of the three draws
     "generator_draw_scan": lambda args, f: 23,
+    # and the sampling epilogue per cloudy element (counted as every
+    # element of a cloudy layer): ndtri's central branch ~31 (a tail's ~45
+    # with two logs and a sqrt), the clamps and t 7, the fsd interpolation
+    # of 15 coefficients ~56, the Clenshaw sum 46, exp and the masks 4
+    "generator_draw_sample": lambda args, f: 23 + 160 * f(args[1][..., 0]),
     # clear 15 + sweeps 3+3+12+12 + derivatives 4; cloudy: merge + ref_trans
     "lw_fused": lambda args, f: 49 + 54 * f(args[5]),
     # clear ref_trans 105 + two scenes' SW sweeps 2 x 29; cloudy: merge +
@@ -457,6 +486,7 @@ INT_OPS = {
     "generator_draw_scan": lambda ncol, nlev, ng: (
         ncol * ng * (nlev * 3 + 1) * DRAW_INSTR + ncol * 4 * HASH_INSTR),
 }
+INT_OPS["generator_draw_sample"] = INT_OPS["generator_draw_scan"]
 
 
 def phase(name, **fields):
@@ -465,11 +495,12 @@ def phase(name, **fields):
 
 def reset_counts():
     for k in KERNELS.values():
-        k["wrapper"].launches = 0
+        setattr(k["wrapper"], k.get("counter", "launches"), 0)
 
 
 def counts():
-    return {n: k["wrapper"].launches for n, k in KERNELS.items()}
+    return {n: getattr(k["wrapper"], k.get("counter", "launches"))
+            for n, k in KERNELS.items()}
 
 
 def expect_counts(got, what, **nonzero):
@@ -581,6 +612,40 @@ def draw_inputs(config, cloud, sets):
             cloud["overlap_param"])
         out.append((label, (seeds[seed], scalars, tcc, ng, exp_exp)))
     return out
+
+
+def sampled(draw, config, tables, cloud):
+    """The sampled build's input sets: draw's (draw_inputs), each with the
+    sampler's (fractional standard deviation, Chebyshev fit, cloud-fraction
+    threshold), and the first again as "fsd_spread", its fractional
+    standard deviation scaled over the levels from 0 to 4.5 (the fit's
+    axis ends at 4), so that the interpolation and its clamps are taken."""
+    fsd = cloud["fractional_std"]
+    fit = tables.pdf_sampler["cheb_fit"]
+    thr = config.cloud_fraction_threshold
+    spread = fsd * torch.linspace(0.0, 4.5, fsd.shape[1], dtype=fsd.dtype,
+                                  device=fsd.device)
+    return ([(label, args + ((fsd, fit, thr),)) for label, args in draw]
+            + [("fsd_spread", draw[0][1] + ((spread, fit, thr),))])
+
+
+def sample_inputs(ncol, dtype, seed):
+    """{"generator_draw_sample": [(label, arguments)]} at the main paths'
+    widths for the random state of random_state: the LW stream at 140
+    g-points and the SW one at 112 on mcica_rrtmg, and the LW one at 32 on
+    ecckd_mcica (sampled)."""
+    out = []
+    for config_name, sets in (
+            ("mcica_rrtmg", (("lw", "meridian_lw", "n_g_lw"),
+                             ("sw", "meridian", "n_g_sw"))),
+            ("ecckd_mcica", (("ecckd", "meridian_lw", "n_g_lw"),))):
+        step, _, cloud = random_state(ncol, dtype, seed, config_name)
+        config = step.config
+        draw = draw_inputs(config, cloud, [
+            (label, config.overlap_scheme, seed_set, getattr(config, ng))
+            for label, seed_set, ng in sets])
+        out += sampled(draw, config, step.tables, cloud)[:len(sets)]
+    return {"generator_draw_sample": out}
 
 
 def rrtmg_inputs(step, kw):
@@ -765,6 +830,7 @@ def ecckd_inputs(ncol, dtype, seed):
             raise AssertionError(f"spartacus_ecckd's {name} is not at 32 "
                                  f"g-points")
     return {"generator_draw_scan": draw,
+            "generator_draw_sample": sampled(draw, config, tables, cloud),
             **{name: [("ecckd", args)] for name, args in out.items()}}
 
 
@@ -806,6 +872,7 @@ def mono_inputs(ncol, dtype, seed):
         raise AssertionError("the monochromatic inputs are not at one "
                              "g-point and one band")
     return {"generator_draw_scan": draw,
+            "generator_draw_sample": sampled(draw, config, tables, cloud),
             "generator_scan": [("ng1", gen)],
             "lw_fused": [("ng1", fused["lw_fused"])],
             "sw_fused": [("ng1", fused["sw_fused"])],
@@ -855,6 +922,7 @@ def kernel_inputs(ncol, dtype, seed):
     rrtmg_lw, rrtmg_sw = rrtmg_inputs(step, kw)
     one = lambda args: [("meridian", args)]  # noqa: E731
     return {"generator_draw_scan": draw,
+            "generator_draw_sample": sampled(draw, config, tables, cloud),
             "generator_scan": list(zip(("lw", "sw", "exp_exp"), gen)),
             "lw_fused": [("meridian", fused["lw_fused"]),
                          ("no_derivatives",
@@ -998,7 +1066,7 @@ def bound(name, args, out):
         nlev, _, ncol, ng = args[1].shape
     elif name.startswith("rrtmg"):
         (ncol, nlev), ng = args[1].colh2o.shape, out[0].shape[-1]
-    elif name == "generator_draw_scan":   # (iseed, scalars, tcc, ng, ...)
+    elif name.startswith("generator_draw"):   # (iseed, scalars, tcc, ng, ...)
         (ncol, nlev), ng = args[1].shape[:2], args[3]
     else:
         ncol, nlev, ng = args[0].shape
@@ -1029,6 +1097,7 @@ def rrtmg_needed_bytes(args, out):
 
 # Input sets timed besides the main path's (the first of kernel_inputs)
 TIMED = {"generator_draw_scan": ("sw", "ecckd", "ng1"),
+         "generator_draw_sample": ("sw", "ecckd", "ng1"),
          "generator_scan": ("ecckd", "ng1"),
          "spartacus_sw": ("all_cloudy", "ecckd"),
          "spartacus_lw": ("multilayer", "all_cloudy", "ecckd"),
@@ -1061,6 +1130,11 @@ def check_kernel(name, inputs, ncol, err, checked):
         if name == "generator_draw_scan":
             for a, got in ((args, got64), (args32, got32)):
                 _same_as_planes_in(a, got, f"{name}/{label}/{ncol}")
+        if name == "generator_draw_sample" and not (
+                torch.equal(got64 != 0.0, ref64 != 0.0)
+                and torch.equal(got32 != 0.0, ref32 != 0.0)):
+            raise AssertionError(f"{name}/{label}/{ncol}: zero elsewhere "
+                                 f"than its plain version")
         err32 = _compare_f32(got32, ref32, ref64)
         for key, v in ((f"float64/{ncol}", err64),
                        *((f"float32/{ncol}/{n}", e)
@@ -1168,6 +1242,16 @@ def kernels_phase(smi):
             torch.cuda.empty_cache()
             phase("kernel_inputs", ncol=ncol, inputs=make.__name__,
                   peak_memory_bytes=torch.cuda.max_memory_allocated())
+    # the sampled build also at the slab cells' block of 8192 columns
+    res = results["generator_draw_sample"]
+    torch.cuda.reset_peak_memory_stats()
+    check_kernel("generator_draw_sample",
+                 sample_inputs(SAMPLED_NCOL, torch.float64,
+                               seed=SAMPLED_NCOL)["generator_draw_sample"],
+                 SAMPLED_NCOL, res["max_abs_err"], res["checked"])
+    torch.cuda.empty_cache()
+    phase("kernel_inputs", ncol=SAMPLED_NCOL, inputs=sample_inputs.__name__,
+          peak_memory_bytes=torch.cuda.max_memory_allocated())
     for name, res in results.items():
         phase("kernels", kernel=name, max_abs_err=res["max_abs_err"],
               checked=sorted(res["checked"]),
@@ -1310,7 +1394,8 @@ def slice_phases(config_name, ref, smi):
         torch.cuda.synchronize()
         n = counts()
         if fed:
-            want.pop("generator_draw_scan")
+            for k in GENERATOR:
+                want.pop(k)
         expect_counts(n, f"one {name} step", **want)
         held_to = prefix
         if dtype == torch.float32:
@@ -1432,7 +1517,8 @@ def driver_phases(tmp, ref):
         torch.cuda.synchronize()
         n = counts()
         want = per_block(config_name)
-        want.pop("generator_draw_scan", None)
+        for k in GENERATOR:
+            want.pop(k, None)
         expect_counts(n, f"{name} {config_name}", **want)
         tag = "f64" if dtype == "float64" else "f32"
         worst = _check_outputs(read_nc(out), ref, f"{config_name}/{tag}/",
@@ -1510,7 +1596,8 @@ def driver_full_phase(tmp, path, smi):
         peak = torch.cuda.max_memory_allocated()
         want = per_block("mcica_rrtmg", DRIVER_NREPEAT)
         if generator == "exact":
-            want.pop("generator_draw_scan")
+            for k in GENERATOR:
+                want.pop(k)
         expect_counts(n, f"driver {generator} at {FULL_NCOL} columns",
                       **want)
         worst = _check_tiles(flux.fields(), FULL_NCOL, f"driver {generator}")
@@ -1554,7 +1641,8 @@ def ifs_f64_phase(tmp, ref):
         n = counts()
         want = per_block("mcica_rrtmg")
         if mode == "bitidentity":
-            want.pop("generator_draw_scan")
+            for k in GENERATOR:
+                want.pop(k)
         expect_counts(n, f"ifs {mode}", **want)
         results[mode] = out
         worst = _check_outputs({k: v for k, v in out.items()

@@ -18,6 +18,8 @@ namespace ecrad {
 
 __device__ __forceinline__ float d_exp(float x) { return expf(x); }
 __device__ __forceinline__ double d_exp(double x) { return exp(x); }
+__device__ __forceinline__ float d_log(float x) { return logf(x); }
+__device__ __forceinline__ double d_log(double x) { return log(x); }
 __device__ __forceinline__ float d_expm1(float x) { return expm1f(x); }
 __device__ __forceinline__ double d_expm1(double x) { return expm1(x); }
 __device__ __forceinline__ float d_sqrt(float x) { return sqrtf(x); }

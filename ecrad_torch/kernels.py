@@ -48,6 +48,10 @@ _SIGNATURES = {
     "ecrad_generator_scan": [_P] * 6 + [_I] * 4 + [_P],
     # the draw build: seeds, scalars, total cloud cover, CDF
     "ecrad_generator_draw_scan": [_P] * 4 + [_I] * 4 + [_P],
+    # the sampled build: seeds, scalars, total cloud cover, fractional std,
+    # the fit's table, od_scaling; ncol, nlev, ng, exp-exp, the table's
+    # shape; the fit's axes and the cloud-fraction threshold
+    "ecrad_generator_draw_sample": [_P] * 6 + [_I] * 6 + [_D] * 5 + [_P],
     # the fused kernels take a last int: write the per-g planes
     "ecrad_lw_fused": [_P] + [_I] * 5 + [_P],
     "ecrad_sw_fused": [_P] + [_I] * 6 + [_P],

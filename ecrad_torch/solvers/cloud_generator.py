@@ -4,11 +4,13 @@
 Random fields come from the threefry port (solvers/threefry.py), keyed
 per column exactly as the JAX package keys them, so the sample is the
 JAX package's sample bit for bit (up to roundoff in the cumulators).
-The draws and the per-level overlap scan run in one kernel, the draw
-build ``generator_draw_scan`` (solvers/cuda_generator.py), which makes
-the random numbers in registers; the cumulators and the PDF sampling
-epilogue are plain torch.  ``draw_planes`` and ``scan_inputs`` give the
-planes-in build's inputs.
+The draws, the per-level overlap scan and, on the card, the PDF
+sampling epilogue run in one kernel, the sampled build of
+``generator_draw_scan`` (solvers/cuda_generator.py), which makes the
+random numbers and the optical-depth scaling in registers; the
+cumulators are plain torch, and so is the sampler on the CPU
+(``sample_od_scaling``, the kernel's reference).  ``draw_planes`` and
+``scan_inputs`` give the planes-in build's inputs.
 """
 
 from __future__ import annotations
@@ -442,12 +444,28 @@ def cloud_generator_device(config: Config, pdf_tables, iseed, frac,
       overlap_param: (ncol, nlev-1).
       fractional_std: (ncol, nlev).
     Returns (od_scaling (ncol, nlev, ng), total_cloud_cover (ncol,)).
+
+    Off the CPU, with the Chebyshev fit (which ``setup_radiation`` makes
+    for McICA), one launch of the sampled build draws, scans and samples;
+    otherwise the draw build's CDF plane goes through
+    ``sample_od_scaling``.
     """
     scalars, exp_exp, total_cloud_cover = scan_scalars(config, frac,
                                                        overlap_param)
-    cdf = generator_draw_scan(iseed, scalars, total_cloud_cover, ng, exp_exp)
-    return sample_od_scaling(config, pdf_tables, frac, fractional_std, cdf,
-                             total_cloud_cover)
+    fit = pdf_tables.get("cheb_fit")
+    if fit is None or frac.device.type == "cpu":
+        cdf = generator_draw_scan(iseed, scalars, total_cloud_cover, ng,
+                                  exp_exp)
+        return sample_od_scaling(config, pdf_tables, frac, fractional_std,
+                                 cdf, total_cloud_cover)
+    with profiling.scope("ecrad.generator.sampler"):
+        thr = config.cloud_fraction_threshold
+        od_scaling = generator_draw_scan(iseed, scalars, total_cloud_cover,
+                                         ng, exp_exp,
+                                         sample=(fractional_std, fit, thr))
+        tcc = torch.where(total_cloud_cover >= thr, total_cloud_cover,
+                          torch.zeros_like(total_cloud_cover))
+        return od_scaling, tcc
 
 
 def sample_od_scaling(config: Config, pdf_tables, frac, fractional_std, cdf,
@@ -455,7 +473,9 @@ def sample_od_scaling(config: Config, pdf_tables, frac, fractional_std, cdf,
     """The sampling epilogue of the generator: od_scaling (ncol, nlev, ng)
     from the CDF plane through the PDF sampler, zero where a layer or the
     column is clear, and the total cloud cover below the threshold set to
-    0.  Returns (od_scaling, total_cloud_cover)."""
+    0.  Returns (od_scaling, total_cloud_cover).  The CPU route, and with
+    the Chebyshev fit the plain version of the sampled build's epilogue
+    (``generator_draw_scan_plain`` with ``sample``)."""
     with profiling.scope("ecrad.generator.sampler"):
         thr = config.cloud_fraction_threshold
         tcc = torch.where(total_cloud_cover >= thr, total_cloud_cover,

@@ -11,10 +11,13 @@ op_inhom_m1), the trigger ``(ncol, ng)``.
 
 * ``generator_scan``: the planes-in build, the counterpart of the Pallas
   function, fed the random planes and the trigger.
-* ``generator_draw_scan``: the draw build, which the McICA paths run: fed
-  the per-column seeds and the total cloud cover, it draws the sample of
-  ``draw_planes`` itself, element by element (``threefry.uniform_at``),
-  so the planes never reach device memory.
+* ``generator_draw_scan``: the draw build: fed the per-column seeds and
+  the total cloud cover, it draws the sample of ``draw_planes`` itself,
+  element by element (``threefry.uniform_at``), so the planes never reach
+  device memory.  With ``sample``, the sampled build, which the McICA
+  paths run on the card: the same kernel with the generator's Chebyshev
+  sampling epilogue (``cloud_generator.sample_od_scaling``) in its level
+  walk, writing ``od_scaling`` instead of the CDF.
 """
 
 from __future__ import annotations
@@ -103,25 +106,45 @@ def draw_planes(iseed, nlev, ng, dtype):
 
 
 def generator_draw_scan_plain(iseed, scalars, total_cloud_cover, ng,
-                              exp_exp):
+                              exp_exp, sample=None):
     """The draws (``draw_planes``), the trigger scaled by the total cloud
     cover, and the level scan, in plain torch (the reference for the draw
+    build); with ``sample``, then the Chebyshev sampler and the masks of
+    ``cloud_generator.sample_od_scaling`` (the reference for the sampled
     build)."""
     trig, rc, ri, ri2 = draw_planes(iseed, scalars.shape[1], ng,
                                     scalars.dtype)
     trigger = trig * total_cloud_cover[:, None]
-    return generator_scan_plain(rc, ri, ri2, scalars, trigger, exp_exp)
+    cdf = generator_scan_plain(rc, ri, ri2, scalars, trigger, exp_exp)
+    if sample is None:
+        return cdf
+    # imported here: cloud_generator, which holds the sampler, imports this
+    # module
+    from ecrad_torch.solvers.cloud_generator import sample_pdf_cheb
+    fsd, fit, threshold = sample
+    tcc = total_cloud_cover
+    on = ((cdf > 0.0) & (scalars[..., _ANY, None] != 0.0)
+          & ((tcc >= threshold) & (tcc > 0.0))[:, None, None])
+    return torch.where(on, sample_pdf_cheb(fit, fsd[..., None], cdf),
+                       torch.zeros_like(cdf))
 
 
-def generator_draw_scan(iseed, scalars, total_cloud_cover, ng, exp_exp):
+def generator_draw_scan(iseed, scalars, total_cloud_cover, ng, exp_exp,
+                        sample=None):
     """The CDF plane (ncol, nlev, ng) of the sample keyed by the seeds
     iseed (ncol,) (any integer type; their low 32 bits), for the packed
     per-level scalars (ncol, nlev, 8) and the total cloud cover (ncol,).
-    CPU tensors run the plain version; CUDA tensors launch the draw
-    build."""
+    With ``sample`` = (fractional_std (ncol, nlev), the Chebyshev fit of
+    ``cloud_generator.fit_pdf_cheb``, the cloud-fraction threshold), the
+    optical-depth scaling (ncol, nlev, ng) sampled from that CDF instead:
+    zero where the CDF is 0, the layer is clear or the column's total
+    cover is under the threshold.  CPU tensors run the plain version;
+    other tensors launch the draw build, or with ``sample`` the sampled
+    build (``.launches`` counts both, ``.sampled_launches`` the
+    sampled)."""
     if scalars.device.type == "cpu":
         return generator_draw_scan_plain(iseed, scalars, total_cloud_cover,
-                                         ng, exp_exp)
+                                         ng, exp_exp, sample)
     ncol, nlev = scalars.shape[:2]
     kernels.check_inputs("generator_draw_scan", scalars, {
         "scalars": (scalars, (ncol, nlev, 8)),
@@ -132,22 +155,43 @@ def generator_draw_scan(iseed, scalars, total_cloud_cover, ng, exp_exp):
     if ncol * ng >= 2**31:
         raise ValueError(f"generator_draw_scan: ncol * ng = {ncol * ng} "
                          f"threads exceed the flat int index")
-    cdf = torch.empty((ncol, nlev, ng), dtype=scalars.dtype,
+    if sample is not None:
+        fsd, fit, threshold = sample
+        fsd = fsd.contiguous()
+        cheb = fit["cheb"].to(scalars.dtype).contiguous()
+        kernels.check_inputs("generator_draw_scan", scalars, {
+            "fractional_std": (fsd, (ncol, nlev)),
+            "cheb": (cheb, (fit["nfsd"], cheb.shape[-1]))})
+    out = torch.empty((ncol, nlev, ng), dtype=scalars.dtype,
                       device=scalars.device)
     if ncol * ng == 0:
-        return cdf
+        return out
     words = threefry.seed_words(iseed)
     lib = kernels.library()
-    fn = (lib.ecrad_generator_draw_scan_f32
-          if scalars.dtype == torch.float32
-          else lib.ecrad_generator_draw_scan_f64)
+    f32 = scalars.dtype == torch.float32
     with torch.cuda.device(scalars.device):
-        code = fn(words.data_ptr(), scalars.data_ptr(),
-                  total_cloud_cover.data_ptr(), cdf.data_ptr(), ncol, nlev,
-                  ng, int(bool(exp_exp)), kernels.stream_of(scalars))
+        if sample is None:
+            fn = (lib.ecrad_generator_draw_scan_f32 if f32
+                  else lib.ecrad_generator_draw_scan_f64)
+            code = fn(words.data_ptr(), scalars.data_ptr(),
+                      total_cloud_cover.data_ptr(), out.data_ptr(), ncol,
+                      nlev, ng, int(bool(exp_exp)), kernels.stream_of(scalars))
+        else:
+            fn = (lib.ecrad_generator_draw_sample_f32 if f32
+                  else lib.ecrad_generator_draw_sample_f64)
+            code = fn(words.data_ptr(), scalars.data_ptr(),
+                      total_cloud_cover.data_ptr(), fsd.data_ptr(),
+                      cheb.data_ptr(), out.data_ptr(), ncol, nlev, ng,
+                      int(bool(exp_exp)), fit["nfsd"], cheb.shape[-1],
+                      fit["z_lo"] + fit["z_hi"], fit["z_hi"] - fit["z_lo"],
+                      fit["fsd1"], fit["inv_int"], threshold,
+                      kernels.stream_of(scalars))
     kernels.check(code, "generator_draw_scan")
     generator_draw_scan.launches += 1
-    return cdf
+    if sample is not None:
+        generator_draw_scan.sampled_launches += 1
+    return out
 
 
 generator_draw_scan.launches = 0
+generator_draw_scan.sampled_launches = 0

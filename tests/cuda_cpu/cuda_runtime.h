@@ -11,6 +11,8 @@
 #include <cfloat>
 #include <cmath>
 #include <cstddef>
+#include <cstdint>
+#include <cstring>
 #include <thread>
 #include <vector>
 
@@ -28,6 +30,21 @@ inline dim3 blockIdx, blockDim, gridDim;
 inline std::barrier<> *shim_barrier = nullptr;
 inline void __syncthreads() { shim_barrier->arrive_and_wait(); }
 template <class T> T __shfl_down_sync(unsigned, T v, int) { return v; }
+inline uint32_t __funnelshift_l(uint32_t lo, uint32_t hi, int r) {
+  r &= 31;
+  return r ? (hi << r) | (lo >> (32 - r)) : hi;
+}
+inline float __uint_as_float(uint32_t u) {
+  float f;
+  std::memcpy(&f, &u, sizeof f);
+  return f;
+}
+inline double __hiloint2double(int hi, int lo) {
+  const uint64_t u = ((uint64_t)(uint32_t)hi << 32) | (uint32_t)lo;
+  double d;
+  std::memcpy(&d, &u, sizeof d);
+  return d;
+}
 using std::max;
 using std::min;
 typedef int cudaError_t;
