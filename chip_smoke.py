@@ -12,9 +12,8 @@ the script exits non-zero:
                issue rate of the bounds.
 2. build     - builds the CUDA kernels of ecrad_torch/csrc from this
                checkout.
-3. kernels   - each kernel (generator_draw_scan, lw_fused, sw_fused of
-               the McICA path; generator_scan, the generator's planes-in
-               build, which no main path runs; tripleclouds_lw,
+3. kernels   - each kernel (generator_draw_sample, lw_fused, sw_fused
+               of the McICA path; tripleclouds_lw,
                tripleclouds_sw of the Tripleclouds path; lw_noscat_sweeps,
                scat_sweeps, sw_sweeps, the adding sweeps of the Cloudless
                and Homogeneous paths;
@@ -36,15 +35,16 @@ the script exits non-zero:
                sw_sweeps also on the same state with every layer
                cloudy, in float64 and rounded to float32 (a second
                float32 launch must equal the first bit for bit); and the
-               five kernels of the ecCKD paths (generator_scan, lw_fused,
-               sw_fused, tripleclouds_lw, tripleclouds_sw) also on the
+               five kernels of the ecCKD paths (generator_draw_sample,
+               lw_fused, sw_fused, tripleclouds_lw, tripleclouds_sw) also
+               on the
                ecckd_mcica state (32 g-points, per-g-point cloud optics:
                32 bands, band_of_g the identity; one warp per block), and
                spartacus_sw and spartacus_lw on the spartacus_ecckd state
                as its path runs them (32 g-points); and
                the six kernels of the monochromatic paths
-               (generator_scan, lw_fused, sw_fused and the three adding
-               sweeps) at one g-point (mono_inputs: monochromatic optics
+               (generator_draw_sample, lw_fused, sw_fused and the three
+               adding sweeps) at one g-point (mono_inputs: monochromatic optics
                on the McICA solvers; one live lane per block); kernel and
                plain median times (the kernel's on each input set TIMED
                names), and the least time the card could take for the
@@ -57,26 +57,21 @@ the script exits non-zero:
                with planes against those without, bit for bit, and a
                second float32 launch with planes against the first; they
                are timed with planes too, beside a bound that counts the
-               planes' bytes.  The generator's draw build
-               (generator_draw_scan), which draws its threefry sample in
-               the kernel, is held to its plain version bit for bit, and
-               to the planes-in build fed draw_planes bit for bit, at ng
-               140, 112, 32 and 1, in the three overlap schemes, on the
-               meridian file's seeds, those + 997 (the LW stream), and
-               seeds 0 and at or above 2^31.  Its sampled build
-               (generator_draw_sample: the same kernel writing
-               od_scaling through the Chebyshev sampler, which the McICA
-               paths launch) is held to its plain version (the draw
-               build's, then cloud_generator.sample_od_scaling's sampler
-               and masks) on the same sets and on one whose fractional
-               standard deviation spans the fit's axis and beyond
-               (fsd_spread), zero exactly where the plain version is, and
-               also at 8192 columns (SAMPLED_NCOL) at ng 140, 112 and 32;
-               it is timed beside the draw build.
+               planes' bytes.  The generator kernel
+               (generator_draw_sample: cuda_generator.generator_draw_scan,
+               which draws its threefry sample, scans the levels and
+               writes od_scaling through the Chebyshev sampler) is held
+               to its plain version at ng 140, 112, 32 and 1, in the
+               three overlap schemes, on the meridian file's seeds, those
+               + 997 (the LW stream), and seeds 0 and at or above 2^31,
+               and on a set whose fractional standard deviation spans the
+               fit's axis and beyond (fsd_spread), zero exactly where the
+               plain version is, and also at 8192 columns (SAMPLED_NCOL)
+               at ng 140, 112 and 32.
 4. slice_f64 - the flagship (McICA) step (ecrad_torch.flagship) on the
                32-column meridian slice in float64 against the JAX package's
                float64 fluxes (tests/data/torch_flagship_meridian32.npz);
-               its launch counts, the sampled build's among them.
+               its launch counts, the generator's among them.
 5. slice_f32 - (a) interface.radiation in float32 fed the JAX float32
                stochastic sample, against the JAX float32 fluxes;
                (b) the McICA main path at full size: radiation_blocked over
@@ -227,19 +222,19 @@ SAMPLED_NCOL = 8192           # the slab cells' block (generator_draw_sample)
 FULL_NCOL, FULL_BLOCK = 6144, 2048
 DEV = torch.device("cuda")
 
-# Kernel vs plain version on the same inputs: the generator scan is pure
-# selection, so exact; the sweeps sum over g in another order (block tree
-# vs torch.sum) and the kernels contract multiply-adds into FMAs (all but
+# Kernel vs plain version on the same inputs: the generator's draws and scan
+# are pure selection, so its zero pattern is exact, and its sampler rounds
+# through another libm; the sweeps sum over g in another order (block tree vs
+# torch.sum) and the kernels contract multiply-adds into FMAs (all but
 # sw_fused, whose coefficients need the plain version's rounding:
-# kernels.SOURCE_FLAGS), so f64 agrees to roundoff: rtol 1e-10 (with a
-# floor of 1e-10 of the output's largest value, for entries that are zero
-# to roundoff).  In f32 the SW sweeps themselves carry a few 1e-4 of
-# relative rounding error against f64, so two f32 evaluations in another
-# order differ by as much.  The f32
-# inputs are the f64 ones rounded, and each output passes if the kernel
-# agrees with the plain f32 version within 1e-3 (W m-2 for fluxes) or 1e-4
-# of the output's largest value, or else is no further from the plain f64
-# result than F32_VS_F64 times the plain f32 version is.
+# kernels.SOURCE_FLAGS), so f64 agrees to roundoff: rtol 1e-10 (with a floor of
+# 1e-10 of the output's largest value, for entries that are zero to roundoff).
+# In f32 the SW sweeps themselves carry a few 1e-4 of relative rounding error
+# against f64, so two f32 evaluations in another order differ by as much.  The
+# f32 inputs are the f64 ones rounded, and each output passes if the kernel
+# agrees with the plain f32 version within 1e-3 (W m-2 for fluxes) or 1e-4 of
+# the output's largest value, or else is no further from the plain f64 result
+# than F32_VS_F64 times the plain f32 version is.
 F64_RTOL = 1e-10
 # ... and 1e-12 for the RRTMG gas optics, whose sums of table rows carry no
 # recurrence
@@ -286,27 +281,13 @@ DRIVER_STAGES = ("ecrad_driver:read_input", "ecrad_driver:check_inputs",
 GPOINT_SUM_ATOL = 1e-9
 
 KERNELS = {
-    "generator_draw_scan": dict(
-        wrapper=cuda_generator.generator_draw_scan,
-        plain=cuda_generator.generator_draw_scan_plain,
-        source="ecrad_torch/csrc/generator_scan.cu",
-        replaces="ecrad_tpu/solvers/pallas_generator.py:98 and the draw at "
-                 "ecrad_tpu/solvers/cloud_generator.py:451"),
-    # the sampled build: the same wrapper with a last argument `sample`; its
-    # launches are the wrapper's sampled_launches
     "generator_draw_sample": dict(
         wrapper=cuda_generator.generator_draw_scan,
         plain=cuda_generator.generator_draw_scan_plain,
-        counter="sampled_launches",
         source="ecrad_torch/csrc/generator_scan.cu",
         replaces="ecrad_tpu/solvers/pallas_generator.py:98, the draw at "
                  "ecrad_tpu/solvers/cloud_generator.py:451 and its sampling "
                  "epilogue"),
-    "generator_scan": dict(
-        wrapper=cuda_generator.generator_scan,
-        plain=cuda_generator.generator_scan_plain,
-        source="ecrad_torch/csrc/generator_scan.cu",
-        replaces="ecrad_tpu/solvers/pallas_generator.py:98"),
     "lw_fused": dict(
         wrapper=cuda_mcica.lw_fused, plain=cuda_mcica.lw_fused_plain,
         source="ecrad_torch/csrc/lw_fused.cu",
@@ -360,15 +341,13 @@ KERNELS = {
 # The RRTMG gas optics: one launch of each kernel a block on every path with
 # RRTMG gas optics, none on the ecCKD and monochromatic ones
 RRTMG = dict(rrtmg_lw_taumol=1, rrtmg_sw_taumol=1)
-# The McICA generator on the card: two launches of the draw kernel a block,
-# both of its sampled build (generator_draw_scan counts every build's)
-GENERATOR = dict(generator_draw_scan=2, generator_draw_sample=2)
+# The McICA generator on the card: two launches of its kernel a block
+GENERATOR = dict(generator_draw_sample=2)
 # Each main path's launches per 2048-column block (all others 0); a
 # kernel's reported launches are those read in the first path listed here
-# that names it (generator_scan, which no main path runs, in the flagship's).
+# that names it.
 MAIN_PATHS = {
-    "mcica_rrtmg": dict(**GENERATOR, generator_scan=0, lw_fused=1,
-                        sw_fused=1, **RRTMG),
+    "mcica_rrtmg": dict(**GENERATOR, lw_fused=1, sw_fused=1, **RRTMG),
     "tripleclouds_rrtmg": dict(tripleclouds_lw=1, tripleclouds_sw=1,
                                **RRTMG),
     "cloudless_rrtmg": dict(lw_noscat_sweeps=1, sw_sweeps=1, **RRTMG),
@@ -387,8 +366,6 @@ MAIN_PATHS = {
     "monochromatic_homogeneous": dict(lw_fused=1, sw_fused=1),
     "spartacus_ecckd": dict(spartacus_sw=1, spartacus_lw=1),
 }
-# The kernels whose outputs must equal their plain versions' bit for bit
-EXACT = ("generator_draw_scan", "generator_scan")
 # The kernels that write per-g planes on request (planes=True)
 PLANES = ("lw_fused", "sw_fused", "tripleclouds_lw", "tripleclouds_sw",
           "lw_noscat_sweeps", "scat_sweeps", "sw_sweeps")
@@ -434,11 +411,8 @@ def issue_per_s():
 # Moebius up step 12, the adding down step with its two sums 12, the SW
 # direct step 2 and its two sources 3; a 3x3 region mix 5 per region.
 OPS = {
-    # selections and compares of the overlap scan
-    "generator_scan": lambda args, f: 20,
-    # the scan, and the exact "- 1" of each of the three draws
-    "generator_draw_scan": lambda args, f: 23,
-    # and the sampling epilogue per cloudy element (counted as every
+    # the scan, and the exact "- 1" of each of the three draws, 23; and
+    # the sampling epilogue per cloudy element (counted as every
     # element of a cloudy layer): ndtri's central branch ~31 (a tail's ~45
     # with two logs and a sqrt), the clamps and t 7, the fsd interpolation
     # of 15 coefficients ~56, the Clenshaw sum 46, exp and the masks 4
@@ -473,7 +447,7 @@ OPS = {
     "rrtmg_lw_taumol": lambda args, f: 35,
     "rrtmg_sw_taumol": lambda args, f: 23,
 }
-# Integer instructions of the draw build's work, at the least: a
+# Integer instructions of the generator's draws, at the least: a
 # Threefry-2x32 hash of 20 rounds (csrc/generator_scan.cu threefry2x32)
 # takes 3 a round (an add, a rotate, an xor: no instruction does two of
 # them) and 7 adds that inject the key (x1's first and four middle
@@ -483,10 +457,9 @@ OPS = {
 # (column, g-point) and the 4 key splits per column.
 HASH_INSTR, DRAW_INSTR = 20 * 3 + 7, 20 * 3 + 7 + 3
 INT_OPS = {
-    "generator_draw_scan": lambda ncol, nlev, ng: (
+    "generator_draw_sample": lambda ncol, nlev, ng: (
         ncol * ng * (nlev * 3 + 1) * DRAW_INSTR + ncol * 4 * HASH_INSTR),
 }
-INT_OPS["generator_draw_sample"] = INT_OPS["generator_draw_scan"]
 
 
 def phase(name, **fields):
@@ -495,12 +468,11 @@ def phase(name, **fields):
 
 def reset_counts():
     for k in KERNELS.values():
-        setattr(k["wrapper"], k.get("counter", "launches"), 0)
+        k["wrapper"].launches = 0
 
 
 def counts():
-    return {n: getattr(k["wrapper"], k.get("counter", "launches"))
-            for n, k in KERNELS.items()}
+    return {n: k["wrapper"].launches for n, k in KERNELS.items()}
 
 
 def expect_counts(got, what, **nonzero):
@@ -585,7 +557,7 @@ def spartacus_inputs(ncol, dtype, seed, min_cloud=0.0,
 
 
 def seed_sets(ncol):
-    """The seeds of the draw build's input sets, (ncol,) on the card: the
+    """The seeds of the generator's input sets, (ncol,) on the card: the
     meridian file's (tiled), the same + 997 (the LW stream,
     pipeline.LW_SEED_OFFSET), and "edge": 0, from 2^31 up and from
     2^32 - 1 down, in turns with the meridian file's."""
@@ -600,40 +572,35 @@ def seed_sets(ncol):
         ("edge", edge))}
 
 
-def draw_inputs(config, cloud, sets):
-    """[(label, arguments)] of the generator's draw build for the cloud of
+def generator_inputs(config, tables, cloud, sets):
+    """[(label, arguments)] of the generator kernel for the cloud of
     random_state, one per (label, overlap scheme, seed_sets key, ng) of
-    sets."""
+    sets, each with the sampler's inputs (fractional standard deviation,
+    Chebyshev fit, cloud-fraction threshold), and the first again as
+    "fsd_spread", its fractional standard deviation scaled over the
+    levels from 0 to 4.5 (the fit's axis ends at 4), so that the
+    interpolation and its clamps are taken."""
     seeds = seed_sets(cloud["fraction"].shape[0])
+    fsd = cloud["fractional_std"]
+    fit = tables.pdf_sampler["cheb_fit"]
+    thr = config.cloud_fraction_threshold
     out = []
     for label, overlap, seed, ng in sets:
         scalars, exp_exp, tcc = cloud_generator.scan_scalars(
             config.replace(overlap_scheme=overlap), cloud["fraction"],
             cloud["overlap_param"])
-        out.append((label, (seeds[seed], scalars, tcc, ng, exp_exp)))
-    return out
-
-
-def sampled(draw, config, tables, cloud):
-    """The sampled build's input sets: draw's (draw_inputs), each with the
-    sampler's (fractional standard deviation, Chebyshev fit, cloud-fraction
-    threshold), and the first again as "fsd_spread", its fractional
-    standard deviation scaled over the levels from 0 to 4.5 (the fit's
-    axis ends at 4), so that the interpolation and its clamps are taken."""
-    fsd = cloud["fractional_std"]
-    fit = tables.pdf_sampler["cheb_fit"]
-    thr = config.cloud_fraction_threshold
+        out.append((label, (seeds[seed], scalars, tcc, ng, exp_exp, fsd,
+                            fit, thr)))
     spread = fsd * torch.linspace(0.0, 4.5, fsd.shape[1], dtype=fsd.dtype,
                                   device=fsd.device)
-    return ([(label, args + ((fsd, fit, thr),)) for label, args in draw]
-            + [("fsd_spread", draw[0][1] + ((spread, fit, thr),))])
+    return out + [("fsd_spread", out[0][1][:5] + (spread, fit, thr))]
 
 
 def sample_inputs(ncol, dtype, seed):
     """{"generator_draw_sample": [(label, arguments)]} at the main paths'
     widths for the random state of random_state: the LW stream at 140
     g-points and the SW one at 112 on mcica_rrtmg, and the LW one at 32 on
-    ecckd_mcica (sampled)."""
+    ecckd_mcica."""
     out = []
     for config_name, sets in (
             ("mcica_rrtmg", (("lw", "meridian_lw", "n_g_lw"),
@@ -641,10 +608,9 @@ def sample_inputs(ncol, dtype, seed):
             ("ecckd_mcica", (("ecckd", "meridian_lw", "n_g_lw"),))):
         step, _, cloud = random_state(ncol, dtype, seed, config_name)
         config = step.config
-        draw = draw_inputs(config, cloud, [
+        out += generator_inputs(config, step.tables, cloud, [
             (label, config.overlap_scheme, seed_set, getattr(config, ng))
-            for label, seed_set, ng in sets])
-        out += sampled(draw, config, step.tables, cloud)[:len(sets)]
+            for label, seed_set, ng in sets])[:len(sets)]
     return {"generator_draw_sample": out}
 
 
@@ -796,8 +762,8 @@ def all_cloudy_inputs(ncol, dtype, seed):
 def ecckd_inputs(ncol, dtype, seed):
     """{kernel: [("ecckd", arguments)]} for the kernels of the ecCKD paths
     at their widths, from the random state of random_state on the
-    ecckd_mcica configuration: generator_scan and generator_draw_scan
-    (also in Exponential overlap on edge seeds) at 32 g-points, and the
+    ecckd_mcica configuration: the generator (generator_inputs, also in
+    Exponential overlap on edge seeds) at 32 g-points, and the
     fused McICA and Tripleclouds kernels' arguments (fused_inputs) with
     32 g-points and per-g-point cloud optics (32 bands, band_of_g the
     identity), which is checked; and on spartacus_ecckd the SPARTACUS
@@ -805,18 +771,14 @@ def ecckd_inputs(ncol, dtype, seed):
     Explicit entrapment, LW without multilayer effects) at 32 g-points."""
     step, kw, cloud = random_state(ncol, dtype, seed, "ecckd_mcica")
     config, tables = step.config, step.tables
-    gen = cloud_generator.scan_inputs(config, cloud["iseed"],
-                                      cloud["fraction"],
-                                      cloud["overlap_param"],
-                                      config.n_g_lw)[:6]
-    draw = draw_inputs(config, cloud, (
+    gen = generator_inputs(config, tables, cloud, (
         ("ecckd", Overlap.EXPONENTIAL_RANDOM, "meridian_lw", config.n_g_lw),
         ("ecckd_exp_exp_edge_seeds", Overlap.EXPONENTIAL, "edge",
          config.n_g_lw)))
     cloud = pipeline.add_cloud_sample(config, tables, cloud)
     op = _optical_properties(config, tables, solar_irradiance=step.solar,
                              cloud=cloud, **kw)
-    out = {"generator_scan": gen, **fused_inputs(step, kw, cloud, op)}
+    out = fused_inputs(step, kw, cloud, op)
     for bfg in (tables.band_from_g_lw, tables.band_from_g_sw):
         if not torch.equal(bfg.cpu(), torch.arange(32)) \
                 or op["cl"]["od_sw"].shape[-1] != 32:
@@ -829,8 +791,7 @@ def ecckd_inputs(ncol, dtype, seed):
         if out[name][1].shape[-1] != 32:
             raise AssertionError(f"spartacus_ecckd's {name} is not at 32 "
                                  f"g-points")
-    return {"generator_draw_scan": draw,
-            "generator_draw_sample": sampled(draw, config, tables, cloud),
+    return {"generator_draw_sample": gen,
             **{name: [("ecckd", args)] for name, args in out.items()}}
 
 
@@ -838,8 +799,8 @@ def mono_inputs(ncol, dtype, seed):
     """{kernel: [("ng1", arguments)]} for the six kernels of the
     monochromatic paths at one g-point and one band, from the random state
     of random_state on monochromatic_homogeneous with McICA solvers (its
-    own setup, so that the PDF table loads): generator_scan and
-    generator_draw_scan (also in Maximum-Random overlap on edge seeds) at
+    own setup, so that the PDF table loads): the generator
+    (generator_inputs, also in Maximum-Random overlap on edge seeds) at
     ng = 1, the
     fused McICA kernels' arguments (fused_inputs) and the adding sweeps'
     on the clear sky (clear_sky_inputs), scat_sweeps and sw_sweeps also on
@@ -854,10 +815,7 @@ def mono_inputs(ncol, dtype, seed):
         DEV, dtype, data_dir=DATA_DIR)
     step = types.SimpleNamespace(config=config, tables=tables,
                                  solar=step.solar)
-    gen = cloud_generator.scan_inputs(config, cloud["iseed"],
-                                      cloud["fraction"],
-                                      cloud["overlap_param"], 1)[:6]
-    draw = draw_inputs(config, cloud, (
+    gen = generator_inputs(config, tables, cloud, (
         ("ng1", Overlap.EXPONENTIAL_RANDOM, "meridian", 1),
         ("ng1_max_ran_edge_seeds", Overlap.MAXIMUM_RANDOM, "edge", 1)))
     cloud = pipeline.add_cloud_sample(config, tables, cloud)
@@ -871,9 +829,7 @@ def mono_inputs(ncol, dtype, seed):
             or op["cl"]["od_sw"].shape[-1] != 1:
         raise AssertionError("the monochromatic inputs are not at one "
                              "g-point and one band")
-    return {"generator_draw_scan": draw,
-            "generator_draw_sample": sampled(draw, config, tables, cloud),
-            "generator_scan": [("ng1", gen)],
+    return {"generator_draw_sample": gen,
             "lw_fused": [("ng1", fused["lw_fused"])],
             "sw_fused": [("ng1", fused["sw_fused"])],
             "lw_noscat_sweeps": [("ng1", noscat)],
@@ -886,8 +842,8 @@ def mono_inputs(ncol, dtype, seed):
 def kernel_inputs(ncol, dtype, seed):
     """Each kernel's inputs as the main path builds them, for the random
     state of random_state.  Returns {kernel: [(label, arguments)]}, the
-    main path's first: the McICA kernels' (generator_draw_scan on the
-    LW stream's seeds at 140 g-points, then the SW stream's at 112 and the
+    main path's first: the McICA kernels' (the generator on the LW
+    stream's seeds at 140 g-points, then the SW stream's at 112 and the
     other overlap schemes and seeds; lw_fused also without
     derivatives, sw_fused also with delta-Eddington scaling of the gases)
     and, from the same optical properties, the Tripleclouds kernels'
@@ -899,12 +855,7 @@ def kernel_inputs(ncol, dtype, seed):
     the RRTMG gas optics' from rrtmg_inputs."""
     step, kw, cloud = random_state(ncol, dtype, seed)
     config, tables = step.config, step.tables
-    gen = [cloud_generator.scan_inputs(config, cloud["iseed"],
-                                       cloud["fraction"],
-                                       cloud["overlap_param"], ng)[:6]
-           for ng in (config.n_g_lw, config.n_g_sw)]
-    gen.append(gen[0][:5] + (True,))              # the exp-exp variant
-    draw = draw_inputs(config, cloud, (
+    gen = generator_inputs(config, tables, cloud, (
         ("lw", Overlap.EXPONENTIAL_RANDOM, "meridian_lw", config.n_g_lw),
         ("sw", Overlap.EXPONENTIAL_RANDOM, "meridian", config.n_g_sw),
         ("exp_exp", Overlap.EXPONENTIAL, "meridian_lw", config.n_g_lw),
@@ -921,9 +872,7 @@ def kernel_inputs(ncol, dtype, seed):
     sp_sw, sp_lw = spartacus_inputs(ncol, dtype, seed)
     rrtmg_lw, rrtmg_sw = rrtmg_inputs(step, kw)
     one = lambda args: [("meridian", args)]  # noqa: E731
-    return {"generator_draw_scan": draw,
-            "generator_draw_sample": sampled(draw, config, tables, cloud),
-            "generator_scan": list(zip(("lw", "sw", "exp_exp"), gen)),
+    return {"generator_draw_sample": gen,
             "lw_fused": [("meridian", fused["lw_fused"]),
                          ("no_derivatives",
                           fused["lw_fused"][:-1] + (False,))],
@@ -1096,9 +1045,7 @@ def rrtmg_needed_bytes(args, out):
 
 
 # Input sets timed besides the main path's (the first of kernel_inputs)
-TIMED = {"generator_draw_scan": ("sw", "ecckd", "ng1"),
-         "generator_draw_sample": ("sw", "ecckd", "ng1"),
-         "generator_scan": ("ecckd", "ng1"),
+TIMED = {"generator_draw_sample": ("sw", "ecckd", "ng1"),
          "spartacus_sw": ("all_cloudy", "ecckd"),
          "spartacus_lw": ("multilayer", "all_cloudy", "ecckd"),
          "tripleclouds_sw": ("all_cloudy", "ecckd"),
@@ -1124,12 +1071,6 @@ def check_kernel(name, inputs, ncol, err, checked):
         args32 = _f32(args)
         got32, ref32 = k["wrapper"](*args32), k["plain"](*args32)
         _same_launches(got32, k["wrapper"](*args32), f"{name}/{label}/{ncol}")
-        if name in EXACT and (
-                err64 != 0.0 or not torch.equal(got32, ref32)):
-            raise AssertionError(f"{name}/{label}/{ncol} is not exact")
-        if name == "generator_draw_scan":
-            for a, got in ((args, got64), (args32, got32)):
-                _same_as_planes_in(a, got, f"{name}/{label}/{ncol}")
         if name == "generator_draw_sample" and not (
                 torch.equal(got64 != 0.0, ref64 != 0.0)
                 and torch.equal(got32 != 0.0, ref32 != 0.0)):
@@ -1144,19 +1085,6 @@ def check_kernel(name, inputs, ncol, err, checked):
             del ref64, ref32
             check_planes(name, label, args, args32, ncol, err, got64, got32)
         checked.add(label)
-
-
-def _same_as_planes_in(args, got, what):
-    """The draw build's CDF must equal the planes-in build's fed
-    draw_planes and the trigger, on the same seeds, bit for bit."""
-    iseed, scalars, total_cloud_cover, ng, exp_exp = args
-    trig, rc, ri, ri2 = cloud_generator.draw_planes(
-        iseed, scalars.shape[1], ng, scalars.dtype)
-    fed = cuda_generator.generator_scan(
-        rc, ri, ri2, scalars, trig * total_cloud_cover[:, None], exp_exp)
-    if not torch.equal(fed, got):
-        raise AssertionError(f"{what} {scalars.dtype}: differs from the "
-                             f"planes-in build fed draw_planes")
 
 
 def _same_launches(first, again, what):
@@ -1242,7 +1170,7 @@ def kernels_phase(smi):
             torch.cuda.empty_cache()
             phase("kernel_inputs", ncol=ncol, inputs=make.__name__,
                   peak_memory_bytes=torch.cuda.max_memory_allocated())
-    # the sampled build also at the slab cells' block of 8192 columns
+    # the generator also at the slab cells' block of 8192 columns
     res = results["generator_draw_sample"]
     torch.cuda.reset_peak_memory_stats()
     check_kernel("generator_draw_sample",

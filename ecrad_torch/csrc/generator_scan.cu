@@ -1,30 +1,33 @@
-// McICA cloud-generator level scan, in two builds.
+// McICA cloud generator: the threefry draws, the overlap scan and the
+// sampling epilogue in one kernel.
 //
 // Replaces the TPU kernel ecrad_tpu/solvers/pallas_generator.py:
-// generator_scan (_gen_kernel) and, in the draw build, the threefry draws
-// that feed it (ecrad_tpu/solvers/cloud_generator.py draw).  Plain versions
-// and wrappers: ecrad_torch/solvers/cuda_generator.py.
+// generator_scan (_gen_kernel), the threefry draws that feed it
+// (ecrad_tpu/solvers/cloud_generator.py draw) and the generator's sampling
+// epilogue.  Plain version and wrapper: ecrad_torch/solvers/
+// cuda_generator.py (generator_draw_scan_plain, generator_draw_scan).
 //
-// Per (column, g-point) the scan carries found_cloud, is_cloud and the
-// previous inhomogeneity draw down the levels (radiation_cloud_generator.F90:
-// 587-720) and writes the CDF plane; the exp-exp variant chains the
-// inhomogeneity draw across clear gaps (:497-509).  The scan is pure
-// selection, so both builds equal their plain versions bit for bit.
+// The kernel makes the sample itself, from the per-column seeds: key =
+// (0, seed), k_i = threefry2x32(key, (0, i)) for i = 0..3 (jax.random.key,
+// split), the trigger uniform(k_1) at counter g times the total cloud
+// cover, and rc, ri, ri2 uniform(k_2..k_4) at counter l * ng + g, with
+// uniform as jax.random.uniform under jax_threefry_partitionable (float32:
+// the top 23 bits of b0 ^ b1; float64: the top 52 bits of b0:b1).  Per
+// (column, g-point) the scan carries found_cloud, is_cloud and the previous
+// inhomogeneity draw down the levels (radiation_cloud_generator.F90:
+// 587-720) and gives the CDF entry; the exp-exp variant chains the
+// inhomogeneity draw across clear gaps (:497-509).  The draws and the scan
+// are pure selection, so the CDF equals the plain version's bit for bit.
+// Each CDF entry then becomes the optical-depth scaling in registers,
+// exp(cheb(ndtri(cdf))) with the coefficients interpolated in the layer's
+// fractional standard deviation (cuda_generator.py sample_pdf_cheb, the fit
+// of cloud_generator.py fit_pdf_cheb), zero where the entry is 0 (the scan
+// emits 0 in a layer below the cloud-fraction threshold) or the column's
+// total cover is under the threshold.  So the random planes, the CDF plane
+// and the sampler's full-plane temporaries never reach device memory: it
+// reads the packed per-level scalars, the seeds and the fractional standard
+// deviation and writes od_scaling once.
 //
-// The planes-in build (generator_scan) takes the three random planes and
-// the trigger, as the Pallas function does.  What bounds it on the H100:
-// bytes.  Per element it reads three planes and writes one, with a few
-// compares.  It runs one block per column with one thread per g-point, so
-// that each level's loads are contiguous over g.
-//
-// The draw build (generator_draw_scan) makes the sample itself, from the
-// per-column seeds: key = (0, seed), k_i = threefry2x32(key, (0, i)) for
-// i = 0..3 (jax.random.key, split), the trigger uniform(k_1) at counter g
-// times the total cloud cover, and rc, ri, ri2 uniform(k_2..k_4) at counter
-// l * ng + g, with uniform as jax.random.uniform under
-// jax_threefry_partitionable (float32: the top 23 bits of b0 ^ b1; float64:
-// the top 52 bits of b0:b1).  So the three planes never touch device memory:
-// it reads the packed per-level scalars and the seeds and writes the CDF.
 // What bounds it: integer operations.  Each element costs three
 // Threefry-2x32 hashes of 20 rounds, about 75 integer operations each,
 // against ~20 for the scan and 4-8 bytes written.  The design therefore
@@ -35,22 +38,11 @@
 // scheduler three chains per thread and many warps per SM.  Rotations are
 // funnel shifts.  The eight scalars of a level are shared by the g-points
 // of a column and are read through L1.  At ng = 1 neighbouring threads
-// write CDF entries nlev apart (no main path runs that width).
-//
-// The sampled build (generator_draw_scan_kernel<T, true>, which every McICA
-// path on the card runs) is the draw build with the generator's sampling
-// epilogue in its level walk (cloud_generator.py sample_od_scaling with
-// the Chebyshev fit): each CDF entry becomes the optical-depth scaling in
-// registers, exp(cheb(ndtri(cdf))) with the coefficients interpolated in
-// the layer's fractional standard deviation, zero where the entry is 0
-// (the scan emits 0 in a layer below the cloud-fraction threshold) or the
-// column's total cover is under the threshold.  So the CDF plane and the
-// sampler's full-plane temporaries never reach device memory: it writes
-// od_scaling once.  A clear entry skips the epilogue; a cloudy one adds
-// ~160 float operations and 30 coefficient loads (two rows of the fit's
-// table, the same for every g-point of a column and level, so a warp's
-// loads are broadcasts from L1) to the ~210 integer instructions of its
-// draws, which still bound it.  The arithmetic follows the plain torch
+// write entries nlev apart.  A clear entry skips the epilogue; a cloudy one
+// adds ~160 float operations and 30 coefficient loads (two rows of the
+// fit's table, the same for every g-point of a column and level, so a
+// warp's loads are broadcasts from L1) to the ~210 integer instructions of
+// its draws, which still bound it.  The arithmetic follows the plain torch
 // version op for op in the working type; nvcc contracts multiply-adds.
 #include <cstdint>
 
@@ -93,28 +85,6 @@ __device__ __forceinline__ T scan_level(const T *__restrict__ sc, T trig,
   }
   is_cloud = isc;
   return emit;
-}
-
-template <typename T>
-__global__ void generator_scan_kernel(const T *__restrict__ rc,
-                                      const T *__restrict__ ri,
-                                      const T *__restrict__ ri2,
-                                      const T *__restrict__ scalars,
-                                      const T *__restrict__ trigger,
-                                      T *__restrict__ cdf, int nlev, int ng,
-                                      int exp_exp) {
-  const int col = blockIdx.x;
-  const int g = threadIdx.x;
-  if (g >= ng) return;  // no block-wide synchronisation in this kernel
-  const T trig = trigger[(size_t)col * ng + g];
-  bool found = false, is_cloud = false;
-  T ri_prev = T(0);
-  for (int l = 0; l < nlev; ++l) {
-    const size_t idx = ((size_t)col * nlev + l) * ng + g;
-    cdf[idx] = scan_level(scalars + ((size_t)col * nlev + l) * kNScalar,
-                          trig, rc[idx], ri[idx], ri2[idx], exp_exp, found,
-                          is_cloud, ri_prev);
-  }
 }
 
 // --- Threefry-2x32 (20 rounds), as jax.random's threefry2x32 ----------------
@@ -180,7 +150,7 @@ __device__ __forceinline__ KeySchedule split(const KeySchedule &k,
   return key_schedule(x0, x1);
 }
 
-// --- the sampling epilogue (cloud_generator.py ndtri, cheb_eval) ----------
+// --- the sampling epilogue (cuda_generator.py ndtri, cheb_eval) -----------
 
 // Horner's steps y <- x * y + c over the coefficients c (cephes polevl from
 // y = c0, p1evl from y = 1), the constants rounded to T as torch rounds a
@@ -197,7 +167,7 @@ __device__ __forceinline__ T horner(T x, T y, double c, C... rest) {
 constexpr double kExpM2 = 0.13533528323661269189;  // exp(-2)
 constexpr double kS2Pi = 2.50662827463100050242;   // sqrt(2 pi)
 
-// The inverse normal CDF (cephes; cloud_generator.py ndtri), evaluating only
+// The inverse normal CDF (cephes; cuda_generator.py ndtri), evaluating only
 // the branch of this element: the central rational approximation, or a
 // tail's with x < 8 or x >= 8
 template <typename T>
@@ -256,7 +226,7 @@ struct ChebFit {
   T z_sum, z_span, fsd1, inv_int, threshold;
 };
 
-// od_scaling of one cloudy CDF entry (cloud_generator.py sample_pdf_cheb:
+// od_scaling of one cloudy CDF entry (cuda_generator.py sample_pdf_cheb:
 // cheb_coeffs_for, then cheb_eval)
 template <typename T>
 __device__ __forceinline__ T sample_cheb(T cdf, T fsd,
@@ -285,9 +255,9 @@ __device__ __forceinline__ T sample_cheb(T cdf, T fsd,
 
 constexpr int kDrawThreads = 128;
 
-// The draw build, writing the CDF plane, or with kSample the sampled build,
-// writing od_scaling (fsd (ncol, nlev), cheb and fit are read only there)
-template <typename T, bool kSample>
+// The draws, the scan and the epilogue, writing od_scaling (fsd (ncol,
+// nlev), the fit's table cheb (nfsd, ncoef))
+template <typename T>
 __global__ void __launch_bounds__(kDrawThreads)
     generator_draw_scan_kernel(const uint32_t *__restrict__ iseed,
                                const T *__restrict__ scalars,
@@ -305,7 +275,7 @@ __global__ void __launch_bounds__(kDrawThreads)
   const KeySchedule k_ri2 = split(key, 3);
   const T tcc = total_cloud_cover[col];
   const T trig = draw<T>(split(key, 0), (uint32_t)g) * tcc;
-  // sample_od_scaling's column mask: the total cover thresholded, > 0
+  // the column mask: the total cover thresholded, > 0
   const bool col_on = tcc >= fit.threshold && tcc > T(0);
   bool found = false, is_cloud = false;
   T ri_prev = T(0);
@@ -318,107 +288,48 @@ __global__ void __launch_bounds__(kDrawThreads)
     const T vri2 = draw<T>(k_ri2, n);
     const T cdf = scan_level(sc, trig, vrc, vri, vri2, exp_exp, found,
                              is_cloud, ri_prev);
-    if constexpr (kSample) {
-      *out = (cdf > T(0) && col_on)
-                 ? sample_cheb(cdf, fsd[(size_t)col * nlev + l], cheb, fit)
-                 : T(0);
-    } else {
-      *out = cdf;
-    }
+    *out = (cdf > T(0) && col_on)
+               ? sample_cheb(cdf, fsd[(size_t)col * nlev + l], cheb, fit)
+               : T(0);
   }
 }
 
 template <typename T>
-int launch(const void *rc, const void *ri, const void *ri2,
-           const void *scalars, const void *trigger, void *cdf, int ncol,
-           int nlev, int ng, int exp_exp, void *stream) {
-  const int threads = ((ng + 31) / 32) * 32;
-  generator_scan_kernel<T><<<ncol, threads, 0, (cudaStream_t)stream>>>(
-      (const T *)rc, (const T *)ri, (const T *)ri2, (const T *)scalars,
-      (const T *)trigger, (T *)cdf, nlev, ng, exp_exp);
-  return (int)cudaGetLastError();
-}
-
-template <typename T, bool kSample>
-int launch_draw(const void *iseed, const void *scalars,
-                const void *total_cloud_cover, const void *fsd,
-                const void *cheb, const ChebFit<T> &fit, void *out, int ncol,
-                int nlev, int ng, int exp_exp, void *stream) {
-  const long long n = (long long)ncol * ng;
-  const int blocks = (int)((n + kDrawThreads - 1) / kDrawThreads);
-  generator_draw_scan_kernel<T, kSample>
-      <<<blocks, kDrawThreads, 0, (cudaStream_t)stream>>>(
-          (const uint32_t *)iseed, (const T *)scalars,
-          (const T *)total_cloud_cover, (const T *)fsd, (const T *)cheb, fit,
-          (T *)out, ncol, nlev, ng, exp_exp);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch_sample(const void *iseed, const void *scalars,
-                  const void *total_cloud_cover, const void *fsd,
-                  const void *cheb, void *od_scaling, int ncol, int nlev,
-                  int ng, int exp_exp, int nfsd, int ncoef, double z_sum,
-                  double z_span, double fsd1, double inv_int,
-                  double threshold, void *stream) {
+int launch(const void *iseed, const void *scalars,
+           const void *total_cloud_cover, const void *fsd, const void *cheb,
+           void *od_scaling, int ncol, int nlev, int ng, int exp_exp,
+           int nfsd, int ncoef, double z_sum, double z_span, double fsd1,
+           double inv_int, double threshold, void *stream) {
   const ChebFit<T> fit{nfsd, ncoef, T(z_sum), T(z_span), T(fsd1),
                        T(inv_int), T(threshold)};
-  return launch_draw<T, true>(iseed, scalars, total_cloud_cover, fsd, cheb,
-                              fit, od_scaling, ncol, nlev, ng, exp_exp,
-                              stream);
+  const long long n = (long long)ncol * ng;
+  const int blocks = (int)((n + kDrawThreads - 1) / kDrawThreads);
+  generator_draw_scan_kernel<T><<<blocks, kDrawThreads, 0,
+                                  (cudaStream_t)stream>>>(
+      (const uint32_t *)iseed, (const T *)scalars,
+      (const T *)total_cloud_cover, (const T *)fsd, (const T *)cheb, fit,
+      (T *)od_scaling, ncol, nlev, ng, exp_exp);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-int ecrad_generator_scan_f32(const void *rc, const void *ri, const void *ri2,
-                             const void *scalars, const void *trigger,
-                             void *cdf, int ncol, int nlev, int ng,
-                             int exp_exp, void *stream) {
-  return launch<float>(rc, ri, ri2, scalars, trigger, cdf, ncol, nlev, ng,
-                       exp_exp, stream);
-}
-
-int ecrad_generator_scan_f64(const void *rc, const void *ri, const void *ri2,
-                             const void *scalars, const void *trigger,
-                             void *cdf, int ncol, int nlev, int ng,
-                             int exp_exp, void *stream) {
-  return launch<double>(rc, ri, ri2, scalars, trigger, cdf, ncol, nlev, ng,
-                        exp_exp, stream);
-}
-
-int ecrad_generator_draw_scan_f32(const void *iseed, const void *scalars,
-                                  const void *total_cloud_cover, void *cdf,
-                                  int ncol, int nlev, int ng, int exp_exp,
-                                  void *stream) {
-  return launch_draw<float, false>(iseed, scalars, total_cloud_cover, nullptr,
-                                   nullptr, {}, cdf, ncol, nlev, ng, exp_exp,
-                                   stream);
-}
-
-int ecrad_generator_draw_scan_f64(const void *iseed, const void *scalars,
-                                  const void *total_cloud_cover, void *cdf,
-                                  int ncol, int nlev, int ng, int exp_exp,
-                                  void *stream) {
-  return launch_draw<double, false>(iseed, scalars, total_cloud_cover,
-                                    nullptr, nullptr, {}, cdf, ncol, nlev, ng,
-                                    exp_exp, stream);
-}
-
-// The sampled build: the draw build's arguments, the fractional standard
-// deviation (ncol, nlev), the fit's table (nfsd, ncoef) and axes
-// (z_lo + z_hi, z_hi - z_lo, fsd1, inv_int) and the cloud-fraction
-// threshold; writes od_scaling (ncol, nlev, ng)
+// The seeds (ncol,) as uint32, the packed scalars (ncol, nlev, 8), the
+// total cloud cover (ncol,), the fractional standard deviation (ncol, nlev),
+// the fit's table (nfsd, ncoef) and axes (z_lo + z_hi, z_hi - z_lo, fsd1,
+// inv_int) and the cloud-fraction threshold; writes od_scaling (ncol, nlev,
+// ng)
 int ecrad_generator_draw_sample_f32(
     const void *iseed, const void *scalars, const void *total_cloud_cover,
     const void *fsd, const void *cheb, void *od_scaling, int ncol, int nlev,
     int ng, int exp_exp, int nfsd, int ncoef, double z_sum, double z_span,
     double fsd1, double inv_int, double threshold, void *stream) {
-  return launch_sample<float>(iseed, scalars, total_cloud_cover, fsd, cheb,
-                              od_scaling, ncol, nlev, ng, exp_exp, nfsd,
-                              ncoef, z_sum, z_span, fsd1, inv_int, threshold,
-                              stream);
+  return launch<float>(iseed, scalars, total_cloud_cover, fsd, cheb,
+                       od_scaling, ncol, nlev, ng, exp_exp, nfsd,
+                       ncoef, z_sum, z_span, fsd1, inv_int, threshold,
+                       stream);
 }
 
 int ecrad_generator_draw_sample_f64(
@@ -426,10 +337,10 @@ int ecrad_generator_draw_sample_f64(
     const void *fsd, const void *cheb, void *od_scaling, int ncol, int nlev,
     int ng, int exp_exp, int nfsd, int ncoef, double z_sum, double z_span,
     double fsd1, double inv_int, double threshold, void *stream) {
-  return launch_sample<double>(iseed, scalars, total_cloud_cover, fsd, cheb,
-                               od_scaling, ncol, nlev, ng, exp_exp, nfsd,
-                               ncoef, z_sum, z_span, fsd1, inv_int, threshold,
-                               stream);
+  return launch<double>(iseed, scalars, total_cloud_cover, fsd, cheb,
+                        od_scaling, ncol, nlev, ng, exp_exp, nfsd,
+                        ncoef, z_sum, z_span, fsd1, inv_int, threshold,
+                        stream);
 }
 
 const char *ecrad_error_string(int code) {

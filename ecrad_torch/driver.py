@@ -14,7 +14,7 @@ host generator by default (the reference's lagged-Fibonacci stream,
 ``solvers/cloud_generator_exact``, native C++/OpenMP), copied to the
 device once in the dtype of the run; ``--generator device`` draws it on
 the device inside the step instead (``pipeline.add_cloud_sample``: the
-threefry draws and the overlap scan in one kernel, the draw build of
+threefry draws, the overlap scan and the PDF sampling in one kernel,
 ``generator_scan.cu``).
 """
 

@@ -45,10 +45,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
 _SIGNATURES = {
-    "ecrad_generator_scan": [_P] * 6 + [_I] * 4 + [_P],
-    # the draw build: seeds, scalars, total cloud cover, CDF
-    "ecrad_generator_draw_scan": [_P] * 4 + [_I] * 4 + [_P],
-    # the sampled build: seeds, scalars, total cloud cover, fractional std,
+    # the generator: seeds, scalars, total cloud cover, fractional std,
     # the fit's table, od_scaling; ncol, nlev, ng, exp-exp, the table's
     # shape; the fit's axes and the cloud-fraction threshold
     "ecrad_generator_draw_sample": [_P] * 6 + [_I] * 6 + [_D] * 5 + [_P],

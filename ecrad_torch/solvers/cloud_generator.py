@@ -4,13 +4,10 @@
 Random fields come from the threefry port (solvers/threefry.py), keyed
 per column exactly as the JAX package keys them, so the sample is the
 JAX package's sample bit for bit (up to roundoff in the cumulators).
-The draws, the per-level overlap scan and, on the card, the PDF
-sampling epilogue run in one kernel, the sampled build of
-``generator_draw_scan`` (solvers/cuda_generator.py), which makes the
-random numbers and the optical-depth scaling in registers; the
-cumulators are plain torch, and so is the sampler on the CPU
-(``sample_od_scaling``, the kernel's reference).  ``draw_planes`` and
-``scan_inputs`` give the planes-in build's inputs.
+The cumulators are plain torch; the draws, the per-level overlap scan and
+the PDF sampling run in one kernel, ``generator_draw_scan``
+(solvers/cuda_generator.py), which makes the random numbers and the
+optical-depth scaling in registers, or on the CPU its plain version.
 """
 
 from __future__ import annotations
@@ -20,8 +17,7 @@ import torch
 
 from ecrad_torch import profiling
 from ecrad_torch.config import Config, Overlap
-from ecrad_torch.solvers.cuda_generator import (draw_planes,
-                                                generator_draw_scan)
+from ecrad_torch.solvers.cuda_generator import generator_draw_scan
 
 MAX_CLOUD_FRAC = 1.0 - 2.0e-6
 MIN_FRAC = 1.0e-6          # radiation_cloud_cover.F90:380
@@ -245,141 +241,6 @@ def fit_pdf_cheb(pdf_tables, degree: int = 14):
     }
 
 
-def cheb_coeffs_for(fit, fsd, dtype):
-    """Per-(col,lev) Chebyshev coefficients interpolated in fsd.
-
-    fsd (ncol, nlev) -> (ncol, nlev, deg+1)."""
-    cheb = fit["cheb"].to(dtype)                        # (nfsd, deg+1)
-    nfsd = fit["nfsd"]
-    wfsd = (fsd - fit["fsd1"]) * fit["inv_int"] + 1.0
-    ifsd = torch.clamp(wfsd.to(torch.int64), 1, nfsd - 1)
-    wfsd = torch.clamp(wfsd - ifsd, 0.0, 1.0)[..., None]
-    c0 = cheb[torch.clamp(ifsd - 1, 0, nfsd - 1)]
-    c1 = cheb[torch.clamp(ifsd, 0, nfsd - 1)]
-    return (1.0 - wfsd) * c0 + wfsd * c1
-
-
-# Cephes ndtri coefficients (the same rational approximations as scipy's)
-_NDTRI_P0 = (-5.99633501014107895267e1, 9.80010754185999661536e1,
-             -5.66762857469070293439e1, 1.39312609387279679503e1,
-             -1.23916583867381258016e0)
-_NDTRI_Q0 = (1.95448858338141759834e0, 4.67627912898881538453e0,
-             8.63602421390890590575e1, -2.25462687854119370527e2,
-             2.00260212380060660359e2, -8.20372256168538034268e1,
-             1.59056225126211695515e1, -1.18331621121330003142e0)
-_NDTRI_P1 = (4.05544892305962419923e0, 3.15251094599893866154e1,
-             5.71628192246421288162e1, 4.40805073893200834700e1,
-             1.46849561928858024014e1, 2.18663306850790267539e0,
-             -1.40256079171354495875e-1, -3.50424626827848203418e-2,
-             -8.57456785154685413611e-4)
-_NDTRI_Q1 = (1.57799883256466749731e1, 4.53907635128879210584e1,
-             4.13172038254672030440e1, 1.50425385692907503408e1,
-             2.50464946208309415979e0, -1.42182922854787788574e-1,
-             -3.80806407691578277194e-2, -9.33259480895457427372e-4)
-_NDTRI_P2 = (3.23774891776946035970e0, 6.91522889068984211695e0,
-             3.93881025292474443415e0, 1.33303460815807542389e0,
-             2.01485389549179081538e-1, 1.23716634817820021358e-2,
-             3.01581553508235416007e-4, 2.65806974686737550832e-6,
-             6.23974539184983651783e-9)
-_NDTRI_Q2 = (6.02427039364742014255e0, 3.67983563856160859403e0,
-             1.37702099489081330271e0, 2.16236993594496635890e-1,
-             1.34204006088543189037e-2, 3.28014464682127739104e-4,
-             2.89247864745380683936e-6, 6.79019408009981274425e-9)
-
-
-def _polevl(x, coeffs):
-    y = torch.zeros_like(x) + coeffs[0]
-    for c in coeffs[1:]:
-        y = x * y + c
-    return y
-
-
-def _p1evl(x, coeffs):
-    y = torch.ones_like(x)
-    for c in coeffs:
-        y = x * y + c
-    return y
-
-
-def ndtri(p):
-    """Inverse normal CDF (cephes rational approximations; the same
-    evaluation order as ``ecrad_tpu/solvers/cloud_generator.ndtri``)."""
-    s2pi = 2.50662827463100050242
-    exp_m2 = 0.13533528323661269189
-
-    flip = p > 1.0 - exp_m2
-    y = torch.where(flip, 1.0 - p, p)
-
-    # central region
-    yc = y - 0.5
-    y2 = yc * yc
-    x_c = yc + yc * (y2 * _polevl(y2, _NDTRI_P0) / _p1evl(y2, _NDTRI_Q0))
-    x_c = x_c * s2pi
-
-    # tails (guard y for the central-path lanes)
-    ysafe = torch.clamp(y, 1e-30, 1.0)
-    x = torch.sqrt(-2.0 * torch.log(ysafe))
-    x0 = x - torch.log(x) / x
-    z = 1.0 / x
-    x1 = torch.where(x < 8.0,
-                     z * _polevl(z, _NDTRI_P1) / _p1evl(z, _NDTRI_Q1),
-                     z * _polevl(z, _NDTRI_P2) / _p1evl(z, _NDTRI_Q2))
-    x_t = x1 - x0                         # negative tail value
-
-    central = y > exp_m2
-    return torch.where(central, x_c, torch.where(flip, -x_t, x_t))
-
-
-def cheb_eval(fit, coeff_at, ncoef, cdf):
-    """exp(cheb(ndtri(cdf))) — the PDF sample evaluation.
-
-    coeff_at(k): coefficient k broadcastable against cdf."""
-    eps = 1e-7
-    z = ndtri(torch.clamp(cdf, eps, 1.0 - eps))
-    t = torch.clamp((2.0 * z - (fit["z_lo"] + fit["z_hi"]))
-                    / (fit["z_hi"] - fit["z_lo"]), -1.0, 1.0)
-    b1 = torch.zeros_like(t)
-    b2 = torch.zeros_like(t)
-    two_t = 2.0 * t
-    for k in range(ncoef - 1, 0, -1):
-        b1, b2 = two_t * b1 - b2 + coeff_at(k), b1
-    y = t * b1 - b2 + coeff_at(0)
-    return torch.exp(y)
-
-
-def sample_pdf_cheb(fit, fsd, cdf):
-    """od_scaling = exp(cheb(z)) with coefficients interpolated in fsd.
-    fsd (..., 1) broadcasting against cdf (..., ng)."""
-    c = cheb_coeffs_for(fit, fsd[..., 0], cdf.dtype)    # (..., deg+1)
-    cb = c[..., None, :]
-    return cheb_eval(fit, lambda k: cb[..., k], c.shape[-1], cdf)
-
-
-def sample_pdf_jnp(pdf_tables, fsd, cdf):
-    """Bilinear PDF LUT lookup (radiation_pdf_sampler.F90:59-105)."""
-    val = pdf_tables["val"].to(cdf.dtype)            # (ncdf, nfsd)
-    ncdf, nfsd = val.shape
-    fsd1 = float(pdf_tables["fsd"][0])
-    inv_int = 1.0 / float(pdf_tables["fsd"][1] - pdf_tables["fsd"][0])
-
-    wcdf = cdf * (ncdf - 1) + 1.0
-    icdf = torch.clamp(wcdf.to(torch.int64), 1, ncdf - 1)
-    wcdf = torch.clamp(wcdf - icdf, 0.0, 1.0)
-    wfsd = (fsd - fsd1) * inv_int + 1.0
-    ifsd = torch.clamp(wfsd.to(torch.int64), 1, nfsd - 1)
-    wfsd = torch.clamp(wfsd - ifsd, 0.0, 1.0)
-    flat = val.reshape(-1)
-
-    def at(ic, ifs):
-        return flat[torch.clamp(ic - 1, 0, ncdf - 1) * nfsd
-                    + torch.clamp(ifs - 1, 0, nfsd - 1)]
-
-    return ((1 - wcdf) * (1 - wfsd) * at(icdf, ifsd)
-            + (1 - wcdf) * wfsd * at(icdf, ifsd + 1)
-            + wcdf * (1 - wfsd) * at(icdf + 1, ifsd)
-            + wcdf * wfsd * at(icdf + 1, ifsd + 1))
-
-
 def _m1_fields(frac, cum, pair, overhang, op_inhom):
     """Per-level fields shifted to the jlev-1 position (dummy level -1
     prepended)."""
@@ -422,18 +283,6 @@ def scan_scalars(config: Config, frac, overlap_param):
         return scalars, exp_exp, total_cloud_cover
 
 
-def scan_inputs(config: Config, iseed, frac, overlap_param, ng: int):
-    """The planes-in generator scan's inputs for a cloud-fraction profile:
-    random planes rc/ri/ri2 (ncol, nlev, ng), the packed per-level scalars
-    (ncol, nlev, 8), the trigger (ncol, ng), the exp-exp flag, and the
-    total cloud cover (ncol,)."""
-    scalars, exp_exp, total_cloud_cover = scan_scalars(config, frac,
-                                                       overlap_param)
-    trig, rc, ri, ri2 = draw_planes(iseed, frac.shape[1], ng, frac.dtype)
-    trigger = trig * total_cloud_cover[:, None]
-    return rc, ri, ri2, scalars, trigger, exp_exp, total_cloud_cover
-
-
 def cloud_generator_device(config: Config, pdf_tables, iseed, frac,
                            overlap_param, fractional_std, ng: int):
     """On-device stochastic cloud sample.
@@ -443,51 +292,19 @@ def cloud_generator_device(config: Config, pdf_tables, iseed, frac,
       frac: (ncol, nlev) cloud fraction (cropped).
       overlap_param: (ncol, nlev-1).
       fractional_std: (ncol, nlev).
-    Returns (od_scaling (ncol, nlev, ng), total_cloud_cover (ncol,)).
+    Returns (od_scaling (ncol, nlev, ng), total_cloud_cover (ncol,), set
+    to 0 below the cloud-fraction threshold).
 
-    Off the CPU, with the Chebyshev fit (which ``setup_radiation`` makes
-    for McICA), one launch of the sampled build draws, scans and samples;
-    otherwise the draw build's CDF plane goes through
-    ``sample_od_scaling``.
+    The cumulators, then one ``generator_draw_scan`` with the Chebyshev
+    fit that ``setup_radiation`` makes for McICA.
     """
     scalars, exp_exp, total_cloud_cover = scan_scalars(config, frac,
                                                        overlap_param)
-    fit = pdf_tables.get("cheb_fit")
-    if fit is None or frac.device.type == "cpu":
-        cdf = generator_draw_scan(iseed, scalars, total_cloud_cover, ng,
-                                  exp_exp)
-        return sample_od_scaling(config, pdf_tables, frac, fractional_std,
-                                 cdf, total_cloud_cover)
     with profiling.scope("ecrad.generator.sampler"):
         thr = config.cloud_fraction_threshold
         od_scaling = generator_draw_scan(iseed, scalars, total_cloud_cover,
-                                         ng, exp_exp,
-                                         sample=(fractional_std, fit, thr))
+                                         ng, exp_exp, fractional_std,
+                                         pdf_tables["cheb_fit"], thr)
         tcc = torch.where(total_cloud_cover >= thr, total_cloud_cover,
                           torch.zeros_like(total_cloud_cover))
-        return od_scaling, tcc
-
-
-def sample_od_scaling(config: Config, pdf_tables, frac, fractional_std, cdf,
-                      total_cloud_cover):
-    """The sampling epilogue of the generator: od_scaling (ncol, nlev, ng)
-    from the CDF plane through the PDF sampler, zero where a layer or the
-    column is clear, and the total cloud cover below the threshold set to
-    0.  Returns (od_scaling, total_cloud_cover).  The CPU route, and with
-    the Chebyshev fit the plain version of the sampled build's epilogue
-    (``generator_draw_scan_plain`` with ``sample``)."""
-    with profiling.scope("ecrad.generator.sampler"):
-        thr = config.cloud_fraction_threshold
-        tcc = torch.where(total_cloud_cover >= thr, total_cloud_cover,
-                          torch.zeros_like(total_cloud_cover))
-        if pdf_tables.get("cheb_fit") is not None:
-            sampled = sample_pdf_cheb(pdf_tables["cheb_fit"],
-                                      fractional_std[..., None], cdf)
-        else:
-            sampled = sample_pdf_jnp(pdf_tables, fractional_std[..., None],
-                                     cdf)
-        zero = torch.zeros_like(cdf)
-        od_scaling = torch.where(cdf > 0.0, sampled, zero)
-        od_scaling = torch.where((frac >= thr)[..., None], od_scaling, zero)
-        od_scaling = torch.where(tcc[:, None, None] > 0.0, od_scaling, zero)
         return od_scaling, tcc

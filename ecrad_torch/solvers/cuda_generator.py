@@ -1,23 +1,22 @@
-"""McICA cloud-generator level scan: the two builds of its CUDA kernel,
-their wrappers and their plain torch versions.
+"""McICA cloud-generator kernel: the wrapper of its CUDA build, its plain
+torch version and the Chebyshev sampler they share.
 
-Replaces ``ecrad_tpu/solvers/pallas_generator.py:generator_scan`` and the
+Replaces ``ecrad_tpu/solvers/pallas_generator.py:generator_scan``, the
 threefry draws that feed it (``ecrad_tpu/solvers/cloud_generator.py``
-draw); the kernel is ``ecrad_torch/csrc/generator_scan.cu``.  Layout is
-the port's classic one: random planes and the CDF ``(ncol, nlev, ng)``,
-the eight packed per-level scalars ``(ncol, nlev, 8)`` in the order
-(any_cloud, frac, frac_m1, cum, cum_m1, pair_m1, overhang_m1,
-op_inhom_m1), the trigger ``(ncol, ng)``.
+draw) and the generator's sampling epilogue; the kernel is
+``ecrad_torch/csrc/generator_scan.cu``.  Layout is the port's classic one:
+random planes, the CDF and od_scaling ``(ncol, nlev, ng)``, the eight
+packed per-level scalars ``(ncol, nlev, 8)`` in the order (any_cloud,
+frac, frac_m1, cum, cum_m1, pair_m1, overhang_m1, op_inhom_m1), the
+trigger ``(ncol, ng)``.
 
-* ``generator_scan``: the planes-in build, the counterpart of the Pallas
-  function, fed the random planes and the trigger.
-* ``generator_draw_scan``: the draw build: fed the per-column seeds and
-  the total cloud cover, it draws the sample of ``draw_planes`` itself,
-  element by element (``threefry.uniform_at``), so the planes never reach
-  device memory.  With ``sample``, the sampled build, which the McICA
-  paths run on the card: the same kernel with the generator's Chebyshev
-  sampling epilogue (``cloud_generator.sample_od_scaling``) in its level
-  walk, writing ``od_scaling`` instead of the CDF.
+``generator_draw_scan``, fed the per-column seeds, the total cloud cover,
+the fractional standard deviation and the Chebyshev fit, draws the sample
+of ``draw_planes`` element by element (``threefry.uniform_at``), scans the
+levels and turns each CDF entry into the optical-depth scaling in
+registers, so neither the planes nor the CDF reach device memory.  Its
+plain version is ``generator_cdf_plain`` (the draws, the trigger and the
+scan) followed by ``sample_pdf_cheb`` and the masks.
 """
 
 from __future__ import annotations
@@ -31,8 +30,8 @@ _ANY, _F, _FM1, _C, _CM1, _PM1, _OM1, _OPIM1 = range(8)
 
 
 def generator_scan_plain(rc, ri, ri2, scalars, trigger, exp_exp):
-    """The level scan as a torch loop over levels (the reference for the
-    kernel; radiation_cloud_generator.F90:587-720)."""
+    """The level scan as a torch loop over levels (the scan of the
+    kernel's plain version; radiation_cloud_generator.F90:587-720)."""
     ncol, nlev, ng = rc.shape
     found = torch.zeros((ncol, ng), dtype=torch.bool, device=rc.device)
     is_cloud = torch.zeros_like(found)
@@ -66,34 +65,6 @@ def generator_scan_plain(rc, ri, ri2, scalars, trigger, exp_exp):
     return torch.stack(out, dim=1)
 
 
-def generator_scan(rc, ri, ri2, scalars, trigger, exp_exp):
-    """Returns the CDF plane (ncol, nlev, ng).  CPU tensors run the
-    plain version; CUDA tensors launch the kernel."""
-    if rc.device.type == "cpu":
-        return generator_scan_plain(rc, ri, ri2, scalars, trigger, exp_exp)
-    ncol, nlev, ng = rc.shape
-    kernels.check_inputs("generator_scan", rc, {
-        "ri": (ri, (ncol, nlev, ng)), "ri2": (ri2, (ncol, nlev, ng)),
-        "scalars": (scalars, (ncol, nlev, 8)),
-        "trigger": (trigger, (ncol, ng))})
-    cdf = torch.empty_like(rc)
-    if ncol == 0:
-        return cdf
-    lib = kernels.library()
-    fn = (lib.ecrad_generator_scan_f32 if rc.dtype == torch.float32
-          else lib.ecrad_generator_scan_f64)
-    with torch.cuda.device(rc.device):
-        code = fn(rc.data_ptr(), ri.data_ptr(), ri2.data_ptr(),
-                  scalars.data_ptr(), trigger.data_ptr(), cdf.data_ptr(),
-                  ncol, nlev, ng, int(bool(exp_exp)), kernels.stream_of(rc))
-    kernels.check(code, "generator_scan")
-    generator_scan.launches += 1
-    return cdf
-
-
-generator_scan.launches = 0
-
-
 def draw_planes(iseed, nlev, ng, dtype):
     """The per-column random planes of the JAX generator's ``draw``:
     key(seed) -> split(4) -> trigger (ncol, ng), rc/ri/ri2
@@ -105,93 +76,193 @@ def draw_planes(iseed, nlev, ng, dtype):
             threefry.uniform(k4, (nlev, ng), dtype))
 
 
-def generator_draw_scan_plain(iseed, scalars, total_cloud_cover, ng,
-                              exp_exp, sample=None):
-    """The draws (``draw_planes``), the trigger scaled by the total cloud
-    cover, and the level scan, in plain torch (the reference for the draw
-    build); with ``sample``, then the Chebyshev sampler and the masks of
-    ``cloud_generator.sample_od_scaling`` (the reference for the sampled
-    build)."""
+def generator_cdf_plain(iseed, scalars, total_cloud_cover, ng, exp_exp):
+    """The CDF plane (ncol, nlev, ng) of the sample keyed by the seeds: the
+    draws (``draw_planes``), the trigger scaled by the total cloud cover,
+    and the level scan, in plain torch."""
     trig, rc, ri, ri2 = draw_planes(iseed, scalars.shape[1], ng,
                                     scalars.dtype)
     trigger = trig * total_cloud_cover[:, None]
-    cdf = generator_scan_plain(rc, ri, ri2, scalars, trigger, exp_exp)
-    if sample is None:
-        return cdf
-    # imported here: cloud_generator, which holds the sampler, imports this
-    # module
-    from ecrad_torch.solvers.cloud_generator import sample_pdf_cheb
-    fsd, fit, threshold = sample
+    return generator_scan_plain(rc, ri, ri2, scalars, trigger, exp_exp)
+
+
+# --- the Chebyshev sampler (fit: cloud_generator.fit_pdf_cheb) -------------
+
+def cheb_coeffs_for(fit, fsd, dtype):
+    """Per-(col,lev) Chebyshev coefficients interpolated in fsd.
+
+    fsd (ncol, nlev) -> (ncol, nlev, deg+1)."""
+    cheb = fit["cheb"].to(dtype)                        # (nfsd, deg+1)
+    nfsd = fit["nfsd"]
+    wfsd = (fsd - fit["fsd1"]) * fit["inv_int"] + 1.0
+    ifsd = torch.clamp(wfsd.to(torch.int64), 1, nfsd - 1)
+    wfsd = torch.clamp(wfsd - ifsd, 0.0, 1.0)[..., None]
+    c0 = cheb[torch.clamp(ifsd - 1, 0, nfsd - 1)]
+    c1 = cheb[torch.clamp(ifsd, 0, nfsd - 1)]
+    return (1.0 - wfsd) * c0 + wfsd * c1
+
+
+# Cephes ndtri coefficients (the same rational approximations as scipy's)
+_NDTRI_P0 = (-5.99633501014107895267e1, 9.80010754185999661536e1,
+             -5.66762857469070293439e1, 1.39312609387279679503e1,
+             -1.23916583867381258016e0)
+_NDTRI_Q0 = (1.95448858338141759834e0, 4.67627912898881538453e0,
+             8.63602421390890590575e1, -2.25462687854119370527e2,
+             2.00260212380060660359e2, -8.20372256168538034268e1,
+             1.59056225126211695515e1, -1.18331621121330003142e0)
+_NDTRI_P1 = (4.05544892305962419923e0, 3.15251094599893866154e1,
+             5.71628192246421288162e1, 4.40805073893200834700e1,
+             1.46849561928858024014e1, 2.18663306850790267539e0,
+             -1.40256079171354495875e-1, -3.50424626827848203418e-2,
+             -8.57456785154685413611e-4)
+_NDTRI_Q1 = (1.57799883256466749731e1, 4.53907635128879210584e1,
+             4.13172038254672030440e1, 1.50425385692907503408e1,
+             2.50464946208309415979e0, -1.42182922854787788574e-1,
+             -3.80806407691578277194e-2, -9.33259480895457427372e-4)
+_NDTRI_P2 = (3.23774891776946035970e0, 6.91522889068984211695e0,
+             3.93881025292474443415e0, 1.33303460815807542389e0,
+             2.01485389549179081538e-1, 1.23716634817820021358e-2,
+             3.01581553508235416007e-4, 2.65806974686737550832e-6,
+             6.23974539184983651783e-9)
+_NDTRI_Q2 = (6.02427039364742014255e0, 3.67983563856160859403e0,
+             1.37702099489081330271e0, 2.16236993594496635890e-1,
+             1.34204006088543189037e-2, 3.28014464682127739104e-4,
+             2.89247864745380683936e-6, 6.79019408009981274425e-9)
+
+
+def _polevl(x, coeffs):
+    y = torch.zeros_like(x) + coeffs[0]
+    for c in coeffs[1:]:
+        y = x * y + c
+    return y
+
+
+def _p1evl(x, coeffs):
+    y = torch.ones_like(x)
+    for c in coeffs:
+        y = x * y + c
+    return y
+
+
+def ndtri(p):
+    """Inverse normal CDF (cephes rational approximations; the same
+    evaluation order as ``ecrad_tpu/solvers/cloud_generator.ndtri``)."""
+    s2pi = 2.50662827463100050242
+    exp_m2 = 0.13533528323661269189
+
+    flip = p > 1.0 - exp_m2
+    y = torch.where(flip, 1.0 - p, p)
+
+    # central region
+    yc = y - 0.5
+    y2 = yc * yc
+    x_c = yc + yc * (y2 * _polevl(y2, _NDTRI_P0) / _p1evl(y2, _NDTRI_Q0))
+    x_c = x_c * s2pi
+
+    # tails (guard y for the central-path lanes)
+    ysafe = torch.clamp(y, 1e-30, 1.0)
+    x = torch.sqrt(-2.0 * torch.log(ysafe))
+    x0 = x - torch.log(x) / x
+    z = 1.0 / x
+    x1 = torch.where(x < 8.0,
+                     z * _polevl(z, _NDTRI_P1) / _p1evl(z, _NDTRI_Q1),
+                     z * _polevl(z, _NDTRI_P2) / _p1evl(z, _NDTRI_Q2))
+    x_t = x1 - x0                         # negative tail value
+
+    central = y > exp_m2
+    return torch.where(central, x_c, torch.where(flip, -x_t, x_t))
+
+
+def cheb_eval(fit, coeff_at, ncoef, cdf):
+    """exp(cheb(ndtri(cdf))) — the PDF sample evaluation.
+
+    coeff_at(k): coefficient k broadcastable against cdf."""
+    eps = 1e-7
+    z = ndtri(torch.clamp(cdf, eps, 1.0 - eps))
+    t = torch.clamp((2.0 * z - (fit["z_lo"] + fit["z_hi"]))
+                    / (fit["z_hi"] - fit["z_lo"]), -1.0, 1.0)
+    b1 = torch.zeros_like(t)
+    b2 = torch.zeros_like(t)
+    two_t = 2.0 * t
+    for k in range(ncoef - 1, 0, -1):
+        b1, b2 = two_t * b1 - b2 + coeff_at(k), b1
+    y = t * b1 - b2 + coeff_at(0)
+    return torch.exp(y)
+
+
+def sample_pdf_cheb(fit, fsd, cdf):
+    """od_scaling = exp(cheb(z)) with coefficients interpolated in fsd.
+    fsd (..., 1) broadcasting against cdf (..., ng)."""
+    c = cheb_coeffs_for(fit, fsd[..., 0], cdf.dtype)    # (..., deg+1)
+    cb = c[..., None, :]
+    return cheb_eval(fit, lambda k: cb[..., k], c.shape[-1], cdf)
+
+
+# --- the kernel's plain version and its wrapper ------------------------------
+
+def generator_draw_scan_plain(iseed, scalars, total_cloud_cover, ng, exp_exp,
+                              fractional_std, fit, threshold):
+    """The kernel in plain torch: the CDF of ``generator_cdf_plain``, then
+    the Chebyshev sampler, zero where the CDF is 0, the layer is clear or
+    the column's total cover is under the threshold."""
+    cdf = generator_cdf_plain(iseed, scalars, total_cloud_cover, ng,
+                              exp_exp)
     tcc = total_cloud_cover
     on = ((cdf > 0.0) & (scalars[..., _ANY, None] != 0.0)
           & ((tcc >= threshold) & (tcc > 0.0))[:, None, None])
-    return torch.where(on, sample_pdf_cheb(fit, fsd[..., None], cdf),
+    return torch.where(on, sample_pdf_cheb(fit, fractional_std[..., None],
+                                           cdf),
                        torch.zeros_like(cdf))
 
 
 def generator_draw_scan(iseed, scalars, total_cloud_cover, ng, exp_exp,
-                        sample=None):
-    """The CDF plane (ncol, nlev, ng) of the sample keyed by the seeds
-    iseed (ncol,) (any integer type; their low 32 bits), for the packed
-    per-level scalars (ncol, nlev, 8) and the total cloud cover (ncol,).
-    With ``sample`` = (fractional_std (ncol, nlev), the Chebyshev fit of
-    ``cloud_generator.fit_pdf_cheb``, the cloud-fraction threshold), the
-    optical-depth scaling (ncol, nlev, ng) sampled from that CDF instead:
-    zero where the CDF is 0, the layer is clear or the column's total
-    cover is under the threshold.  CPU tensors run the plain version;
-    other tensors launch the draw build, or with ``sample`` the sampled
-    build (``.launches`` counts both, ``.sampled_launches`` the
-    sampled)."""
+                        fractional_std, fit, threshold):
+    """The optical-depth scaling (ncol, nlev, ng) of the sample keyed by
+    the seeds iseed (ncol,) (any integer type; their low 32 bits), for the
+    packed per-level scalars (ncol, nlev, 8), the total cloud cover
+    (ncol,), the fractional standard deviation (ncol, nlev), the Chebyshev
+    fit of ``cloud_generator.fit_pdf_cheb`` and the cloud-fraction
+    threshold: zero where the CDF is 0, the layer is clear or the column's
+    total cover is under the threshold.  CPU tensors run the plain
+    version; CUDA tensors launch the kernel."""
     if scalars.device.type == "cpu":
         return generator_draw_scan_plain(iseed, scalars, total_cloud_cover,
-                                         ng, exp_exp, sample)
+                                         ng, exp_exp, fractional_std, fit,
+                                         threshold)
     ncol, nlev = scalars.shape[:2]
+    fsd = fractional_std.contiguous()
+    cheb = fit["cheb"].to(scalars.dtype).contiguous()
     kernels.check_inputs("generator_draw_scan", scalars, {
         "scalars": (scalars, (ncol, nlev, 8)),
-        "total_cloud_cover": (total_cloud_cover, (ncol,))})
+        "total_cloud_cover": (total_cloud_cover, (ncol,)),
+        "fractional_std": (fsd, (ncol, nlev)),
+        "cheb": (cheb, (fit["nfsd"], cheb.shape[-1]))})
     if tuple(iseed.shape) != (ncol,) or iseed.device != scalars.device:
         raise ValueError(f"generator_draw_scan: iseed must be ({ncol},) on "
                          f"{scalars.device}")
     if ncol * ng >= 2**31:
         raise ValueError(f"generator_draw_scan: ncol * ng = {ncol * ng} "
                          f"threads exceed the flat int index")
-    if sample is not None:
-        fsd, fit, threshold = sample
-        fsd = fsd.contiguous()
-        cheb = fit["cheb"].to(scalars.dtype).contiguous()
-        kernels.check_inputs("generator_draw_scan", scalars, {
-            "fractional_std": (fsd, (ncol, nlev)),
-            "cheb": (cheb, (fit["nfsd"], cheb.shape[-1]))})
     out = torch.empty((ncol, nlev, ng), dtype=scalars.dtype,
                       device=scalars.device)
     if ncol * ng == 0:
         return out
     words = threefry.seed_words(iseed)
     lib = kernels.library()
-    f32 = scalars.dtype == torch.float32
+    fn = (lib.ecrad_generator_draw_sample_f32
+          if scalars.dtype == torch.float32
+          else lib.ecrad_generator_draw_sample_f64)
     with torch.cuda.device(scalars.device):
-        if sample is None:
-            fn = (lib.ecrad_generator_draw_scan_f32 if f32
-                  else lib.ecrad_generator_draw_scan_f64)
-            code = fn(words.data_ptr(), scalars.data_ptr(),
-                      total_cloud_cover.data_ptr(), out.data_ptr(), ncol,
-                      nlev, ng, int(bool(exp_exp)), kernels.stream_of(scalars))
-        else:
-            fn = (lib.ecrad_generator_draw_sample_f32 if f32
-                  else lib.ecrad_generator_draw_sample_f64)
-            code = fn(words.data_ptr(), scalars.data_ptr(),
-                      total_cloud_cover.data_ptr(), fsd.data_ptr(),
-                      cheb.data_ptr(), out.data_ptr(), ncol, nlev, ng,
-                      int(bool(exp_exp)), fit["nfsd"], cheb.shape[-1],
-                      fit["z_lo"] + fit["z_hi"], fit["z_hi"] - fit["z_lo"],
-                      fit["fsd1"], fit["inv_int"], threshold,
-                      kernels.stream_of(scalars))
+        code = fn(words.data_ptr(), scalars.data_ptr(),
+                  total_cloud_cover.data_ptr(), fsd.data_ptr(),
+                  cheb.data_ptr(), out.data_ptr(), ncol, nlev, ng,
+                  int(bool(exp_exp)), fit["nfsd"], cheb.shape[-1],
+                  fit["z_lo"] + fit["z_hi"], fit["z_hi"] - fit["z_lo"],
+                  fit["fsd1"], fit["inv_int"], threshold,
+                  kernels.stream_of(scalars))
     kernels.check(code, "generator_draw_scan")
     generator_draw_scan.launches += 1
-    if sample is not None:
-        generator_draw_scan.sampled_launches += 1
     return out
 
 
 generator_draw_scan.launches = 0
-generator_draw_scan.sampled_launches = 0

@@ -75,8 +75,9 @@ def uniform_at(key, counter, dtype):
     (exact), as jax does.  float32 takes the top 23 bits of b1 ^ b2;
     float64 the top 52 bits of (b1 << 32) | b2.  key (k1, k2) and counter
     are int64 tensors of uint32 values that broadcast together (counter <
-    2**32, so the high counter word is 0); this is the formula the draw
-    build of ecrad_torch/csrc/generator_scan.cu computes per element."""
+    2**32, so the high counter word is 0); this is the formula the
+    generator kernel of ecrad_torch/csrc/generator_scan.cu computes per
+    element."""
     k1, k2 = key
     b1, b2 = threefry2x32(k1, k2, torch.zeros_like(counter), counter)
     if dtype == torch.float32:

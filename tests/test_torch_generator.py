@@ -8,8 +8,9 @@
   exp/log differ by an ulp: rtol 1e-14), and od_scaling agrees to f64
   roundoff (rtol 1e-10: the Chebyshev sampling runs exp/log/sqrt).
 * generator_scan_plain against the Pallas kernel
-  pallas_generator.generator_scan in interpret mode on the same planes:
-  a pure select chain, so equal.
+  pallas_generator.generator_scan in interpret mode on the same planes
+  (draw_planes and the trigger times the total cloud cover, for the
+  scalars of scan_scalars): a pure select chain, so equal.
 """
 
 import numpy as np
@@ -58,21 +59,16 @@ def pdf_tables():
     return tables
 
 
-@pytest.mark.parametrize("overlap,sampler",
-                         [(o, "cheb") for o in OVERLAPS]
-                         + [("EXPONENTIAL_RANDOM", "lut")])
-def test_cloud_generator_matches_jax(pdf_tables, overlap, sampler):
-    """sampler "lut": PDF tables without the Chebyshev fit, so both
-    packages sample the inverse-CDF table bilinearly (sample_pdf_jnp)."""
+@pytest.mark.parametrize("overlap", OVERLAPS,
+                         ids=[f"{o}-cheb" for o in OVERLAPS])
+def test_cloud_generator_matches_jax(pdf_tables, overlap):
+    """Both packages sample the PDF through the Chebyshev fit."""
     iseed, frac, op, fsd = _inputs()
     jcfg = JaxConfig(overlap_scheme=JaxOverlap[overlap])
-    jpdf = dict(pdf_tables.pdf_sampler)
     pdf = tables_from_numpy(pdf_tables, "cpu", torch.float64).pdf_sampler
-    if sampler == "lut":
-        del jpdf["cheb_fit"], pdf["cheb_fit"]
     od_ref, tcc_ref = jax_generator(
-        jcfg, jpdf, jnp.asarray(iseed), jnp.asarray(frac),
-        jnp.asarray(op), jnp.asarray(fsd), NG)
+        jcfg, dict(pdf_tables.pdf_sampler), jnp.asarray(iseed),
+        jnp.asarray(frac), jnp.asarray(op), jnp.asarray(fsd), NG)
     od, tcc = cloud_generator.cloud_generator_device(
         Config(overlap_scheme=Overlap[overlap]), pdf, torch.as_tensor(iseed),
         torch.as_tensor(frac), torch.as_tensor(op), torch.as_tensor(fsd), NG)
@@ -115,10 +111,12 @@ def test_generator_scan_plain_matches_pallas(exp_exp, ng):
     iseed, frac, op, _ = _inputs(1)
     cfg = Config(overlap_scheme=Overlap.EXPONENTIAL if exp_exp
                  else Overlap.EXPONENTIAL_RANDOM)
-    rc, ri, ri2, scalars, trigger, ee, _ = cloud_generator.scan_inputs(
-        cfg, torch.as_tensor(iseed), torch.as_tensor(frac),
-        torch.as_tensor(op), ng)
+    scalars, ee, tcc = cloud_generator.scan_scalars(
+        cfg, torch.as_tensor(frac), torch.as_tensor(op))
     assert ee == exp_exp
+    trig, rc, ri, ri2 = cuda_generator.draw_planes(
+        torch.as_tensor(iseed), NLEV, ng, scalars.dtype)
+    trigger = trig * tcc[:, None]
     got = cuda_generator.generator_scan_plain(rc, ri, ri2, scalars, trigger,
                                               exp_exp)
     knl = lambda x: jnp.transpose(jnp.asarray(x.numpy()), (1, 2, 0))
@@ -130,16 +128,3 @@ def test_generator_scan_plain_matches_pallas(exp_exp, ng):
     assert (ref > 0).any()
     np.testing.assert_array_equal(got.numpy(), ref)
 
-
-def test_generator_scan_wrapper_runs_plain_on_cpu():
-    """On CPU tensors the wrapper is the plain version, and launches
-    nothing."""
-    iseed, frac, op, _ = _inputs(2)
-    args = cloud_generator.scan_inputs(
-        Config(), torch.as_tensor(iseed), torch.as_tensor(frac),
-        torch.as_tensor(op), NG)[:6]
-    before = cuda_generator.generator_scan.launches
-    np.testing.assert_array_equal(
-        cuda_generator.generator_scan(*args).numpy(),
-        cuda_generator.generator_scan_plain(*args).numpy())
-    assert cuda_generator.generator_scan.launches == before

@@ -1,13 +1,13 @@
-"""The draw build of the port's McICA generator kernel against the JAX
-package (CPU).
+"""The draws and the scan of the port's McICA generator kernel against the
+JAX package (CPU).
 
-* threefry.uniform_at, the per-element formula of the draw build of
+* threefry.uniform_at, the per-element formula of the draws of
   ecrad_torch/csrc/generator_scan.cu (key(seed) -> split(4) -> the hash of
   (0, l * ng + g) -> the mantissa of [1, 2), minus 1), against
   jax.random.uniform(k, (nlev, ng)) over every (l, g), bit for bit, in
   float32 and float64.
-* generator_draw_scan_plain (the draws, the trigger scaled by the total
-  cloud cover, the level scan) against the Pallas kernel
+* generator_cdf_plain (the draws, the trigger scaled by the total cloud
+  cover, the level scan) against the Pallas kernel
   pallas_generator.generator_scan in interpret mode fed JAX's own draws
   (cloud_generator.py draw) on the same scalars: equal, bit for bit.
 * the wrapper on CPU tensors is its plain version and launches nothing; on
@@ -26,6 +26,8 @@ from ecrad_tpu.data import MERIDIAN_INPUT
 from ecrad_tpu.io.input import read_input
 from ecrad_tpu.solvers import pallas_generator
 from ecrad_torch.config import Config, Overlap
+from ecrad_torch.data import DATA_DIR
+from ecrad_torch.interface import setup_radiation
 from ecrad_torch.solvers import cloud_generator, cuda_generator, threefry
 
 torch.set_num_threads(2)
@@ -121,7 +123,7 @@ def _jax_cdf(seeds, scalars, tcc, ng, exp_exp, jdt):
 @pytest.mark.parametrize("overlap", OVERLAPS)
 def test_draw_scan_plain_matches_pallas_fed_jax_draws(overlap, ng):
     seeds, scalars, tcc, exp_exp = _scan_case(overlap, torch.float64)
-    got = cuda_generator.generator_draw_scan_plain(
+    got = cuda_generator.generator_cdf_plain(
         torch.as_tensor(seeds), scalars, tcc, ng, exp_exp)
     ref = _jax_cdf(seeds, scalars, tcc, ng, exp_exp, jnp.float64)
     assert (ref > 0).any() and got.shape == ref.shape
@@ -132,45 +134,58 @@ def test_draw_scan_plain_matches_pallas_fed_jax_draws(overlap, ng):
 def test_draw_scan_plain_matches_pallas_float32(overlap):
     """The same in float32 at ecCKD's 32 g-points: JAX's float32 draws."""
     seeds, scalars, tcc, exp_exp = _scan_case(overlap, torch.float32, 4)
-    got = cuda_generator.generator_draw_scan_plain(
+    got = cuda_generator.generator_cdf_plain(
         torch.as_tensor(seeds), scalars, tcc, 32, exp_exp)
     ref = _jax_cdf(seeds, scalars, tcc, 32, exp_exp, jnp.float32)
     assert got.dtype == torch.float32 and (ref > 0).any()
     np.testing.assert_array_equal(got.numpy(), ref)
 
 
-def test_draw_scan_wrapper_runs_plain_on_cpu():
+@pytest.fixture(scope="module")
+def fit():
+    """The port's Chebyshev fit of the McICA PDF table (setup_radiation)."""
+    _, tables = setup_radiation(Config(), "cpu", torch.float64,
+                                data_dir=DATA_DIR)
+    return tables.pdf_sampler["cheb_fit"]
+
+
+def test_draw_scan_wrapper_runs_plain_on_cpu(fit):
     """On CPU tensors the wrapper is the plain version and launches
-    neither build; its CDF is the planes-in scan's fed draw_planes."""
+    nothing; the plain version's CDF is the scan's fed draw_planes."""
     seeds, scalars, tcc, exp_exp = _scan_case("EXPONENTIAL_RANDOM",
                                                torch.float64, 5)
     iseed = torch.as_tensor(seeds)
-    before = (cuda_generator.generator_draw_scan.launches,
-              cuda_generator.generator_scan.launches)
+    rng = np.random.default_rng(5)
+    fsd = torch.as_tensor(rng.uniform(0.4, 1.5, scalars.shape[:2]))
+    thr = Config().cloud_fraction_threshold
+    before = cuda_generator.generator_draw_scan.launches
     got = cuda_generator.generator_draw_scan(iseed, scalars, tcc, NG,
-                                             exp_exp)
+                                             exp_exp, fsd, fit, thr)
     np.testing.assert_array_equal(
         got.numpy(), cuda_generator.generator_draw_scan_plain(
-            iseed, scalars, tcc, NG, exp_exp).numpy())
-    trig, rc, ri, ri2 = cloud_generator.draw_planes(iseed, NLEV_SCAN, NG,
-                                                    torch.float64)
+            iseed, scalars, tcc, NG, exp_exp, fsd, fit, thr).numpy())
+    assert (got.numpy() > 0).any()
+    trig, rc, ri, ri2 = cuda_generator.draw_planes(iseed, NLEV_SCAN, NG,
+                                                   torch.float64)
     np.testing.assert_array_equal(
-        got.numpy(), cuda_generator.generator_scan_plain(
+        cuda_generator.generator_cdf_plain(iseed, scalars, tcc, NG,
+                                           exp_exp).numpy(),
+        cuda_generator.generator_scan_plain(
             rc, ri, ri2, scalars, trig * tcc[:, None], exp_exp).numpy())
-    assert (cuda_generator.generator_draw_scan.launches,
-            cuda_generator.generator_scan.launches) == before
+    assert cuda_generator.generator_draw_scan.launches == before
 
 
-def test_draw_scan_wrapper_raises_off_the_cpu():
+def test_draw_scan_wrapper_raises_off_the_cpu(fit):
     """Tensors on a device other than the CPU go to the kernel: a device
     it does not take raises, with no fallback to the plain version."""
     scalars = torch.zeros((3, 5, 8), device="meta")
     tcc = torch.zeros(3, device="meta")
+    fsd = torch.zeros((3, 5), device="meta")
     before = cuda_generator.generator_draw_scan.launches
     with pytest.raises(ValueError, match="unsupported device"):
         cuda_generator.generator_draw_scan(
             torch.zeros(3, dtype=torch.int64, device="meta"), scalars, tcc,
-            4, False)
+            4, False, fsd, fit, Config().cloud_fraction_threshold)
     assert cuda_generator.generator_draw_scan.launches == before
 
 

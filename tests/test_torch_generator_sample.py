@@ -1,28 +1,31 @@
-"""The sampled build of the McICA generator kernel (the draw build with the
+"""The McICA generator kernel (the threefry draws, the overlap scan and the
 Chebyshev sampling epilogue, ecrad_torch/csrc/generator_scan.cu) on the
-CPU, and the route cloud_generator_device takes to it.
+CPU, and the one route cloud_generator_device takes to it.
 
 * The kernel source compiled with g++ through a thread-per-CUDA-thread
   stand-in for the CUDA runtime (tests/cuda_cpu/cuda_runtime.h) against
-  generator_draw_scan_plain followed by sample_od_scaling, the CPU route:
-  zero exactly where the plain route is zero, and elsewhere within a
-  relative gap of 1e-12 (float64) or 2e-6 (float32).  The draws and the
-  scan are pure selection, so the CDF entries agree bit for bit; the gap
-  comes from the libm behind the epilogue (glibc's log and exp here,
-  torch's vectorised ones in the plain route, up to an ulp apart), which
-  ndtri and the 15-term Clenshaw sum carry into y = ln(od_scaling), and a
-  relative gap in od_scaling is the absolute gap in y.  Measured: 7.2e-15
-  in float64 (1e-12 leaves ~140x); in float32 1.0e-6 where |y| <= 4 (~8
-  ulps, 2e-6 leaves 2x).  Beyond, where the sampled PDF is wide and
-  od_scaling under 0.018 or over 55, the sum rounds in proportion to |y|
-  (up to 68 on the fit's table), so the float32 bar there is 2e-6 |y| / 4
-  (measured 1.5e-6 |y| / 4; 3.8e-6 at od_scaling 1.1e-5, y = -11.4).
-* The sampled build's plain version (generator_draw_scan_plain with
-  sample) equals the CPU route bit for bit.
-* cloud_generator_device's dispatch: CPU tensors take the CDF build and
-  sample_od_scaling and launch nothing; other tensors take the sampled
-  build, which raises where it cannot launch, with no fallback; without
-  the Chebyshev fit, the CDF build and the table sampler.
+  its plain version, generator_draw_scan_plain, at 1, 14, 32 and 140
+  g-points: zero exactly where the plain version is zero, and elsewhere
+  within a relative gap of 1e-12 (float64) or 2e-6 (float32).  The draws
+  and the scan are pure selection, so the CDF entries agree bit for bit;
+  the gap comes from the libm behind the epilogue (glibc's log and exp
+  here, torch's vectorised ones in the plain version, up to an ulp apart),
+  which ndtri and the 15-term Clenshaw sum carry into y = ln(od_scaling),
+  and a relative gap in od_scaling is the absolute gap in y.  Measured:
+  7.2e-15 in float64 (1e-12 leaves ~140x); in float32 1.0e-6 where
+  |y| <= 4 (~8 ulps, 2e-6 leaves 2x).  Beyond, where the sampled PDF is
+  wide and od_scaling under 0.018 or over 55, the sum rounds in proportion
+  to |y| (up to 68 on the fit's table), so the float32 bar there is
+  2e-6 |y| / 4 (measured 1.5e-6 |y| / 4; 3.8e-6 at od_scaling 1.1e-5,
+  y = -11.4).
+* The plain version equals, bit for bit, the CDF (generator_cdf_plain)
+  put through sample_pdf_cheb and then masked where the CDF is 0, the
+  layer is clear or the thresholded total cover is 0, one mask at a time.
+* cloud_generator_device's one route: generator_draw_scan with the
+  Chebyshev fit, the fractional standard deviation and the threshold,
+  inside the sampler's span; CPU tensors run the plain version and launch
+  nothing; other tensors go to the kernel, which raises where it cannot
+  launch, with no fallback.
 The build with nvcc and the runs on the card are chip_smoke.py's.
 """
 
@@ -98,8 +101,24 @@ def _case(meridian, overlap, dtype):
     return config, pdf, iseed, frac, fsd, scalars, exp_exp, tcc
 
 
+def _masked_cdf_route(config, pdf, iseed, frac, fsd, scalars, tcc, ng,
+                      exp_exp):
+    """od_scaling from the CDF plane: the Chebyshev sampler, then zero
+    where the CDF is 0, the layer is under the cloud-fraction threshold or
+    the thresholded total cover is 0."""
+    thr = config.cloud_fraction_threshold
+    cdf = cuda_generator.generator_cdf_plain(iseed, scalars, tcc, ng,
+                                             exp_exp)
+    tcc = torch.where(tcc >= thr, tcc, torch.zeros_like(tcc))
+    zero = torch.zeros_like(cdf)
+    od = torch.where(cdf > 0.0, cuda_generator.sample_pdf_cheb(
+        pdf["cheb_fit"], fsd[..., None], cdf), zero)
+    od = torch.where((frac >= thr)[..., None], od, zero)
+    return torch.where(tcc[:, None, None] > 0.0, od, zero)
+
+
 def _cpu_launch(lib, iseed, scalars, tcc, ng, exp_exp, fsd, fit, threshold):
-    """The wrapper's launch of the sampled build, on CPU tensors."""
+    """The wrapper's launch of the kernel, on CPU tensors."""
     ncol, nlev = scalars.shape[:2]
     dtype = scalars.dtype
     cheb = fit["cheb"].to(dtype).contiguous()
@@ -118,17 +137,15 @@ def _cpu_launch(lib, iseed, scalars, tcc, ng, exp_exp, fsd, fit, threshold):
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
                          ids=["f64", "f32"])
-@pytest.mark.parametrize("ng", [14, 140])
+@pytest.mark.parametrize("ng", [1, 14, 32, 140])
 @pytest.mark.parametrize("overlap", OVERLAPS)
 def test_sampled_build_source_matches_plain(cpu_kernel, meridian, overlap,
                                             ng, dtype):
     config, pdf, iseed, frac, fsd, scalars, exp_exp, tcc = _case(
         meridian, overlap, dtype)
     thr = config.cloud_fraction_threshold
-    cdf = cuda_generator.generator_draw_scan_plain(iseed, scalars, tcc, ng,
-                                                   exp_exp)
-    want, _ = cloud_generator.sample_od_scaling(config, pdf, frac, fsd, cdf,
-                                                tcc)
+    want = _masked_cdf_route(config, pdf, iseed, frac, fsd, scalars, tcc, ng,
+                             exp_exp)
     got = _cpu_launch(cpu_kernel, iseed, scalars, tcc, ng, exp_exp, fsd,
                       pdf["cheb_fit"], thr)
     assert got.dtype == dtype and bool(torch.isfinite(got).all())
@@ -140,33 +157,22 @@ def test_sampled_build_source_matches_plain(cpu_kernel, meridian, overlap,
     rel = (got - want_).abs() / want_ / scale
     assert float(rel.max()) <= RTOL[dtype], float(rel.max())
     plain = cuda_generator.generator_draw_scan_plain(
-        iseed, scalars, tcc, ng, exp_exp, sample=(fsd, pdf["cheb_fit"], thr))
+        iseed, scalars, tcc, ng, exp_exp, fsd, pdf["cheb_fit"], thr)
     assert torch.equal(plain, want)
 
 
-def _counts():
-    return (cuda_generator.generator_draw_scan.launches,
-            cuda_generator.generator_draw_scan.sampled_launches)
-
-
 @pytest.fixture
-def routes(monkeypatch):
-    """Records the `sample` argument of each generator_draw_scan call
-    cloud_generator_device makes and whether sample_od_scaling ran."""
-    seen = {"sample": [], "sample_od_scaling": 0}
-    draw, sampler = (cloud_generator.generator_draw_scan,
-                     cloud_generator.sample_od_scaling)
+def calls(monkeypatch):
+    """Records the arguments of each generator_draw_scan call
+    cloud_generator_device makes."""
+    seen = []
+    draw = cloud_generator.generator_draw_scan
 
-    def spy_draw(*args, sample=None):
-        seen["sample"].append(sample)
-        return draw(*args, sample=sample)
-
-    def spy_sampler(*args):
-        seen["sample_od_scaling"] += 1
-        return sampler(*args)
+    def spy_draw(*args):
+        seen.append(args)
+        return draw(*args)
 
     monkeypatch.setattr(cloud_generator, "generator_draw_scan", spy_draw)
-    monkeypatch.setattr(cloud_generator, "sample_od_scaling", spy_sampler)
     return seen
 
 
@@ -177,59 +183,45 @@ def _generate(meridian, pdf, device="cpu", ng=14):
         config, pdf, on(iseed), on(frac), on(op), on(fsd), ng)
 
 
-def test_cpu_takes_the_plain_route(meridian, routes):
-    """The CDF build's plain version and sample_od_scaling, the Chebyshev
-    sampler; nothing is launched, and the result is the sampled build's
-    plain version's."""
+def _spans(prof):
+    names = {e.name for e in prof.events()}
+    return {"ecrad.generator.cumulator", "ecrad.generator.sampler"} <= names
+
+
+def test_cpu_takes_the_plain_route(meridian, calls):
+    """One generator_draw_scan call with the fit, inside the sampler's
+    span; nothing is launched, and the result is the plain version's."""
     config, pdf, iseed, frac, fsd, scalars, exp_exp, tcc = _case(
         meridian, meridian[0].overlap_scheme.name, torch.float64)
-    before = _counts()
-    od, tcc_thr = _generate(meridian, pdf)
-    assert routes == {"sample": [None], "sample_od_scaling": 1}
-    assert _counts() == before
+    thr = config.cloud_fraction_threshold
+    before = cuda_generator.generator_draw_scan.launches
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU]) as prof:
+        od, tcc_thr = _generate(meridian, pdf)
+    ((*_, ng, ee, fsd_in, fit, thr_in),) = calls
+    assert (ng, ee, thr_in) == (14, exp_exp, thr)
+    assert fit is pdf["cheb_fit"] and torch.equal(fsd_in, fsd)
+    assert cuda_generator.generator_draw_scan.launches == before
     assert torch.equal(od, cuda_generator.generator_draw_scan_plain(
-        iseed, scalars, tcc, 14, exp_exp,
-        sample=(fsd, pdf["cheb_fit"], config.cloud_fraction_threshold)))
+        iseed, scalars, tcc, 14, exp_exp, fsd, pdf["cheb_fit"], thr))
+    assert bool((od != 0.0).any())
     assert torch.equal(tcc_thr, tcc)
+    assert _spans(prof)
 
 
-def test_off_the_cpu_takes_the_sampled_build_or_raises(meridian, routes):
-    """Tensors on another device go to the sampled build, with the fit,
-    the fractional standard deviation and the threshold; where it cannot
-    launch it raises, with no fallback to the CDF route, and launches
-    nothing.  The sampler's span is open around it."""
+def test_off_the_cpu_takes_the_sampled_build_or_raises(meridian, calls):
+    """Tensors on another device go to the kernel, with the fit, the
+    fractional standard deviation and the threshold; where it cannot
+    launch it raises, with no fallback, and launches nothing.  The
+    sampler's span is open around it."""
     config, pdf = meridian[:2]
-    before = _counts()
+    before = cuda_generator.generator_draw_scan.launches
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU]) as prof:
         with pytest.raises(ValueError, match="unsupported device meta"):
             _generate(meridian, pdf, device="meta")
-    (sample,) = routes["sample"]
-    fsd, fit, thr = sample
+    ((*_, fsd, fit, thr),) = calls
     assert fsd.device.type == "meta" and fit is pdf["cheb_fit"]
     assert thr == config.cloud_fraction_threshold
-    assert routes["sample_od_scaling"] == 0
-    assert _counts() == before
-    names = {e.name for e in prof.events()}
-    assert {"ecrad.generator.cumulator", "ecrad.generator.sampler"} <= names
-
-
-def test_without_the_fit_takes_the_cdf_build_and_the_table(meridian,
-                                                           routes):
-    """PDF tables without the Chebyshev fit: the CDF build and
-    sample_od_scaling's bilinear table (sample_pdf_jnp), on the CPU and
-    off it."""
-    pdf = {k: v for k, v in meridian[1].items() if k != "cheb_fit"}
-    config, _, iseed, frac, fsd, scalars, exp_exp, tcc = _case(
-        meridian, meridian[0].overlap_scheme.name, torch.float64)
-    before = _counts()
-    od, _ = _generate(meridian, pdf)
-    cdf = cuda_generator.generator_draw_scan_plain(iseed, scalars, tcc, 14,
-                                                   exp_exp)
-    lut = cloud_generator.sample_pdf_jnp(pdf, fsd[..., None], cdf)
-    assert torch.equal(od, torch.where(od != 0.0, lut, od))
-    assert bool((od != 0.0).any())
-    with pytest.raises(ValueError, match="unsupported device meta"):
-        _generate(meridian, pdf, device="meta")
-    assert routes == {"sample": [None, None], "sample_od_scaling": 1}
-    assert _counts() == before
+    assert cuda_generator.generator_draw_scan.launches == before
+    assert _spans(prof)

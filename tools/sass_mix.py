@@ -7,10 +7,10 @@ Builds the kernels of ecrad_torch/csrc (ecrad_torch.kernels.build), or
 reads a listing saved earlier (--sass), and disassembles them with
 `cuobjdump -sass` (the CUDA toolkit's; --save keeps the listing).  For
 each function whose name holds `kernel` (default generator_draw_scan_kernel,
-the generator's draw build; f32 and f64), finds its loops (the spans that
-end in a backward branch), and prints for the longest one its
-instructions, its global stores (one per level in the draw build, so the
-levels an iteration covers) and the instructions per level by opcode.
+the McICA generator; f32 and f64), finds its loops (the spans that end in
+a backward branch), and prints for the longest one its instructions, its
+global stores (one per level in the generator, so the levels an
+iteration covers) and the instructions per level by opcode.
 That is the code the card runs per (column, layer, g-point), to hold
 against chip_smoke.py's INT_OPS, the least the work needs.
 """

@@ -43,6 +43,7 @@ JSON line per run and a summary line
 """
 
 import argparse
+import functools
 import json
 import os
 import shutil
@@ -95,6 +96,18 @@ def case_file(save, case):
     return os.path.join(save, case.replace("/", "__") + ".pt")
 
 
+def _sampler_args(f):
+    """f, or where f takes the generator's sampler inputs as one argument
+    ``sample`` (generator_draw_scan in checkouts that also kept the CDF
+    build), f taking them as the three last arguments, as chip_smoke.py
+    passes them."""
+    import inspect
+
+    if "sample" not in inspect.signature(f).parameters:
+        return f
+    return lambda *a, **kw: f(*a[:5], sample=a[5:], **kw)
+
+
 def worker(check, configs, names, save, planes=False):
     """Time this process's ecrad_torch (the first on sys.path) on the
     inputs of chip_smoke.py from ROOT, the kernels names lists (all when
@@ -138,8 +151,8 @@ def worker(check, configs, names, save, planes=False):
                     planes and name not in chip_smoke.PLANES):
                 continue
             kw = dict(planes=True) if planes else {}
-            fn = lambda *a, f=k[name]["wrapper"]: f(*a, **kw)  # noqa: E731
-            plain = lambda *a, f=k[name]["plain"]: f(*a, **kw)  # noqa: E731
+            fn = functools.partial(_sampler_args(k[name]["wrapper"]), **kw)
+            plain = functools.partial(_sampler_args(k[name]["plain"]), **kw)
             for i, (label, args) in enumerate(sets):
                 case = name if i == 0 else f"{name}_{label}"
                 key = f"{case}/{state}"
