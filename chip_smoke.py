@@ -67,7 +67,14 @@ the script exits non-zero:
                and on a set whose fractional standard deviation spans the
                fit's axis and beyond (fsd_spread), zero exactly where the
                plain version is, and also at 8192 columns (SAMPLED_NCOL)
-               at ng 140, 112 and 32.
+               at ng 140, 112 and 32.  The generator's cumulator
+               (generator_cumulate: the overlap cumulator and the packed
+               scalars, one launch a band set) is held to its plain
+               version in Exponential-Random and Maximum-Random overlap
+               and at decorrelation scalings whose exponents take x * x,
+               sqrt and pow, at 2048, 2049 and 8192 columns: float32 bit
+               for bit, float64 within 1e-13; it is timed with
+               its plain version at 2048 and 8192 columns.
 4. slice_f64 - the flagship (McICA) step (ecrad_torch.flagship) on the
                32-column meridian slice in float64 against the JAX package's
                float64 fluxes (tests/data/torch_flagship_meridian32.npz);
@@ -238,7 +245,12 @@ DEV = torch.device("cuda")
 F64_RTOL = 1e-10
 # ... and 1e-12 for the RRTMG gas optics, whose sums of table rows carry no
 # recurrence
-F64_RTOL_OF = {"rrtmg_lw_taumol": 1e-12, "rrtmg_sw_taumol": 1e-12}
+F64_RTOL_OF = {"rrtmg_lw_taumol": 1e-12, "rrtmg_sw_taumol": 1e-12,
+               # ... and 1e-13 for the generator's cumulator, which rounds
+               # op for op as its plain version (kernels.SOURCE_FLAGS); its
+               # float32 outputs must equal the plain version's bit for bit
+               # (check_kernel)
+               "generator_cumulate": 1e-13}
 F32_RTOL, F32_ATOL = 1e-4, 1e-3
 F32_VS_F64 = 2.0
 # The f64 slice against the JAX f64 reference (same algorithm, f64
@@ -288,6 +300,12 @@ KERNELS = {
         replaces="ecrad_tpu/solvers/pallas_generator.py:98, the draw at "
                  "ecrad_tpu/solvers/cloud_generator.py:451 and its sampling "
                  "epilogue"),
+    "generator_cumulate": dict(
+        wrapper=cuda_generator.generator_cumulate,
+        plain=cuda_generator.generator_cumulate_plain,
+        source="ecrad_torch/csrc/generator_cumulate.cu",
+        replaces="no TPU kernel (XLA runs ecrad_tpu/solvers/"
+                 "cloud_generator.py:26 cum_cloud_cover_exp_ran_jnp)"),
     "lw_fused": dict(
         wrapper=cuda_mcica.lw_fused, plain=cuda_mcica.lw_fused_plain,
         source="ecrad_torch/csrc/lw_fused.cu",
@@ -341,8 +359,9 @@ KERNELS = {
 # The RRTMG gas optics: one launch of each kernel a block on every path with
 # RRTMG gas optics, none on the ecCKD and monochromatic ones
 RRTMG = dict(rrtmg_lw_taumol=1, rrtmg_sw_taumol=1)
-# The McICA generator on the card: two launches of its kernel a block
-GENERATOR = dict(generator_draw_sample=2)
+# The McICA generator on the card: two launches of each of its kernels a
+# block, one a band set
+GENERATOR = dict(generator_draw_sample=2, generator_cumulate=2)
 # Each main path's launches per 2048-column block (all others 0); a
 # kernel's reported launches are those read in the first path listed here
 # that names it.
@@ -417,6 +436,10 @@ OPS = {
     # with two logs and a sqrt), the clamps and t 7, the fsd interpolation
     # of 15 coefficients ~56, the Clenshaw sum 46, exp and the masks 4
     "generator_draw_sample": lambda args, f: 23 + 160 * f(args[1][..., 0]),
+    # per (column, level): the pair cover 8, the clear-sky product with its
+    # clamp, division and select 6, the cover and overhang 2, the
+    # inhomogeneity overlap 4 and the cloud flag 1
+    "generator_cumulate": lambda args, f: 21,
     # clear 15 + sweeps 3+3+12+12 + derivatives 4; cloudy: merge + ref_trans
     "lw_fused": lambda args, f: 49 + 54 * f(args[5]),
     # clear ref_trans 105 + two scenes' SW sweeps 2 x 29; cloudy: merge +
@@ -575,7 +598,9 @@ def seed_sets(ncol):
 def generator_inputs(config, tables, cloud, sets):
     """[(label, arguments)] of the generator kernel for the cloud of
     random_state, one per (label, overlap scheme, seed_sets key, ng) of
-    sets, each with the sampler's inputs (fractional standard deviation,
+    sets, the scalars from the main path's route (scan_scalars: on the
+    card the cumulator kernel, generator_cumulate, but for Exp-Exp), each
+    with the sampler's inputs (fractional standard deviation,
     Chebyshev fit, cloud-fraction threshold), and the first again as
     "fsd_spread", its fractional standard deviation scaled over the
     levels from 0 to 4.5 (the fit's axis ends at 4), so that the
@@ -596,12 +621,29 @@ def generator_inputs(config, tables, cloud, sets):
     return out + [("fsd_spread", out[0][1][:5] + (spread, fit, thr))]
 
 
+def cumulate_inputs(config, cloud, suffix=""):
+    """[(label, arguments)] of the generator's cumulator for the cloud of
+    random_state: Exponential-Random and Maximum-Random overlap at the
+    configuration's decorrelation scaling (0.5: the exponent 2, x * x), and
+    Exponential-Random at 2.0 (the exponent 0.5, sqrt) and 0.8 (1.25,
+    pow)."""
+    frac, op = cloud["fraction"], cloud["overlap_param"]
+    thr = config.cloud_fraction_threshold
+    decorr = config.cloud_inhom_decorr_scaling
+    return [(label + suffix, (frac, op, max_ran, d, thr))
+            for label, max_ran, d in (("exp_ran", False, decorr),
+                                      ("max_ran", True, decorr),
+                                      ("decorr_sqrt", False, 2.0),
+                                      ("decorr_pow", False, 0.8))]
+
+
 def sample_inputs(ncol, dtype, seed):
     """{"generator_draw_sample": [(label, arguments)]} at the main paths'
     widths for the random state of random_state: the LW stream at 140
     g-points and the SW one at 112 on mcica_rrtmg, and the LW one at 32 on
-    ecckd_mcica."""
-    out = []
+    ecckd_mcica; and {"generator_cumulate": ...}, cumulate_inputs on the
+    mcica_rrtmg state (labels ending in _<ncol>)."""
+    out, cumulate = [], []
     for config_name, sets in (
             ("mcica_rrtmg", (("lw", "meridian_lw", "n_g_lw"),
                              ("sw", "meridian", "n_g_sw"))),
@@ -611,7 +653,9 @@ def sample_inputs(ncol, dtype, seed):
         out += generator_inputs(config, step.tables, cloud, [
             (label, config.overlap_scheme, seed_set, getattr(config, ng))
             for label, seed_set, ng in sets])[:len(sets)]
-    return {"generator_draw_sample": out}
+        if config_name == "mcica_rrtmg":
+            cumulate = cumulate_inputs(config, cloud, f"_{ncol}")
+    return {"generator_draw_sample": out, "generator_cumulate": cumulate}
 
 
 def rrtmg_inputs(step, kw):
@@ -873,6 +917,7 @@ def kernel_inputs(ncol, dtype, seed):
     rrtmg_lw, rrtmg_sw = rrtmg_inputs(step, kw)
     one = lambda args: [("meridian", args)]  # noqa: E731
     return {"generator_draw_sample": gen,
+            "generator_cumulate": cumulate_inputs(config, cloud),
             "lw_fused": [("meridian", fused["lw_fused"]),
                          ("no_derivatives",
                           fused["lw_fused"][:-1] + (False,))],
@@ -1017,6 +1062,8 @@ def bound(name, args, out):
         (ncol, nlev), ng = args[1].colh2o.shape, out[0].shape[-1]
     elif name.startswith("generator_draw"):   # (iseed, scalars, tcc, ng, ...)
         (ncol, nlev), ng = args[1].shape[:2], args[3]
+    elif name == "generator_cumulate":        # (frac, overlap_param, ...)
+        (ncol, nlev), ng = args[0].shape, 1
     else:
         ncol, nlev, ng = args[0].shape
     ops = OPS[name](args, lambda m: float(m.float().mean())) * ncol * nlev * ng
@@ -1046,6 +1093,9 @@ def rrtmg_needed_bytes(args, out):
 
 # Input sets timed besides the main path's (the first of kernel_inputs)
 TIMED = {"generator_draw_sample": ("sw", "ecckd", "ng1"),
+         "generator_cumulate": ("max_ran", "decorr_sqrt", "decorr_pow",
+                                f"exp_ran_{SAMPLED_NCOL}",
+                                f"max_ran_{SAMPLED_NCOL}"),
          "spartacus_sw": ("all_cloudy", "ecckd"),
          "spartacus_lw": ("multilayer", "all_cloudy", "ecckd"),
          "tripleclouds_sw": ("all_cloudy", "ecckd"),
@@ -1076,6 +1126,11 @@ def check_kernel(name, inputs, ncol, err, checked):
                 and torch.equal(got32 != 0.0, ref32 != 0.0)):
             raise AssertionError(f"{name}/{label}/{ncol}: zero elsewhere "
                                  f"than its plain version")
+        if name == "generator_cumulate" and not all(
+                torch.equal(v, _outputs(ref32)[n])
+                for n, v in _outputs(got32).items()):
+            raise AssertionError(f"{name}/{label}/{ncol}: float32 outputs "
+                                 f"differ from its plain version's")
         err32 = _compare_f32(got32, ref32, ref64)
         for key, v in ((f"float64/{ncol}", err64),
                        *((f"float32/{ncol}/{n}", e)
@@ -1138,6 +1193,8 @@ def time_kernel(name, inputs, res, main):
         a = _f32(args)
         times = dict(ms=median_ms(lambda: k["wrapper"](*a)),
                      **bound(name, a, k["wrapper"](*a)))
+        if name == "generator_cumulate":   # its plain version on each set
+            times["plain_ms"] = median_ms(lambda: k["plain"](*a))
         if name in PLANES:
             with_planes = bound(name, a, k["wrapper"](*a, planes=True))
             times.update(
@@ -1170,13 +1227,16 @@ def kernels_phase(smi):
             torch.cuda.empty_cache()
             phase("kernel_inputs", ncol=ncol, inputs=make.__name__,
                   peak_memory_bytes=torch.cuda.max_memory_allocated())
-    # the generator also at the slab cells' block of 8192 columns
-    res = results["generator_draw_sample"]
+    # the generator's two kernels also at the slab cells' block of 8192
+    # columns, the cumulator timed there too
     torch.cuda.reset_peak_memory_stats()
-    check_kernel("generator_draw_sample",
-                 sample_inputs(SAMPLED_NCOL, torch.float64,
-                               seed=SAMPLED_NCOL)["generator_draw_sample"],
-                 SAMPLED_NCOL, res["max_abs_err"], res["checked"])
+    for name, sets in sample_inputs(SAMPLED_NCOL, torch.float64,
+                                    seed=SAMPLED_NCOL).items():
+        res = results[name]
+        check_kernel(name, sets, SAMPLED_NCOL, res["max_abs_err"],
+                     res["checked"])
+        if name == "generator_cumulate":
+            time_kernel(name, sets, res, main=False)
     torch.cuda.empty_cache()
     phase("kernel_inputs", ncol=SAMPLED_NCOL, inputs=sample_inputs.__name__,
           peak_memory_bytes=torch.cuda.max_memory_allocated())

@@ -37,9 +37,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # k * mu0 = 1 the Meador-Weaver direct-beam coefficients lose up to ~10
 # digits (one f64 rounding there becomes a ~1e-6 relative change), which
 # other rounding carries into the fluxes at more than chip_smoke.py's f64
-# tolerance.  The f32 builds were timed without contraction (PERF.md).
+# tolerance.  The f32 builds were timed without contraction (PERF.md).  The
+# generator's cumulator, generator_cumulate.cu, contracts none either, so
+# that its float32 covers equal the plain version's bit for bit: the
+# generator's scan compares random numbers against them.
 SOURCE_FLAGS = {"sw_fused.cu": ("-fmad=false",),
-                "tripleclouds_sw.cu": ("-fmad=false",)}
+                "tripleclouds_sw.cu": ("-fmad=false",),
+                "generator_cumulate.cu": ("-fmad=false",)}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -49,6 +53,10 @@ _SIGNATURES = {
     # the fit's table, od_scaling; ncol, nlev, ng, exp-exp, the table's
     # shape; the fit's axes and the cloud-fraction threshold
     "ecrad_generator_draw_sample": [_P] * 6 + [_I] * 6 + [_D] * 5 + [_P],
+    # its cumulator: cloud fraction, overlap parameter, the packed scalars,
+    # total cloud cover; ncol, nlev, Maximum-Random; the inhomogeneity
+    # overlap's exponent and the cloud-fraction threshold
+    "ecrad_generator_cumulate": [_P] * 4 + [_I] * 3 + [_D] * 2 + [_P],
     # the fused kernels take a last int: write the per-g planes
     "ecrad_lw_fused": [_P] + [_I] * 5 + [_P],
     "ecrad_sw_fused": [_P] + [_I] * 6 + [_P],

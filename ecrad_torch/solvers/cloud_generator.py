@@ -4,10 +4,13 @@
 Random fields come from the threefry port (solvers/threefry.py), keyed
 per column exactly as the JAX package keys them, so the sample is the
 JAX package's sample bit for bit (up to roundoff in the cumulators).
-The cumulators are plain torch; the draws, the per-level overlap scan and
-the PDF sampling run in one kernel, ``generator_draw_scan``
-(solvers/cuda_generator.py), which makes the random numbers and the
-optical-depth scaling in registers, or on the CPU its plain version.
+The Exponential-Random and Maximum-Random cumulators run in one kernel,
+``generator_cumulate`` (solvers/cuda_generator.py), which writes the packed
+per-level scalars; the Exp-Exp one is plain torch.  The draws, the
+per-level overlap scan and the PDF sampling run in another,
+``generator_draw_scan``, which makes the random numbers and the
+optical-depth scaling in registers.  On the CPU both run their plain
+versions.
 """
 
 from __future__ import annotations
@@ -17,36 +20,10 @@ import torch
 
 from ecrad_torch import profiling
 from ecrad_torch.config import Config, Overlap
-from ecrad_torch.solvers.cuda_generator import generator_draw_scan
+from ecrad_torch.solvers.cuda_generator import (
+    MAX_CLOUD_FRAC, generator_cumulate, generator_draw_scan, pack_scalars)
 
-MAX_CLOUD_FRAC = 1.0 - 2.0e-6
 MIN_FRAC = 1.0e-6          # radiation_cloud_cover.F90:380
-
-
-def cum_cloud_cover_exp_ran_jnp(frac, overlap_param, max_ran=False):
-    """Overlap cumulator (radiation_cloud_cover.F90:124-229).
-
-    frac (ncol, nlev); overlap_param (ncol, nlev-1).
-    Returns (cum_cloud_cover (ncol, nlev), pair_cloud_cover (ncol, nlev-1)).
-    """
-    f0, f1 = frac[:, :-1], frac[:, 1:]
-    if max_ran:
-        pair = torch.maximum(f0, f1)
-    else:
-        a = overlap_param
-        pair = (a * torch.maximum(f0, f1)
-                + (1.0 - a) * (f0 + f1 - f0 * f1))
-
-    cum_product = 1.0 - frac[:, 0]
-    levels = [frac[:, 0]]
-    for j in range(frac.shape[1] - 1):
-        f = frac[:, j]
-        cum_product = torch.where(
-            f >= MAX_CLOUD_FRAC, torch.zeros_like(cum_product),
-            cum_product * (1.0 - pair[:, j])
-            / torch.clamp(1.0 - f, min=1.0e-12))
-        levels.append(1.0 - cum_product)
-    return torch.stack(levels, dim=1), pair
 
 
 def cum_cloud_cover_exp_exp_jnp(frac, overlap_param):
@@ -241,45 +218,24 @@ def fit_pdf_cheb(pdf_tables, degree: int = 14):
     }
 
 
-def _m1_fields(frac, cum, pair, overhang, op_inhom):
-    """Per-level fields shifted to the jlev-1 position (dummy level -1
-    prepended)."""
-    z = lambda x: torch.zeros_like(x[:, :1])
-    frac_m1 = torch.cat([z(frac), frac[:, :-1]], dim=1)
-    cum_m1 = torch.cat([z(cum), cum[:, :-1]], dim=1)
-    pair_m1 = torch.cat([z(pair), pair], dim=1)          # pair at jlev-1
-    over_m1 = torch.cat([z(overhang), overhang], dim=1)
-    op_m1 = torch.cat([z(op_inhom), op_inhom], dim=1)
-    return frac_m1, cum_m1, pair_m1, over_m1, op_m1
-
-
 def scan_scalars(config: Config, frac, overlap_param):
     """The generator scan's per-level inputs for a cloud-fraction profile:
     the packed per-level scalars (ncol, nlev, 8), the exp-exp flag and the
-    total cloud cover (ncol,)."""
+    total cloud cover (ncol,).  Exponential-Random and Maximum-Random
+    overlap take the cumulator kernel's wrapper (one launch on the card);
+    Exp-Exp cumulates in torch on every device."""
     with profiling.scope("ecrad.generator.cumulator"):
         exp_exp = config.overlap_scheme == Overlap.EXPONENTIAL
+        decorr = config.cloud_inhom_decorr_scaling
+        thr = config.cloud_fraction_threshold
         if exp_exp:
             cum, pair = cum_cloud_cover_exp_exp_jnp(frac, overlap_param)
+            scalars, total_cloud_cover = pack_scalars(
+                frac, overlap_param, cum, pair, decorr, thr)
         else:
-            max_ran = config.overlap_scheme == Overlap.MAXIMUM_RANDOM
-            cum, pair = cum_cloud_cover_exp_ran_jnp(frac, overlap_param,
-                                                    max_ran=max_ran)
-        total_cloud_cover = cum[:, -1].contiguous()
-        overhang = cum[:, 1:] - cum[:, :-1]
-
-        decorr = config.cloud_inhom_decorr_scaling
-        op_inhom = torch.where(overlap_param > 0.0,
-                               torch.clamp(overlap_param, min=1e-30)
-                               ** (1.0 / decorr),
-                               overlap_param)
-
-        is_any_cloud = frac >= config.cloud_fraction_threshold
-        frac_m1, cum_m1, pair_m1, over_m1, op_m1 = _m1_fields(
-            frac, cum, pair, overhang, op_inhom)
-        scalars = torch.stack(
-            [is_any_cloud.to(frac.dtype), frac, frac_m1, cum, cum_m1,
-             pair_m1, over_m1, op_m1], dim=-1).contiguous()
+            scalars, total_cloud_cover = generator_cumulate(
+                frac, overlap_param,
+                config.overlap_scheme == Overlap.MAXIMUM_RANDOM, decorr, thr)
         return scalars, exp_exp, total_cloud_cover
 
 
@@ -295,8 +251,8 @@ def cloud_generator_device(config: Config, pdf_tables, iseed, frac,
     Returns (od_scaling (ncol, nlev, ng), total_cloud_cover (ncol,), set
     to 0 below the cloud-fraction threshold).
 
-    The cumulators, then one ``generator_draw_scan`` with the Chebyshev
-    fit that ``setup_radiation`` makes for McICA.
+    ``scan_scalars`` (the cumulator), then one ``generator_draw_scan``
+    with the Chebyshev fit that ``setup_radiation`` makes for McICA.
     """
     scalars, exp_exp, total_cloud_cover = scan_scalars(config, frac,
                                                        overlap_param)

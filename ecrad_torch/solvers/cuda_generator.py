@@ -1,10 +1,16 @@
-"""McICA cloud-generator kernel: the wrapper of its CUDA build, its plain
-torch version and the Chebyshev sampler they share.
+"""McICA cloud-generator kernels: the wrappers of their CUDA builds, their
+plain torch versions and the Chebyshev sampler the draw kernel's shares.
 
-Replaces ``ecrad_tpu/solvers/pallas_generator.py:generator_scan``, the
-threefry draws that feed it (``ecrad_tpu/solvers/cloud_generator.py``
-draw) and the generator's sampling epilogue; the kernel is
-``ecrad_torch/csrc/generator_scan.cu``.  Layout is the port's classic one:
+``generator_cumulate`` turns a cloud-fraction profile into the generator's
+packed per-level scalars and total cloud cover in one launch
+(``ecrad_torch/csrc/generator_cumulate.cu``, Exponential-Random or
+Maximum-Random overlap); its plain version is the overlap cumulator
+``cum_cloud_cover_exp_ran_jnp`` followed by ``pack_scalars``.
+
+The draw kernel (``ecrad_torch/csrc/generator_scan.cu``) replaces
+``ecrad_tpu/solvers/pallas_generator.py:generator_scan``, the threefry
+draws that feed it (``ecrad_tpu/solvers/cloud_generator.py`` draw) and the
+generator's sampling epilogue.  Layout is the port's classic one:
 random planes, the CDF and od_scaling ``(ncol, nlev, ng)``, the eight
 packed per-level scalars ``(ncol, nlev, 8)`` in the order (any_cloud,
 frac, frac_m1, cum, cum_m1, pair_m1, overhang_m1, op_inhom_m1), the
@@ -27,7 +33,119 @@ from ecrad_torch import kernels
 from ecrad_torch.solvers import threefry
 
 _ANY, _F, _FM1, _C, _CM1, _PM1, _OM1, _OPIM1 = range(8)
+MAX_CLOUD_FRAC = 1.0 - 2.0e-6
 
+
+# --- the cumulator's plain version and its wrapper ---------------------------
+
+def cum_cloud_cover_exp_ran_jnp(frac, overlap_param, max_ran=False):
+    """Overlap cumulator (radiation_cloud_cover.F90:124-229).
+
+    frac (ncol, nlev); overlap_param (ncol, nlev-1).
+    Returns (cum_cloud_cover (ncol, nlev), pair_cloud_cover (ncol, nlev-1)).
+    """
+    f0, f1 = frac[:, :-1], frac[:, 1:]
+    if max_ran:
+        pair = torch.maximum(f0, f1)
+    else:
+        a = overlap_param
+        pair = (a * torch.maximum(f0, f1)
+                + (1.0 - a) * (f0 + f1 - f0 * f1))
+
+    cum_product = 1.0 - frac[:, 0]
+    levels = [frac[:, 0]]
+    for j in range(frac.shape[1] - 1):
+        f = frac[:, j]
+        cum_product = torch.where(
+            f >= MAX_CLOUD_FRAC, torch.zeros_like(cum_product),
+            cum_product * (1.0 - pair[:, j])
+            / torch.clamp(1.0 - f, min=1.0e-12))
+        levels.append(1.0 - cum_product)
+    return torch.stack(levels, dim=1), pair
+
+
+def _m1_fields(frac, cum, pair, overhang, op_inhom):
+    """Per-level fields shifted to the jlev-1 position (dummy level -1
+    prepended)."""
+    z = lambda x: torch.zeros_like(x[:, :1])
+    frac_m1 = torch.cat([z(frac), frac[:, :-1]], dim=1)
+    cum_m1 = torch.cat([z(cum), cum[:, :-1]], dim=1)
+    pair_m1 = torch.cat([z(pair), pair], dim=1)          # pair at jlev-1
+    over_m1 = torch.cat([z(overhang), overhang], dim=1)
+    op_m1 = torch.cat([z(op_inhom), op_inhom], dim=1)
+    return frac_m1, cum_m1, pair_m1, over_m1, op_m1
+
+
+def pack_scalars(frac, overlap_param, cum, pair, decorr, threshold):
+    """The generator's packed per-level scalars (ncol, nlev, 8) and the
+    total cloud cover (ncol,) of a cumulator's cover cum (ncol, nlev) and
+    pair cover (ncol, nlev-1), with the inhomogeneity decorrelation
+    scaling decorr and the cloud-fraction threshold."""
+    total_cloud_cover = cum[:, -1].contiguous()
+    overhang = cum[:, 1:] - cum[:, :-1]
+    op_inhom = torch.where(overlap_param > 0.0,
+                           torch.clamp(overlap_param, min=1e-30)
+                           ** (1.0 / decorr),
+                           overlap_param)
+    is_any_cloud = frac >= threshold
+    frac_m1, cum_m1, pair_m1, over_m1, op_m1 = _m1_fields(
+        frac, cum, pair, overhang, op_inhom)
+    scalars = torch.stack(
+        [is_any_cloud.to(frac.dtype), frac, frac_m1, cum, cum_m1,
+         pair_m1, over_m1, op_m1], dim=-1).contiguous()
+    return scalars, total_cloud_cover
+
+
+def generator_cumulate_plain(frac, overlap_param, max_ran, decorr,
+                             threshold):
+    """The cumulator kernel in plain torch: ``cum_cloud_cover_exp_ran_jnp``,
+    then ``pack_scalars``."""
+    cum, pair = cum_cloud_cover_exp_ran_jnp(frac, overlap_param,
+                                            max_ran=max_ran)
+    return pack_scalars(frac, overlap_param, cum, pair, decorr, threshold)
+
+
+def generator_cumulate(frac, overlap_param, max_ran, decorr, threshold):
+    """The generator's packed per-level scalars (ncol, nlev, 8) and total
+    cloud cover (ncol,) for the cloud fraction frac (ncol, nlev) and the
+    overlap parameter (ncol, nlev-1), in Maximum-Random overlap where
+    max_ran, else Exponential-Random, with the inhomogeneity decorrelation
+    scaling decorr and the cloud-fraction threshold.  CPU tensors run the
+    plain version; CUDA tensors launch the kernel."""
+    if frac.device.type == "cpu":
+        return generator_cumulate_plain(frac, overlap_param, max_ran, decorr,
+                                        threshold)
+    if frac.dim() != 2 or frac.shape[1] < 1:
+        raise ValueError(f"generator_cumulate: frac has shape "
+                         f"{tuple(frac.shape)}, expected (ncol, nlev >= 1)")
+    ncol, nlev = frac.shape
+    frac, overlap_param = frac.contiguous(), overlap_param.contiguous()
+    kernels.check_inputs("generator_cumulate", frac, {
+        "frac": (frac, (ncol, nlev)),
+        "overlap_param": (overlap_param, (ncol, nlev - 1))})
+    scalars = torch.empty((ncol, nlev, 8), dtype=frac.dtype,
+                          device=frac.device)
+    total_cloud_cover = torch.empty((ncol,), dtype=frac.dtype,
+                                    device=frac.device)
+    if ncol == 0:
+        return scalars, total_cloud_cover
+    lib = kernels.library()
+    fn = (lib.ecrad_generator_cumulate_f32 if frac.dtype == torch.float32
+          else lib.ecrad_generator_cumulate_f64)
+    with torch.cuda.device(frac.device):
+        code = fn(frac.data_ptr(), overlap_param.data_ptr(),
+                  scalars.data_ptr(), total_cloud_cover.data_ptr(), ncol,
+                  nlev, int(bool(max_ran)), 1.0 / decorr, threshold,
+                  kernels.stream_of(frac))
+    kernels.check(code, "generator_cumulate")
+    generator_cumulate.launches += 1
+    return scalars, total_cloud_cover
+
+
+generator_cumulate.launches = 0
+
+
+# --- the draw kernel's plain version, its sampler and its wrapper ------------
 
 def generator_scan_plain(rc, ri, ri2, scalars, trigger, exp_exp):
     """The level scan as a torch loop over levels (the scan of the

@@ -45,6 +45,8 @@ inline double __hiloint2double(int hi, int lo) {
   std::memcpy(&d, &u, sizeof d);
   return d;
 }
+inline float rsqrtf(float x) { return 1.0f / std::sqrt(x); }
+inline double rsqrt(double x) { return 1.0 / std::sqrt(x); }
 using std::max;
 using std::min;
 typedef int cudaError_t;

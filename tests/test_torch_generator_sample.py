@@ -24,8 +24,9 @@ CPU, and the one route cloud_generator_device takes to it.
 * cloud_generator_device's one route: generator_draw_scan with the
   Chebyshev fit, the fractional standard deviation and the threshold,
   inside the sampler's span; CPU tensors run the plain version and launch
-  nothing; other tensors go to the kernel, which raises where it cannot
-  launch, with no fallback.
+  nothing; other tensors go to the kernels (first the cumulator's, but in
+  Exp-Exp overlap), which raise where they cannot launch, with no
+  fallback.
 The build with nvcc and the runs on the card are chip_smoke.py's.
 """
 
@@ -176,16 +177,17 @@ def calls(monkeypatch):
     return seen
 
 
-def _generate(meridian, pdf, device="cpu", ng=14):
-    config, _, iseed, frac, op, fsd = meridian
+def _generate(meridian, pdf, device="cpu", ng=14, config=None):
+    config = config or meridian[0]
+    _, _, iseed, frac, op, fsd = meridian
     on = lambda t: t.to(device)  # noqa: E731
     return cloud_generator.cloud_generator_device(
         config, pdf, on(iseed), on(frac), on(op), on(fsd), ng)
 
 
-def _spans(prof):
+def _spans(prof, which=("cumulator", "sampler")):
     names = {e.name for e in prof.events()}
-    return {"ecrad.generator.cumulator", "ecrad.generator.sampler"} <= names
+    return {f"ecrad.generator.{w}" for w in which} <= names
 
 
 def test_cpu_takes_the_plain_route(meridian, calls):
@@ -210,18 +212,31 @@ def test_cpu_takes_the_plain_route(meridian, calls):
 
 
 def test_off_the_cpu_takes_the_sampled_build_or_raises(meridian, calls):
-    """Tensors on another device go to the kernel, with the fit, the
-    fractional standard deviation and the threshold; where it cannot
-    launch it raises, with no fallback, and launches nothing.  The
-    sampler's span is open around it."""
+    """Tensors on another device go to the kernels.  In the flagship's
+    Exponential-Random overlap the cumulator's kernel comes first and
+    raises where it cannot launch, inside the cumulator's span, before the
+    draw kernel is called.  In Exp-Exp overlap (its cumulator torch on every
+    device) the draw kernel is called with the fit, the fractional
+    standard deviation and the threshold, and raises, inside the sampler's
+    span.  Either way there is no fallback, and nothing is launched."""
     config, pdf = meridian[:2]
-    before = cuda_generator.generator_draw_scan.launches
+    before = (cuda_generator.generator_cumulate.launches,
+              cuda_generator.generator_draw_scan.launches)
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU]) as prof:
-        with pytest.raises(ValueError, match="unsupported device meta"):
+        with pytest.raises(ValueError, match="generator_cumulate: "
+                           "unsupported device meta"):
             _generate(meridian, pdf, device="meta")
-    ((*_, fsd, fit, thr),) = calls
-    assert fsd.device.type == "meta" and fit is pdf["cheb_fit"]
+    assert not calls and _spans(prof, ("cumulator",))
+    exp_exp = config.replace(overlap_scheme=Overlap.EXPONENTIAL)
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU]) as prof:
+        with pytest.raises(ValueError, match="generator_draw_scan: "
+                           "unsupported device meta"):
+            _generate(meridian, pdf, device="meta", config=exp_exp)
+    ((*_, ee, fsd, fit, thr),) = calls
+    assert ee and fsd.device.type == "meta" and fit is pdf["cheb_fit"]
     assert thr == config.cloud_fraction_threshold
-    assert cuda_generator.generator_draw_scan.launches == before
+    assert (cuda_generator.generator_cumulate.launches,
+            cuda_generator.generator_draw_scan.launches) == before
     assert _spans(prof)
