@@ -43,6 +43,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ecrad_torch import profiling
 from ecrad_torch.config import Config, Entrapment, PdfShape
 from ecrad_torch.solvers import cuda_spartacus, two_stream
 from ecrad_torch.solvers.cuda_tripleclouds import merge_regions
@@ -144,14 +145,17 @@ def _transfer_rates(reg_fracs, edge_length, dz, tan_angle, max_rate):
 
 def _prep(config: Config, cloud_fraction, fractional_std, overlap_param,
           pressure_hl, temperature_hl, inv_cloud_size, inv_inhom_size):
-    """Shared SPARTACUS geometry prep (radiation_spartacus_sw.F90:110-296)."""
-    reg_fracs, od_scaling = calc_region_properties(
-        cloud_fraction, fractional_std,
-        config.cloud_pdf_shape == PdfShape.GAMMA,
-        config.cloud_fraction_threshold, n_regions=config.nregions)
-    u_mat, v_mat, cloud_cover = calc_overlap_matrices(
-        reg_fracs, overlap_param, config.cloud_inhom_decorr_scaling,
-        config.cloud_fraction_threshold)
+    """Shared SPARTACUS geometry prep (radiation_spartacus_sw.F90:110-296);
+    the region fractions and overlap matrices in the span
+    ``ecrad.solvers.regions``."""
+    with profiling.scope("ecrad.solvers.regions"):
+        reg_fracs, od_scaling = calc_region_properties(
+            cloud_fraction, fractional_std,
+            config.cloud_pdf_shape == PdfShape.GAMMA,
+            config.cloud_fraction_threshold, n_regions=config.nregions)
+        u_mat, v_mat, cloud_cover = calc_overlap_matrices(
+            reg_fracs, overlap_param, config.cloud_inhom_decorr_scaling,
+            config.cloud_fraction_threshold)
     clear_layer = cloud_fraction <= 0.0
 
     phl, thl = pressure_hl, temperature_hl

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import torch
 
+from ecrad_torch import profiling
 from ecrad_torch.config import Config, PdfShape
 from ecrad_torch.solvers import adding, cuda_tripleclouds, two_stream
 from ecrad_torch.solvers.cuda_adding import keeper
@@ -142,13 +143,16 @@ def calc_overlap_matrices(reg_fracs, overlap_param, decorr_scaling,
 
 
 def _regions(config, cloud_fraction, fractional_std, overlap_param):
-    reg_fracs, od_scaling = calc_region_properties(
-        cloud_fraction, fractional_std,
-        config.cloud_pdf_shape == PdfShape.GAMMA,
-        config.cloud_fraction_threshold, n_regions=config.nregions)
-    u_mat, v_mat, cloud_cover = calc_overlap_matrices(
-        reg_fracs, overlap_param, config.cloud_inhom_decorr_scaling,
-        config.cloud_fraction_threshold)
+    """The region fractions and od scalings and the overlap matrices, in
+    the span ``ecrad.solvers.regions``."""
+    with profiling.scope("ecrad.solvers.regions"):
+        reg_fracs, od_scaling = calc_region_properties(
+            cloud_fraction, fractional_std,
+            config.cloud_pdf_shape == PdfShape.GAMMA,
+            config.cloud_fraction_threshold, n_regions=config.nregions)
+        u_mat, v_mat, cloud_cover = calc_overlap_matrices(
+            reg_fracs, overlap_param, config.cloud_inhom_decorr_scaling,
+            config.cloud_fraction_threshold)
     return reg_fracs, od_scaling, u_mat, v_mat, cloud_cover
 
 

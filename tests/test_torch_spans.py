@@ -1,9 +1,10 @@
 """The step's profiler spans (``profiling.scope``) on the CPU: one
 ``pipeline.radiation_blocked`` call of two blocks under torch.profiler
-opens every span as often as SPANS says, each inside its parent on the
-same thread; without a profiler no ``record_function`` is opened; and the
-fluxes are bit for bit the same with and without one, in float64 and
-float32."""
+opens every span as often as SPANS and the configuration's own spans say,
+each inside its parent on the same thread; without a profiler no
+``record_function`` is opened; and the fluxes are bit for bit the same
+with and without one, in float64 and float32.  SPARTACUS runs on a window
+of levels, where its CPU step takes seconds."""
 
 import collections
 import json
@@ -12,19 +13,17 @@ import pytest
 import torch
 
 from ecrad_torch import flagship
+from tests.torch_steps import window
 
 torch.set_num_threads(2)
 
 NCOL, BLOCK = 8, 4
-CONFIGS = ("mcica_rrtmg", "ecckd_mcica")
 # span -> (the span it opens inside, opens in a call of two blocks, each
-# with both band sets on McICA)
+# with both band sets), in every configuration
 SPANS = {
     "ecrad.blocking": (None, 2),
     "ecrad.step": (None, 2),
     "ecrad.generator": ("ecrad.step", 2),
-    "ecrad.generator.cumulator": ("ecrad.generator", 4),
-    "ecrad.generator.sampler": ("ecrad.generator", 4),
     "ecrad.optics": ("ecrad.step", 2),
     "ecrad.optics.gas": ("ecrad.optics", 2),
     "ecrad.optics.aerosol": ("ecrad.optics", 2),
@@ -32,6 +31,22 @@ SPANS = {
     "ecrad.solvers": ("ecrad.step", 4),
     "ecrad.outputs": ("ecrad.step", 6),
 }
+# the McICA generator's cumulator and sampler, in each band set
+GENERATOR = {
+    "ecrad.generator.cumulator": ("ecrad.generator", 4),
+    "ecrad.generator.sampler": ("ecrad.generator", 4),
+}
+# the three regions and their overlap matrices, built in each band set
+REGIONS = {"ecrad.solvers.regions": ("ecrad.solvers", 4)}
+# configuration -> (its own spans, the levels its step runs on)
+CONFIGS = {"mcica_rrtmg": (GENERATOR, None),
+           "ecckd_mcica": (GENERATOR, None),
+           "tripleclouds_ecckd": (REGIONS, None),
+           "spartacus_ecckd": (REGIONS, slice(88, 100))}
+
+
+def spans_of(name):
+    return {**SPANS, **CONFIGS[name][0]}
 
 
 @pytest.fixture(scope="module")
@@ -41,9 +56,13 @@ def steps():
 
     def get(name, dtype):
         if (name, dtype) not in built:
-            built[name, dtype] = flagship.build(
+            step, args = flagship.build(
                 ncol=NCOL, dtype=dtype, device="cpu", block_size=BLOCK,
                 config_name=name)
+            levels = CONFIGS[name][1]
+            if levels is not None:
+                args = window(args, levels, torch.as_tensor)
+            built[name, dtype] = step, args
         return built[name, dtype]
     return get
 
@@ -66,10 +85,11 @@ def _profiled(step, args, tmp_path):
 @pytest.mark.parametrize("name", CONFIGS)
 def test_spans_counted_and_nested(steps, name, tmp_path):
     _, spans = _profiled(*steps(name, torch.float64), tmp_path)
+    expected = spans_of(name)
     counts = collections.Counter(span for span, *_ in spans)
-    assert counts == {span: n for span, (_, n) in SPANS.items()}
+    assert counts == {span: n for span, (_, n) in expected.items()}
     for span, start, end, tid in spans:
-        parent = SPANS[span][0]
+        parent = expected[span][0]
         if parent is None:
             continue
         assert any(p == parent and p_tid == tid and p_start <= start
@@ -93,7 +113,7 @@ def test_no_range_without_a_profiler(steps, name, monkeypatch, tmp_path):
     assert opened == []
     _profiled(step, args, tmp_path)
     assert collections.Counter(opened) == {
-        span: n for span, (_, n) in SPANS.items()}
+        span: n for span, (_, n) in spans_of(name).items()}
 
 
 @pytest.mark.parametrize("dtype", (torch.float64, torch.float32))
