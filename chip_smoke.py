@@ -74,7 +74,16 @@ the script exits non-zero:
                and at decorrelation scalings whose exponents take x * x,
                sqrt and pow, at 2048, 2049 and 8192 columns: float32 bit
                for bit, float64 within 1e-13; it is timed with
-               its plain version at 2048 and 8192 columns.
+               its plain version at 2048 and 8192 columns.  The
+               SPARTACUS layer matrices (spartacus_sw_mats,
+               spartacus_lw_mats: cuda_spartacus.sw_layer_mats and
+               lw_layer_mats, a build and a refine pass, one launch set a
+               band set) are held to their plain versions on the
+               spartacus_3d state at RRTMG widths (also with the mask of
+               use_expm_everywhere, "everywhere"), on the
+               spartacus_ecckd state at 2048 and 2049 columns and at 8192
+               (SAMPLED_NCOL, "ecckd_8192"), in a group of inputs of their
+               own, and timed with their plain versions on each set.
 4. slice_f64 - the flagship (McICA) step (ecrad_torch.flagship) on the
                32-column meridian slice in float64 against the JAX package's
                float64 fluxes (tests/data/torch_flagship_meridian32.npz);
@@ -163,6 +172,7 @@ Then one JSON line with the per-kernel results, the nvidia-smi line, and
 as the last line {"ok": true, "device": {...}}.
 """
 
+import contextlib
 import dataclasses
 import functools
 import json
@@ -347,6 +357,18 @@ KERNELS = {
         plain=cuda_spartacus.lw_sweeps_plain,
         source="ecrad_torch/csrc/spartacus_lw.cu",
         replaces="ecrad_tpu/solvers/pallas_spartacus.py:346"),
+    "spartacus_sw_mats": dict(
+        wrapper=cuda_spartacus.sw_layer_mats,
+        plain=spartacus._sw_layer_mats,
+        source="ecrad_torch/csrc/spartacus_layer_mats.cu",
+        replaces="no TPU kernel (XLA builds ecrad_tpu/solvers/spartacus.py's "
+                 "SW layer matrices)"),
+    "spartacus_lw_mats": dict(
+        wrapper=cuda_spartacus.lw_layer_mats,
+        plain=spartacus._lw_layer_mats,
+        source="ecrad_torch/csrc/spartacus_layer_mats.cu",
+        replaces="no TPU kernel (XLA builds ecrad_tpu/solvers/spartacus.py's "
+                 "LW layer matrices)"),
     "rrtmg_lw_taumol": dict(
         wrapper=cuda_rrtmg.lw_taumol, plain=cuda_rrtmg.lw_taumol_plain,
         source="ecrad_torch/csrc/rrtmg_gas.cu",
@@ -362,6 +384,11 @@ RRTMG = dict(rrtmg_lw_taumol=1, rrtmg_sw_taumol=1)
 # The McICA generator on the card: two launches of each of its kernels a
 # block, one a band set
 GENERATOR = dict(generator_draw_sample=2, generator_cumulate=2)
+# SPARTACUS: the two sweeps a block, and one launch set of the layer
+# matrices' kernels (build and refine passes) a band set
+SPARTACUS = dict(spartacus_sw=1, spartacus_lw=1, spartacus_sw_mats=1,
+                 spartacus_lw_mats=1)
+LAYER_MATS = ("spartacus_sw_mats", "spartacus_lw_mats")
 # Each main path's launches per 2048-column block (all others 0); a
 # kernel's reported launches are those read in the first path listed here
 # that names it.
@@ -371,7 +398,7 @@ MAIN_PATHS = {
                                **RRTMG),
     "cloudless_rrtmg": dict(lw_noscat_sweeps=1, sw_sweeps=1, **RRTMG),
     "homogeneous_rrtmg": dict(scat_sweeps=2, sw_fused=1, **RRTMG),
-    "spartacus_3d": dict(spartacus_sw=1, spartacus_lw=1, **RRTMG),
+    "spartacus_3d": dict(**SPARTACUS, **RRTMG),
     "tripleclouds_ecckd": dict(tripleclouds_lw=1, tripleclouds_sw=1),
     "ecckd_mcica": dict(**GENERATOR, lw_fused=1, sw_fused=1),
     "tripleclouds_baran2016": dict(tripleclouds_lw=1, tripleclouds_sw=1,
@@ -383,7 +410,7 @@ MAIN_PATHS = {
                                      **RRTMG),
     "homogeneous_rrtmg_spectral": dict(scat_sweeps=2, sw_fused=1, **RRTMG),
     "monochromatic_homogeneous": dict(lw_fused=1, sw_fused=1),
-    "spartacus_ecckd": dict(spartacus_sw=1, spartacus_lw=1),
+    "spartacus_ecckd": dict(**SPARTACUS),
 }
 # The kernels that write per-g planes on request (planes=True)
 PLANES = ("lw_fused", "sw_fused", "tripleclouds_lw", "tripleclouds_sw",
@@ -464,6 +491,21 @@ OPS = {
     # below the bytes of the 50 (SW) and 24 (LW) layer planes
     "spartacus_sw": lambda args, f: 700,
     "spartacus_lw": lambda args, f: 400,
+    # the layer matrices: each element not refined computes sw_ref_trans
+    # (105) or lw_ref_trans and its two source scalings (45) for region 0,
+    # and in a cloudy layer for the other two; a refined one the
+    # refinement, counted from csrc/spartacus_layer_mats.cu without its
+    # squarings (747 operations each in SW, 396 in LW), which depend on
+    # each element's norm: SW ~5,300 (four 9x9 block-triangular products
+    # 2,988, the Pade sums 756, the blockwise solve 1,000, the rest ~550),
+    # LW ~3,250 float64 operations (four 6x6 products 1,584, two 6x6 LUs
+    # and eight solves 790, the rest ~880), counted twice: the card's
+    # float64 rate is half its float32 rate
+    "spartacus_sw_mats": lambda args, f: (
+        (1.0 - f(args[6])) * 105 * (3 - 2 * f(args[7])) + 5300 * f(args[6])),
+    "spartacus_lw_mats": lambda args, f: (
+        (1.0 - f(args[9])) * 45 * (3 - 2 * f(args[6]))
+        + 2 * 3250 * f(args[9])),
     # a multiply-add per term of the (row, band): ~16 (LW: od and Planck
     # fraction) and ~10 (SW: od and Rayleigh) on the meridian state, and
     # the clamp and the Planck product or the ssa division
@@ -553,30 +595,94 @@ def random_state(ncol, dtype, seed, config_name="mcica_rrtmg",
     return step, kw, cloud
 
 
+@contextlib.contextmanager
+def layer_mats_args():
+    """Record the arguments of the cuda_spartacus.sw_layer_mats and
+    lw_layer_mats calls made inside: {"spartacus_sw_mats": arguments,
+    "spartacus_lw_mats": arguments}, the last call's of each.  Their
+    launches inside are counted on the spies (a wrapper counts through its
+    module's name), not on the wrappers."""
+    seen, real = {}, {}
+    for name in LAYER_MATS:
+        fn = KERNELS[name]["wrapper"]
+        real[fn.__name__] = fn
+
+        def spy(*args, _name=name, _fn=fn):
+            seen[_name] = args
+            return _fn(*args)
+        spy.launches = 0
+        setattr(cuda_spartacus, fn.__name__, spy)
+    try:
+        yield seen
+    finally:
+        for attr, fn in real.items():
+            setattr(cuda_spartacus, attr, fn)
+
+
 def spartacus_inputs(ncol, dtype, seed, min_cloud=0.0,
                      config_name="spartacus_3d"):
     """The SPARTACUS sweeps' inputs as the path of config_name
     (spartacus_3d or spartacus_ecckd) builds them for the random state of
     random_state: [SW in Explicit (the path's), Maximum and Edge-only
     entrapment], [LW without (the path's) and with multilayer effects],
-    each (label, arguments)."""
+    each (label, arguments); and the layer matrices' arguments,
+    {"spartacus_sw_mats": arguments, "spartacus_lw_mats": arguments}."""
     step, kw, cloud = random_state(ncol, dtype, seed, config_name,
                                    min_cloud)
     config, tables = step.config, step.tables
     op = _optical_properties(config, tables, solar_irradiance=step.solar,
                              cloud=cloud, **kw)
     levels = (kw["pressure_hl"], kw["temperature_hl"])
-    sw_opts, sw, _ = spartacus.sw_sweep_args(*spartacus_sw_inputs(
-        config, tables, op, cloud, *levels, kw["cos_sza"])[1])
-    lw_opts, lw, _ = spartacus.lw_sweep_args(*spartacus_lw_inputs(
-        config, tables, op, cloud, *levels)[1])
+    with layer_mats_args() as mats:
+        sw_opts, sw, _ = spartacus.sw_sweep_args(*spartacus_sw_inputs(
+            config, tables, op, cloud, *levels, kw["cos_sza"])[1])
+        lw_opts, lw, _ = spartacus.lw_sweep_args(*spartacus_lw_inputs(
+            config, tables, op, cloud, *levels)[1])
     if sw_opts.mode != Entrapment.EXPLICIT or lw_opts.multilayer:
         raise AssertionError(f"{config_name} runs {sw_opts}, {lw_opts}")
     return ([(m.name.lower(), (sw_opts._replace(mode=m), *sw))
              for m in (Entrapment.EXPLICIT, Entrapment.MAXIMUM,
                        Entrapment.EDGE_ONLY)],
             [("meridian", (lw_opts, *lw)),
-             ("multilayer", (lw_opts._replace(multilayer=True), *lw))])
+             ("multilayer", (lw_opts._replace(multilayer=True), *lw))],
+            mats)
+
+
+def everywhere(config, name, args):
+    """A layer-matrix kernel's arguments with the use_expm mask of
+    use_expm_everywhere (the ng3D prefix in every layer, clear ones too;
+    region 0's optical depth is the gas's)."""
+    i = 6 if name == "spartacus_sw_mats" else 9
+    use = spartacus._use_expm_mask(config.replace(use_expm_everywhere=True),
+                                   args[0][..., 0], None)
+    return args[:i] + (use,) + args[i + 1:]
+
+
+def layer_mats_inputs(ncol, dtype, seed):
+    """{kernel: [(label, arguments)]} of the two layer-matrix kernels, a
+    group of their own (their outputs at RRTMG widths are gigabytes): as
+    the spartacus_3d path builds them for the random state of random_state
+    ("meridian", the main path's; "everywhere" with use_expm_everywhere's
+    mask), and on spartacus_ecckd at 32 g-points ("ecckd").  Not on the
+    all-cloudy state: there the float32 SW exponential of the top layers
+    (od ~1e-8, the largest transfer rates) overflows in the plain build,
+    and so, bit for bit, in the kernel."""
+    config = flagship.flagship_config("float64", "spartacus_3d")
+    mats = spartacus_inputs(ncol, dtype, seed)[2]
+    ecckd = spartacus_inputs(ncol, dtype, seed,
+                             config_name="spartacus_ecckd")[2]
+    return {name: [("meridian", mats[name]),
+                   ("everywhere", everywhere(config, name, mats[name])),
+                   ("ecckd", ecckd[name])]
+            for name in LAYER_MATS}
+
+
+def layer_mats_slab_inputs(ncol, dtype, seed):
+    """{kernel: [(label, arguments)]} of the two layer-matrix kernels on
+    spartacus_ecckd at ncol columns (labels ecckd_<ncol>)."""
+    mats = spartacus_inputs(ncol, dtype, seed,
+                            config_name="spartacus_ecckd")[2]
+    return {name: [(f"ecckd_{ncol}", mats[name])] for name in LAYER_MATS}
 
 
 def seed_sets(ncol):
@@ -783,7 +889,7 @@ def solver_inputs(ncol, dtype, seed, min_cloud=0.0):
                                           "tripleclouds_lw",
                                           "tripleclouds_sw")}
     out.update(total_scene_inputs(step, kw, cloud, op))
-    sp_sw, sp_lw = spartacus_inputs(ncol, dtype, seed, min_cloud)
+    sp_sw, sp_lw, _ = spartacus_inputs(ncol, dtype, seed, min_cloud)
     out["spartacus_sw"], out["spartacus_lw"] = sp_sw[0][1], sp_lw[0][1]
     if min_cloud > 0.0 and (
             not bool(out["lw_fused"][5].all())
@@ -828,8 +934,8 @@ def ecckd_inputs(ncol, dtype, seed):
                 or op["cl"]["od_sw"].shape[-1] != 32:
             raise AssertionError("ecckd_mcica is not at 32 g-points and "
                                  "bands")
-    sp_sw, sp_lw = spartacus_inputs(ncol, dtype, seed,
-                                    config_name="spartacus_ecckd")
+    sp_sw, sp_lw, _ = spartacus_inputs(ncol, dtype, seed,
+                                       config_name="spartacus_ecckd")
     out["spartacus_sw"], out["spartacus_lw"] = sp_sw[0][1], sp_lw[0][1]
     for name in ("spartacus_sw", "spartacus_lw"):   # (opts, mats (.., ng))
         if out[name][1].shape[-1] != 32:
@@ -913,7 +1019,7 @@ def kernel_inputs(ncol, dtype, seed):
                                            "tripleclouds_sw"))
     noscat, scat, sw_clear = clear_sky_inputs(kw, op)
     total = total_scene_inputs(step, kw, cloud, op)
-    sp_sw, sp_lw = spartacus_inputs(ncol, dtype, seed)
+    sp_sw, sp_lw, _ = spartacus_inputs(ncol, dtype, seed)
     rrtmg_lw, rrtmg_sw = rrtmg_inputs(step, kw)
     one = lambda args: [("meridian", args)]  # noqa: E731
     return {"generator_draw_sample": gen,
@@ -1056,7 +1162,9 @@ def bound(name, args, out):
         nbytes = cuda_spartacus.lw_needed_bytes(*args)
     elif name.startswith("rrtmg"):        # (tables, cols, ...)
         nbytes = rrtmg_needed_bytes(args, out)
-    if name.startswith("spartacus"):      # (opts, (nlev, 9, ncol, ng), ...)
+    if name in LAYER_MATS:                # (od3 (ncol, nlev, ng, 3), ...)
+        ncol, nlev, ng = args[0].shape[:3]
+    elif name.startswith("spartacus"):    # (opts, (nlev, 9, ncol, ng), ...)
         nlev, _, ncol, ng = args[1].shape
     elif name.startswith("rrtmg"):
         (ncol, nlev), ng = args[1].colh2o.shape, out[0].shape[-1]
@@ -1098,6 +1206,8 @@ TIMED = {"generator_draw_sample": ("sw", "ecckd", "ng1"),
                                 f"max_ran_{SAMPLED_NCOL}"),
          "spartacus_sw": ("all_cloudy", "ecckd"),
          "spartacus_lw": ("multilayer", "all_cloudy", "ecckd"),
+         **{name: ("everywhere", "ecckd", f"ecckd_{SAMPLED_NCOL}")
+            for name in LAYER_MATS},
          "tripleclouds_sw": ("all_cloudy", "ecckd"),
          "lw_fused": ("no_derivatives", "all_cloudy", "ecckd", "ng1"),
          "sw_fused": ("delta_gases", "all_cloudy", "ecckd", "ng1"),
@@ -1118,6 +1228,8 @@ def check_kernel(name, inputs, ncol, err, checked):
         got64 = k["wrapper"](*args)
         err64 = _compare_f64(got64, ref64, f"{name}/{label}/{ncol}",
                              F64_RTOL_OF.get(name, F64_RTOL))
+        if name in LAYER_MATS:      # gigabytes, and not read again
+            del got64
         args32 = _f32(args)
         got32, ref32 = k["wrapper"](*args32), k["plain"](*args32)
         _same_launches(got32, k["wrapper"](*args32), f"{name}/{label}/{ncol}")
@@ -1193,7 +1305,8 @@ def time_kernel(name, inputs, res, main):
         a = _f32(args)
         times = dict(ms=median_ms(lambda: k["wrapper"](*a)),
                      **bound(name, a, k["wrapper"](*a)))
-        if name == "generator_cumulate":   # its plain version on each set
+        if name in ("generator_cumulate", *LAYER_MATS):
+            # their plain versions on each set
             times["plain_ms"] = median_ms(lambda: k["plain"](*a))
         if name in PLANES:
             with_planes = bound(name, a, k["wrapper"](*a, planes=True))
@@ -1214,7 +1327,7 @@ def kernels_phase(smi):
                for name in KERNELS}
     for ncol in SHAPES:
         for make in (kernel_inputs, all_cloudy_inputs, ecckd_inputs,
-                     mono_inputs):
+                     mono_inputs, layer_mats_inputs):
             torch.cuda.reset_peak_memory_stats()
             inputs = make(ncol, torch.float64, seed=ncol)
             for name, sets in inputs.items():
@@ -1222,7 +1335,8 @@ def kernels_phase(smi):
                 check_kernel(name, sets, ncol, res["max_abs_err"],
                              res["checked"])
                 if ncol == SHAPES[0]:
-                    time_kernel(name, sets, res, main=make is kernel_inputs)
+                    time_kernel(name, sets, res, main=make in (
+                        kernel_inputs, layer_mats_inputs))
             del inputs
             torch.cuda.empty_cache()
             phase("kernel_inputs", ncol=ncol, inputs=make.__name__,
@@ -1239,6 +1353,19 @@ def kernels_phase(smi):
             time_kernel(name, sets, res, main=False)
     torch.cuda.empty_cache()
     phase("kernel_inputs", ncol=SAMPLED_NCOL, inputs=sample_inputs.__name__,
+          peak_memory_bytes=torch.cuda.max_memory_allocated())
+    # the layer matrices at the SPARTACUS cell's block of 8192 columns
+    torch.cuda.reset_peak_memory_stats()
+    for name, sets in layer_mats_slab_inputs(SAMPLED_NCOL, torch.float64,
+                                             seed=SAMPLED_NCOL).items():
+        res = results[name]
+        check_kernel(name, sets, SAMPLED_NCOL, res["max_abs_err"],
+                     res["checked"])
+        time_kernel(name, sets, res, main=False)
+        del sets
+        torch.cuda.empty_cache()
+    phase("kernel_inputs", ncol=SAMPLED_NCOL,
+          inputs=layer_mats_slab_inputs.__name__,
           peak_memory_bytes=torch.cuda.max_memory_allocated())
     for name, res in results.items():
         phase("kernels", kernel=name, max_abs_err=res["max_abs_err"],

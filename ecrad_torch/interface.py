@@ -15,6 +15,7 @@ fluxes.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, NamedTuple, Optional
 
 import numpy as np
@@ -578,6 +579,19 @@ def _spartacus_perm(config: Config, is_sw: bool) -> np.ndarray:
     return np.arange(config.n_g_sw if is_sw else config.n_g_lw)
 
 
+@functools.lru_cache(maxsize=32)
+def _index_on(values: tuple, device: torch.device) -> torch.Tensor:
+    """An int64 index on the device, copied there once per (values,
+    device): a copy from the host on every call waits for the device's
+    queue.  The callers only read it (the SPARTACUS g permutations and
+    their inverses: four at most per device)."""
+    return torch.tensor(values, dtype=torch.int64, device=device)
+
+
+def _perm_on(perm: np.ndarray, device) -> torch.Tensor:
+    return _index_on(tuple(int(i) for i in perm), torch.device(device))
+
+
 def _unpermute_g_fields(out, perm: np.ndarray):
     """Restore natural g order in a solver output's *_g fields so the
     generic band/canopy post-processing applies unchanged."""
@@ -587,7 +601,7 @@ def _unpermute_g_fields(out, perm: np.ndarray):
         v = getattr(out, f)
         if v is not None and f.endswith("_g"):
             if inv is None:
-                inv = torch.as_tensor(np.argsort(perm), device=v.device)
+                inv = _perm_on(np.argsort(perm), v.device)
             rep[f] = v[..., inv]
     return out._replace(**rep)
 
@@ -598,7 +612,7 @@ def _spartacus_common(config, tables, is_sw, op, cloud):
     permuted band map, cloud geometry) for one band."""
     perm = _spartacus_perm(config, is_sw)
     band = tables.band_from_g_sw if is_sw else tables.band_from_g_lw
-    pj = torch.as_tensor(perm, device=band.device)
+    pj = _perm_on(perm, band.device)
     take = lambda a: a[..., pj]  # noqa: E731
     b = "sw" if is_sw else "lw"
     cl = op["cl"]
@@ -708,7 +722,7 @@ def _permuted_rows(m, perm):
     None)."""
     if m is None:
         return None
-    return m[torch.as_tensor(perm, device=m.device)]
+    return m[_perm_on(perm, m.device)]
 
 
 def _solve_lw(config: Config, tables: Tables, op, cloud, spec_lw,

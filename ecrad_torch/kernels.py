@@ -40,10 +40,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # tolerance.  The f32 builds were timed without contraction (PERF.md).  The
 # generator's cumulator, generator_cumulate.cu, contracts none either, so
 # that its float32 covers equal the plain version's bit for bit: the
-# generator's scan compares random numbers against them.
+# generator's scan compares random numbers against them.  Nor do the
+# SPARTACUS layer matrices, spartacus_layer_mats.cu: SW coefficients too,
+# and a refinement whose every add and multiply is one torch op in its plain
+# version.
 SOURCE_FLAGS = {"sw_fused.cu": ("-fmad=false",),
                 "tripleclouds_sw.cu": ("-fmad=false",),
-                "generator_cumulate.cu": ("-fmad=false",)}
+                "generator_cumulate.cu": ("-fmad=false",),
+                "spartacus_layer_mats.cu": ("-fmad=false",)}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -68,6 +72,10 @@ _SIGNATURES = {
     "ecrad_sw_sweeps": [_P] + [_I] * 4 + [_P],
     "ecrad_spartacus_sw": [_P] + [_I] * 5 + [_D] * 3 + [_P],
     "ecrad_spartacus_lw": [_P] + [_I] * 4 + [_P],
+    # the SPARTACUS layer matrices: ncol, nlev, ng, (LW: the Planck inputs'
+    # column stride,) refine
+    "ecrad_spartacus_sw_mats": [_P] + [_I] * 4 + [_P],
+    "ecrad_spartacus_lw_mats": [_P] + [_I] * 5 + [_P],
     # the RRTMG gas optics: pointers, the packed tables' layout, ncol,
     # nlev, the least optical depth
     "ecrad_rrtmg_lw_taumol": [_P, _P, _I, _I, _D, _P],

@@ -1,10 +1,14 @@
-"""The SPARTACUS adding sweeps: CUDA kernel wrappers and their plain torch
-versions.
+"""The SPARTACUS adding sweeps and layer matrices: CUDA kernel wrappers and
+their plain torch versions.
 
-Replaces ``ecrad_tpu/solvers/pallas_spartacus.py`` (``sw_sweeps``,
-``lw_sweeps``, two ``pallas_call``s each); the kernels are
+The sweeps replace ``ecrad_tpu/solvers/pallas_spartacus.py``
+(``sw_sweeps``, ``lw_sweeps``, two ``pallas_call``s each); the kernels are
 ``ecrad_torch/csrc/spartacus_sw.cu`` and ``spartacus_lw.cu``, one launch
-per function.  Arguments and results are those of the TPU functions, in
+per function.  The layer matrices (``sw_layer_mats``, ``lw_layer_mats``)
+replace no TPU kernel (XLA builds them there); their kernels are
+``ecrad_torch/csrc/spartacus_layer_mats.cu``, a build pass and a refine
+pass per call, and their plain versions ``spartacus._sw_layer_mats`` and
+``_lw_layer_mats``.  Arguments and results are those of the TPU functions, in
 their layout: layer matrices ``(nlev, 9, ncol, ng)`` (k = 3*i + j) or
 ``(nlev, 3, ncol, ng)``, clear-sky planes ``(nlev, ncol, ng)``, per-column
 data ``(nlev, ncol, K)`` (interface matrices, 0/1 masks, the 13
@@ -177,13 +181,13 @@ def lw_sweeps_plain(opts, Rs, Ts, SUs, SDs, cl4, u9c, v9top, v9bot, msk_up,
 
 
 def _launch(fn_name, ref, tensors, *params):
-    """Launch ``ecrad_<fn_name>_{f32,f64}`` on the tensors' pointers."""
-    nlev, _, ncol, ng = ref.shape
+    """Launch ``ecrad_<fn_name>_{f32,f64}`` on the tensors' pointers and
+    the params, on ref's device and stream."""
     lib = kernels.library()
     fn = getattr(lib, f"ecrad_{fn_name}_"
                  + ("f32" if ref.dtype == torch.float32 else "f64"))
     with torch.cuda.device(ref.device):
-        code = fn(kernels.pointer_array(tensors), ncol, nlev, ng, *params,
+        code = fn(kernels.pointer_array(tensors), *params,
                   kernels.stream_of(ref))
     kernels.check(code, fn_name)
 
@@ -225,7 +229,7 @@ def sw_sweeps(opts, Rs, Ts, Rds, Tdds, Tdirs, cl5, u9c, v9top, v9bot,
             (Rs, Ts, Rds, Tdds, Tdirs, *cl5, u9c, v9top, v9bot, msk_up,
              msk_dn, ent13, alb0, albd0, albc0, albdc0, ddn0, incoming,
              albd_f, alb_c_f, albd_c_f, *dn, *scratch),
-            int(opts.mode), int(bool(opts.do_3d)),
+            ncol, nlev, ng, int(opts.mode), int(bool(opts.do_3d)),
             float(opts.overhang_factor),
             float(opts.cloud_fraction_threshold), float(opts.max_cloud_od))
     sw_sweeps.launches += 1
@@ -267,9 +271,144 @@ def lw_sweeps(opts, Rs, Ts, SUs, SDs, cl4, u9c, v9top, v9bot, msk_up,
     _launch("spartacus_lw", Rs,
             (Rs, Ts, SUs, SDs, *cl4, u9c, v9top, v9bot, msk_up, msk_dn,
              alb0, src0, albc0, srcc0, src_f, src_c_f, *dn, scratch),
-            int(bool(opts.multilayer)))
+            ncol, nlev, ng, int(bool(opts.multilayer)))
     lw_sweeps.launches += 1
     return src_f, src_c_f, dn
 
 
 lw_sweeps.launches = 0
+
+
+def _check_masks(name, ref, specs):
+    """Raise unless each specs entry {arg: (tensor, shape)} is a contiguous
+    bool tensor of that shape on ref's device."""
+    for arg, (t, shape) in specs.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: {arg} has shape {tuple(t.shape)}, "
+                             f"expected {shape}")
+        if t.device != ref.device or t.dtype != torch.bool:
+            raise ValueError(f"{name}: {arg} must be bool on {ref.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} is not contiguous")
+
+
+def _elements(name, od3):
+    """(ncol, nlev, ng) of the region optics (ncol, nlev, ng, 3); raise on
+    another rank or on more elements than an int32 index takes."""
+    if od3.dim() != 4:
+        raise ValueError(f"{name}: od3 has shape {tuple(od3.shape)}, "
+                         f"expected (ncol, nlev, ng, {NREG})")
+    ncol, nlev, ng = od3.shape[:3]
+    if ncol * nlev * ng >= 2**31:
+        raise ValueError(f"{name}: {ncol * nlev * ng} elements exceed an "
+                         f"int32 index")
+    return ncol, nlev, ng
+
+
+def _refine_list(ref, n, refine):
+    """The refine pass's scratch: the refined elements' indices (n int32 at
+    most) and their count, zeroed; None without a refinement."""
+    if not refine:
+        return None, None
+    return (torch.empty(n, dtype=torch.int32, device=ref.device),
+            torch.zeros(1, dtype=torch.int32, device=ref.device))
+
+
+def sw_layer_mats(od3, ssa3, g3, mu0, tr_diff, tr_dir, use_expm,
+                  clear_layer, any_expm):
+    """The SPARTACUS SW region matrices (R, T, Rd, Tdd, Tdir), each (nlev,
+    9, ncol, ng), of spartacus._sw_layer_mats's arguments.  CPU tensors run
+    that plain version; CUDA tensors launch the kernels
+    (csrc/spartacus_layer_mats.cu: the two-stream build, then, when
+    any_expm, the refinement of the use_expm elements) or raise."""
+    if od3.device.type == "cpu":
+        return sp._sw_layer_mats(od3, ssa3, g3, mu0, tr_diff, tr_dir,
+                                 use_expm, clear_layer, any_expm)
+    return _sw_layer_mats_kernel(od3, ssa3, g3, mu0, tr_diff, tr_dir,
+                                 use_expm, clear_layer, any_expm)
+
+
+def _sw_layer_mats_kernel(od3, ssa3, g3, mu0, tr_diff, tr_dir, use_expm,
+                          clear_layer, any_expm):
+    """sw_layer_mats off the CPU: checks, outputs, scratch, the launch
+    set and its count."""
+    name = "spartacus sw_layer_mats"
+    ncol, nlev, ng = _elements(name, od3)
+    _check_masks(name, od3, dict(use_expm=(use_expm, (ncol, nlev, ng)),
+                                 clear_layer=(clear_layer, (ncol, nlev))))
+    reg, rate = (ncol, nlev, ng, NREG), (ncol, nlev, NREG, NREG)
+    kernels.check_inputs(name, od3, dict(
+        od3=(od3, reg), ssa3=(ssa3, reg), g3=(g3, reg), mu0=(mu0, (ncol,)),
+        tr_diff=(tr_diff, rate), tr_dir=(tr_dir, rate)))
+    mats = [od3.new_empty((nlev, NREG * NREG, ncol, ng)) for _ in range(5)]
+    n = ncol * nlev * ng
+    if n == 0:
+        return mats
+    refine = bool(any_expm)
+    _launch("spartacus_sw_mats", od3,
+            (od3, ssa3, g3, mu0, tr_diff, tr_dir, use_expm, clear_layer,
+             *mats, *_refine_list(od3, n, refine)),
+            ncol, nlev, ng, int(refine))
+    sw_layer_mats.launches += 1
+    return mats
+
+
+sw_layer_mats.launches = 0
+
+
+def lw_layer_mats(od3, ssa3, g3, tr, side_emiss, reg_fracs, clear_layer,
+                  pl_top, pl_bot, use_expm, any_expm):
+    """The SPARTACUS LW region matrices R, T (nlev, 9, ncol, ng) and sources
+    SU, SD (nlev, 3, ncol, ng) of spartacus._lw_layer_mats's arguments.
+    CPU tensors run that plain version; CUDA tensors launch the kernels
+    (csrc/spartacus_layer_mats.cu, the refinement in float64) or raise.
+    pl_top and pl_bot may be views with a column stride (planck_hl[:, :-1]
+    and [:, 1:]): (ncol, nlev, ng) of strides (s, ng, 1), the same s."""
+    if od3.device.type == "cpu":
+        return sp._lw_layer_mats(od3, ssa3, g3, tr, side_emiss, reg_fracs,
+                                 clear_layer, pl_top, pl_bot, use_expm,
+                                 any_expm)
+    return _lw_layer_mats_kernel(od3, ssa3, g3, tr, side_emiss, reg_fracs,
+                                 clear_layer, pl_top, pl_bot, use_expm,
+                                 any_expm)
+
+
+def _lw_layer_mats_kernel(od3, ssa3, g3, tr, side_emiss, reg_fracs,
+                          clear_layer, pl_top, pl_bot, use_expm, any_expm):
+    """lw_layer_mats off the CPU: checks, outputs, scratch, the launch
+    set and its count."""
+    name = "spartacus lw_layer_mats"
+    ncol, nlev, ng = _elements(name, od3)
+    _check_masks(name, od3, dict(use_expm=(use_expm, (ncol, nlev, ng)),
+                                 clear_layer=(clear_layer, (ncol, nlev))))
+    for arg, t in (("pl_top", pl_top), ("pl_bot", pl_bot)):
+        if tuple(t.shape) != (ncol, nlev, ng) or t.device != od3.device \
+                or t.dtype != od3.dtype:
+            raise ValueError(f"{name}: {arg} must be {od3.dtype} of shape "
+                             f"{(ncol, nlev, ng)} on {od3.device}")
+        if t.stride()[1:] != (ng, 1) or t.stride(0) != pl_top.stride(0) \
+                or t.stride(0) < nlev * ng or t.stride(0) >= 2**31:
+            raise ValueError(f"{name}: {arg} has strides {t.stride()}, "
+                             f"expected (s, {ng}, 1) as pl_top's")
+    reg = (ncol, nlev, ng, NREG)
+    kernels.check_inputs(name, od3, dict(
+        od3=(od3, reg), ssa3=(ssa3, reg), g3=(g3, reg),
+        tr=(tr, (ncol, nlev, NREG, NREG)),
+        side_emiss=(side_emiss, (ncol, nlev, ng)),
+        reg_fracs=(reg_fracs, (ncol, nlev, NREG))))
+    R9, T9 = (od3.new_empty((nlev, NREG * NREG, ncol, ng)) for _ in range(2))
+    SU, SD = (od3.new_empty((nlev, NREG, ncol, ng)) for _ in range(2))
+    n = ncol * nlev * ng
+    if n == 0:
+        return R9, T9, SU, SD
+    refine = bool(any_expm)
+    _launch("spartacus_lw_mats", od3,
+            (od3, ssa3, g3, tr, side_emiss, reg_fracs, clear_layer, pl_top,
+             pl_bot, use_expm, R9, T9, SU, SD,
+             *_refine_list(od3, n, refine)),
+            ncol, nlev, ng, pl_top.stride(0), int(refine))
+    lw_layer_mats.launches += 1
+    return R9, T9, SU, SD
+
+
+lw_layer_mats.launches = 0

@@ -12,17 +12,19 @@ tensor, a region vector ``(3, *batch)``.
 
 Two phases, as in the JAX package:
 
-* the per-layer region matrices R, T, ... (``_sw_layer_mats``,
-  ``_lw_layer_mats``): the diagonal two-stream everywhere, and the 3D
-  refinement (a 9x9 block-triangular SW exponential, a 6x6 LW one) on the
-  (column, layer, g-point) elements whose ``use_expm`` mask is set.  The
-  JAX package maps the builder over single levels and skips inactive
-  levels with ``lax.cond``; the port gathers the active elements into a
-  flat batch and runs the refinement over chunks of ``_REFINE_CHUNK`` of
-  them, so that its work and memory follow the 3D-active elements and
-  its launches do not grow with the level count.  The arithmetic of each
-  element is the JAX package's, so the two agree to roundoff in float64;
-  the LW refinement runs in float64 in a float32 run too (see
+* the per-layer region matrices R, T, ...
+  (``cuda_spartacus.sw_layer_mats``, ``lw_layer_mats``): the diagonal
+  two-stream everywhere, and the 3D refinement (a 9x9 block-triangular SW
+  exponential, a 6x6 LW one) on the (column, layer, g-point) elements
+  whose ``use_expm`` mask is set.  The JAX package maps the layer-matrix
+  build over single levels and skips inactive levels with ``lax.cond``.
+  On the card two CUDA kernels a band set build every element's matrices,
+  the refined ones by one thread each (``csrc/spartacus_layer_mats.cu``);
+  on the CPU their plain versions (``_sw_layer_mats``, ``_lw_layer_mats``)
+  gather the active elements into a flat batch and run the refinement over
+  chunks of ``_REFINE_CHUNK`` of them.  The arithmetic of each element is
+  the JAX package's, so the two agree to roundoff in float64; the LW
+  refinement runs in float64 in a float32 run too (see
   ``_lw_layer_mats``);
 * the up and down adding sweeps (``solvers/cuda_spartacus.py``): a CUDA
   kernel on the card, the step cores below in a level loop on the CPU.
@@ -66,8 +68,8 @@ SIDE_EMISS_THIN = 1.4107                    # radiation_spartacus_lw.F90:130
 LW_DIFFUSIVITY = 1.66
 NREG = 3
 _EPS = float(np.finfo(np.float64).eps)
-# 3D-active elements per refinement chunk: the SW exponential keeps a few
-# hundred planes of this length alive, a few GB
+# 3D-active elements per refinement chunk of the plain build: the SW
+# exponential keeps a few hundred planes of this length alive, a few GB
 _REFINE_CHUNK = 1 << 21
 
 
@@ -211,9 +213,14 @@ def _use_expm_mask(config: Config, od_gas, active_3d):
     (radiation_spartacus_sw.F90:208-216, 326-330): the g-points before
     the first whose (reordered) clear-sky od exceeds max_gas_od_3d, in
     3D-active layers (every layer with use_expm_everywhere).  Returns
-    bool (ncol, nlev, ng)."""
+    bool (ncol, nlev, ng).  The prefix ends at the first exceeding g-point
+    (argmax returns the first of equal maxima), found by a reduction over
+    g: on the card a scan over g, cumsum, took ~7 times as long."""
     exceeds = od_gas > config.max_gas_od_3d
-    prefix = torch.cumsum(exceeds, dim=-1) == 0
+    ng = exceeds.shape[-1]
+    first = torch.where(exceeds.any(-1),
+                        exceeds.to(torch.uint8).argmax(-1), ng)
+    prefix = torch.arange(ng, device=od_gas.device) < first[..., None]
     if config.use_expm_everywhere:
         return prefix
     return prefix & active_3d[..., None]
@@ -558,7 +565,8 @@ def _sw_layer_mats(od3, ssa3, g3, mu0, tr_diff, tr_dir, use_expm,
     """SW region matrices (R, T, Rd, Tdd, Tdir), each (nlev, 9, ncol, ng):
     the diagonal two-stream everywhere, the exponential where use_expm,
     and in clear layers only the [0][0] entry (a select, never a 0/1
-    multiply: a degenerate exponential may leave NaN there)."""
+    multiply: a degenerate exponential may leave NaN there).  The plain
+    version of cuda_spartacus.sw_layer_mats, and its CPU route."""
     ncol, nlev, ng, _ = od3.shape
     mats = [od3.new_zeros((nlev, NREG * NREG, ncol, ng)) for _ in range(5)]
     mu0p = mu0[:, None, None]
@@ -626,7 +634,8 @@ def _lw_layer_mats(od3, ssa3, g3, tr, side_emiss, reg_fracs, clear_layer,
                    pl_top, pl_bot, use_expm, any_expm):
     """LW region matrices R, T (nlev, 9, ncol, ng) and sources SU, SD
     (nlev, 3, ncol, ng), sources scaled by region fraction; clear layers
-    keep only the region-0 entries (selects, as in the SW)."""
+    keep only the region-0 entries (selects, as in the SW).  The plain
+    version of cuda_spartacus.lw_layer_mats, and its CPU route."""
     ncol, nlev, ng, _ = od3.shape
     R9 = od3.new_zeros((nlev, NREG * NREG, ncol, ng))
     T9 = torch.zeros_like(R9)
@@ -721,7 +730,7 @@ def sw_sweep_args(config: Config, od, ssa, g, od_cloud_b, ssa_cloud_b,
                               config.max_3d_transfer_rate)
     tr_dir = _transfer_rates(reg_fracs, edge_length, P["layer_depth"],
                              tan_sza[:, None], config.max_3d_transfer_rate)
-    mats = _sw_layer_mats(
+    mats = cuda_spartacus.sw_layer_mats(
         od3, ssa3, g3, mu0, tr_diff, tr_dir, use_expm, clear_layer,
         config.do_3d_effects or config.use_expm_everywhere)
     cl5 = tuple(_lev(x) for x in two_stream.sw_ref_trans(
@@ -849,9 +858,9 @@ def lw_sweep_args(config: Config, od, ssa, g, od_cloud_b, ssa_cloud_b,
         side_emiss = torch.ones_like(od3[..., 0])
 
     pl_top, pl_bot = planck_hl[:, :-1], planck_hl[:, 1:]
-    mats = _lw_layer_mats(od3, ssa3, g3, tr, side_emiss, reg_fracs,
-                          clear_layer, pl_top, pl_bot, use_expm,
-                          config.do_3d_effects or config.use_expm_everywhere)
+    mats = cuda_spartacus.lw_layer_mats(
+        od3, ssa3, g3, tr, side_emiss, reg_fracs, clear_layer, pl_top,
+        pl_bot, use_expm, config.do_3d_effects or config.use_expm_everywhere)
     cl4 = tuple(_lev(x) for x in two_stream.lw_ref_trans(od, ssa, g, pl_top,
                                                         pl_bot))
     ones = torch.ones((ncol, 1), dtype=torch.bool, device=od.device)

@@ -55,6 +55,23 @@ enum { cudaSuccess = 0 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
 template <class F> cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return 0; }
 inline cudaError_t cudaGetLastError() { return 0; }
+// atomics on the host's memory; the card's occupancy as 4 SMs of 2 blocks,
+// so that a persistent grid walks its work in several strides
+template <class T> T atomicAdd(T *p, T v) {
+  return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
+}
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount };
+inline cudaError_t cudaGetDevice(int *d) { *d = 0; return 0; }
+inline cudaError_t cudaDeviceGetAttribute(int *v, cudaDeviceAttr, int) {
+  *v = 4;
+  return 0;
+}
+template <class F>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int *n, F, int,
+                                                          size_t) {
+  *n = 2;
+  return 0;
+}
 inline const char *cudaGetErrorString(cudaError_t) { return "no error"; }
 
 template <class K, class... A>

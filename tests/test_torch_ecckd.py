@@ -374,7 +374,8 @@ def test_sw_coefficient_kernels_compile_without_fma():
         if name.endswith(".cu") and re.search(
             r"\bsw_ref_trans\s*\(",
             open(os.path.join(kernels.CSRC_DIR, name)).read()))
-    assert users == ["sw_fused.cu", "tripleclouds_sw.cu"]
+    assert users == ["spartacus_layer_mats.cu", "sw_fused.cu",
+                     "tripleclouds_sw.cu"]
     for name in users:
         assert "-fmad=false" in kernels.SOURCE_FLAGS.get(name, ()), name
 

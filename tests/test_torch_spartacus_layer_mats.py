@@ -1,0 +1,345 @@
+"""The SPARTACUS layer-matrix kernels (a build pass and a refine pass per
+band set, ecrad_torch/csrc/spartacus_layer_mats.cu) on the CPU, and the
+route to them.
+
+* The kernel source compiled with g++ through a thread-per-CUDA-thread
+  stand-in for the CUDA runtime (tests/cuda_cpu/cuda_runtime.h), without
+  contracting multiply-adds as nvcc builds it (kernels.SOURCE_FLAGS),
+  launched through the wrappers' own kernel branch
+  (cuda_spartacus._sw_layer_mats_kernel, _lw_layer_mats_kernel: checks,
+  outputs, scratch, pointer order, counter), against the plain build
+  (spartacus._sw_layer_mats, _lw_layer_mats), in float64 and float32, the
+  LW refinement in float64 in both.  Inputs as the route builds them: the
+  spartacus_ecckd meridian state (the 32 columns behind
+  tests/data/torch_spartacus_ecckd_meridian32.npz), spartacus_3d at
+  RRTMG's widths (112 SW, 140 LW g-points), columns made clear,
+  use_expm_everywhere, 5 columns (no multiple of a block), and elements
+  whose squaring count reaches its cap (13 SW, 6 LW).
+  - Refined elements: equal bit for bit.  Their arithmetic is adds,
+    multiplies, divides, absolute values, frexp and ldexp, each rounded
+    once in both, in the same order (the source mirrors solvers/matrix.py
+    op for op).
+  - The others: the two-stream coefficients go through exp and expm1,
+    which g++'s libm and torch's vectorised CPU kernels round apart by an
+    ulp.  Float64: within 1e-6 of an entry plus 1e-10 of the plane's
+    largest (chip_smoke.py's floor), as the Meador-Weaver direct-beam terms
+    lose up to ~10 digits of their scale near k mu0 = 1
+    (kernels.SOURCE_FLAGS; measured 4.3e-12 of the largest).  Float32:
+    within 1e-4 of the plane's largest, or else a plane's worst distance
+    to the float64 plain build at most twice the float32 plain build's
+    (both lose ~1e-3 of the Rd and Tdd planes' scale there, and either may
+    be the closer, entry by entry).
+* The route: the SPARTACUS solvers call the wrappers once a band set; CPU
+  tensors run the plain build and launch nothing; tensors the kernels
+  cannot take raise before any launch, with no fallback; a launch set
+  counts once.
+The build with nvcc and the runs on the card are chip_smoke.py's
+(spartacus_sw_mats, spartacus_lw_mats, equal to their plain versions bit
+for bit there too).
+"""
+
+import ctypes
+import os
+import re
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from ecrad_torch import flagship, kernels, pipeline
+from ecrad_torch.solvers import cuda_spartacus, matrix
+from ecrad_torch.solvers import spartacus as sp
+
+torch.set_num_threads(2)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SOURCE = os.path.join(REPO, "ecrad_torch", "csrc", "spartacus_layer_mats.cu")
+NAMES = {"sw": "sw_layer_mats", "lw": "lw_layer_mats"}
+# the mask's position in each wrapper's arguments
+USE = {"sw": 6, "lw": 9}
+CASES = ("meridian", "rrtmg", "clear", "everywhere", "ragged", "clamp")
+
+
+@pytest.fixture(scope="module")
+def cpu_kernel(tmp_path_factory):
+    """spartacus_layer_mats.cu built with g++: each launch becomes a loop
+    over blocks, each block one std::thread per CUDA thread."""
+    tmp = tmp_path_factory.mktemp("layer_mats_cpu")
+    src = re.sub(r"(\w+<[\w, ]+>)\s*<<<\s*([^,]+),\s*([^,]+),[^>]*>>>\(\s*",
+                 r"shim_launch(\1, \2, \3, ", open(SOURCE).read())
+    cc, lib = tmp / "spartacus_layer_mats.cc", tmp / "liblayer_mats_cpu.so"
+    cc.write_text(src)
+    res = subprocess.run(
+        ["g++", "-std=c++20", "-O2", "-ffp-contract=off", "-shared", "-fPIC",
+         "-pthread", "-I", os.path.join(REPO, "tests", "cuda_cpu"),
+         "-I", os.path.dirname(SOURCE), "-o", str(lib), str(cc)],
+        capture_output=True, text=True)
+    assert res.returncode == 0, res.stderr[-4000:]
+    lib = ctypes.CDLL(str(lib))
+    for name in ("ecrad_spartacus_sw_mats", "ecrad_spartacus_lw_mats"):
+        for suffix in ("_f32", "_f64"):
+            fn = getattr(lib, name + suffix)
+            fn.argtypes = kernels._SIGNATURES[name]
+            fn.restype = ctypes.c_int
+    return lib
+
+
+@pytest.fixture
+def launches_on_cpu(monkeypatch, cpu_kernel):
+    """The wrappers' kernel branch on CPU tensors: the device checks record
+    their specs (CPU tensors stand in for the card's), and each launch goes
+    to the g++ build.  Yields the recorded (name, specs)."""
+    specs = []
+    monkeypatch.setattr(kernels, "check_inputs",
+                        lambda name, ref, s: specs.append((name, s)))
+
+    def launch(fn_name, ref, tensors, *params):
+        fn = getattr(cpu_kernel, f"ecrad_{fn_name}_"
+                     + ("f32" if ref.dtype == torch.float32 else "f64"))
+        assert fn(kernels.pointer_array(tensors), *params, None) == 0
+
+    monkeypatch.setattr(cuda_spartacus, "_launch", launch)
+    return specs
+
+
+def _capture(config_name, ncol, dtype=torch.float64, config=None,
+             cloud=None):
+    """The arguments of the two layer-matrix wrappers in one CPU step of a
+    configuration (config(Config) editing its Config, cloud(dict) its
+    cloud inputs), and the Config; checks that each is called once."""
+    step, args = flagship.build(ncol=ncol, dtype=dtype, device="cpu",
+                                config_name=config_name)
+    kw = dict(zip(flagship.ARG_ORDER, args))
+    if cloud is not None:
+        kw["cloud"] = cloud(dict(kw["cloud"]))
+    seen = {"sw": [], "lw": []}
+    real = {k: getattr(cuda_spartacus, n) for k, n in NAMES.items()}
+    try:
+        for k, n in NAMES.items():
+            setattr(cuda_spartacus, n,
+                    lambda *a, _k=k: seen[_k].append(a) or real[_k](*a))
+        conf = step.config if config is None else config(step.config)
+        pipeline.radiation_step(conf, step.tables,
+                                solar_irradiance=step.solar, **kw)
+    finally:
+        for k, n in NAMES.items():
+            setattr(cuda_spartacus, n, real[k])
+    assert [len(v) for v in seen.values()] == [1, 1]
+    return {k: v[0] for k, v in seen.items()}, step.config
+
+
+def _clear_every_other(cloud):
+    cloud["fraction"] = cloud["fraction"].clone()
+    cloud["fraction"][::2] = 0.0
+    return cloud
+
+
+def _scaled_to_the_cap(args, band):
+    """The meridian arguments with the 3D rates (SW: direct, LW: diffuse)
+    of the (column, layer)s of the first 8 refined elements raised, so that
+    their exponentials' norms reach the squaring cap."""
+    args = list(args)
+    c, lev, _ = args[USE[band]].nonzero(as_tuple=True)
+    c, lev = c[:8], lev[:8]
+    i = 5 if band == "sw" else 3
+    rates = args[i].clone()
+    rates[c, lev] = rates[c, lev] * 0.0 + (3.0e4 if band == "sw" else 60.0)
+    args[i] = rates
+    return tuple(args)
+
+
+@pytest.fixture(scope="module")
+def states():
+    """{case: ({"sw": args, "lw": args}, config)} in float64."""
+    out = {}
+    out["meridian"] = _capture("spartacus_ecckd", 32)
+    out["rrtmg"] = _capture("spartacus_3d", 4)
+    out["clear"] = _capture("spartacus_ecckd", 8, cloud=_clear_every_other)
+    out["everywhere"] = _capture(
+        "spartacus_ecckd", 8,
+        config=lambda c: c.replace(use_expm_everywhere=True))
+    out["ragged"] = _capture("spartacus_ecckd", 5)
+    args, config = _capture("spartacus_ecckd", 4)
+    out["clamp"] = ({b: _scaled_to_the_cap(a, b) for b, a in args.items()},
+                    config)
+    return out
+
+
+def _rounded(args, dtype):
+    if dtype == torch.float64:
+        return args
+    return tuple(a.float() if torch.is_tensor(a) and a.is_floating_point()
+                 else a for a in args)
+
+
+def _refined_entries(band, args, x):
+    """The entries of an output plane (nlev, K, ncol, ng) that belong to
+    refined elements, and those of the others."""
+    use = args[USE[band]].permute(1, 0, 2)[:, None].expand_as(x)
+    return x[use], x[~use]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("band", ["sw", "lw"])
+@pytest.mark.parametrize("case", CASES)
+def test_kernel_source_matches_plain(launches_on_cpu, states, case, band,
+                                     dtype):
+    args64 = states[case][0][band]
+    args = _rounded(args64, dtype)
+    plain = sp._sw_layer_mats if band == "sw" else sp._lw_layer_mats
+    kernel = getattr(cuda_spartacus, f"_{NAMES[band]}_kernel")
+    before = getattr(cuda_spartacus, NAMES[band]).launches
+    got, want = kernel(*args), plain(*args)
+    assert getattr(cuda_spartacus, NAMES[band]).launches == before + 1
+    want64 = plain(*args64) if dtype == torch.float32 else want
+    n_refined = int(args[USE[band]].sum())
+    assert n_refined > 0
+    for g, w, w64 in zip(got, want, want64):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        g_ref, g_rest = _refined_entries(band, args, g)
+        w_ref, w_rest = _refined_entries(band, args, w)
+        # the clamp case's capped exponentials may overflow: NaN and inf
+        # where the plain build has them
+        torch.testing.assert_close(g_ref, w_ref, rtol=0, atol=0,
+                                   equal_nan=True)
+        if not w_rest.numel():         # every element refined
+            continue
+        big = float(w_rest.abs().max())
+        err = (g_rest - w_rest).abs()
+        if dtype == torch.float64:
+            assert bool((err <= 1e-6 * w_rest.abs() + 1e-10 * big).all())
+        elif float(err.max()) > 1e-4 * big:
+            w64_rest = _refined_entries(band, args, w64)[1]
+            assert float((g_rest - w64_rest).abs().max()) \
+                <= 2.0 * float((w_rest - w64_rest).abs().max())
+    if case == "clear":
+        clear = args[7 if band == "sw" else 6]
+        assert bool(clear[::2].all()) and not bool(clear[1::2].all())
+    if case == "everywhere":       # clear layers refined, their selects
+        clear = args[7 if band == "sw" else 6]
+        assert bool((args[USE[band]].any(-1) & clear).any())
+    if case == "rrtmg":
+        assert args[0].shape[2] == (112 if band == "sw" else 140)
+
+
+@pytest.mark.parametrize("band", ["sw", "lw"])
+def test_clamp_case_reaches_the_squaring_cap(states, band, monkeypatch):
+    """The "clamp" inputs hold elements whose 1-norm asks for more
+    squarings than the cap (13 SW, 6 LW): the plain build's own norms, read
+    where it calls the exponential."""
+    args = states["clamp"][0][band]
+    norms = []
+    if band == "sw":
+        real = sp.pl_expm_blockut
+
+        def spy(A11, A13, A33):
+            cs = torch.cat([matrix._abs_colsums(A11),
+                            matrix._abs_colsums(A13)
+                            + matrix._abs_colsums(A33)])
+            norms.append(cs.amax(0))
+            return real(A11, A13, A33)
+        monkeypatch.setattr(sp, "pl_expm_blockut", spy)
+        cap = matrix._STATIC_SQUARINGS
+        sp._sw_layer_mats(*args)
+    else:
+        real = sp.pl_expm
+
+        def spy(G, max_squarings):
+            norms.append(matrix._abs_colsums(G).amax(0))
+            return real(G, max_squarings)
+        monkeypatch.setattr(sp, "pl_expm", spy)
+        cap = 6
+        sp._lw_layer_mats(*args)
+    wanted = torch.log2(torch.cat(norms) / matrix._THETA3)
+    assert int((wanted > cap).sum()) >= 8
+
+
+def test_route_calls_the_wrappers_once_a_band_set(states):
+    """Each SPARTACUS band set's solver calls its wrapper once (the
+    capture's count), with the plain build's argument layout, and the CPU
+    route launches nothing."""
+    args = states["meridian"][0]
+    assert args["sw"][0].shape == (32, 137, 32, 3)
+    assert args["lw"][7].stride() == (138 * 32, 32, 1)  # planck_hl[:, :-1]
+    assert args["sw"][8] is True and args["lw"][10] is True
+
+
+@pytest.mark.parametrize("band", ["sw", "lw"])
+def test_cpu_runs_the_plain_build(states, band):
+    args = states["ragged"][0][band]
+    wrapper = getattr(cuda_spartacus, NAMES[band])
+    plain = sp._sw_layer_mats if band == "sw" else sp._lw_layer_mats
+    before = wrapper.launches
+    for g, w in zip(wrapper(*args), plain(*args)):
+        assert torch.equal(g, w)
+    assert wrapper.launches == before
+
+
+def _fault(band, args, fault):
+    args = [a.to("meta") if torch.is_tensor(a) else a for a in args]
+    if band == "lw":    # Planck views of one half-level tensor, as routed
+        ncol, nlev, ng = args[0].shape[:3]
+        hl = torch.empty((ncol, nlev + 1, ng), dtype=args[0].dtype,
+                         device="meta")
+        args[7], args[8] = hl[:, :-1], hl[:, 1:]
+    if fault == "mask_dtype":
+        args[USE[band]] = args[USE[band]].float()
+    elif fault == "rank":
+        args[0] = args[0][..., 0]
+    elif fault == "clear_shape":
+        i = 7 if band == "sw" else 6
+        args[i] = args[i][:, :-1]
+    elif fault == "planck_strides":
+        args[7] = args[7].contiguous()       # pl_bot keeps the view's
+    return args
+
+
+FAULTS = [("meta", "unsupported device meta"),
+          ("mask_dtype", "use_expm must be bool"),
+          ("rank", r"od3 has shape \(5, 137, 32\)"),
+          ("clear_shape", r"clear_layer has shape \(5, 136\)")]
+
+
+@pytest.mark.parametrize("band,fault,match", [
+    *((band, *f) for band in ("sw", "lw") for f in FAULTS),
+    ("lw", "planck_strides", r"pl_bot has strides")])
+def test_off_the_cpu_the_wrappers_raise_before_any_launch(states, band,
+                                                          fault, match):
+    """On the meta device the wrappers take the kernel branch and raise on
+    what the kernels cannot take: the device itself, a mask that is not
+    bool, region optics of another rank, a clear mask of another shape, LW
+    Planck inputs of unlike strides; nothing is launched and there is no
+    fallback."""
+    args = _fault(band, states["ragged"][0][band], fault)
+    wrapper = getattr(cuda_spartacus, NAMES[band])
+    before = wrapper.launches
+    with pytest.raises(ValueError, match=f"spartacus {NAMES[band]}: {match}"):
+        wrapper(*args)
+    assert wrapper.launches == before
+
+
+@pytest.mark.parametrize("refine", [True, False])
+@pytest.mark.parametrize("band", ["sw", "lw"])
+def test_a_launch_set_counts_once(launches_on_cpu, states, band, refine):
+    """One call, one launch set (the build pass and, with any_expm, the
+    refine pass), counted once; without any_expm no element is refined and
+    the build pass writes every element's two-stream matrices (the plain
+    build's, where use_expm is all false)."""
+    args = list(states["ragged"][0][band])
+    args[-1] = refine
+    if not refine:
+        args[USE[band]] = torch.zeros_like(args[USE[band]])
+    wrapper = getattr(cuda_spartacus, NAMES[band])
+    kernel = getattr(cuda_spartacus, f"_{NAMES[band]}_kernel")
+    plain = sp._sw_layer_mats if band == "sw" else sp._lw_layer_mats
+    before = wrapper.launches
+    got = kernel(*args)
+    assert wrapper.launches == before + 1
+    ((name, specs),) = launches_on_cpu
+    assert name == f"spartacus {NAMES[band]}"
+    assert specs["od3"][1] == (5, 137, 32, 3)
+    for g, w in zip(got, plain(*args)):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-6,
+                                   atol=1e-12 * float(w.abs().max()))

@@ -13,9 +13,11 @@ entrapment, spartacus_lw with multilayer effects, the fused McICA and
 Tripleclouds kernels with delta-scaled gases or without derivatives,
 scat_sweeps and sw_sweeps on the total scene) and of
 chip_smoke.all_cloudy_inputs (the same state with every layer cloudy,
-"all_cloudy") and chip_smoke.ecckd_inputs (the five kernels of the ecCKD
-paths at 32 g-points on the ecckd_mcica state, "ecckd").  A case is named "<kernel>[_<set>]/<state>".  Each
-checkout (this one, then each DIR, e.g.
+"all_cloudy"), chip_smoke.ecckd_inputs (the five kernels of the ecCKD
+paths at 32 g-points on the ecckd_mcica state, "ecckd") and
+chip_smoke.layer_mats_inputs (the SPARTACUS layer matrices on the
+spartacus_3d and spartacus_ecckd states, "layer_mats").  A case is named
+"<kernel>[_<set>]/<state>".  Each checkout (this one, then each DIR, e.g.
 an older commit unpacked with `git archive`, or a copy with a kernel's
 variant edited in) runs in a process of its own that imports that
 checkout's `ecrad_torch` and builds its kernels; the inputs come from
@@ -27,7 +29,9 @@ the registers and spills ptxas reports for the kernels are printed, and
 each checkout saves its float32 outputs of every case under
 build/time_kernels/ of this checkout; the summary line then says, per
 case and per other checkout, whether its outputs equal this checkout's
-bit for bit ("equal") or by how much they differ at most.  With
+bit for bit ("equal") or by how much they differ at most (outputs over
+64 MiB, the SPARTACUS layer matrices', are saved as a digest of their
+bits: "equal" or "differ").  With
 --planes, only the kernels that write per-g planes (chip_smoke.PLANES:
 the four fused McICA and Tripleclouds kernels and the three adding
 sweeps) run, with their planes (planes=True; every checkout must have
@@ -96,6 +100,26 @@ def case_file(save, case):
     return os.path.join(save, case.replace("/", "__") + ".pt")
 
 
+# Outputs above this many bytes are saved as a digest of their bits, not
+# whole: the SPARTACUS layer matrices' are gigabytes a case at RRTMG widths,
+# and a card machine's disk holds some tens of gigabytes all told
+SAVE_WHOLE_BYTES = 1 << 26
+
+
+def saved(x):
+    """A float32 output as saved: whole (on the host), or above
+    SAVE_WHOLE_BYTES its shape and two sums of its bit patterns, the second
+    weighted by position."""
+    import torch
+
+    if x.numel() * x.element_size() <= SAVE_WHOLE_BYTES:
+        return x.cpu()
+    bits = x.contiguous().view(torch.int32).flatten().to(torch.int64)
+    w = torch.arange(bits.numel(), device=bits.device) % 65521 + 1
+    return {"shape": tuple(x.shape),
+            "digest": (int(bits.sum()), int((bits * w).sum()))}
+
+
 def _sampler_args(f):
     """f, or where f takes the generator's sampler inputs as one argument
     ``sample`` (generator_draw_scan in checkouts that also kept the CDF
@@ -144,7 +168,8 @@ def worker(check, configs, names, save, planes=False):
     cases, f64_err = {}, {}
     for state, make in (("meridian", chip_smoke.kernel_inputs),
                         ("all_cloudy", chip_smoke.all_cloudy_inputs),
-                        ("ecckd", chip_smoke.ecckd_inputs)):
+                        ("ecckd", chip_smoke.ecckd_inputs),
+                        ("layer_mats", chip_smoke.layer_mats_inputs)):
         inputs = make(NCOL, torch.float64, NCOL)
         for name, sets in inputs.items():
             if (names and name not in names) or (
@@ -165,7 +190,7 @@ def worker(check, configs, names, save, planes=False):
                 a = chip_smoke._f32(args)
                 cases[key] = chip_smoke.median_ms(lambda: fn(*a))
                 if check:
-                    torch.save({n: v.cpu() for n, v in
+                    torch.save({n: saved(v) for n, v in
                                 chip_smoke._outputs(fn(*a)).items()},
                                case_file(save, key))
                 del a
@@ -244,7 +269,8 @@ def compare_outputs(this, other, cases):
     """{case: "equal" when the float32 outputs saved under other equal
     those under this bit for bit, else their largest absolute difference
     ("missing" when other saved no such case, "names differ" when its
-    outputs have other names)."""
+    outputs have other names, "differ" where outputs saved as digests
+    differ)."""
     import torch
 
     res = {}
@@ -256,6 +282,11 @@ def compare_outputs(this, other, cases):
         a, b = torch.load(case_file(this, case)), torch.load(path)
         if set(a) != set(b):
             res[case] = "names differ"
+        elif any(isinstance(a[n], dict) for n in a):
+            res[case] = "equal" if all(
+                isinstance(b[n], dict) and a[n] == b[n]
+                if isinstance(a[n], dict) else torch.equal(a[n], b[n])
+                for n in a) else "differ"
         elif all(torch.equal(a[n], b[n]) for n in a):
             res[case] = "equal"
         else:
