@@ -52,7 +52,8 @@ def readings(cell, seeds, control_seeds, device):
         controls["tf32"] = reference_step.setup(
             cell.config_path, device, torch.float32, torch.float32)
     for n, seed in enumerate(seeds):
-        pool = inputs.make_pool(on_device, seed, t["pool_calls"], t["ncol"])
+        pool = inputs.make_pool(on_device, seed, t["pool_calls"], t["ncol"],
+                                run.mix_value(t, "sun"))
         ncalls = t["check_calls"]
         columns = run.check_columns(cell, seed, ncalls)
         for i, cols in enumerate(columns):

@@ -4,9 +4,11 @@ distinct calls drawn from them on the device from the run's seed.
 Each column of a call is one of the 32 bundled meridian profiles
 (thermodynamics, gases, clouds, aerosols, surface), drawn with
 replacement; its cosine of the solar zenith angle is drawn uniformly on
-[-1, 1] (the distribution over a uniformly sampled sphere: half the
-columns are in night), and it gets a fresh McICA seed.  Both the program
-and the reference are handed the same tensors.
+[-1, 1) (the distribution over a uniformly sampled sphere: half the
+columns are in night), or, where a mix puts every column in daylight
+(``sun`` ``day``), on (0, 1] (over the sunlit hemisphere; ecRad counts a
+cosine of 0 or less as night); and it gets a fresh McICA seed.  Both the
+program and the reference are handed the same tensors.
 
 Where a configuration file has a ``driver`` group, ecRad's
 ``&radiation_driver`` cloud-separation settings, each profile also
@@ -115,10 +117,14 @@ def profiles_on(profiles: dict, device, dtype) -> dict:
                 profiles)
 
 
-def make_pool(profiles: dict, seed: int, ncall: int, ncol: int) -> list:
+def make_pool(profiles: dict, seed: int, ncall: int, ncol: int,
+              sun: str = "any") -> list:
     """``ncall`` distinct calls of ``ncol`` columns each, drawn from
     ``seed`` on the profiles' device: a list of the keyword inputs of
-    ``pipeline.radiation_blocked`` (without ``solar_irradiance``)."""
+    ``pipeline.radiation_blocked`` (without ``solar_irradiance``).  With
+    ``sun`` "any" the solar zenith cosines are uniform on [-1, 1), with
+    "day" on (0, 1]; both take the same draws, in the same order, from
+    the seed's generator."""
     base = {k: x for k, x in profiles.items() if k != "solar_irradiance"}
     device = base["pressure_hl"].device
     dtype = base["pressure_hl"].dtype
@@ -129,9 +135,10 @@ def make_pool(profiles: dict, seed: int, ncall: int, ncol: int) -> list:
     for _ in range(ncall):
         idx = torch.randint(0, nprof, (ncol,), generator=gen, device=device)
         call = _map(lambda x: x[idx], base)
-        call["cos_sza"] = (2.0 * torch.rand(
-            ncol, generator=gen, device=device, dtype=torch.float64)
-            - 1.0).to(dtype)
+        u = torch.rand(ncol, generator=gen, device=device,
+                       dtype=torch.float64)
+        call["cos_sza"] = (1.0 - u if sun == "day"
+                           else 2.0 * u - 1.0).to(dtype)
         call["cloud"]["iseed"] = torch.randint(
             1, SEED_HIGH, (ncol,), generator=gen, device=device,
             dtype=torch.int64)

@@ -6,8 +6,10 @@ computed, and the plane helpers of the region algebra.
 
 A 3x3 region matrix is a plane matrix ``(3, 3, ncol, ng)`` and a region
 vector ``(3, ncol, ng)`` (``matrix.py``); per-column values of a level
-are ``(ncol, 1)`` planes that broadcast against them.  The g axis is the
-gas model's own: ecCKD's g-points need no reordering.
+are ``(ncol, 1)`` planes that broadcast against them.  The g axis is in
+the order the route hands in (``routes/spartacus.py``): ecRad's SPARTACUS
+order, RRTMG's g-points by roughly increasing gas optical depth, so that
+``use_expm``'s prefix holds the thin ones; ecCKD's own order.
 """
 
 from __future__ import annotations

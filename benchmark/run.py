@@ -47,10 +47,14 @@ if ROOT not in sys.path:
 # package's)
 FORBIDDEN = ("jax", "jaxlib", "flax", "ecrad_tpu")
 REFERENCE_BLOCK = 2048          # columns per block of the reference
-# The keys of a traffic mix, all required: the window is a closed loop, so
-# a mix states nothing else (an open loop would need a driver of its own)
+# The keys every traffic mix has: the window is a closed loop, so a mix
+# states no arrivals (an open loop would need a driver of its own)
 TRAFFIC_KEYS = ("why", "ncol", "block", "pool_calls", "check_calls",
                 "check_columns", "trace_calls")
+# The optional keys of a mix and the values each may take, the first what
+# its absence means: ``sun``, where the columns' sun is drawn
+# (``inputs.make_pool``)
+TRAFFIC_OPTIONAL = {"sun": ("any", "day")}
 WARM_CALLS = 2
 
 
@@ -83,6 +87,11 @@ def _applies(metric: dict, cell: str) -> bool:
     return "workloads" not in metric or cell in metric["workloads"]
 
 
+def mix_value(traffic: dict, key: str):
+    """A mix's value of an optional key, or what its absence means."""
+    return traffic.get(key, TRAFFIC_OPTIONAL[key][0])
+
+
 def load_cell(name: str, root: str = ROOT) -> types.SimpleNamespace:
     """The cell ``name`` of ``root``/BENCHMARK.json: its configuration file
     (path and contents), its traffic mix (``benchmark/traffic/<mix>.json``)
@@ -103,9 +112,15 @@ def load_cell(name: str, root: str = ROOT) -> types.SimpleNamespace:
     traffic_path = os.path.join(here, "traffic", w["traffic"] + ".json")
     with open(traffic_path) as f:
         traffic = json.load(f)
-    if set(traffic) != set(TRAFFIC_KEYS):
+    if not set(TRAFFIC_KEYS) <= set(traffic) <= {*TRAFFIC_KEYS,
+                                                  *TRAFFIC_OPTIONAL}:
         raise SystemExit(f"{traffic_path}: keys {sorted(traffic)}; a mix "
-                         f"has exactly {sorted(TRAFFIC_KEYS)}")
+                         f"has exactly {sorted(TRAFFIC_KEYS)}, and may have "
+                         f"{sorted(TRAFFIC_OPTIONAL)}")
+    for key, values in TRAFFIC_OPTIONAL.items():
+        if mix_value(traffic, key) not in values:
+            raise SystemExit(f"{traffic_path}: {key} {traffic[key]!r}; one "
+                             f"of {list(values)}")
 
     def readers(group):
         return {m["name"]: (m, _load_module(
@@ -215,7 +230,8 @@ def run_cell(cell, seed: int, seconds: float, traced: bool, device,
     profiles = inputs.read_profiles(driver=cfg.get("driver"))
     solar = profiles["solar_irradiance"]
     pool = inputs.make_pool(inputs.profiles_on(profiles, device, dtype),
-                            seed, t["pool_calls"], t["ncol"])
+                            seed, t["pool_calls"], t["ncol"],
+                            mix_value(t, "sun"))
     _sync(device)
     stages.append(("inputs", time.time()))
     for i in range(WARM_CALLS):

@@ -3,6 +3,7 @@ found by name, and a new one is found by adding files and entries only."""
 
 import json
 import os
+import re
 import shutil
 
 import pytest
@@ -116,3 +117,49 @@ def test_a_mix_with_other_keys_is_refused(tmp_path, change):
     with pytest.raises(SystemExit, match="a mix has exactly"):
         run.load_cell(next(c for c in CELLS if c.endswith(".rank2k")),
                       root=str(root))
+
+
+@pytest.mark.parametrize("sun", ["day", "any", "night"])
+def test_a_mix_may_state_its_sun(tmp_path, sun):
+    """A mix may add ``sun``, "day" or "any"; another value stops the run
+    before set-up, and a mix without it draws as "any"."""
+    root = tmp_path / "repo"
+    shutil.copytree(os.path.join(ROOT, "benchmark"), root / "benchmark",
+                    ignore=shutil.ignore_patterns("__pycache__", "tests",
+                                                  "reference"))
+    shutil.copy(os.path.join(ROOT, "BENCHMARK.json"), root)
+    path = root / "benchmark" / "traffic" / "rank2k.json"
+    mix = json.loads(path.read_text())
+    assert run.mix_value(mix, "sun") == "any"
+    mix["sun"] = sun
+    path.write_text(json.dumps(mix))
+    cell = next(c for c in CELLS if c.endswith(".rank2k"))
+    if sun == "night":
+        with pytest.raises(SystemExit, match="sun 'night'; one of"):
+            run.load_cell(cell, root=str(root))
+    else:
+        c = run.load_cell(cell, root=str(root))
+        assert run.mix_value(c.traffic, "sun") == sun
+
+
+def test_every_mix_has_the_keys_the_readme_names():
+    """Each mix file has the keys every mix has, and of the optional ones
+    only those the README's table of files names, with a value it
+    names; allday16k puts every column in daylight."""
+    with open(os.path.join(ROOT, "benchmark", "README.md")) as f:
+        row = next(line for line in f if line.startswith("| a traffic mix"))
+    named = set(re.findall(r"`([a-z_]+)`", row))
+    assert set(run.TRAFFIC_KEYS) | set(run.TRAFFIC_OPTIONAL) <= named
+    for values in run.TRAFFIC_OPTIONAL.values():
+        assert set(values) <= named
+    mixes = {}
+    for p in sorted(os.listdir(os.path.join(ROOT, "benchmark", "traffic"))):
+        with open(os.path.join(ROOT, "benchmark", "traffic", p)) as f:
+            mixes[p.removesuffix(".json")] = json.load(f)
+    for name, mix in mixes.items():
+        assert set(run.TRAFFIC_KEYS) <= set(mix), name
+        assert set(mix) <= set(run.TRAFFIC_KEYS) | set(run.TRAFFIC_OPTIONAL)
+    assert mixes["allday16k"]["sun"] == "day"
+    assert {k: mixes["allday16k"][k] for k in run.TRAFFIC_KEYS[1:]} == dict(
+        ncol=16384, block=8192, pool_calls=3, check_calls=2,
+        check_columns=2048, trace_calls=3)
