@@ -534,6 +534,18 @@ def phase(name, **fields):
 def reset_counts():
     for k in KERNELS.values():
         k["wrapper"].launches = 0
+    for name in LAYER_MATS:
+        KERNELS[name]["wrapper"].refined = 0
+
+
+def refined_shares(config, ncol):
+    """{kernel: share} of the (column, layer, g-point) elements of ncol
+    columns given the 3D exponential since the counters' reset, read from
+    the layer-matrix wrappers' running totals (a host read)."""
+    ng = {"spartacus_sw_mats": config.n_g_sw,
+          "spartacus_lw_mats": config.n_g_lw}
+    return {name: int(KERNELS[name]["wrapper"].refined)
+            / (ncol * NLEV * ng[name]) for name in LAYER_MATS}
 
 
 def counts():
@@ -610,7 +622,7 @@ def layer_mats_args():
         def spy(*args, _name=name, _fn=fn):
             seen[_name] = args
             return _fn(*args)
-        spy.launches = 0
+        spy.launches = spy.refined = 0
         setattr(cuda_spartacus, fn.__name__, spy)
     try:
         yield seen
@@ -1538,12 +1550,16 @@ def slice_phases(config_name, ref, smi):
     peak = torch.cuda.max_memory_allocated()
     expect_counts(main_counts, f"{config_name} main path",
                   **per_block(config_name, FULL_NCOL // FULL_BLOCK))
+    extra = {}
+    if main_counts["spartacus_sw_mats"]:
+        # the share of elements refined in one step at full size
+        extra["refined_share"] = refined_shares(step.config, FULL_NCOL)
     steps = check_and_time(step, args, flux, config_name)
     step_s = statistics.median(steps)
     phase(f"slice_{tag}_full", ncol=FULL_NCOL, block=FULL_BLOCK,
           first_step_s=first_s, step_s=step_s, step_s_all=steps,
           cols_per_s=FULL_NCOL / step_s, launches=main_counts,
-          peak_memory_bytes=peak, card=smi)
+          peak_memory_bytes=peak, card=smi, **extra)
     return main_counts
 
 

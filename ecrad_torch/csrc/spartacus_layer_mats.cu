@@ -35,7 +35,9 @@
 //   count).  One thread per refined element, so no lane idles at the end of
 //   a (column, layer)'s refined g-points (they are a prefix, the ng3D rule)
 //   except where the elements' squaring counts differ: each element squares
-//   its own count of times.
+//   its own count of times.  Its first thread adds the list's length to a
+//   running total on the card (the wrappers' counter refined), which the
+//   host reads only when asked.
 //
 // The refinement follows solvers/matrix.py op for op: the SW Gamma is the
 // 9x9 block-upper-triangular [[A11 (6x6), A13 (6x3)], [0, A33 (3x3)]]
@@ -765,14 +767,15 @@ __global__ void __launch_bounds__(kRefineThreads) sw_refine_kernel(
     const T *__restrict__ g3, const T *__restrict__ mu0s,
     const T *__restrict__ tr_diff, const T *__restrict__ tr_dir,
     const unsigned char *__restrict__ clear, Ptrs<T, 5> outs,
-    const int *__restrict__ list, const int *__restrict__ count, int ncol,
-    int nlev, int ng) {
+    const int *__restrict__ list, const int *__restrict__ count,
+    long long *__restrict__ total, int ncol, int nlev, int ng) {
   constexpr int NE = SwBut::NE;
   __shared__ T smem[3 * NE * kRefineThreads];
   const Shared<T> s0{smem + threadIdx.x},
       s1{smem + NE * kRefineThreads + threadIdx.x},
       s2{smem + 2 * NE * kRefineThreads + threadIdx.x};
   const int n = *count;
+  if (blockIdx.x == 0 && threadIdx.x == 0) *total += n;
   for (int i = blockIdx.x * kRefineThreads + threadIdx.x; i < n;
        i += gridDim.x * kRefineThreads) {
     const int e = list[i];
@@ -810,8 +813,9 @@ __global__ void __launch_bounds__(kRefineThreads) lw_refine_kernel(
     const T *__restrict__ side, const T *__restrict__ rfs,
     const unsigned char *__restrict__ clear, const T *__restrict__ pl_top,
     const T *__restrict__ pl_bot, Ptrs<T, 4> outs,
-    const int *__restrict__ list, const int *__restrict__ count, int ncol,
-    int nlev, int ng, int pstride) {
+    const int *__restrict__ list, const int *__restrict__ count,
+    long long *__restrict__ total, int ncol, int nlev, int ng,
+    int pstride) {
   constexpr int NE = LwBut::NE;
   __shared__ double smem[(3 * NE + 12) * kRefineThreads];
   const Shared<double> s0{smem + threadIdx.x},
@@ -819,6 +823,7 @@ __global__ void __launch_bounds__(kRefineThreads) lw_refine_kernel(
       s2{smem + 2 * NE * kRefineThreads + threadIdx.x},
       s3{smem + 3 * NE * kRefineThreads + threadIdx.x};
   const int n = *count;
+  if (blockIdx.x == 0 && threadIdx.x == 0) *total += n;
   for (int i = blockIdx.x * kRefineThreads + threadIdx.x; i < n;
        i += gridDim.x * kRefineThreads) {
     const int e = list[i];
@@ -867,7 +872,7 @@ template <typename K> int refine_blocks(K kernel, long long n) {
 }
 
 // p: od3, ssa3, g3, mu0, tr_diff, tr_dir, use_expm, clear, R, T, Rd, Tdd,
-// Tdir, list, count
+// Tdir, list, count, total
 template <typename T>
 int launch_sw(void *const *p, int ncol, int nlev, int ng, int refine,
               void *stream) {
@@ -877,6 +882,7 @@ int launch_sw(void *const *p, int ncol, int nlev, int ng, int refine,
   Ptrs<T, 5> outs;
   for (int m = 0; m < 5; ++m) outs.m[m] = (T *)p[8 + m];
   int *list = (int *)p[13], *count = (int *)p[14];
+  long long *total = (long long *)p[15];
   const int blocks = (int)((n + kBuildThreads - 1) / kBuildThreads);
   sw_build_kernel<T><<<blocks, kBuildThreads, 0, st>>>(
       (const T *)p[0], (const T *)p[1], (const T *)p[2], (const T *)p[3],
@@ -887,13 +893,13 @@ int launch_sw(void *const *p, int ncol, int nlev, int ng, int refine,
     sw_refine_kernel<T><<<grid, kRefineThreads, 0, st>>>(
         (const T *)p[0], (const T *)p[1], (const T *)p[2], (const T *)p[3],
         (const T *)p[4], (const T *)p[5], (const unsigned char *)p[7], outs,
-        list, count, ncol, nlev, ng);
+        list, count, total, ncol, nlev, ng);
   }
   return (int)cudaGetLastError();
 }
 
 // p: od3, ssa3, g3, tr, side_emiss, reg_fracs, clear, pl_top, pl_bot,
-// use_expm, R, T, SU, SD, list, count
+// use_expm, R, T, SU, SD, list, count, total
 template <typename T>
 int launch_lw(void *const *p, int ncol, int nlev, int ng, int pstride,
               int refine, void *stream) {
@@ -903,6 +909,7 @@ int launch_lw(void *const *p, int ncol, int nlev, int ng, int pstride,
   Ptrs<T, 4> outs;
   for (int m = 0; m < 4; ++m) outs.m[m] = (T *)p[10 + m];
   int *list = (int *)p[14], *count = (int *)p[15];
+  long long *total = (long long *)p[16];
   const int blocks = (int)((n + kBuildThreads - 1) / kBuildThreads);
   lw_build_kernel<T><<<blocks, kBuildThreads, 0, st>>>(
       (const T *)p[0], (const T *)p[1], (const T *)p[2], (const T *)p[5],
@@ -914,8 +921,8 @@ int launch_lw(void *const *p, int ncol, int nlev, int ng, int pstride,
     lw_refine_kernel<T><<<grid, kRefineThreads, 0, st>>>(
         (const T *)p[0], (const T *)p[1], (const T *)p[2], (const T *)p[3],
         (const T *)p[4], (const T *)p[5], (const unsigned char *)p[6],
-        (const T *)p[7], (const T *)p[8], outs, list, count, ncol, nlev, ng,
-        pstride);
+        (const T *)p[7], (const T *)p[8], outs, list, count, total, ncol,
+        nlev, ng, pstride);
   }
   return (int)cudaGetLastError();
 }
@@ -925,8 +932,9 @@ int launch_lw(void *const *p, int ncol, int nlev, int ng, int pstride,
 extern "C" {
 
 // The pointer arrays of launch_sw and launch_lw; ncol, nlev, ng; the
-// Planck inputs' column stride (LW); refine: build the 3D refinement (list
-// and count non-null, the count zeroed)
+// Planck inputs' column stride (LW); refine: build the 3D refinement (list,
+// count and total non-null, the count zeroed; the refine pass adds the
+// count to total)
 int ecrad_spartacus_sw_mats_f32(void *const *p, int ncol, int nlev, int ng,
                                 int refine, void *stream) {
   return launch_sw<float>(p, ncol, nlev, ng, refine, stream);

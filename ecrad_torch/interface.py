@@ -568,6 +568,12 @@ def _optical_properties(config: Config, tables: Tables, *,
         do_clouds=do_clouds, frac=frac, cl=cl)
 
 
+# The span of the SPARTACUS g permutation: the g-dependent inputs taken into
+# SPARTACUS order, and the solver's per-g outputs put back (two opens a band
+# set)
+REORDER = "ecrad.solvers.reorder"
+
+
 def _spartacus_perm(config: Config, is_sw: bool) -> np.ndarray:
     """G-point permutation for SPARTACUS: RRTMG g-points reordered by
     approximately increasing optical depth (radiation_ifs_rrtm.F90:117-134);
@@ -760,10 +766,13 @@ def _solve_lw(config: Config, tables: Tables, op, cloud, spec_lw,
             cloud["overlap_param"], go.planck_hl, lw_emission,
             lw_albedo_g, spec_matrix=spec_lw)
     if config.lw_solver == Solver.SPARTACUS:
-        perm, args = spartacus_lw_inputs(config, tables, op, cloud,
-                                         pressure_hl, temperature_hl)
-        return _unpermute_g_fields(spartacus.solver_spartacus_lw(
-            *args, spec_matrix=_permuted_rows(spec_lw, perm)), perm)
+        with profiling.scope(REORDER):
+            perm, args = spartacus_lw_inputs(config, tables, op, cloud,
+                                             pressure_hl, temperature_hl)
+            spec = _permuted_rows(spec_lw, perm)
+        lw = spartacus.solver_spartacus_lw(*args, spec_matrix=spec)
+        with profiling.scope(REORDER):
+            return _unpermute_g_fields(lw, perm)
     return mcica.solver_mcica_lw(
         op["od_lw"], op["ssa_lw"], op["g_lw_arr"],
         cl["od_lw"], cl["ssa_lw"], cl["g_lw"],
@@ -845,11 +854,14 @@ def _solve_sw(config: Config, tables: Tables, op, cloud, spec_sw,
             op["sw_albedo_diffuse_g"], op["sw_albedo_direct_g"],
             spec_matrix=spec_sw)
     if config.sw_solver == Solver.SPARTACUS:
-        perm, args = spartacus_sw_inputs(config, tables, op, cloud,
-                                         pressure_hl, temperature_hl,
-                                         cos_sza)
-        return _unpermute_g_fields(spartacus.solver_spartacus_sw(
-            *args, spec_matrix=_permuted_rows(spec_sw, perm)), perm)
+        with profiling.scope(REORDER):
+            perm, args = spartacus_sw_inputs(config, tables, op, cloud,
+                                             pressure_hl, temperature_hl,
+                                             cos_sza)
+            spec = _permuted_rows(spec_sw, perm)
+        sw = spartacus.solver_spartacus_sw(*args, spec_matrix=spec)
+        with profiling.scope(REORDER):
+            return _unpermute_g_fields(sw, perm)
     return mcica.solver_mcica_sw(
         op["od_sw"], op["ssa_sw"], op["g_sw_arr"],
         cl["od_sw"], cl["ssa_sw"], cl["g_sw"],

@@ -305,13 +305,34 @@ def _elements(name, od3):
     return ncol, nlev, ng
 
 
-def _refine_list(ref, n, refine):
-    """The refine pass's scratch: the refined elements' indices (n int32 at
-    most) and their count, zeroed; None without a refinement."""
+def _refine_list(wrapper, ref, n, refine):
+    """The refine pass's scratch and counter: the refined elements' indices
+    (n int32 at most), their count, zeroed, and the wrapper's running total
+    of refined elements, to which the refine pass adds the count on the
+    card; Nones without a refinement."""
     if not refine:
-        return None, None
+        return None, None, None
     return (torch.empty(n, dtype=torch.int32, device=ref.device),
-            torch.zeros(1, dtype=torch.int32, device=ref.device))
+            torch.zeros(1, dtype=torch.int32, device=ref.device),
+            _refined_total(wrapper, ref.device))
+
+
+def _refined_total(wrapper, device):
+    """wrapper.refined as a one-element int64 tensor on device, filled
+    there (no copy from the host) where it is still an int, as after a
+    reset."""
+    total = wrapper.refined
+    if not (torch.is_tensor(total) and total.device == device):
+        total = torch.full((1,), int(total), dtype=torch.int64,
+                           device=device)
+        wrapper.refined = total
+    return total
+
+
+def _count_plain(wrapper, use_expm, any_expm):
+    """The plain build's count of refined elements, on wrapper.refined."""
+    if any_expm:
+        wrapper.refined = wrapper.refined + int(use_expm.sum())
 
 
 def sw_layer_mats(od3, ssa3, g3, mu0, tr_diff, tr_dir, use_expm,
@@ -320,10 +341,14 @@ def sw_layer_mats(od3, ssa3, g3, mu0, tr_diff, tr_dir, use_expm,
     9, ncol, ng), of spartacus._sw_layer_mats's arguments.  CPU tensors run
     that plain version; CUDA tensors launch the kernels
     (csrc/spartacus_layer_mats.cu: the two-stream build, then, when
-    any_expm, the refinement of the use_expm elements) or raise."""
+    any_expm, the refinement of the use_expm elements) or raise.  Counts
+    its launch sets in .launches and the elements it refines in .refined
+    (an int, or on the card a one-element tensor; reset both to 0)."""
     if od3.device.type == "cpu":
-        return sp._sw_layer_mats(od3, ssa3, g3, mu0, tr_diff, tr_dir,
+        mats = sp._sw_layer_mats(od3, ssa3, g3, mu0, tr_diff, tr_dir,
                                  use_expm, clear_layer, any_expm)
+        _count_plain(sw_layer_mats, use_expm, any_expm)
+        return mats
     return _sw_layer_mats_kernel(od3, ssa3, g3, mu0, tr_diff, tr_dir,
                                  use_expm, clear_layer, any_expm)
 
@@ -347,13 +372,14 @@ def _sw_layer_mats_kernel(od3, ssa3, g3, mu0, tr_diff, tr_dir, use_expm,
     refine = bool(any_expm)
     _launch("spartacus_sw_mats", od3,
             (od3, ssa3, g3, mu0, tr_diff, tr_dir, use_expm, clear_layer,
-             *mats, *_refine_list(od3, n, refine)),
+             *mats, *_refine_list(sw_layer_mats, od3, n, refine)),
             ncol, nlev, ng, int(refine))
     sw_layer_mats.launches += 1
     return mats
 
 
 sw_layer_mats.launches = 0
+sw_layer_mats.refined = 0
 
 
 def lw_layer_mats(od3, ssa3, g3, tr, side_emiss, reg_fracs, clear_layer,
@@ -363,11 +389,14 @@ def lw_layer_mats(od3, ssa3, g3, tr, side_emiss, reg_fracs, clear_layer,
     CPU tensors run that plain version; CUDA tensors launch the kernels
     (csrc/spartacus_layer_mats.cu, the refinement in float64) or raise.
     pl_top and pl_bot may be views with a column stride (planck_hl[:, :-1]
-    and [:, 1:]): (ncol, nlev, ng) of strides (s, ng, 1), the same s."""
+    and [:, 1:]): (ncol, nlev, ng) of strides (s, ng, 1), the same s.
+    Counters .launches and .refined as sw_layer_mats'."""
     if od3.device.type == "cpu":
-        return sp._lw_layer_mats(od3, ssa3, g3, tr, side_emiss, reg_fracs,
+        mats = sp._lw_layer_mats(od3, ssa3, g3, tr, side_emiss, reg_fracs,
                                  clear_layer, pl_top, pl_bot, use_expm,
                                  any_expm)
+        _count_plain(lw_layer_mats, use_expm, any_expm)
+        return mats
     return _lw_layer_mats_kernel(od3, ssa3, g3, tr, side_emiss, reg_fracs,
                                  clear_layer, pl_top, pl_bot, use_expm,
                                  any_expm)
@@ -405,10 +434,11 @@ def _lw_layer_mats_kernel(od3, ssa3, g3, tr, side_emiss, reg_fracs,
     _launch("spartacus_lw_mats", od3,
             (od3, ssa3, g3, tr, side_emiss, reg_fracs, clear_layer, pl_top,
              pl_bot, use_expm, R9, T9, SU, SD,
-             *_refine_list(od3, n, refine)),
+             *_refine_list(lw_layer_mats, od3, n, refine)),
             ncol, nlev, ng, pl_top.stride(0), int(refine))
     lw_layer_mats.launches += 1
     return R9, T9, SU, SD
 
 
 lw_layer_mats.launches = 0
+lw_layer_mats.refined = 0

@@ -68,6 +68,9 @@ SIDE_EMISS_THIN = 1.4107                    # radiation_spartacus_lw.F90:130
 LW_DIFFUSIVITY = 1.66
 NREG = 3
 _EPS = float(np.finfo(np.float64).eps)
+# The span of the layer-matrix build, one open a band set (the kernels'
+# launch set on the card, the plain build on the CPU)
+LAYER_MATS = "ecrad.solvers.layer_mats"
 # 3D-active elements per refinement chunk of the plain build: the SW
 # exponential keeps a few hundred planes of this length alive, a few GB
 _REFINE_CHUNK = 1 << 21
@@ -730,9 +733,10 @@ def sw_sweep_args(config: Config, od, ssa, g, od_cloud_b, ssa_cloud_b,
                               config.max_3d_transfer_rate)
     tr_dir = _transfer_rates(reg_fracs, edge_length, P["layer_depth"],
                              tan_sza[:, None], config.max_3d_transfer_rate)
-    mats = cuda_spartacus.sw_layer_mats(
-        od3, ssa3, g3, mu0, tr_diff, tr_dir, use_expm, clear_layer,
-        config.do_3d_effects or config.use_expm_everywhere)
+    with profiling.scope(LAYER_MATS):
+        mats = cuda_spartacus.sw_layer_mats(
+            od3, ssa3, g3, mu0, tr_diff, tr_dir, use_expm, clear_layer,
+            config.do_3d_effects or config.use_expm_everywhere)
     cl5 = tuple(_lev(x) for x in two_stream.sw_ref_trans(
         mu0[:, None, None], od, ssa, g))
 
@@ -858,9 +862,11 @@ def lw_sweep_args(config: Config, od, ssa, g, od_cloud_b, ssa_cloud_b,
         side_emiss = torch.ones_like(od3[..., 0])
 
     pl_top, pl_bot = planck_hl[:, :-1], planck_hl[:, 1:]
-    mats = cuda_spartacus.lw_layer_mats(
-        od3, ssa3, g3, tr, side_emiss, reg_fracs, clear_layer, pl_top,
-        pl_bot, use_expm, config.do_3d_effects or config.use_expm_everywhere)
+    with profiling.scope(LAYER_MATS):
+        mats = cuda_spartacus.lw_layer_mats(
+            od3, ssa3, g3, tr, side_emiss, reg_fracs, clear_layer, pl_top,
+            pl_bot, use_expm,
+            config.do_3d_effects or config.use_expm_everywhere)
     cl4 = tuple(_lev(x) for x in two_stream.lw_ref_trans(od, ssa, g, pl_top,
                                                         pl_bot))
     ones = torch.ones((ncol, 1), dtype=torch.bool, device=od.device)

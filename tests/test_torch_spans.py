@@ -38,11 +38,17 @@ GENERATOR = {
 }
 # the three regions and their overlap matrices, built in each band set
 REGIONS = {"ecrad.solvers.regions": ("ecrad.solvers", 4)}
+# SPARTACUS: besides the regions, the layer matrices, built in each band
+# set, and the g permutation, into SPARTACUS order and back in each
+SPARTACUS = {**REGIONS,
+             "ecrad.solvers.layer_mats": ("ecrad.solvers", 4),
+             "ecrad.solvers.reorder": ("ecrad.solvers", 8)}
 # configuration -> (its own spans, the levels its step runs on)
 CONFIGS = {"mcica_rrtmg": (GENERATOR, None),
            "ecckd_mcica": (GENERATOR, None),
            "tripleclouds_ecckd": (REGIONS, None),
-           "spartacus_ecckd": (REGIONS, slice(88, 100))}
+           "spartacus_ecckd": (SPARTACUS, slice(88, 100)),
+           "spartacus_3d": (SPARTACUS, slice(88, 100))}
 
 
 def spans_of(name):

@@ -33,12 +33,17 @@ route to them.
   tensors run the plain build and launch nothing; tensors the kernels
   cannot take raise before any launch, with no fallback; a launch set
   counts once.
+* The counter of refined elements (.refined): the kernels' running total,
+  which the refine pass keeps on the card, and the CPU route's grow by the
+  plain build's use_expm.sum(), and the kernel branch reads no tensor's
+  value on the host.
 The build with nvcc and the runs on the card are chip_smoke.py's
 (spartacus_sw_mats, spartacus_lw_mats, equal to their plain versions bit
 for bit there too).
 """
 
 import ctypes
+import functools
 import os
 import re
 import subprocess
@@ -46,6 +51,7 @@ import subprocess
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from ecrad_torch import flagship, kernels, pipeline
 from ecrad_torch.solvers import cuda_spartacus, matrix
@@ -117,8 +123,11 @@ def _capture(config_name, ncol, dtype=torch.float64, config=None,
     real = {k: getattr(cuda_spartacus, n) for k, n in NAMES.items()}
     try:
         for k, n in NAMES.items():
-            setattr(cuda_spartacus, n,
-                    lambda *a, _k=k: seen[_k].append(a) or real[_k](*a))
+            # the spy carries the wrapper's counters, which a wrapper
+            # updates through its module's name
+            spy = functools.wraps(real[k])(
+                lambda *a, _k=k: seen[_k].append(a) or real[_k](*a))
+            setattr(cuda_spartacus, n, spy)
         conf = step.config if config is None else config(step.config)
         pipeline.radiation_step(conf, step.tables,
                                 solar_irradiance=step.solar, **kw)
@@ -343,3 +352,45 @@ def test_a_launch_set_counts_once(launches_on_cpu, states, band, refine):
     for g, w in zip(got, plain(*args)):
         np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-6,
                                    atol=1e-12 * float(w.abs().max()))
+
+
+class _HostReads(TorchDispatchMode):
+    """Records the operations that make the host wait for the card: a
+    tensor's value read on the host (item, int, bool) and nonzero, whose
+    shape depends on the data."""
+    WAITS = (torch.ops.aten._local_scalar_dense.default,
+             torch.ops.aten.nonzero.default)
+
+    def __init__(self):
+        super().__init__()
+        self.seen = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func in self.WAITS:
+            self.seen.append(str(func))
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("band", ["sw", "lw"])
+@pytest.mark.parametrize("case", ["meridian", "rrtmg"])
+def test_refined_counts_the_plain_builds_elements(launches_on_cpu, states,
+                                                  monkeypatch, case, band):
+    """The kernels' running total of refined elements (.refined: the
+    refine pass adds the list's length on the card) grows by the plain
+    build's use_expm.sum(), from an int left by earlier counts; the
+    card's branch reads nothing back on the host for it; the CPU route
+    counts the plain build's use_expm.sum() on the same total."""
+    args = states[case][0][band]
+    wrapper = getattr(cuda_spartacus, NAMES[band])
+    kernel = getattr(cuda_spartacus, f"_{NAMES[band]}_kernel")
+    want = int(args[USE[band]].sum())
+    assert want > 0
+    monkeypatch.setattr(wrapper, "refined", 5)
+    with _HostReads() as reads:
+        kernel(*args)
+    assert reads.seen == []
+    assert torch.is_tensor(wrapper.refined)
+    assert wrapper.refined.dtype == torch.int64
+    assert int(wrapper.refined) == 5 + want
+    wrapper(*args)
+    assert int(wrapper.refined) == 5 + 2 * want
