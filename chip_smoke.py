@@ -77,13 +77,16 @@ the script exits non-zero:
                its plain version at 2048 and 8192 columns.  The
                SPARTACUS layer matrices (spartacus_sw_mats,
                spartacus_lw_mats: cuda_spartacus.sw_layer_mats and
-               lw_layer_mats, a build and a refine pass, one launch set a
-               band set) are held to their plain versions on the
-               spartacus_3d state at RRTMG widths (also with the mask of
-               use_expm_everywhere, "everywhere"), on the
+               lw_layer_mats, a build and a refine pass from the band
+               set's raw optics, which also write the clear-sky planes,
+               one launch set a band set) are held to their plain
+               versions on the spartacus_3d state at RRTMG widths (also
+               with the mask of use_expm_everywhere, "everywhere"), on the
                spartacus_ecckd state at 2048 and 2049 columns and at 8192
                (SAMPLED_NCOL, "ecckd_8192"), in a group of inputs of their
-               own, and timed with their plain versions on each set.
+               own, in float32 equal in value (the kernels' clamps may
+               keep a -0 where torch's give +0), and timed with their
+               plain versions on each set.
 4. slice_f64 - the flagship (McICA) step (ecrad_torch.flagship) on the
                32-column meridian slice in float64 against the JAX package's
                float64 fluxes (tests/data/torch_flagship_meridian32.npz);
@@ -491,21 +494,25 @@ OPS = {
     # below the bytes of the 50 (SW) and 24 (LW) layer planes
     "spartacus_sw": lambda args, f: 700,
     "spartacus_lw": lambda args, f: 400,
-    # the layer matrices: each element not refined computes sw_ref_trans
-    # (105) or lw_ref_trans and its two source scalings (45) for region 0,
-    # and in a cloudy layer for the other two; a refined one the
-    # refinement, counted from csrc/spartacus_layer_mats.cu without its
-    # squarings (747 operations each in SW, 396 in LW), which depend on
-    # each element's norm: SW ~5,300 (four 9x9 block-triangular products
-    # 2,988, the Pade sums 756, the blockwise solve 1,000, the rest ~550),
-    # LW ~3,250 float64 operations (four 6x6 products 1,584, two 6x6 LUs
-    # and eight solves 790, the rest ~880), counted twice: the card's
-    # float64 rate is half its float32 rate
+    # the layer matrices: every element computes region 0's sw_ref_trans
+    # (105) or lw_ref_trans with the unscaled Planck terms (45) for the
+    # clear-sky planes; an element not refined also region 0's LW sources
+    # with the scaled ones (15), and in a cloudy layer two region merges
+    # (12 each) and the other two regions' coefficients; a refined one the
+    # merges, the LW side emissivity (15) and the refinement, counted from
+    # csrc/spartacus_layer_mats.cu without its squarings (747 operations
+    # each in SW, 396 in LW), which depend on each element's norm: SW
+    # ~5,300 (four 9x9 block-triangular products 2,988, the Pade sums 756,
+    # the blockwise solve 1,000, the rest ~550), LW ~3,250 float64
+    # operations (four 6x6 products 1,584, two 6x6 LUs and eight solves
+    # 790, the rest ~880), counted twice: the card's float64 rate is half
+    # its float32 rate
     "spartacus_sw_mats": lambda args, f: (
-        (1.0 - f(args[6])) * 105 * (3 - 2 * f(args[7])) + 5300 * f(args[6])),
+        105 + (1.0 - f(args[12])) * 2 * (105 + 12) * (1 - f(args[13]))
+        + (2 * 12 + 5300) * f(args[12])),
     "spartacus_lw_mats": lambda args, f: (
-        (1.0 - f(args[9])) * 45 * (3 - 2 * f(args[6]))
-        + 2 * 3250 * f(args[9])),
+        45 + (1.0 - f(args[15])) * (15 + 2 * (45 + 12) * (1 - f(args[12])))
+        + (2 * 12 + 15 + 2 * 3250) * f(args[15])),
     # a multiply-add per term of the (row, band): ~16 (LW: od and Planck
     # fraction) and ~10 (SW: od and Rayleigh) on the meridian state, and
     # the clamp and the Planck product or the ssa division
@@ -536,6 +543,19 @@ def reset_counts():
         k["wrapper"].launches = 0
     for name in LAYER_MATS:
         KERNELS[name]["wrapper"].refined = 0
+        KERNELS[name]["wrapper"].clear_planes = 0
+
+
+def clear_planes(launches):
+    """{kernel: count} of the layer-matrix launch sets whose build wrote
+    the clear-sky planes since the counters' reset; fail unless each equals
+    the kernel's launches."""
+    got = {name: KERNELS[name]["wrapper"].clear_planes for name in LAYER_MATS}
+    for name, n in got.items():
+        if n != launches[name]:
+            raise AssertionError(f"{name}: {n} launch sets wrote the "
+                                 f"clear-sky planes, {launches[name]} ran")
+    return got
 
 
 def refined_shares(config, ncol):
@@ -622,13 +642,30 @@ def layer_mats_args():
         def spy(*args, _name=name, _fn=fn):
             seen[_name] = args
             return _fn(*args)
-        spy.launches = spy.refined = 0
+        spy.launches = spy.refined = spy.clear_planes = 0
         setattr(cuda_spartacus, fn.__name__, spy)
     try:
         yield seen
     finally:
         for attr, fn in real.items():
             setattr(cuda_spartacus, attr, fn)
+
+
+def sweep_args_inputs(ncol, dtype, seed, min_cloud=0.0,
+                      config_name="spartacus_3d"):
+    """The arguments of spartacus.sw_sweep_args and lw_sweep_args, {"sw":
+    arguments, "lw": arguments}, as the path of config_name (spartacus_3d
+    or spartacus_ecckd) builds them for the random state of
+    random_state."""
+    step, kw, cloud = random_state(ncol, dtype, seed, config_name,
+                                   min_cloud)
+    config, tables = step.config, step.tables
+    op = _optical_properties(config, tables, solar_irradiance=step.solar,
+                             cloud=cloud, **kw)
+    levels = (kw["pressure_hl"], kw["temperature_hl"])
+    return {"sw": spartacus_sw_inputs(config, tables, op, cloud, *levels,
+                                      kw["cos_sza"])[1],
+            "lw": spartacus_lw_inputs(config, tables, op, cloud, *levels)[1]}
 
 
 def spartacus_inputs(ncol, dtype, seed, min_cloud=0.0,
@@ -639,17 +676,10 @@ def spartacus_inputs(ncol, dtype, seed, min_cloud=0.0,
     entrapment], [LW without (the path's) and with multilayer effects],
     each (label, arguments); and the layer matrices' arguments,
     {"spartacus_sw_mats": arguments, "spartacus_lw_mats": arguments}."""
-    step, kw, cloud = random_state(ncol, dtype, seed, config_name,
-                                   min_cloud)
-    config, tables = step.config, step.tables
-    op = _optical_properties(config, tables, solar_irradiance=step.solar,
-                             cloud=cloud, **kw)
-    levels = (kw["pressure_hl"], kw["temperature_hl"])
+    inputs = sweep_args_inputs(ncol, dtype, seed, min_cloud, config_name)
     with layer_mats_args() as mats:
-        sw_opts, sw, _ = spartacus.sw_sweep_args(*spartacus_sw_inputs(
-            config, tables, op, cloud, *levels, kw["cos_sza"])[1])
-        lw_opts, lw, _ = spartacus.lw_sweep_args(*spartacus_lw_inputs(
-            config, tables, op, cloud, *levels)[1])
+        sw_opts, sw, _ = spartacus.sw_sweep_args(*inputs["sw"])
+        lw_opts, lw, _ = spartacus.lw_sweep_args(*inputs["lw"])
     if sw_opts.mode != Entrapment.EXPLICIT or lw_opts.multilayer:
         raise AssertionError(f"{config_name} runs {sw_opts}, {lw_opts}")
     return ([(m.name.lower(), (sw_opts._replace(mode=m), *sw))
@@ -663,10 +693,10 @@ def spartacus_inputs(ncol, dtype, seed, min_cloud=0.0,
 def everywhere(config, name, args):
     """A layer-matrix kernel's arguments with the use_expm mask of
     use_expm_everywhere (the ng3D prefix in every layer, clear ones too;
-    region 0's optical depth is the gas's)."""
-    i = 6 if name == "spartacus_sw_mats" else 9
+    on the gas's optical depth, the first argument)."""
+    i = 12 if name == "spartacus_sw_mats" else 15
     use = spartacus._use_expm_mask(config.replace(use_expm_everywhere=True),
-                                   args[0][..., 0], None)
+                                   args[0], None)
     return args[:i] + (use,) + args[i + 1:]
 
 
@@ -1174,8 +1204,8 @@ def bound(name, args, out):
         nbytes = cuda_spartacus.lw_needed_bytes(*args)
     elif name.startswith("rrtmg"):        # (tables, cols, ...)
         nbytes = rrtmg_needed_bytes(args, out)
-    if name in LAYER_MATS:                # (od3 (ncol, nlev, ng, 3), ...)
-        ncol, nlev, ng = args[0].shape[:3]
+    if name in LAYER_MATS:                # (od (ncol, nlev, ng), ...)
+        ncol, nlev, ng = args[0].shape
     elif name.startswith("spartacus"):    # (opts, (nlev, 9, ncol, ng), ...)
         nlev, _, ncol, ng = args[1].shape
     elif name.startswith("rrtmg"):
@@ -1251,6 +1281,13 @@ def check_kernel(name, inputs, ncol, err, checked):
             raise AssertionError(f"{name}/{label}/{ncol}: zero elsewhere "
                                  f"than its plain version")
         if name == "generator_cumulate" and not all(
+                torch.equal(v, _outputs(ref32)[n])
+                for n, v in _outputs(got32).items()):
+            raise AssertionError(f"{name}/{label}/{ncol}: float32 outputs "
+                                 f"differ from its plain version's")
+        # equal values (a zero's sign aside: the layer-matrix kernels'
+        # clamps keep a -0 that torch's clamp makes +0)
+        if name in LAYER_MATS and not all(
                 torch.equal(v, _outputs(ref32)[n])
                 for n, v in _outputs(got32).items()):
             raise AssertionError(f"{name}/{label}/{ncol}: float32 outputs "
@@ -1552,8 +1589,10 @@ def slice_phases(config_name, ref, smi):
                   **per_block(config_name, FULL_NCOL // FULL_BLOCK))
     extra = {}
     if main_counts["spartacus_sw_mats"]:
-        # the share of elements refined in one step at full size
+        # the share of elements refined in one step at full size, and the
+        # launch sets whose build wrote the clear-sky planes
         extra["refined_share"] = refined_shares(step.config, FULL_NCOL)
+        extra["clear_planes"] = clear_planes(main_counts)
     steps = check_and_time(step, args, flux, config_name)
     step_s = statistics.median(steps)
     phase(f"slice_{tag}_full", ncol=FULL_NCOL, block=FULL_BLOCK,

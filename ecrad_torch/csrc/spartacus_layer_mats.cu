@@ -1,7 +1,7 @@
 // SPARTACUS layer matrices: per (column, layer, g-point) element, the three
-// regions' two-stream coefficients and, where the element's use_expm flag
-// is set, the 3D refinement by a matrix exponential; one launch set per
-// band set.
+// regions' optics and two-stream coefficients and, where the element's
+// use_expm flag is set, the 3D refinement by a matrix exponential; one
+// launch set per band set.
 //
 // Replaces no TPU kernel: the JAX package leaves this stage to XLA
 // (ecrad_tpu/solvers/spartacus.py maps the layer-matrix build over levels,
@@ -14,30 +14,40 @@
 // ecrad_torch/solvers/cuda_spartacus.py sw_layer_mats, lw_layer_mats; their
 // plain versions are _sw_layer_mats and _lw_layer_mats, which run on the CPU.
 //
-// Outputs in the sweeps' layout: SW R, T, Rd, Tdd, Tdir (nlev, 9, ncol, ng),
-// entry k = 3*i + j; LW R, T (nlev, 9, ncol, ng) and the region-fraction
-// scaled sources SU, SD (nlev, 3, ncol, ng).  Every entry is written: the
-// diagonal two-stream values and zeros elsewhere, or the refined element's
-// whole matrices; in a clear layer only the [0][0] entry (and [0] of a
-// source) is kept, by a select, as the plain build does.
+// Inputs: the band set's raw optics (Optics below: the gas od, ssa, g in
+// SPARTACUS g order, the band cloud properties, the g-points' bands, the
+// cloudy regions' od scaling, max_cloud_od), from which each pass makes the
+// region optics in registers (region_optics, spartacus._region_optics op
+// for op), so no per-element region tensor exists.  Outputs in the sweeps'
+// layout: SW R, T, Rd, Tdd, Tdir (nlev, 9, ncol, ng), entry k = 3*i + j; LW
+// R, T (nlev, 9, ncol, ng) and the region-fraction scaled sources SU, SD
+// (nlev, 3, ncol, ng); and the clear-sky planes the sweeps read beside
+// them, (nlev, ncol, ng) each: SW the five sw_ref_trans coefficients of the
+// gas, LW lw_ref_trans' four of the gas with the unscaled Planck terms.
+// Every entry is written: the diagonal two-stream values and zeros
+// elsewhere, or the refined element's whole matrices; in a clear layer only
+// the [0][0] entry (and [0] of a source) is kept, by a select, as the plain
+// build does.
 //
 // Two passes:
 // * build: one thread per element over a flat (column, layer, g-point)
-//   index, in blocks of 128, so that a warp's loads of od3, ssa3 and g3 and
-//   its stores of each matrix entry are contiguous over g.  It writes the
-//   two-stream matrices of every element that is not refined (region 0
-//   only in a clear layer), and appends each refined element's index to a
-//   list on the card: one shared-memory atomic per element and one global
-//   atomic per block.
+//   index, in blocks of 128, so that a warp's loads of the optics and its
+//   stores of each matrix entry and clear-sky plane are contiguous over g.
+//   It writes every element's clear-sky coefficients (region 0's two-stream,
+//   before the refine pass may replace [0][0]), the two-stream matrices of
+//   every element that is not refined (region 0 only in a clear layer), and
+//   appends each refined element's index to a list on the card: one
+//   shared-memory atomic per element and one global atomic per block.
 // * refine: a persistent grid of one-warp blocks, sized to the blocks the
 //   card keeps resident, walks the list up to its length, which it reads on
 //   the card (no host read of use_expm, of the count or of a squaring
 //   count).  One thread per refined element, so no lane idles at the end of
 //   a (column, layer)'s refined g-points (they are a prefix, the ng3D rule)
 //   except where the elements' squaring counts differ: each element squares
-//   its own count of times.  Its first thread adds the list's length to a
-//   running total on the card (the wrappers' counter refined), which the
-//   host reads only when asked.
+//   its own count of times.  It makes the element's region optics again
+//   from the raw inputs, and the LW one its side emissivity.  Its first
+//   thread adds the list's length to a running total on the card (the
+//   wrappers' counter refined), which the host reads only when asked.
 //
 // The refinement follows solvers/matrix.py op for op: the SW Gamma is the
 // 9x9 block-upper-triangular [[A11 (6x6), A13 (6x3)], [0, A33 (3x3)]]
@@ -45,32 +55,36 @@
 // 6x6 (pl_expm, at most 6 squarings), both the same template with Q = 3 or
 // 0; Pade-7 scaling and squaring, LU without pivoting, sums in index order.
 // The SW refinement runs in the working type, the LW one in float64
-// whatever the working type, cast on the store.  The file compiles without
-// FMA contraction (kernels.SOURCE_FLAGS): the two-stream coefficients round
-// as the plain build's (common.cuh sw_ref_trans, as sw_fused.cu), and so
-// does the refinement, whose every add and multiply is one torch op in the
-// plain build.
+// whatever the working type, cast on the store; the region optics and the
+// side emissivity in the working type, as the plain build.  The file
+// compiles without FMA contraction (kernels.SOURCE_FLAGS): the region
+// merge and the two-stream coefficients round as the plain build's
+// (common.cuh sw_ref_trans, as sw_fused.cu), and so does the refinement,
+// whose every add and multiply is one torch op in the plain build.
 //
-// What bounds it: bytes.  Every element writes 45 (SW) or 24 (LW) entries
-// and reads 9 region optics (ecCKD at 137 levels and 32 g-points: ~0.95 GB
-// SW and ~0.64 GB LW per 1000 columns, ~0.48 ms at 3.35 TB/s for both).
-// The refinement does ~8,000 float operations per SW element and ~5,000
-// float64 ones per LW element, but on 10-15% of the elements of the
-// benchmark's meridian state.  A whole element's matrices do not fit in
-// registers (six 63-entry matrices live in the SW Pade step), so each
-// thread keeps the right operand of each product in registers (63 or 36
-// values) and streams the left operand's rows from three per-thread
-// matrices in shared memory, laid out [entry][lane] so that a warp's
-// accesses hit 32 different banks: 24 KB a warp in float, 48 KB in double,
-// 30 KB for the LW refinement.  With 255 registers a thread, 8 such warps
-// share an SM.  Contracting multiply-adds would halve the SW refinement's
-// time on the card, but moves its float32 results by up to 1.0 where the
-// exponential's solves are ill-conditioned (PERF.md).
+// What bounds it: bytes.  Every element writes 45 + 5 (SW) or 24 + 4 (LW)
+// entries and reads its gas optics and a few per-(column, layer) values
+// (ecCKD at 137 levels and 32 g-points: ~0.9 GB SW and ~0.6 GB LW per 1000
+// columns, ~0.45 ms at 3.35 TB/s for both).  The refinement does ~8,000
+// float operations per SW element and ~5,000 float64 ones per LW element,
+// but on 10-15% of the elements of the benchmark's meridian state.  A whole
+// element's matrices do not fit in registers (six 63-entry matrices live in
+// the SW Pade step), so each thread keeps the right operand of each product
+// in registers (63 or 36 values) and streams the left operand's rows from
+// three per-thread matrices in shared memory, laid out [entry][lane] so
+// that a warp's accesses hit 32 different banks: 24 KB a warp in float, 48
+// KB in double, 30 KB for the LW refinement.  With 255 registers a thread,
+// 8 such warps share an SM.  Contracting multiply-adds would halve the SW
+// refinement's time on the card, but moves its float32 results by up to 1.0
+// where the exponential's solves are ill-conditioned (PERF.md).
 #include "common.cuh"
 
 namespace {
 
 using ecrad::d_abs;
+using ecrad::d_max;
+using ecrad::d_sqrt;
+using ecrad::Limits;
 
 constexpr int kBuildThreads = 128;
 constexpr int kRefineThreads = 32;  // one warp: per-lane shared matrices
@@ -634,6 +648,78 @@ __device__ __forceinline__ void lw_refine(
   }
 }
 
+// --- the region optics ---------------------------------------------------
+
+constexpr double kSideEmissThin = 1.4107;  // spartacus.SIDE_EMISS_THIN
+
+// A band set's raw optics, read by both passes: the gas (with aerosol) od,
+// ssa, g (ncol, nlev, ng), ssa and g null for an absorbing gas (the LW
+// without aerosol scattering); the band cloud properties (ncol, nlev,
+// nband); each g-point's band (ng,); the two cloudy regions' od scaling
+// (ncol, nlev, 2); the largest cloudy-region od.
+template <typename T> struct Optics {
+  const T *od, *ssa, *g;
+  const T *odc_b, *ssac_b, *gc_b;
+  const int *band;
+  const T *scal;
+  T max_od;
+  int nband;
+};
+
+// Region 0 of element e: the gas as given
+template <typename T>
+__device__ __forceinline__ void gas(const Optics<T> &a, size_t e, T (&od)[3],
+                                    T (&ssa)[3], T (&asy)[3]) {
+  od[0] = a.od[e];
+  ssa[0] = a.ssa ? a.ssa[e] : T(0);
+  asy[0] = a.ssa ? a.g[e] : T(0);
+}
+
+// Regions 1 and 2 of the element at (column, layer) cl and g-point g, from
+// region 0's values: the gas merged with the scaled cloud
+// (cuda_tripleclouds.merge_regions: ssa and g from the unclamped od, the
+// 1e-300 floors behind a test of the divisor, 0 in float), then the od
+// clamped at max_od (spartacus._region_optics).
+template <typename T>
+__device__ __forceinline__ void cloudy(const Optics<T> &a, size_t cl, int g,
+                                       T (&od)[3], T (&ssa)[3], T (&asy)[3]) {
+  const size_t lb = cl * a.nband + a.band[g];
+  const T odcb = a.odc_b[lb], ssacb = a.ssac_b[lb], gcb = a.gc_b[lb];
+  const T scat_clear = ssa[0] * od[0];
+#pragma unroll
+  for (int r = 1; r < NREG; ++r) {
+    const T odc = a.scal[2 * cl + r - 1] * odcb;
+    const T od_tot = od[0] + odc;
+    const T scat_cloud = ssacb * odc;
+    T scat, gscat;
+    if (a.ssa) {
+      scat = scat_clear + scat_cloud;
+      gscat = asy[0] * scat_clear + gcb * scat_cloud;
+    } else {
+      scat = scat_cloud;
+      gscat = gcb * scat_cloud;
+    }
+    ssa[r] = od_tot > T(0) ? scat / d_max(od_tot, Limits<T>::tiny()) : T(0);
+    asy[r] = scat > T(0) ? gscat / d_max(scat, Limits<T>::tiny()) : T(0);
+    od[r] = od_tot > a.max_od ? a.max_od : od_tot;
+  }
+}
+
+// The LW side emissivity of a refined element (radiation_spartacus_lw.F90:
+// 289-310, spartacus._side_emissivity) from its region optics and its
+// (column, layer)'s cloud aspect ratio, in the working type
+template <typename T>
+__device__ __forceinline__ T side_emissivity(T aspect, const T (&od)[3],
+                                             const T (&ssa)[3],
+                                             const T (&asy)[3]) {
+  const T lateral_od = (aspect / T(NREG - 1)) *
+                       (od[1] * (T(1) - ssa[1]) + od[2] * (T(1) - ssa[2]));
+  const T sq1 = d_sqrt(clamp_lo(T(1) - ssa[1], T(0)));
+  const T thick =
+      T(2) * sq1 / (sq1 + d_sqrt(clamp_lo(T(1) - ssa[1] * asy[1], T(0))));
+  return (T(kSideEmissThin) - thick) / (lateral_od + T(1)) + thick;
+}
+
 // --- the build pass ------------------------------------------------------
 
 // Append the refined elements of a block to the list: a slot in shared
@@ -658,7 +744,9 @@ template <typename T, int M> struct Ptrs {
 
 struct Elem {
   int col, lev, g;
-  size_t plane, base9, base3;  // an entry's stride; entry 0 of R and of SU
+  size_t cl;                          // (column, layer)
+  size_t plane, base9, base3, base1;  // an entry's stride; entry 0 of R, of
+                                      // SU and of a clear-sky plane
 };
 
 __device__ __forceinline__ Elem element(int e, int ncol, int nlev, int ng) {
@@ -667,43 +755,51 @@ __device__ __forceinline__ Elem element(int e, int ncol, int nlev, int ng) {
   const int rem = e - x.col * nlev * ng;
   x.lev = rem / ng;
   x.g = rem - x.lev * ng;
+  x.cl = (size_t)x.col * nlev + x.lev;
   x.plane = (size_t)ncol * ng;
   const size_t cg = (size_t)x.col * ng + x.g;
   x.base9 = (size_t)x.lev * 9 * x.plane + cg;
   x.base3 = (size_t)x.lev * 3 * x.plane + cg;
+  x.base1 = (size_t)x.lev * x.plane + cg;
   return x;
 }
 
-// od3, ssa3, g3 (ncol, nlev, ng, 3); mu0 (ncol,); use_expm (ncol, nlev, ng)
-// and clear (ncol, nlev) as bytes; writes R, T, Rd, Tdd, Tdir (nlev, 9,
-// ncol, ng) of every element not refined, and lists the refined ones
+// mu0 (ncol,); use_expm (ncol, nlev, ng) and clear (ncol, nlev) as bytes;
+// writes the clear-sky planes cl5 of every element and R, T, Rd, Tdd, Tdir
+// (nlev, 9, ncol, ng) of every element not refined, and lists the refined
+// ones
 template <typename T>
 __global__ void __launch_bounds__(kBuildThreads) sw_build_kernel(
-    const T *__restrict__ od3, const T *__restrict__ ssa3,
-    const T *__restrict__ g3, const T *__restrict__ mu0s,
+    Optics<T> a, const T *__restrict__ mu0s,
     const unsigned char *__restrict__ use_expm,
-    const unsigned char *__restrict__ clear, Ptrs<T, 5> outs, int *list,
-    int *count, int ncol, int nlev, int ng, int refine) {
+    const unsigned char *__restrict__ clear, Ptrs<T, 5> outs, Ptrs<T, 5> cl5,
+    int *list, int *count, int ncol, int nlev, int ng, int refine) {
   const long long n = (long long)ncol * nlev * ng;
   const int e = blockIdx.x * kBuildThreads + threadIdx.x;
   const bool valid = e < n;
   const bool want = valid && refine && use_expm[e];
   if (refine) append(want, e, list, count);
-  if (!valid || want) return;
+  if (!valid) return;
   const Elem x = element(e, ncol, nlev, ng);
-  const bool clr = clear[(size_t)x.col * nlev + x.lev] != 0;
   const T mu0 = mu0s[x.col];
-  T c[5][3];
+  T od[3], ssa[3], asy[3], c[5][3];
+  gas(a, e, od, ssa, asy);
+  ecrad::sw_ref_trans(mu0, od[0], ssa[0], asy[0], c[0][0], c[1][0], c[2][0],
+                      c[3][0], c[4][0]);
 #pragma unroll
-  for (int r = 0; r < NREG; ++r) {
-    if (r == 0 || !clr) {
-      ecrad::sw_ref_trans(mu0, od3[3 * (size_t)e + r], ssa3[3 * (size_t)e + r],
-                          g3[3 * (size_t)e + r], c[0][r], c[1][r], c[2][r],
-                          c[3][r], c[4][r]);
-    } else {
+  for (int m = 0; m < 5; ++m) cl5.m[m][x.base1] = c[m][0];
+  if (want) return;
+  if (clear[x.cl] != 0) {
+#pragma unroll
+    for (int r = 1; r < NREG; ++r)
 #pragma unroll
       for (int m = 0; m < 5; ++m) c[m][r] = T(0);
-    }
+  } else {
+    cloudy(a, x.cl, x.g, od, ssa, asy);
+#pragma unroll
+    for (int r = 1; r < NREG; ++r)
+      ecrad::sw_ref_trans(mu0, od[r], ssa[r], asy[r], c[0][r], c[1][r],
+                          c[2][r], c[3][r], c[4][r]);
   }
 #pragma unroll
   for (int m = 0; m < 5; ++m)
@@ -712,36 +808,44 @@ __global__ void __launch_bounds__(kBuildThreads) sw_build_kernel(
       outs.m[m][x.base9 + k * x.plane] = k % 4 == 0 ? c[m][k / 4] : T(0);
 }
 
-// tr (ncol, nlev, 3, 3), side (ncol, nlev, ng), rf (ncol, nlev, 3); the
-// Planck values at layer tops and bases (ncol, nlev, ng) with a column
-// stride pstride; writes R, T (nlev, 9, ncol, ng) and SU, SD (nlev, 3,
-// ncol, ng) of every element not refined, and lists the refined ones
+// rf (ncol, nlev, 3); the Planck values at layer tops and bases (ncol,
+// nlev, ng) with a column stride pstride; writes the clear-sky planes cl4
+// of every element (the unscaled Planck terms) and R, T (nlev, 9, ncol, ng)
+// and SU, SD (nlev, 3, ncol, ng) of every element not refined (the Planck
+// terms scaled by region fraction), and lists the refined ones
 template <typename T>
 __global__ void __launch_bounds__(kBuildThreads) lw_build_kernel(
-    const T *__restrict__ od3, const T *__restrict__ ssa3,
-    const T *__restrict__ g3, const T *__restrict__ rfs,
+    Optics<T> a, const T *__restrict__ rfs,
     const unsigned char *__restrict__ clear, const T *__restrict__ pl_top,
     const T *__restrict__ pl_bot, const unsigned char *__restrict__ use_expm,
-    Ptrs<T, 4> outs, int *list, int *count, int ncol, int nlev, int ng,
-    int pstride, int refine) {
+    Ptrs<T, 4> outs, Ptrs<T, 4> cl4, int *list, int *count, int ncol,
+    int nlev, int ng, int pstride, int refine) {
   const long long n = (long long)ncol * nlev * ng;
   const int e = blockIdx.x * kBuildThreads + threadIdx.x;
   const bool valid = e < n;
   const bool want = valid && refine && use_expm[e];
   if (refine) append(want, e, list, count);
-  if (!valid || want) return;
+  if (!valid) return;
   const Elem x = element(e, ncol, nlev, ng);
-  const size_t cl = (size_t)x.col * nlev + x.lev;
-  const bool clr = clear[cl] != 0;
   const size_t pi = (size_t)x.col * pstride + (size_t)x.lev * ng + x.g;
   const T pt = pl_top[pi], pb = pl_bot[pi];
-  T c[4][3];
+  T od[3], ssa[3], asy[3], c[4][3];
+  gas(a, e, od, ssa, asy);
+  {
+    T cs[4];
+    ecrad::lw_ref_trans(od[0], ssa[0], asy[0], pt, pb, cs[0], cs[1], cs[2],
+                        cs[3]);
+#pragma unroll
+    for (int m = 0; m < 4; ++m) cl4.m[m][x.base1] = cs[m];
+  }
+  if (want) return;
+  const bool clr = clear[x.cl] != 0;
+  if (!clr) cloudy(a, x.cl, x.g, od, ssa, asy);
 #pragma unroll
   for (int r = 0; r < NREG; ++r) {
     if (r == 0 || !clr) {
-      const T rf = rfs[3 * cl + r];
-      ecrad::lw_ref_trans(od3[3 * (size_t)e + r], ssa3[3 * (size_t)e + r],
-                          g3[3 * (size_t)e + r], rf * pt, rf * pb, c[0][r],
+      const T rf = rfs[3 * x.cl + r];
+      ecrad::lw_ref_trans(od[r], ssa[r], asy[r], rf * pt, rf * pb, c[0][r],
                           c[1][r], c[2][r], c[3][r]);
     } else {
 #pragma unroll
@@ -763,12 +867,11 @@ __global__ void __launch_bounds__(kBuildThreads) lw_build_kernel(
 
 template <typename T>
 __global__ void __launch_bounds__(kRefineThreads) sw_refine_kernel(
-    const T *__restrict__ od3, const T *__restrict__ ssa3,
-    const T *__restrict__ g3, const T *__restrict__ mu0s,
-    const T *__restrict__ tr_diff, const T *__restrict__ tr_dir,
-    const unsigned char *__restrict__ clear, Ptrs<T, 5> outs,
-    const int *__restrict__ list, const int *__restrict__ count,
-    long long *__restrict__ total, int ncol, int nlev, int ng) {
+    Optics<T> a, const T *__restrict__ mu0s, const T *__restrict__ tr_diff,
+    const T *__restrict__ tr_dir, const unsigned char *__restrict__ clear,
+    Ptrs<T, 5> outs, const int *__restrict__ list,
+    const int *__restrict__ count, long long *__restrict__ total, int ncol,
+    int nlev, int ng) {
   constexpr int NE = SwBut::NE;
   __shared__ T smem[3 * NE * kRefineThreads];
   const Shared<T> s0{smem + threadIdx.x},
@@ -780,24 +883,19 @@ __global__ void __launch_bounds__(kRefineThreads) sw_refine_kernel(
        i += gridDim.x * kRefineThreads) {
     const int e = list[i];
     const Elem x = element(e, ncol, nlev, ng);
-    const size_t cl = (size_t)x.col * nlev + x.lev;
     T od[3], ssa[3], g[3], td[9], tdr[9];
-#pragma unroll
-    for (int r = 0; r < NREG; ++r) {
-      od[r] = od3[3 * (size_t)e + r];
-      ssa[r] = ssa3[3 * (size_t)e + r];
-      g[r] = g3[3 * (size_t)e + r];
-    }
+    gas(a, e, od, ssa, g);
+    cloudy(a, x.cl, x.g, od, ssa, g);
 #pragma unroll
     for (int k = 0; k < 9; ++k) {
-      td[k] = tr_diff[9 * cl + k];
-      tdr[k] = tr_dir[9 * cl + k];
+      td[k] = tr_diff[9 * x.cl + k];
+      tdr[k] = tr_dir[9 * x.cl + k];
     }
     const T mu0 = mu0s[x.col];
     const T inv_mu0 = T(1) / mu0;
     T out[5][9];
     sw_refine(od, ssa, g, mu0, inv_mu0, td, tdr, s0, s1, s2, out);
-    const bool clr = clear[cl] != 0;  // use_expm_everywhere only
+    const bool clr = clear[x.cl] != 0;  // use_expm_everywhere only
 #pragma unroll
     for (int m = 0; m < 5; ++m)
 #pragma unroll
@@ -806,16 +904,16 @@ __global__ void __launch_bounds__(kRefineThreads) sw_refine_kernel(
   }
 }
 
+// tr (ncol, nlev, 3, 3); aspect (ncol, nlev): the cloud aspect ratio where
+// the side emissivity applies, 0 where it is 1
 template <typename T>
 __global__ void __launch_bounds__(kRefineThreads) lw_refine_kernel(
-    const T *__restrict__ od3, const T *__restrict__ ssa3,
-    const T *__restrict__ g3, const T *__restrict__ tr,
-    const T *__restrict__ side, const T *__restrict__ rfs,
-    const unsigned char *__restrict__ clear, const T *__restrict__ pl_top,
-    const T *__restrict__ pl_bot, Ptrs<T, 4> outs,
-    const int *__restrict__ list, const int *__restrict__ count,
-    long long *__restrict__ total, int ncol, int nlev, int ng,
-    int pstride) {
+    Optics<T> a, const T *__restrict__ tr, const T *__restrict__ aspect,
+    const T *__restrict__ rfs, const unsigned char *__restrict__ clear,
+    const T *__restrict__ pl_top, const T *__restrict__ pl_bot,
+    Ptrs<T, 4> outs, const int *__restrict__ list,
+    const int *__restrict__ count, long long *__restrict__ total, int ncol,
+    int nlev, int ng, int pstride) {
   constexpr int NE = LwBut::NE;
   __shared__ double smem[(3 * NE + 12) * kRefineThreads];
   const Shared<double> s0{smem + threadIdx.x},
@@ -828,22 +926,26 @@ __global__ void __launch_bounds__(kRefineThreads) lw_refine_kernel(
        i += gridDim.x * kRefineThreads) {
     const int e = list[i];
     const Elem x = element(e, ncol, nlev, ng);
-    const size_t cl = (size_t)x.col * nlev + x.lev;
+    T odt[3], ssat[3], gt[3];
+    gas(a, e, odt, ssat, gt);
+    cloudy(a, x.cl, x.g, odt, ssat, gt);
+    const T asp = aspect[x.cl];
+    const T side = asp > T(0) ? side_emissivity(asp, odt, ssat, gt) : T(1);
     double od[3], ssa[3], g[3], trd[9], rf[3];
 #pragma unroll
     for (int r = 0; r < NREG; ++r) {
-      od[r] = double(od3[3 * (size_t)e + r]);
-      ssa[r] = double(ssa3[3 * (size_t)e + r]);
-      g[r] = double(g3[3 * (size_t)e + r]);
-      rf[r] = double(rfs[3 * cl + r]);
+      od[r] = double(odt[r]);
+      ssa[r] = double(ssat[r]);
+      g[r] = double(gt[r]);
+      rf[r] = double(rfs[3 * x.cl + r]);
     }
 #pragma unroll
-    for (int k = 0; k < 9; ++k) trd[k] = double(tr[9 * cl + k]);
+    for (int k = 0; k < 9; ++k) trd[k] = double(tr[9 * x.cl + k]);
     const size_t pi = (size_t)x.col * pstride + (size_t)x.lev * ng + x.g;
     double out[4][9];
-    lw_refine(od, ssa, g, trd, double(side[e]), rf, double(pl_top[pi]),
+    lw_refine(od, ssa, g, trd, double(side), rf, double(pl_top[pi]),
               double(pl_bot[pi]), s0, s1, s2, s3, out);
-    const bool clr = clear[cl] != 0;  // use_expm_everywhere only
+    const bool clr = clear[x.cl] != 0;  // use_expm_everywhere only
 #pragma unroll
     for (int m = 0; m < 2; ++m)
 #pragma unroll
@@ -871,58 +973,82 @@ template <typename K> int refine_blocks(K kernel, long long n) {
   return (int)(need < most ? need : most);
 }
 
-// p: od3, ssa3, g3, mu0, tr_diff, tr_dir, use_expm, clear, R, T, Rd, Tdd,
-// Tdir, list, count, total
+// p[0:8]: od, ssa, g (ssa and g null: absorbing), od_cloud_b, ssa_cloud_b,
+// g_cloud_b, band_from_g (int32), od_scaling
 template <typename T>
-int launch_sw(void *const *p, int ncol, int nlev, int ng, int refine,
-              void *stream) {
+Optics<T> optics(void *const *p, int nband, double max_od) {
+  Optics<T> a;
+  a.od = (const T *)p[0];
+  a.ssa = (const T *)p[1];
+  a.g = (const T *)p[2];
+  a.odc_b = (const T *)p[3];
+  a.ssac_b = (const T *)p[4];
+  a.gc_b = (const T *)p[5];
+  a.band = (const int *)p[6];
+  a.scal = (const T *)p[7];
+  a.max_od = T(max_od);
+  a.nband = nband;
+  return a;
+}
+
+// p: the optics (8), mu0, tr_diff, tr_dir, use_expm, clear, R, T, Rd, Tdd,
+// Tdir, the five clear-sky planes, list, count, total
+template <typename T>
+int launch_sw(void *const *p, int ncol, int nlev, int ng, int nband,
+              int refine, double max_od, void *stream) {
   const long long n = (long long)ncol * nlev * ng;
   if (n == 0) return (int)cudaGetLastError();
   const cudaStream_t st = (cudaStream_t)stream;
-  Ptrs<T, 5> outs;
-  for (int m = 0; m < 5; ++m) outs.m[m] = (T *)p[8 + m];
-  int *list = (int *)p[13], *count = (int *)p[14];
-  long long *total = (long long *)p[15];
+  const Optics<T> a = optics<T>(p, nband, max_od);
+  Ptrs<T, 5> outs, cl5;
+  for (int m = 0; m < 5; ++m) {
+    outs.m[m] = (T *)p[13 + m];
+    cl5.m[m] = (T *)p[18 + m];
+  }
+  int *list = (int *)p[23], *count = (int *)p[24];
+  long long *total = (long long *)p[25];
   const int blocks = (int)((n + kBuildThreads - 1) / kBuildThreads);
   sw_build_kernel<T><<<blocks, kBuildThreads, 0, st>>>(
-      (const T *)p[0], (const T *)p[1], (const T *)p[2], (const T *)p[3],
-      (const unsigned char *)p[6], (const unsigned char *)p[7], outs, list,
-      count, ncol, nlev, ng, refine);
+      a, (const T *)p[8], (const unsigned char *)p[11],
+      (const unsigned char *)p[12], outs, cl5, list, count, ncol, nlev, ng,
+      refine);
   if (refine) {
     const int grid = refine_blocks(sw_refine_kernel<T>, n);
     sw_refine_kernel<T><<<grid, kRefineThreads, 0, st>>>(
-        (const T *)p[0], (const T *)p[1], (const T *)p[2], (const T *)p[3],
-        (const T *)p[4], (const T *)p[5], (const unsigned char *)p[7], outs,
-        list, count, total, ncol, nlev, ng);
+        a, (const T *)p[8], (const T *)p[9], (const T *)p[10],
+        (const unsigned char *)p[12], outs, list, count, total, ncol, nlev,
+        ng);
   }
   return (int)cudaGetLastError();
 }
 
-// p: od3, ssa3, g3, tr, side_emiss, reg_fracs, clear, pl_top, pl_bot,
-// use_expm, R, T, SU, SD, list, count, total
+// p: the optics (8), tr, aspect, reg_fracs, clear, pl_top, pl_bot,
+// use_expm, R, T, SU, SD, the four clear-sky planes, list, count, total
 template <typename T>
-int launch_lw(void *const *p, int ncol, int nlev, int ng, int pstride,
-              int refine, void *stream) {
+int launch_lw(void *const *p, int ncol, int nlev, int ng, int nband,
+              int pstride, int refine, double max_od, void *stream) {
   const long long n = (long long)ncol * nlev * ng;
   if (n == 0) return (int)cudaGetLastError();
   const cudaStream_t st = (cudaStream_t)stream;
-  Ptrs<T, 4> outs;
-  for (int m = 0; m < 4; ++m) outs.m[m] = (T *)p[10 + m];
-  int *list = (int *)p[14], *count = (int *)p[15];
-  long long *total = (long long *)p[16];
+  const Optics<T> a = optics<T>(p, nband, max_od);
+  Ptrs<T, 4> outs, cl4;
+  for (int m = 0; m < 4; ++m) {
+    outs.m[m] = (T *)p[15 + m];
+    cl4.m[m] = (T *)p[19 + m];
+  }
+  int *list = (int *)p[23], *count = (int *)p[24];
+  long long *total = (long long *)p[25];
   const int blocks = (int)((n + kBuildThreads - 1) / kBuildThreads);
   lw_build_kernel<T><<<blocks, kBuildThreads, 0, st>>>(
-      (const T *)p[0], (const T *)p[1], (const T *)p[2], (const T *)p[5],
-      (const unsigned char *)p[6], (const T *)p[7], (const T *)p[8],
-      (const unsigned char *)p[9], outs, list, count, ncol, nlev, ng,
-      pstride, refine);
+      a, (const T *)p[10], (const unsigned char *)p[11], (const T *)p[12],
+      (const T *)p[13], (const unsigned char *)p[14], outs, cl4, list, count,
+      ncol, nlev, ng, pstride, refine);
   if (refine) {
     const int grid = refine_blocks(lw_refine_kernel<T>, n);
     lw_refine_kernel<T><<<grid, kRefineThreads, 0, st>>>(
-        (const T *)p[0], (const T *)p[1], (const T *)p[2], (const T *)p[3],
-        (const T *)p[4], (const T *)p[5], (const unsigned char *)p[6],
-        (const T *)p[7], (const T *)p[8], outs, list, count, total, ncol,
-        nlev, ng, pstride);
+        a, (const T *)p[8], (const T *)p[9], (const T *)p[10],
+        (const unsigned char *)p[11], (const T *)p[12], (const T *)p[13],
+        outs, list, count, total, ncol, nlev, ng, pstride);
   }
   return (int)cudaGetLastError();
 }
@@ -931,28 +1057,35 @@ int launch_lw(void *const *p, int ncol, int nlev, int ng, int pstride,
 
 extern "C" {
 
-// The pointer arrays of launch_sw and launch_lw; ncol, nlev, ng; the
-// Planck inputs' column stride (LW); refine: build the 3D refinement (list,
-// count and total non-null, the count zeroed; the refine pass adds the
-// count to total)
+// The pointer arrays of launch_sw and launch_lw; ncol, nlev, ng, the
+// number of bands of the cloud properties; the Planck inputs' column
+// stride (LW); refine: build the 3D refinement (list, count and total
+// non-null, the count zeroed; the refine pass adds the count to total);
+// max_cloud_od
 int ecrad_spartacus_sw_mats_f32(void *const *p, int ncol, int nlev, int ng,
-                                int refine, void *stream) {
-  return launch_sw<float>(p, ncol, nlev, ng, refine, stream);
+                                int nband, int refine, double max_od,
+                                void *stream) {
+  return launch_sw<float>(p, ncol, nlev, ng, nband, refine, max_od, stream);
 }
 
 int ecrad_spartacus_sw_mats_f64(void *const *p, int ncol, int nlev, int ng,
-                                int refine, void *stream) {
-  return launch_sw<double>(p, ncol, nlev, ng, refine, stream);
+                                int nband, int refine, double max_od,
+                                void *stream) {
+  return launch_sw<double>(p, ncol, nlev, ng, nband, refine, max_od, stream);
 }
 
 int ecrad_spartacus_lw_mats_f32(void *const *p, int ncol, int nlev, int ng,
-                                int pstride, int refine, void *stream) {
-  return launch_lw<float>(p, ncol, nlev, ng, pstride, refine, stream);
+                                int nband, int pstride, int refine,
+                                double max_od, void *stream) {
+  return launch_lw<float>(p, ncol, nlev, ng, nband, pstride, refine, max_od,
+                          stream);
 }
 
 int ecrad_spartacus_lw_mats_f64(void *const *p, int ncol, int nlev, int ng,
-                                int pstride, int refine, void *stream) {
-  return launch_lw<double>(p, ncol, nlev, ng, pstride, refine, stream);
+                                int nband, int pstride, int refine,
+                                double max_od, void *stream) {
+  return launch_lw<double>(p, ncol, nlev, ng, nband, pstride, refine,
+                           max_od, stream);
 }
 
 }  // extern "C"

@@ -72,10 +72,10 @@ _SIGNATURES = {
     "ecrad_sw_sweeps": [_P] + [_I] * 4 + [_P],
     "ecrad_spartacus_sw": [_P] + [_I] * 5 + [_D] * 3 + [_P],
     "ecrad_spartacus_lw": [_P] + [_I] * 4 + [_P],
-    # the SPARTACUS layer matrices: ncol, nlev, ng, (LW: the Planck inputs'
-    # column stride,) refine
-    "ecrad_spartacus_sw_mats": [_P] + [_I] * 4 + [_P],
-    "ecrad_spartacus_lw_mats": [_P] + [_I] * 5 + [_P],
+    # the SPARTACUS layer matrices: ncol, nlev, ng, the cloud properties'
+    # bands, (LW: the Planck inputs' column stride,) refine; max_cloud_od
+    "ecrad_spartacus_sw_mats": [_P] + [_I] * 5 + [_D, _P],
+    "ecrad_spartacus_lw_mats": [_P] + [_I] * 6 + [_D, _P],
     # the RRTMG gas optics: pointers, the packed tables' layout, ncol,
     # nlev, the least optical depth
     "ecrad_rrtmg_lw_taumol": [_P, _P, _I, _I, _D, _P],

@@ -7,9 +7,11 @@ The sweeps replace ``ecrad_tpu/solvers/pallas_spartacus.py``
 per function.  The layer matrices (``sw_layer_mats``, ``lw_layer_mats``)
 replace no TPU kernel (XLA builds them there); their kernels are
 ``ecrad_torch/csrc/spartacus_layer_mats.cu``, a build pass and a refine
-pass per call, and their plain versions ``spartacus._sw_layer_mats`` and
-``_lw_layer_mats``.  Arguments and results are those of the TPU functions, in
-their layout: layer matrices ``(nlev, 9, ncol, ng)`` (k = 3*i + j) or
+pass per call from the band set's raw optics, which also write the
+clear-sky planes the sweeps read, and their plain versions
+``spartacus._sw_layer_mats`` and ``_lw_layer_mats``.  The sweeps'
+arguments and results are those of the TPU functions, in their layout:
+layer matrices ``(nlev, 9, ncol, ng)`` (k = 3*i + j) or
 ``(nlev, 3, ncol, ng)``, clear-sky planes ``(nlev, ncol, ng)``, per-column
 data ``(nlev, ncol, K)`` (interface matrices, 0/1 masks, the 13
 entrapment scalars), surface planes ``(9|3, ncol, ng)`` and ``(ncol, ng)``.
@@ -292,17 +294,45 @@ def _check_masks(name, ref, specs):
             raise ValueError(f"{name}: {arg} is not contiguous")
 
 
-def _elements(name, od3):
-    """(ncol, nlev, ng) of the region optics (ncol, nlev, ng, 3); raise on
-    another rank or on more elements than an int32 index takes."""
-    if od3.dim() != 4:
-        raise ValueError(f"{name}: od3 has shape {tuple(od3.shape)}, "
-                         f"expected (ncol, nlev, ng, {NREG})")
-    ncol, nlev, ng = od3.shape[:3]
+def _elements(name, od):
+    """(ncol, nlev, ng) of the gas od; raise on another rank or on more
+    elements than an int32 index takes."""
+    if od.dim() != 3:
+        raise ValueError(f"{name}: od has shape {tuple(od.shape)}, "
+                         f"expected (ncol, nlev, ng)")
+    ncol, nlev, ng = od.shape
     if ncol * nlev * ng >= 2**31:
         raise ValueError(f"{name}: {ncol * nlev * ng} elements exceed an "
                          f"int32 index")
     return ncol, nlev, ng
+
+
+def _optics_specs(name, od, ssa, g, od_cloud_b, ssa_cloud_b, g_cloud_b,
+                  band_from_g, od_scaling):
+    """The kernels' checks of a band set's raw optics (the first eight
+    arguments of both wrappers): check_inputs' specs of the float tensors,
+    and the number of bands; raise on ssa without g or the reverse, and on
+    a band map that is not int32 (ng,) on od's device."""
+    ncol, nlev, ng = od.shape
+    if (ssa is None) != (g is None):
+        raise ValueError(f"{name}: ssa and g are both given or both None")
+    if od_cloud_b.dim() != 3:
+        raise ValueError(f"{name}: od_cloud_b has shape "
+                         f"{tuple(od_cloud_b.shape)}, expected (ncol, nlev, "
+                         f"nband)")
+    nband = od_cloud_b.shape[-1]
+    if tuple(band_from_g.shape) != (ng,) or band_from_g.dtype != torch.int32 \
+            or band_from_g.device != od.device \
+            or not band_from_g.is_contiguous():
+        raise ValueError(f"{name}: band_from_g must be contiguous int32 of "
+                         f"shape ({ng},) on {od.device}")
+    lev, band = (ncol, nlev, ng), (ncol, nlev, nband)
+    specs = dict(od=(od, lev), od_cloud_b=(od_cloud_b, band),
+                 ssa_cloud_b=(ssa_cloud_b, band), g_cloud_b=(g_cloud_b, band),
+                 od_scaling=(od_scaling, (ncol, nlev, NREG - 1)))
+    if ssa is not None:
+        specs.update(ssa=(ssa, lev), g=(g, lev))
+    return specs, nband
 
 
 def _refine_list(wrapper, ref, n, refine):
@@ -335,110 +365,146 @@ def _count_plain(wrapper, use_expm, any_expm):
         wrapper.refined = wrapper.refined + int(use_expm.sum())
 
 
-def sw_layer_mats(od3, ssa3, g3, mu0, tr_diff, tr_dir, use_expm,
-                  clear_layer, any_expm):
+def sw_layer_mats(od, ssa, g, od_cloud_b, ssa_cloud_b, g_cloud_b,
+                  band_from_g, od_scaling, max_cloud_od, mu0, tr_diff, tr_dir,
+                  use_expm, clear_layer, any_expm):
     """The SPARTACUS SW region matrices (R, T, Rd, Tdd, Tdir), each (nlev,
-    9, ncol, ng), of spartacus._sw_layer_mats's arguments.  CPU tensors run
-    that plain version; CUDA tensors launch the kernels
-    (csrc/spartacus_layer_mats.cu: the two-stream build, then, when
-    any_expm, the refinement of the use_expm elements) or raise.  Counts
-    its launch sets in .launches and the elements it refines in .refined
-    (an int, or on the card a one-element tensor; reset both to 0)."""
-    if od3.device.type == "cpu":
-        mats = sp._sw_layer_mats(od3, ssa3, g3, mu0, tr_diff, tr_dir,
-                                 use_expm, clear_layer, any_expm)
+    9, ncol, ng), and the clear-sky planes cl5 (five (nlev, ncol, ng):
+    sw_ref_trans of the gas) of spartacus._sw_layer_mats's arguments, the
+    band set's raw optics: returns (R, T, Rd, Tdd, Tdir, cl5).  CPU tensors
+    run that plain version; CUDA tensors launch the kernels
+    (csrc/spartacus_layer_mats.cu: the region optics, the two-stream build
+    and the clear-sky planes, then, when any_expm, the refinement of the
+    use_expm elements) or raise.  band_from_g is int32.  Counts its launch
+    sets in .launches, those whose build wrote the clear-sky planes in
+    .clear_planes (every one) and the elements it refines in .refined (an
+    int, or on the card a one-element tensor; reset all three to 0)."""
+    if od.device.type == "cpu":
+        out = sp._sw_layer_mats(od, ssa, g, od_cloud_b, ssa_cloud_b,
+                                g_cloud_b, band_from_g, od_scaling,
+                                max_cloud_od, mu0, tr_diff, tr_dir, use_expm,
+                                clear_layer, any_expm)
         _count_plain(sw_layer_mats, use_expm, any_expm)
-        return mats
-    return _sw_layer_mats_kernel(od3, ssa3, g3, mu0, tr_diff, tr_dir,
+        return out
+    return _sw_layer_mats_kernel(od, ssa, g, od_cloud_b, ssa_cloud_b,
+                                 g_cloud_b, band_from_g, od_scaling,
+                                 max_cloud_od, mu0, tr_diff, tr_dir,
                                  use_expm, clear_layer, any_expm)
 
 
-def _sw_layer_mats_kernel(od3, ssa3, g3, mu0, tr_diff, tr_dir, use_expm,
-                          clear_layer, any_expm):
+def _sw_layer_mats_kernel(od, ssa, g, od_cloud_b, ssa_cloud_b, g_cloud_b,
+                          band_from_g, od_scaling, max_cloud_od, mu0,
+                          tr_diff, tr_dir, use_expm, clear_layer, any_expm):
     """sw_layer_mats off the CPU: checks, outputs, scratch, the launch
-    set and its count."""
+    set and its counts."""
     name = "spartacus sw_layer_mats"
-    ncol, nlev, ng = _elements(name, od3)
-    _check_masks(name, od3, dict(use_expm=(use_expm, (ncol, nlev, ng)),
-                                 clear_layer=(clear_layer, (ncol, nlev))))
-    reg, rate = (ncol, nlev, ng, NREG), (ncol, nlev, NREG, NREG)
-    kernels.check_inputs(name, od3, dict(
-        od3=(od3, reg), ssa3=(ssa3, reg), g3=(g3, reg), mu0=(mu0, (ncol,)),
-        tr_diff=(tr_diff, rate), tr_dir=(tr_dir, rate)))
-    mats = [od3.new_empty((nlev, NREG * NREG, ncol, ng)) for _ in range(5)]
+    ncol, nlev, ng = _elements(name, od)
+    if ssa is None:
+        raise ValueError(f"{name}: ssa and g are required")
+    _check_masks(name, od, dict(use_expm=(use_expm, (ncol, nlev, ng)),
+                                clear_layer=(clear_layer, (ncol, nlev))))
+    specs, nband = _optics_specs(name, od, ssa, g, od_cloud_b, ssa_cloud_b,
+                                 g_cloud_b, band_from_g, od_scaling)
+    rate = (ncol, nlev, NREG, NREG)
+    kernels.check_inputs(name, od, dict(
+        specs, mu0=(mu0, (ncol,)), tr_diff=(tr_diff, rate),
+        tr_dir=(tr_dir, rate)))
+    mats = [od.new_empty((nlev, NREG * NREG, ncol, ng)) for _ in range(5)]
+    cl5 = tuple(od.new_empty((nlev, ncol, ng)) for _ in range(5))
     n = ncol * nlev * ng
     if n == 0:
-        return mats
+        return (*mats, cl5)
     refine = bool(any_expm)
-    _launch("spartacus_sw_mats", od3,
-            (od3, ssa3, g3, mu0, tr_diff, tr_dir, use_expm, clear_layer,
-             *mats, *_refine_list(sw_layer_mats, od3, n, refine)),
-            ncol, nlev, ng, int(refine))
+    _launch("spartacus_sw_mats", od,
+            (od, ssa, g, od_cloud_b, ssa_cloud_b, g_cloud_b, band_from_g,
+             od_scaling, mu0, tr_diff, tr_dir, use_expm, clear_layer, *mats,
+             *cl5, *_refine_list(sw_layer_mats, od, n, refine)),
+            ncol, nlev, ng, nband, int(refine), float(max_cloud_od))
     sw_layer_mats.launches += 1
-    return mats
+    sw_layer_mats.clear_planes += 1
+    return (*mats, cl5)
 
 
 sw_layer_mats.launches = 0
+sw_layer_mats.clear_planes = 0
 sw_layer_mats.refined = 0
 
 
-def lw_layer_mats(od3, ssa3, g3, tr, side_emiss, reg_fracs, clear_layer,
-                  pl_top, pl_bot, use_expm, any_expm):
-    """The SPARTACUS LW region matrices R, T (nlev, 9, ncol, ng) and sources
-    SU, SD (nlev, 3, ncol, ng) of spartacus._lw_layer_mats's arguments.
-    CPU tensors run that plain version; CUDA tensors launch the kernels
-    (csrc/spartacus_layer_mats.cu, the refinement in float64) or raise.
-    pl_top and pl_bot may be views with a column stride (planck_hl[:, :-1]
-    and [:, 1:]): (ncol, nlev, ng) of strides (s, ng, 1), the same s.
-    Counters .launches and .refined as sw_layer_mats'."""
-    if od3.device.type == "cpu":
-        mats = sp._lw_layer_mats(od3, ssa3, g3, tr, side_emiss, reg_fracs,
-                                 clear_layer, pl_top, pl_bot, use_expm,
-                                 any_expm)
+def lw_layer_mats(od, ssa, g, od_cloud_b, ssa_cloud_b, g_cloud_b,
+                  band_from_g, od_scaling, max_cloud_od, tr, aspect,
+                  reg_fracs, clear_layer, pl_top, pl_bot, use_expm,
+                  any_expm):
+    """The SPARTACUS LW region matrices R, T (nlev, 9, ncol, ng), sources
+    SU, SD (nlev, 3, ncol, ng) and clear-sky planes cl4 (four (nlev, ncol,
+    ng): lw_ref_trans of the gas with the unscaled Planck terms) of
+    spartacus._lw_layer_mats's arguments: returns (R, T, SU, SD, cl4).  ssa
+    and g are None for an absorbing gas; aspect (ncol, nlev) is the cloud
+    aspect ratio where the side emissivity applies, 0 where it is 1.  CPU
+    tensors run that plain version; CUDA
+    tensors launch the kernels (csrc/spartacus_layer_mats.cu, the
+    refinement in float64) or raise.  pl_top and pl_bot may be views with a
+    column stride (planck_hl[:, :-1] and [:, 1:]): (ncol, nlev, ng) of
+    strides (s, ng, 1), the same s.  Counters .launches, .clear_planes and
+    .refined as sw_layer_mats'."""
+    if od.device.type == "cpu":
+        out = sp._lw_layer_mats(od, ssa, g, od_cloud_b, ssa_cloud_b,
+                                g_cloud_b, band_from_g, od_scaling,
+                                max_cloud_od, tr, aspect, reg_fracs,
+                                clear_layer, pl_top, pl_bot, use_expm,
+                                any_expm)
         _count_plain(lw_layer_mats, use_expm, any_expm)
-        return mats
-    return _lw_layer_mats_kernel(od3, ssa3, g3, tr, side_emiss, reg_fracs,
+        return out
+    return _lw_layer_mats_kernel(od, ssa, g, od_cloud_b, ssa_cloud_b,
+                                 g_cloud_b, band_from_g, od_scaling,
+                                 max_cloud_od, tr, aspect, reg_fracs,
                                  clear_layer, pl_top, pl_bot, use_expm,
                                  any_expm)
 
 
-def _lw_layer_mats_kernel(od3, ssa3, g3, tr, side_emiss, reg_fracs,
-                          clear_layer, pl_top, pl_bot, use_expm, any_expm):
+def _lw_layer_mats_kernel(od, ssa, g, od_cloud_b, ssa_cloud_b, g_cloud_b,
+                          band_from_g, od_scaling, max_cloud_od, tr, aspect,
+                          reg_fracs, clear_layer, pl_top, pl_bot, use_expm,
+                          any_expm):
     """lw_layer_mats off the CPU: checks, outputs, scratch, the launch
-    set and its count."""
+    set and its counts."""
     name = "spartacus lw_layer_mats"
-    ncol, nlev, ng = _elements(name, od3)
-    _check_masks(name, od3, dict(use_expm=(use_expm, (ncol, nlev, ng)),
-                                 clear_layer=(clear_layer, (ncol, nlev))))
+    ncol, nlev, ng = _elements(name, od)
+    _check_masks(name, od, dict(use_expm=(use_expm, (ncol, nlev, ng)),
+                                clear_layer=(clear_layer, (ncol, nlev))))
     for arg, t in (("pl_top", pl_top), ("pl_bot", pl_bot)):
-        if tuple(t.shape) != (ncol, nlev, ng) or t.device != od3.device \
-                or t.dtype != od3.dtype:
-            raise ValueError(f"{name}: {arg} must be {od3.dtype} of shape "
-                             f"{(ncol, nlev, ng)} on {od3.device}")
+        if tuple(t.shape) != (ncol, nlev, ng) or t.device != od.device \
+                or t.dtype != od.dtype:
+            raise ValueError(f"{name}: {arg} must be {od.dtype} of shape "
+                             f"{(ncol, nlev, ng)} on {od.device}")
         if t.stride()[1:] != (ng, 1) or t.stride(0) != pl_top.stride(0) \
                 or t.stride(0) < nlev * ng or t.stride(0) >= 2**31:
             raise ValueError(f"{name}: {arg} has strides {t.stride()}, "
                              f"expected (s, {ng}, 1) as pl_top's")
-    reg = (ncol, nlev, ng, NREG)
-    kernels.check_inputs(name, od3, dict(
-        od3=(od3, reg), ssa3=(ssa3, reg), g3=(g3, reg),
-        tr=(tr, (ncol, nlev, NREG, NREG)),
-        side_emiss=(side_emiss, (ncol, nlev, ng)),
-        reg_fracs=(reg_fracs, (ncol, nlev, NREG))))
-    R9, T9 = (od3.new_empty((nlev, NREG * NREG, ncol, ng)) for _ in range(2))
-    SU, SD = (od3.new_empty((nlev, NREG, ncol, ng)) for _ in range(2))
+    specs, nband = _optics_specs(name, od, ssa, g, od_cloud_b, ssa_cloud_b,
+                                 g_cloud_b, band_from_g, od_scaling)
+    specs.update(tr=(tr, (ncol, nlev, NREG, NREG)),
+                 aspect=(aspect, (ncol, nlev)),
+                 reg_fracs=(reg_fracs, (ncol, nlev, NREG)))
+    kernels.check_inputs(name, od, specs)
+    R9, T9 = (od.new_empty((nlev, NREG * NREG, ncol, ng)) for _ in range(2))
+    SU, SD = (od.new_empty((nlev, NREG, ncol, ng)) for _ in range(2))
+    cl4 = tuple(od.new_empty((nlev, ncol, ng)) for _ in range(4))
     n = ncol * nlev * ng
     if n == 0:
-        return R9, T9, SU, SD
+        return R9, T9, SU, SD, cl4
     refine = bool(any_expm)
-    _launch("spartacus_lw_mats", od3,
-            (od3, ssa3, g3, tr, side_emiss, reg_fracs, clear_layer, pl_top,
-             pl_bot, use_expm, R9, T9, SU, SD,
-             *_refine_list(lw_layer_mats, od3, n, refine)),
-            ncol, nlev, ng, pl_top.stride(0), int(refine))
+    _launch("spartacus_lw_mats", od,
+            (od, ssa, g, od_cloud_b, ssa_cloud_b, g_cloud_b, band_from_g,
+             od_scaling, tr, aspect, reg_fracs, clear_layer, pl_top, pl_bot,
+             use_expm, R9, T9, SU, SD, *cl4,
+             *_refine_list(lw_layer_mats, od, n, refine)),
+            ncol, nlev, ng, nband, pl_top.stride(0), int(refine),
+            float(max_cloud_od))
     lw_layer_mats.launches += 1
-    return R9, T9, SU, SD
+    lw_layer_mats.clear_planes += 1
+    return R9, T9, SU, SD, cl4
 
 
 lw_layer_mats.launches = 0
+lw_layer_mats.clear_planes = 0
 lw_layer_mats.refined = 0

@@ -19,7 +19,10 @@ Two phases, as in the JAX package:
   whose ``use_expm`` mask is set.  The JAX package maps the layer-matrix
   build over single levels and skips inactive levels with ``lax.cond``.
   On the card two CUDA kernels a band set build every element's matrices,
-  the refined ones by one thread each (``csrc/spartacus_layer_mats.cu``);
+  the refined ones by one thread each (``csrc/spartacus_layer_mats.cu``),
+  from the band set's raw optics: each element's region optics, the LW
+  side emissivity and the clear-sky coefficients the sweeps read are made
+  there too, so no per-element plane is built in torch before the sweeps;
   on the CPU their plain versions (``_sw_layer_mats``, ``_lw_layer_mats``)
   gather the active elements into a flat batch and run the refinement over
   chunks of ``_REFINE_CHUNK`` of them.  The arithmetic of each element is
@@ -196,7 +199,7 @@ def _prep(config: Config, cloud_fraction, fractional_std, overlap_param,
                 inv_size=inv_size)
 
 
-def _region_optics(config: Config, od, ssa, g, od_cloud_b, ssa_cloud_b,
+def _region_optics(max_cloud_od, od, ssa, g, od_cloud_b, ssa_cloud_b,
                    g_cloud_b, band_from_g, od_scaling):
     """Per-region od/ssa/g, region axis last: (ncol, nlev, ng, 3).
 
@@ -204,11 +207,27 @@ def _region_optics(config: Config, od, ssa, g, od_cloud_b, ssa_cloud_b,
     then od clamped at max_cloud_od."""
     od_c, ssa_c, g_c = merge_regions(od, ssa, g, od_cloud_b, ssa_cloud_b,
                                      g_cloud_b, band_from_g, od_scaling)
-    od_c = torch.clamp(od_c.movedim(-2, -1), max=config.max_cloud_od)
+    od_c = torch.clamp(od_c.movedim(-2, -1), max=max_cloud_od)
     od3 = torch.cat([od[..., None], od_c], -1)
     ssa3 = torch.cat([ssa[..., None], ssa_c.movedim(-2, -1)], -1)
     g3 = torch.cat([g[..., None], g_c.movedim(-2, -1)], -1)
     return od3, ssa3, g3
+
+
+def _side_emissivity(aspect, od3, ssa3, g3):
+    """LW side emissivity (radiation_spartacus_lw.F90:289-310) of elements
+    with region axis last, od3/ssa3/g3 (..., 3), from the cloud aspect
+    ratio of each element's (column, layer), aspect (...): 0 where the side
+    emissivity is 1 (no cloud of both kinds, or no cloud size).  In the
+    working type; the refine pass of csrc/spartacus_layer_mats.cu computes
+    it op for op."""
+    lateral_od = (aspect / (NREG - 1.0)) * (od3[..., 1] * (1.0 - ssa3[..., 1])
+                                            + od3[..., 2] * (1.0 - ssa3[..., 2]))
+    sq1 = torch.sqrt(torch.clamp(1.0 - ssa3[..., 1], min=0.0))
+    thick = 2.0 * sq1 / (sq1 + torch.sqrt(
+        torch.clamp(1.0 - ssa3[..., 1] * g3[..., 1], min=0.0)))
+    side = (SIDE_EMISS_THIN - thick) / (lateral_od + 1.0) + thick
+    return torch.where(aspect > 0.0, side, 1.0)
 
 
 def _use_expm_mask(config: Config, od_gas, active_3d):
@@ -563,13 +582,20 @@ def _sw_refine(odr, ssar, gr, mu0p, inv_mu0p, trd, trdir):
     return refl_e, trans_e, rdir_e, tdd_e, tdir_e
 
 
-def _sw_layer_mats(od3, ssa3, g3, mu0, tr_diff, tr_dir, use_expm,
-                   clear_layer, any_expm):
-    """SW region matrices (R, T, Rd, Tdd, Tdir), each (nlev, 9, ncol, ng):
-    the diagonal two-stream everywhere, the exponential where use_expm,
-    and in clear layers only the [0][0] entry (a select, never a 0/1
-    multiply: a degenerate exponential may leave NaN there).  The plain
-    version of cuda_spartacus.sw_layer_mats, and its CPU route."""
+def _sw_layer_mats(od, ssa, g, od_cloud_b, ssa_cloud_b, g_cloud_b,
+                   band_from_g, od_scaling, max_cloud_od, mu0, tr_diff,
+                   tr_dir, use_expm, clear_layer, any_expm):
+    """SW region matrices (R, T, Rd, Tdd, Tdir), each (nlev, 9, ncol, ng),
+    from a band set's raw optics (the region optics of _region_optics): the
+    diagonal two-stream everywhere, the exponential where use_expm, and in
+    clear layers only the [0][0] entry (a select, never a 0/1 multiply: a
+    degenerate exponential may leave NaN there); and the clear-sky planes
+    cl5, sw_ref_trans of the gas, (nlev, ncol, ng) each.  Returns (R, T,
+    Rd, Tdd, Tdir, cl5).  The plain version of cuda_spartacus.sw_layer_mats,
+    and its CPU route."""
+    od3, ssa3, g3 = _region_optics(max_cloud_od, od, ssa, g, od_cloud_b,
+                                   ssa_cloud_b, g_cloud_b, band_from_g,
+                                   od_scaling)
     ncol, nlev, ng, _ = od3.shape
     mats = [od3.new_zeros((nlev, NREG * NREG, ncol, ng)) for _ in range(5)]
     mu0p = mu0[:, None, None]
@@ -580,17 +606,18 @@ def _sw_layer_mats(od3, ssa3, g3, mu0, tr_diff, tr_dir, use_expm,
             M[:, 4 * r] = c.transpose(0, 1)
     if any_expm:
         inv_mu0 = 1.0 / mu0
-        for c, l, g in _active_chunks(use_expm):
-            res = _sw_refine(od3[c, l, g].T, ssa3[c, l, g].T,
-                             g3[c, l, g].T, mu0[c], inv_mu0[c],
+        for c, l, k in _active_chunks(use_expm):
+            res = _sw_refine(od3[c, l, k].T, ssa3[c, l, k].T,
+                             g3[c, l, k].T, mu0[c], inv_mu0[c],
                              tr_diff[c, l].permute(1, 2, 0),
                              tr_dir[c, l].permute(1, 2, 0))
             for M, x in zip(mats, res):
-                M[l, :, c, g] = x.reshape(NREG * NREG, -1).T
+                M[l, :, c, k] = x.reshape(NREG * NREG, -1).T
     clr = clear_layer.T[:, None, :, None]
     for M in mats:
         M[:, 1:] = torch.where(clr, 0.0, M[:, 1:])
-    return mats
+    cl5 = tuple(_lev(x) for x in two_stream.sw_ref_trans(mu0p, od, ssa, g))
+    return (*mats, cl5)
 
 
 def _lw_refine(odr, ssar, gr, trl, sidel, rfr, plt, plb):
@@ -633,12 +660,24 @@ def _lw_refine(odr, ssar, gr, trl, sidel, rfr, plt, plb):
     return R_e, T_e, su_e, sd_e
 
 
-def _lw_layer_mats(od3, ssa3, g3, tr, side_emiss, reg_fracs, clear_layer,
-                   pl_top, pl_bot, use_expm, any_expm):
+def _lw_layer_mats(od, ssa, g, od_cloud_b, ssa_cloud_b, g_cloud_b,
+                   band_from_g, od_scaling, max_cloud_od, tr, aspect,
+                   reg_fracs, clear_layer, pl_top, pl_bot, use_expm,
+                   any_expm):
     """LW region matrices R, T (nlev, 9, ncol, ng) and sources SU, SD
-    (nlev, 3, ncol, ng), sources scaled by region fraction; clear layers
-    keep only the region-0 entries (selects, as in the SW).  The plain
-    version of cuda_spartacus.lw_layer_mats, and its CPU route."""
+    (nlev, 3, ncol, ng), sources scaled by region fraction, from a band
+    set's raw optics (ssa and g None for an absorbing gas); clear layers
+    keep only the region-0 entries (selects, as in the SW); and the
+    clear-sky planes cl4, lw_ref_trans of the gas with the unscaled Planck
+    terms, (nlev, ncol, ng) each.  The refined elements' side emissivity
+    comes from aspect (_side_emissivity).  Returns (R, T, SU, SD, cl4).
+    The plain version of cuda_spartacus.lw_layer_mats, and its CPU
+    route."""
+    if ssa is None:
+        ssa = g = torch.zeros_like(od)
+    od3, ssa3, g3 = _region_optics(max_cloud_od, od, ssa, g, od_cloud_b,
+                                   ssa_cloud_b, g_cloud_b, band_from_g,
+                                   od_scaling)
     ncol, nlev, ng, _ = od3.shape
     R9 = od3.new_zeros((nlev, NREG * NREG, ncol, ng))
     T9 = torch.zeros_like(R9)
@@ -656,17 +695,20 @@ def _lw_layer_mats(od3, ssa3, g3, tr, side_emiss, reg_fracs, clear_layer,
         # (two solves with the 6x6 generator, which is near singular in
         # thin regions) lose so much that the JAX package's float32 run of
         # spartacus_3d on the CPU is 8 W m-2 from its float64 run in lw_dn
-        for c, l, g in _active_chunks(use_expm):
+        for c, l, k in _active_chunks(use_expm):
+            o3, s3, g3k = od3[c, l, k], ssa3[c, l, k], g3[c, l, k]
+            side = _side_emissivity(aspect[c, l], o3, s3, g3k)
             res = _lw_refine(*(x.double() for x in (
-                od3[c, l, g].T, ssa3[c, l, g].T, g3[c, l, g].T,
-                tr[c, l].permute(1, 2, 0), side_emiss[c, l, g],
-                reg_fracs[c, l].T, pl_top[c, l, g], pl_bot[c, l, g])))
+                o3.T, s3.T, g3k.T, tr[c, l].permute(1, 2, 0), side,
+                reg_fracs[c, l].T, pl_top[c, l, k], pl_bot[c, l, k])))
             for M, x in zip((R9, T9, SU, SD), res):
-                M[l, :, c, g] = x.reshape(-1, x.shape[-1]).T.to(M.dtype)
+                M[l, :, c, k] = x.reshape(-1, x.shape[-1]).T.to(M.dtype)
     clr = clear_layer.T[:, None, :, None]
     for M in (R9, T9, SU, SD):
         M[:, 1:] = torch.where(clr, 0.0, M[:, 1:])
-    return R9, T9, SU, SD
+    cl4 = tuple(_lev(x) for x in two_stream.lw_ref_trans(od, ssa, g, pl_top,
+                                                        pl_bot))
+    return R9, T9, SU, SD, cl4
 
 
 # ---------------------------------------------------------------------------
@@ -724,21 +766,20 @@ def sw_sweep_args(config: Config, od, ssa, g, od_cloud_b, ssa_cloud_b,
                                + config.overhead_sun_factor),
                     math.sqrt(config.overhead_sun_factor)))
 
-    od3, ssa3, g3 = _region_optics(config, od, ssa, g, od_cloud_b,
-                                   ssa_cloud_b, g_cloud_b, band_from_g,
-                                   P["od_scaling"])
     use_expm = _use_expm_mask(config, od, P["active_3d"])
     tr_diff = _transfer_rates(reg_fracs, edge_length, P["layer_depth"],
                               TAN_DIFFUSE_ANGLE_3D,
                               config.max_3d_transfer_rate)
     tr_dir = _transfer_rates(reg_fracs, edge_length, P["layer_depth"],
                              tan_sza[:, None], config.max_3d_transfer_rate)
+    band = band_from_g.to(torch.int32)
+    # the layer matrices and the clear-sky planes, (R, T, Rd, Tdd, Tdir, cl5)
     with profiling.scope(LAYER_MATS):
         mats = cuda_spartacus.sw_layer_mats(
-            od3, ssa3, g3, mu0, tr_diff, tr_dir, use_expm, clear_layer,
+            od, ssa, g, od_cloud_b, ssa_cloud_b, g_cloud_b, band,
+            P["od_scaling"], config.max_cloud_od, mu0, tr_diff, tr_dir,
+            use_expm, clear_layer,
             config.do_3d_effects or config.use_expm_everywhere)
-    cl5 = tuple(_lev(x) for x in two_stream.sw_ref_trans(
-        mu0[:, None, None], od, ssa, g))
 
     ones = torch.ones((ncol, 1), dtype=torch.bool, device=od.device)
     clear_pad = torch.cat([ones, clear_layer, ones], 1)
@@ -771,7 +812,7 @@ def sw_sweep_args(config: Config, od, ssa, g, od_cloud_b, ssa_cloud_b,
 
     alb_dir = bc(mu0[:, None] * albedo_direct)
     ddn0 = (incoming_sw[None] * reg_fracs[:, 0].T[..., None]).contiguous()
-    args = (*mats, cl5, _iface9(u_mat[:, :-1], ncol, nlev),
+    args = (*mats, _iface9(u_mat[:, :-1], ncol, nlev),
             _iface9(v_mat[:, :-1], ncol, nlev),
             _iface9(v_mat[:, 1:], ncol, nlev), msk_up, msk_dn, ent13,
             _diag9(bc(albedo_diffuse), ncol, ng), _diag9(alb_dir, ncol, ng),
@@ -834,41 +875,32 @@ def lw_sweep_args(config: Config, od, ssa, g, od_cloud_b, ssa_cloud_b,
     clear_layer, edge_length = P["clear_layer"], P["edge_length"]
 
     if not config.do_lw_aerosol_scattering:
-        ssa = torch.zeros_like(od)
-        g = torch.zeros_like(od)
+        ssa = g = None          # an absorbing gas
     if not config.do_lw_cloud_scattering:
         ssa_cloud_b = g_cloud_b = torch.zeros_like(od_cloud_b)
-    od3, ssa3, g3 = _region_optics(config, od, ssa, g, od_cloud_b,
-                                   ssa_cloud_b, g_cloud_b, band_from_g,
-                                   P["od_scaling"])
     use_expm = _use_expm_mask(config, od, P["active_3d"])
     tr = _transfer_rates(reg_fracs, edge_length, P["layer_depth"],
                          TAN_DIFFUSE_ANGLE_3D, config.max_3d_transfer_rate)
 
-    # side emissivity (radiation_spartacus_lw.F90:289-310)
+    # the side emissivity's part without a g axis
+    # (radiation_spartacus_lw.F90:289-310): the clouds' aspect ratio where
+    # it applies, 0 where the side emissivity is 1 (_side_emissivity)
     f0, f1 = reg_fracs[..., 0], reg_fracs[..., 1]
-    if config.do_lw_side_emissivity and config.do_3d_effects:
-        aspect = 1.0 / torch.clamp(P["inv_size"] * f0 * P["layer_depth"],
-                                   min=1e-30)
-        lateral_od = (aspect[..., None] / (NREG - 1.0)) * torch.sum(
-            od3[..., 1:] * (1.0 - ssa3[..., 1:]), -1)
-        sq1 = torch.sqrt(torch.clamp(1.0 - ssa3[..., 1], min=0.0))
-        thick = 2.0 * sq1 / (sq1 + torch.sqrt(
-            torch.clamp(1.0 - ssa3[..., 1] * g3[..., 1], min=0.0)))
-        side = (SIDE_EMISS_THIN - thick) / (lateral_od + 1.0) + thick
-        cond = ((f0 > 0.0) & (f1 > 0.0) & (P["inv_size"] > 0.0))[..., None]
-        side_emiss = torch.where(cond, side, 1.0)
-    else:
-        side_emiss = torch.ones_like(od3[..., 0])
+    aspect = torch.where(
+        bool(config.do_lw_side_emissivity and config.do_3d_effects)
+        & (f0 > 0.0) & (f1 > 0.0) & (P["inv_size"] > 0.0),
+        1.0 / torch.clamp(P["inv_size"] * f0 * P["layer_depth"], min=1e-30),
+        0.0)
 
     pl_top, pl_bot = planck_hl[:, :-1], planck_hl[:, 1:]
+    band = band_from_g.to(torch.int32)
+    # the layer matrices and the clear-sky planes, (R, T, SU, SD, cl4)
     with profiling.scope(LAYER_MATS):
         mats = cuda_spartacus.lw_layer_mats(
-            od3, ssa3, g3, tr, side_emiss, reg_fracs, clear_layer, pl_top,
-            pl_bot, use_expm,
+            od, ssa, g, od_cloud_b, ssa_cloud_b, g_cloud_b, band,
+            P["od_scaling"], config.max_cloud_od, tr, aspect, reg_fracs,
+            clear_layer, pl_top, pl_bot, use_expm,
             config.do_3d_effects or config.use_expm_everywhere)
-    cl4 = tuple(_lev(x) for x in two_stream.lw_ref_trans(od, ssa, g, pl_top,
-                                                        pl_bot))
     ones = torch.ones((ncol, 1), dtype=torch.bool, device=od.device)
     clear_pad = torch.cat([ones, clear_layer, ones], 1)
     lv = lambda *fs: _per_level(ncol, nlev, dtype, *fs)  # noqa: E731
@@ -877,7 +909,7 @@ def lw_sweep_args(config: Config, od, ssa, g, od_cloud_b, ssa_cloud_b,
         return torch.broadcast_to(x, (ncol, ng)).to(dtype).contiguous()
 
     src0 = (emission[None] * reg_fracs[:, -1].T[..., None]).contiguous()
-    args = (*mats, cl4, _iface9(u_mat[:, :-1], ncol, nlev),
+    args = (*mats, _iface9(u_mat[:, :-1], ncol, nlev),
             _iface9(v_mat[:, :-1], ncol, nlev),
             _iface9(v_mat[:, 1:], ncol, nlev),
             lv(clear_layer, clear_pad[:, :-2]),

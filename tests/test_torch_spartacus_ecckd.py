@@ -283,7 +283,7 @@ def test_prep_and_region_optics_agree(stages):
         np.testing.assert_array_equal(P[k].numpy(), np.asarray(jP[k]))
     jreg = jax.jit(lambda *x: jsp._region_optics(
         jc, *x[:6], ja[6], x[6]))(*ja[:6], jP["od_scaling"])
-    reg = tsp._region_optics(a[0], *a[1:8], P["od_scaling"])
+    reg = tsp._region_optics(a[0].max_cloud_od, *a[1:8], P["od_scaling"])
     for name, got, ref in zip(("od3", "ssa3", "g3"), reg, jreg):
         np.testing.assert_allclose(got.numpy(), np.asarray(ref),
                                    rtol=RTOL_STAGE, atol=0, err_msg=name)
@@ -295,7 +295,10 @@ def test_sweeps_on_the_jax_matrices_give_the_jax_fluxes(stages,
     the sweeps, derivatives and outputs then agree to roundoff, so the
     packages part before the sweeps."""
     mats = tuple(torch.as_tensor(m) for m in stages["jax_mats"])
-    monkeypatch.setattr(tsp, "_lw_layer_mats", lambda *a, **k: mats)
+    # the JAX matrices beside the port's own clear-sky planes
+    build = tsp._lw_layer_mats
+    monkeypatch.setattr(tsp, "_lw_layer_mats",
+                        lambda *a, **k: (*mats, build(*a, **k)[-1]))
     got = tsp.solver_spartacus_lw(*stages["args"])
     ref = stages["jax_lw"]
     for k in ("flux_up", "flux_dn", "flux_up_clear", "flux_dn_clear"):

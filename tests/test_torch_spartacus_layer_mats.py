@@ -1,6 +1,6 @@
 """The SPARTACUS layer-matrix kernels (a build pass and a refine pass per
-band set, ecrad_torch/csrc/spartacus_layer_mats.cu) on the CPU, and the
-route to them.
+band set, ecrad_torch/csrc/spartacus_layer_mats.cu, from the band set's raw
+optics) on the CPU, and the route to them.
 
 * The kernel source compiled with g++ through a thread-per-CUDA-thread
   stand-in for the CUDA runtime (tests/cuda_cpu/cuda_runtime.h), without
@@ -9,17 +9,29 @@ route to them.
   (cuda_spartacus._sw_layer_mats_kernel, _lw_layer_mats_kernel: checks,
   outputs, scratch, pointer order, counter), against the plain build
   (spartacus._sw_layer_mats, _lw_layer_mats), in float64 and float32, the
-  LW refinement in float64 in both.  Inputs as the route builds them: the
+  LW refinement in float64 in both; the layer matrices and the clear-sky
+  planes (cl5, cl4).  Inputs as the route builds them: the
   spartacus_ecckd meridian state (the 32 columns behind
   tests/data/torch_spartacus_ecckd_meridian32.npz), spartacus_3d at
   RRTMG's widths (112 SW, 140 LW g-points), columns made clear,
-  use_expm_everywhere, 5 columns (no multiple of a block), and elements
-  whose squaring count reaches its cap (13 SW, 6 LW).
-  - Refined elements: equal bit for bit.  Their arithmetic is adds,
-    multiplies, divides, absolute values, frexp and ldexp, each rounded
-    once in both, in the same order (the source mirrors solvers/matrix.py
-    op for op).
-  - The others: the two-stream coefficients go through exp and expm1,
+  use_expm_everywhere, 5 columns (no multiple of a block), elements
+  whose squaring count reaches its cap (13 SW, 6 LW), an absorbing LW
+  (no ssa and g: the route's default) and, LW only, a scattering one
+  (aerosol scattering on, RRTMG) and one without side emissivity.
+  - Refined elements: equal bit for bit.  Their arithmetic (the region
+    optics and side emissivity the refine pass makes again, the
+    exponential) is adds, multiplies, divides, square roots, absolute
+    values, frexp and ldexp, each rounded once in both, in the same order
+    (the source mirrors spartacus._region_optics, _side_emissivity and
+    solvers/matrix.py op for op); so are they against _sw_refine /
+    _lw_refine fed the region optics and side emissivity built over whole
+    planes, as the route built them before the kernels made them.  The
+    square roots are correctly rounded in g++'s libm and on the card, but
+    torch's on the CPU go through MKL's vector math, within an ulp: these
+    comparisons give the plain side a correctly rounded torch.sqrt
+    (numpy's).
+  - The others, and the clear-sky planes: the two-stream coefficients go
+    through exp and expm1,
     which g++'s libm and torch's vectorised CPU kernels round apart by an
     ulp.  Float64: within 1e-6 of an entry plus 1e-10 of the plane's
     largest (chip_smoke.py's floor), as the Meador-Weaver direct-beam terms
@@ -32,11 +44,15 @@ route to them.
 * The route: the SPARTACUS solvers call the wrappers once a band set; CPU
   tensors run the plain build and launch nothing; tensors the kernels
   cannot take raise before any launch, with no fallback; a launch set
-  counts once.
-* The counter of refined elements (.refined): the kernels' running total,
-  which the refine pass keeps on the card, and the CPU route's grow by the
-  plain build's use_expm.sum(), and the kernel branch reads no tensor's
-  value on the host.
+  counts once.  With the kernel branch, the sweep arguments
+  (spartacus.sw_sweep_args, lw_sweep_args) are built without the region
+  merge or a two-stream call in torch, and equal the plain route's.
+* The counters: .clear_planes counts the launch sets whose build wrote the
+  clear-sky planes (every one; none on the CPU route); .refined, the
+  kernels' running total of refined elements, which the refine pass keeps
+  on the card, and the CPU route's grow by the plain build's
+  use_expm.sum(), and the kernel branch reads no tensor's value on the
+  host.
 The build with nvcc and the runs on the card are chip_smoke.py's
 (spartacus_sw_mats, spartacus_lw_mats, equal to their plain versions bit
 for bit there too).
@@ -54,17 +70,27 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from ecrad_torch import flagship, kernels, pipeline
-from ecrad_torch.solvers import cuda_spartacus, matrix
+from ecrad_torch.solvers import cuda_spartacus, cuda_tripleclouds, matrix
 from ecrad_torch.solvers import spartacus as sp
+from ecrad_torch.solvers import two_stream
 
 torch.set_num_threads(2)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(REPO, "ecrad_torch", "csrc", "spartacus_layer_mats.cu")
 NAMES = {"sw": "sw_layer_mats", "lw": "lw_layer_mats"}
-# the mask's position in each wrapper's arguments
-USE = {"sw": 6, "lw": 9}
+SWEEP_ARGS = {"sw": "sw_sweep_args", "lw": "lw_sweep_args"}
+# the positions in each wrapper's arguments of the mask, the clear layers,
+# the 3D rates (SW: the direct ones) and the Planck terms (LW)
+USE = {"sw": 12, "lw": 15}
+CLEAR = {"sw": 13, "lw": 12}
+RATES = {"sw": 11, "lw": 9}
+PLANCK = 13
 CASES = ("meridian", "rrtmg", "clear", "everywhere", "ragged", "clamp")
+# the cases of both band sets, and those of the LW alone (the SW has no
+# absorbing gas and no side emissivity)
+PAIRS = [(c, b) for c in CASES for b in ("sw", "lw")] + [
+    ("scattering", "lw"), ("no_side", "lw")]
 
 
 @pytest.fixture(scope="module")
@@ -92,6 +118,16 @@ def cpu_kernel(tmp_path_factory):
 
 
 @pytest.fixture
+def exact_sqrt(monkeypatch):
+    """torch.sqrt correctly rounded (numpy's), as g++'s libm and the
+    card's: on the CPU torch's goes through MKL's vector math, within an
+    ulp of it, and the refine pass's LW side emissivity takes two square
+    roots."""
+    monkeypatch.setattr(torch, "sqrt",
+                        lambda x: torch.from_numpy(np.sqrt(x.numpy())))
+
+
+@pytest.fixture
 def launches_on_cpu(monkeypatch, cpu_kernel):
     """The wrappers' kernel branch on CPU tensors: the device checks record
     their specs (CPU tensors stand in for the card's), and each launch goes
@@ -113,14 +149,18 @@ def _capture(config_name, ncol, dtype=torch.float64, config=None,
              cloud=None):
     """The arguments of the two layer-matrix wrappers in one CPU step of a
     configuration (config(Config) editing its Config, cloud(dict) its
-    cloud inputs), and the Config; checks that each is called once."""
+    cloud inputs), the Config it ran, and the arguments of the two sweep
+    argument builders (spartacus.sw_sweep_args, lw_sweep_args); checks
+    that each is called once."""
     step, args = flagship.build(ncol=ncol, dtype=dtype, device="cpu",
                                 config_name=config_name)
     kw = dict(zip(flagship.ARG_ORDER, args))
     if cloud is not None:
         kw["cloud"] = cloud(dict(kw["cloud"]))
     seen = {"sw": [], "lw": []}
+    inputs = {"sw": [], "lw": []}
     real = {k: getattr(cuda_spartacus, n) for k, n in NAMES.items()}
+    real_args = {k: getattr(sp, n) for k, n in SWEEP_ARGS.items()}
     try:
         for k, n in NAMES.items():
             # the spy carries the wrapper's counters, which a wrapper
@@ -128,14 +168,19 @@ def _capture(config_name, ncol, dtype=torch.float64, config=None,
             spy = functools.wraps(real[k])(
                 lambda *a, _k=k: seen[_k].append(a) or real[_k](*a))
             setattr(cuda_spartacus, n, spy)
+            setattr(sp, SWEEP_ARGS[k], lambda *a, _k=k: inputs[_k].append(a)
+                    or real_args[_k](*a))
         conf = step.config if config is None else config(step.config)
         pipeline.radiation_step(conf, step.tables,
                                 solar_irradiance=step.solar, **kw)
     finally:
         for k, n in NAMES.items():
             setattr(cuda_spartacus, n, real[k])
+            setattr(sp, SWEEP_ARGS[k], real_args[k])
     assert [len(v) for v in seen.values()] == [1, 1]
-    return {k: v[0] for k, v in seen.items()}, step.config
+    assert [len(v) for v in inputs.values()] == [1, 1]
+    return ({k: v[0] for k, v in seen.items()}, conf,
+            {k: v[0] for k, v in inputs.items()})
 
 
 def _clear_every_other(cloud):
@@ -151,7 +196,7 @@ def _scaled_to_the_cap(args, band):
     args = list(args)
     c, lev, _ = args[USE[band]].nonzero(as_tuple=True)
     c, lev = c[:8], lev[:8]
-    i = 5 if band == "sw" else 3
+    i = RATES[band]
     rates = args[i].clone()
     rates[c, lev] = rates[c, lev] * 0.0 + (3.0e4 if band == "sw" else 60.0)
     args[i] = rates
@@ -160,7 +205,8 @@ def _scaled_to_the_cap(args, band):
 
 @pytest.fixture(scope="module")
 def states():
-    """{case: ({"sw": args, "lw": args}, config)} in float64."""
+    """{case: ({"sw": args, "lw": args}, config, {"sw": sweep_args
+    inputs, "lw": ...})} in float64."""
     out = {}
     out["meridian"] = _capture("spartacus_ecckd", 32)
     out["rrtmg"] = _capture("spartacus_3d", 4)
@@ -169,9 +215,16 @@ def states():
         "spartacus_ecckd", 8,
         config=lambda c: c.replace(use_expm_everywhere=True))
     out["ragged"] = _capture("spartacus_ecckd", 5)
-    args, config = _capture("spartacus_ecckd", 4)
+    args, config, inputs = _capture("spartacus_ecckd", 4)
     out["clamp"] = ({b: _scaled_to_the_cap(a, b) for b, a in args.items()},
-                    config)
+                    config, inputs)
+    # RRTMG's aerosols scatter in the LW once asked to: ssa and g given
+    out["scattering"] = _capture(
+        "spartacus_3d", 4,
+        config=lambda c: c.replace(do_lw_aerosol_scattering=True))
+    out["no_side"] = _capture(
+        "spartacus_ecckd", 8,
+        config=lambda c: c.replace(do_lw_side_emissivity=False))
     return out
 
 
@@ -189,12 +242,47 @@ def _refined_entries(band, args, x):
     return x[use], x[~use]
 
 
+def _close_as_built(got, want, want64, dtype):
+    """Entries not refined and clear-sky planes: within libm's rounding of
+    exp and expm1 (the module's bars)."""
+    big = float(want.abs().max())
+    err = (got - want).abs()
+    if dtype == torch.float64:
+        assert bool((err <= 1e-6 * want.abs() + 1e-10 * big).all())
+    elif float(err.max()) > 1e-4 * big:
+        assert float((got - want64).abs().max()) \
+            <= 2.0 * float((want - want64).abs().max())
+
+
+def _match_plain(band, args, got, want, want64):
+    """A wrapper's outputs (the layer matrices, then the clear-sky planes)
+    against the plain build's: refined entries bit for bit, the rest and
+    the planes as built (_close_as_built)."""
+    dtype = args[0].dtype
+    assert len(got) == len(want) and len(got[-1]) == len(want[-1])
+    for g, w, w64 in zip(got[:-1], want[:-1], want64[:-1]):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        g_ref, g_rest = _refined_entries(band, args, g)
+        w_ref, w_rest = _refined_entries(band, args, w)
+        # the clamp case's capped exponentials may overflow: NaN and inf
+        # where the plain build has them
+        torch.testing.assert_close(g_ref, w_ref, rtol=0, atol=0,
+                                   equal_nan=True)
+        if w_rest.numel():             # not every element refined
+            _close_as_built(g_rest, w_rest,
+                            _refined_entries(band, args, w64)[1], dtype)
+    ncol, nlev, ng = args[0].shape
+    for g, w, w64 in zip(got[-1], want[-1], want64[-1]):
+        assert g.shape == w.shape == (nlev, ncol, ng)
+        assert g.dtype == w.dtype
+        _close_as_built(g, w, w64, dtype)
+
+
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
                          ids=["f64", "f32"])
-@pytest.mark.parametrize("band", ["sw", "lw"])
-@pytest.mark.parametrize("case", CASES)
-def test_kernel_source_matches_plain(launches_on_cpu, states, case, band,
-                                     dtype):
+@pytest.mark.parametrize("case,band", PAIRS)
+def test_kernel_source_matches_plain(launches_on_cpu, exact_sqrt, states,
+                                     case, band, dtype):
     args64 = states[case][0][band]
     args = _rounded(args64, dtype)
     plain = sp._sw_layer_mats if band == "sw" else sp._lw_layer_mats
@@ -205,32 +293,18 @@ def test_kernel_source_matches_plain(launches_on_cpu, states, case, band,
     want64 = plain(*args64) if dtype == torch.float32 else want
     n_refined = int(args[USE[band]].sum())
     assert n_refined > 0
-    for g, w, w64 in zip(got, want, want64):
-        assert g.shape == w.shape and g.dtype == w.dtype
-        g_ref, g_rest = _refined_entries(band, args, g)
-        w_ref, w_rest = _refined_entries(band, args, w)
-        # the clamp case's capped exponentials may overflow: NaN and inf
-        # where the plain build has them
-        torch.testing.assert_close(g_ref, w_ref, rtol=0, atol=0,
-                                   equal_nan=True)
-        if not w_rest.numel():         # every element refined
-            continue
-        big = float(w_rest.abs().max())
-        err = (g_rest - w_rest).abs()
-        if dtype == torch.float64:
-            assert bool((err <= 1e-6 * w_rest.abs() + 1e-10 * big).all())
-        elif float(err.max()) > 1e-4 * big:
-            w64_rest = _refined_entries(band, args, w64)[1]
-            assert float((g_rest - w64_rest).abs().max()) \
-                <= 2.0 * float((w_rest - w64_rest).abs().max())
+    _match_plain(band, args, got, want, want64)
     if case == "clear":
-        clear = args[7 if band == "sw" else 6]
+        clear = args[CLEAR[band]]
         assert bool(clear[::2].all()) and not bool(clear[1::2].all())
     if case == "everywhere":       # clear layers refined, their selects
-        clear = args[7 if band == "sw" else 6]
+        clear = args[CLEAR[band]]
         assert bool((args[USE[band]].any(-1) & clear).any())
     if case == "rrtmg":
         assert args[0].shape[2] == (112 if band == "sw" else 140)
+    if band == "lw":   # the LW gas absorbs unless asked to scatter
+        assert (args[1] is None) == (case != "scattering")
+        assert bool((args[10] > 0.0).any()) == (case != "no_side")
 
 
 @pytest.mark.parametrize("band", ["sw", "lw"])
@@ -267,12 +341,20 @@ def test_clamp_case_reaches_the_squaring_cap(states, band, monkeypatch):
 
 def test_route_calls_the_wrappers_once_a_band_set(states):
     """Each SPARTACUS band set's solver calls its wrapper once (the
-    capture's count), with the plain build's argument layout, and the CPU
-    route launches nothing."""
+    capture's count), with the plain build's argument layout: the band
+    set's raw optics, the band map as int32, the LW gas absorbing (no ssa
+    and g); and the CPU route launches nothing."""
     args = states["meridian"][0]
-    assert args["sw"][0].shape == (32, 137, 32, 3)
-    assert args["lw"][7].stride() == (138 * 32, 32, 1)  # planck_hl[:, :-1]
-    assert args["sw"][8] is True and args["lw"][10] is True
+    assert args["sw"][0].shape == (32, 137, 32)
+    assert args["sw"][6].dtype == args["lw"][6].dtype == torch.int32
+    assert args["lw"][1] is None and args["lw"][2] is None
+    assert args["lw"][PLANCK].stride() == (138 * 32, 32, 1)  # [:, :-1]
+    assert args["sw"][14] is True and args["lw"][16] is True
+
+
+def _flat(outs):
+    """A wrapper's outputs, the clear-sky planes' tuple flattened."""
+    return [*outs[:-1], *outs[-1]]
 
 
 @pytest.mark.parametrize("band", ["sw", "lw"])
@@ -281,7 +363,7 @@ def test_cpu_runs_the_plain_build(states, band):
     wrapper = getattr(cuda_spartacus, NAMES[band])
     plain = sp._sw_layer_mats if band == "sw" else sp._lw_layer_mats
     before = wrapper.launches
-    for g, w in zip(wrapper(*args), plain(*args)):
+    for g, w in zip(_flat(wrapper(*args)), _flat(plain(*args)), strict=True):
         assert torch.equal(g, w)
     assert wrapper.launches == before
 
@@ -289,26 +371,28 @@ def test_cpu_runs_the_plain_build(states, band):
 def _fault(band, args, fault):
     args = [a.to("meta") if torch.is_tensor(a) else a for a in args]
     if band == "lw":    # Planck views of one half-level tensor, as routed
-        ncol, nlev, ng = args[0].shape[:3]
+        ncol, nlev, ng = args[0].shape
         hl = torch.empty((ncol, nlev + 1, ng), dtype=args[0].dtype,
                          device="meta")
-        args[7], args[8] = hl[:, :-1], hl[:, 1:]
+        args[PLANCK], args[PLANCK + 1] = hl[:, :-1], hl[:, 1:]
     if fault == "mask_dtype":
         args[USE[band]] = args[USE[band]].float()
     elif fault == "rank":
         args[0] = args[0][..., 0]
     elif fault == "clear_shape":
-        i = 7 if band == "sw" else 6
-        args[i] = args[i][:, :-1]
+        args[CLEAR[band]] = args[CLEAR[band]][:, :-1]
     elif fault == "planck_strides":
-        args[7] = args[7].contiguous()       # pl_bot keeps the view's
+        args[PLANCK] = args[PLANCK].contiguous()  # pl_bot keeps the view's
+    elif fault == "band_dtype":
+        args[6] = args[6].long()
     return args
 
 
 FAULTS = [("meta", "unsupported device meta"),
           ("mask_dtype", "use_expm must be bool"),
-          ("rank", r"od3 has shape \(5, 137, 32\)"),
-          ("clear_shape", r"clear_layer has shape \(5, 136\)")]
+          ("rank", r"od has shape \(5, 137\)"),
+          ("clear_shape", r"clear_layer has shape \(5, 136\)"),
+          ("band_dtype", r"band_from_g must be contiguous int32")]
 
 
 @pytest.mark.parametrize("band,fault,match", [
@@ -318,9 +402,9 @@ def test_off_the_cpu_the_wrappers_raise_before_any_launch(states, band,
                                                           fault, match):
     """On the meta device the wrappers take the kernel branch and raise on
     what the kernels cannot take: the device itself, a mask that is not
-    bool, region optics of another rank, a clear mask of another shape, LW
-    Planck inputs of unlike strides; nothing is launched and there is no
-    fallback."""
+    bool, a gas od of another rank, a clear mask of another shape, a band
+    map that is not int32, LW Planck inputs of unlike strides; nothing is
+    launched and there is no fallback."""
     args = _fault(band, states["ragged"][0][band], fault)
     wrapper = getattr(cuda_spartacus, NAMES[band])
     before = wrapper.launches
@@ -348,8 +432,8 @@ def test_a_launch_set_counts_once(launches_on_cpu, states, band, refine):
     assert wrapper.launches == before + 1
     ((name, specs),) = launches_on_cpu
     assert name == f"spartacus {NAMES[band]}"
-    assert specs["od3"][1] == (5, 137, 32, 3)
-    for g, w in zip(got, plain(*args)):
+    assert specs["od"][1] == (5, 137, 32)
+    for g, w in zip(_flat(got), _flat(plain(*args)), strict=True):
         np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-6,
                                    atol=1e-12 * float(w.abs().max()))
 
@@ -394,3 +478,121 @@ def test_refined_counts_the_plain_builds_elements(launches_on_cpu, states,
     assert int(wrapper.refined) == 5 + want
     wrapper(*args)
     assert int(wrapper.refined) == 5 + 2 * want
+
+
+def _refuse(*_, **__):
+    raise AssertionError("called in torch on the kernels' route")
+
+
+@pytest.mark.parametrize("band", ["sw", "lw"])
+@pytest.mark.parametrize("case", ["ragged", "rrtmg"])
+def test_sweep_args_take_the_kernel_route(launches_on_cpu, exact_sqrt,
+                                          states, monkeypatch, case, band):
+    """The sweep arguments built through the wrappers' kernel branch: no
+    region merge, no region optics and no two-stream call in torch (each
+    raises here), one launch set a band set whose build writes the
+    clear-sky planes (.clear_planes counts it, as .launches), and the
+    arguments equal the plain route's (the matrices and the clear-sky
+    planes as the kernels build them, the rest bit for bit).  The CPU
+    route counts no clear-sky planes."""
+    inputs = states[case][2][band]
+    build = getattr(sp, SWEEP_ARGS[band])
+    wrapper = getattr(cuda_spartacus, NAMES[band])
+    monkeypatch.setattr(wrapper, "launches", 0)
+    monkeypatch.setattr(wrapper, "clear_planes", 0)
+    opts, want, _ = build(*inputs)
+    assert wrapper.clear_planes == wrapper.launches == 0
+    nmats = 5 if band == "sw" else 4
+
+    kernel = getattr(cuda_spartacus, f"_{NAMES[band]}_kernel")
+    # the spy carries the wrapper's counters: the kernel branch counts
+    # through the module's name
+    spy = functools.wraps(wrapper)(lambda *a: kernel(*a))
+    spy.launches = spy.clear_planes = 0
+    monkeypatch.setattr(cuda_spartacus, NAMES[band], spy)
+    for mod, fn in ((two_stream, "sw_ref_trans"), (two_stream, "lw_ref_trans"),
+                    (cuda_tripleclouds, "merge_regions"),
+                    (sp, "merge_regions"), (sp, "_region_optics"),
+                    (sp, "_side_emissivity")):
+        monkeypatch.setattr(mod, fn, _refuse)
+    got_opts, got, _ = build(*inputs)
+    assert spy.launches == spy.clear_planes == 1
+    assert got_opts == opts and len(got) == len(want)
+    args = states[case][0][band]          # the wrapper's, for the mask
+    _match_plain(band, args, got[:nmats + 1], want[:nmats + 1],
+                 want[:nmats + 1])
+    for g, w in zip(got[nmats + 1:], want[nmats + 1:]):
+        assert torch.equal(g, w)
+
+
+def _whole_plane_refinement(band, args):
+    """The refined elements' matrices as the route built them before the
+    kernels made the region optics: _region_optics and the LW side
+    emissivity over whole (ncol, nlev, ng) planes (the side emissivity as
+    lw_sweep_args computed it, a sum over the cloudy regions), gathered
+    into _sw_refine / _lw_refine; the clear layers' selects applied.
+    Returns the list of (c, l, k) indices and the matrices, each (N, K)."""
+    od, ssa, g = args[:3]
+    if ssa is None:
+        ssa = g = torch.zeros_like(od)
+    od3, ssa3, g3 = sp._region_optics(args[8], od, ssa, g, *args[3:8])
+    use, clear = args[USE[band]], args[CLEAR[band]]
+    c, l, k = use.nonzero(as_tuple=True)
+    if band == "sw":
+        mu0, tr_diff, tr_dir = args[9:12]
+        res = sp._sw_refine(od3[c, l, k].T, ssa3[c, l, k].T, g3[c, l, k].T,
+                            mu0[c], (1.0 / mu0)[c],
+                            tr_diff[c, l].permute(1, 2, 0),
+                            tr_dir[c, l].permute(1, 2, 0))
+    else:
+        tr, aspect, rf = args[9], args[10], args[11]
+        pl_top, pl_bot = args[PLANCK], args[PLANCK + 1]
+        lateral_od = (aspect[..., None] / (sp.NREG - 1.0)) * torch.sum(
+            od3[..., 1:] * (1.0 - ssa3[..., 1:]), -1)
+        sq1 = torch.sqrt(torch.clamp(1.0 - ssa3[..., 1], min=0.0))
+        thick = 2.0 * sq1 / (sq1 + torch.sqrt(
+            torch.clamp(1.0 - ssa3[..., 1] * g3[..., 1], min=0.0)))
+        side = (sp.SIDE_EMISS_THIN - thick) / (lateral_od + 1.0) + thick
+        side = torch.where((aspect > 0.0)[..., None], side, 1.0)
+        res = sp._lw_refine(*(x.double() for x in (
+            od3[c, l, k].T, ssa3[c, l, k].T, g3[c, l, k].T,
+            tr[c, l].permute(1, 2, 0), side[c, l, k], rf[c, l].T,
+            pl_top[c, l, k], pl_bot[c, l, k])))
+        res = tuple(x.to(od.dtype) for x in res)
+    clr = clear[c, l]
+    out = []
+    for x in res:
+        x = x.reshape(-1, x.shape[-1]).T                  # (N, K)
+        x = torch.where(clr[:, None] & (torch.arange(x.shape[1]) > 0),
+                        0.0, x)
+        out.append(x)
+    return (c, l, k), out
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("case,band", [
+    ("ragged", "sw"), ("ragged", "lw"), ("everywhere", "sw"),
+    ("everywhere", "lw"), ("scattering", "lw"), ("no_side", "lw")])
+def test_refine_pass_makes_the_region_optics_again(launches_on_cpu,
+                                                   exact_sqrt, states, case,
+                                                   band, dtype):
+    """The refine pass makes each listed element's region optics and LW
+    side emissivity from the raw inputs: its matrices equal, bit for bit,
+    _sw_refine's / _lw_refine's fed the region optics and side emissivity
+    built over whole planes, as the route built them before.  The cases
+    hold refined elements where the side emissivity's condition fails (a
+    clear or overcast layer: aspect 0) and, in no_side, a LW without side
+    emissivity (aspect 0 everywhere)."""
+    args = _rounded(states[case][0][band], dtype)
+    got = getattr(cuda_spartacus, f"_{NAMES[band]}_kernel")(*args)
+    (c, l, k), want = _whole_plane_refinement(band, args)
+    assert c.numel() > 0
+    for g, w in zip(got[:-1], want, strict=True):
+        torch.testing.assert_close(g[l, :, c, k], w, rtol=0, atol=0,
+                                   equal_nan=True)
+    if band == "lw" and case == "everywhere":
+        aspect = args[10][c, l]
+        assert bool((aspect == 0.0).any()) and bool((aspect > 0.0).any())
+    if case == "no_side":
+        assert not bool((args[10] > 0.0).any())

@@ -4,6 +4,7 @@ same inputs in turns, on one NVIDIA GPU.
 
     python3 tools/time_kernels.py [--other DIR ...] [--rounds N]
         [--kernels NAME ...] [--planes] [--steps [--configs NAME ...]]
+        [--stages]
 
 Times each kernel (or those --kernels names) on every input set of
 chip_smoke.kernel_inputs ("meridian": the bundled slice tiled, a random
@@ -40,7 +41,19 @@ them).  With
 full size: 6144 columns in blocks of 2048, f32, the median of three steps
 after one, host clock around a synchronised step, and the peak device
 memory of those steps) of the configurations named by --configs (by
-default all fourteen; an older checkout may lack the later ones).  Prints one
+default all fourteen; an older checkout may lack the later ones).  With
+--stages, each run times the SPARTACUS sweep arguments instead
+(spartacus.sw_sweep_args and lw_sweep_args, whose signatures every
+checkout since the SPARTACUS kernels shares: the region set-up, the layer
+matrices, the clear-sky planes, the per-level inputs) on
+chip_smoke.sweep_args_inputs, float32, for spartacus_3d (RRTMG's widths)
+and spartacus_ecckd at 2048 and 8192 columns (cases
+"<band>_sweep_args/<configuration>_<ncol>"), each also split by stage
+(STAGES: the device time between CUDA events around each call the
+checkout's sweep_args makes of those functions, 0 for those it does not
+call, the rest "other"; the median of 5 calls), and saves a digest of
+every output in the first round, so that the summary says whether the
+sweep arguments equal this checkout's bit for bit.  Prints one
 JSON line per run and a summary line
 {"card": ..., "median_ms": {checkout: {case: ms}}, "f32_outputs_vs_this":
 {checkout: {case: "equal" or max_abs_diff}}}.
@@ -96,6 +109,90 @@ def time_steps(chip_smoke, configs):
     return out, peak
 
 
+# The stages of the SPARTACUS sweep arguments that --stages times apart:
+# (module under ecrad_torch.solvers, function), none calling another
+STAGES = (("spartacus", "_prep"), ("spartacus", "_region_optics"),
+          ("spartacus", "_use_expm_mask"), ("spartacus", "_transfer_rates"),
+          ("cuda_spartacus", "sw_layer_mats"),
+          ("cuda_spartacus", "lw_layer_mats"),
+          ("two_stream", "sw_ref_trans"), ("two_stream", "lw_ref_trans"),
+          ("spartacus", "_lev"))
+STAGE_NCOLS = (2048, 8192)
+
+
+def _split_call(fn, args):
+    """One call of fn(*args) with CUDA events around it and around each
+    call it makes of a STAGES function: {stage: ms, "total": ms}, device
+    time between the events, summed over calls; "other", the total less
+    the stages."""
+    import importlib
+
+    import torch
+
+    marks = {f"{m}.{f}": [] for m, f in STAGES}
+    real = {}
+
+    def timed(key, f):
+        def call(*a, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = f(*a, **kw)
+            end.record()
+            marks[key].append((start, end))
+            return out
+        call.__dict__.update(f.__dict__)       # a wrapper's counters
+        return call
+
+    for m, f in STAGES:
+        mod = importlib.import_module(f"ecrad_torch.solvers.{m}")
+        if hasattr(mod, f):
+            real[(mod, f)] = getattr(mod, f)
+            setattr(mod, f, timed(f"{m}.{f}", real[(mod, f)]))
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    try:
+        start.record()
+        fn(*args)
+        end.record()
+    finally:
+        for (mod, f), g in real.items():
+            setattr(mod, f, g)
+    torch.cuda.synchronize()
+    out = {k: sum(a.elapsed_time(b) for a, b in v) for k, v in marks.items()}
+    out["total"] = start.elapsed_time(end)
+    out["other"] = out["total"] - sum(out[f"{m}.{f}"] for m, f in STAGES)
+    return out
+
+
+def time_stages(chip_smoke, save):
+    """{case: ms} of the SPARTACUS sweep arguments (--stages), {case:
+    {stage: ms}} of their split, and with save each case's outputs saved
+    there."""
+    import torch
+
+    from ecrad_torch.solvers import spartacus
+
+    cases, split = {}, {}
+    for ncol in STAGE_NCOLS:
+        for config_name in ("spartacus_3d", "spartacus_ecckd"):
+            inputs = chip_smoke.sweep_args_inputs(
+                ncol, torch.float32, ncol, config_name=config_name)
+            for band, args in inputs.items():
+                fn = getattr(spartacus, f"{band}_sweep_args")
+                key = f"{band}_sweep_args/{config_name}_{ncol}"
+                cases[key] = chip_smoke.median_ms(lambda: fn(*args))
+                calls = [_split_call(fn, args) for _ in range(5)]
+                split[key] = {k: statistics.median(c[k] for c in calls)
+                              for k in calls[0]}
+                if save:
+                    torch.save({n: saved(v) for n, v in chip_smoke._outputs(
+                        fn(*args)[1]).items()}, case_file(save, key))
+            del inputs
+            torch.cuda.empty_cache()
+    return cases, split
+
+
 def case_file(save, case):
     return os.path.join(save, case.replace("/", "__") + ".pt")
 
@@ -114,10 +211,16 @@ def saved(x):
 
     if x.numel() * x.element_size() <= SAVE_WHOLE_BYTES:
         return x.cpu()
-    bits = x.contiguous().view(torch.int32).flatten().to(torch.int64)
-    w = torch.arange(bits.numel(), device=bits.device) % 65521 + 1
-    return {"shape": tuple(x.shape),
-            "digest": (int(bits.sum()), int((bits * w).sum()))}
+    # in chunks of 2^26 entries (int64 sums wrap the same either way)
+    flat = x.contiguous().view(torch.int32).flatten()
+    total = weighted = 0
+    for s in range(0, flat.numel(), 1 << 26):
+        bits = flat[s:s + (1 << 26)].to(torch.int64)
+        w = torch.arange(s, s + bits.numel(), device=bits.device) % 65521 + 1
+        total += int(bits.sum())
+        weighted += int((bits * w).sum())
+    wrap = lambda v: (v + 2**63) % 2**64 - 2**63  # noqa: E731
+    return {"shape": tuple(x.shape), "digest": (wrap(total), wrap(weighted))}
 
 
 def _sampler_args(f):
@@ -132,14 +235,15 @@ def _sampler_args(f):
     return lambda *a, **kw: f(*a[:5], sample=a[5:], **kw)
 
 
-def worker(check, configs, names, save, planes=False):
+def worker(check, configs, names, save, planes=False, stages=False):
     """Time this process's ecrad_torch (the first on sys.path) on the
     inputs of chip_smoke.py from ROOT, the kernels names lists (all when
     empty; with planes, those of chip_smoke.PLANES, with their per-g
     planes); with check, first hold each kernel against its plain version
     in float64 (chip_smoke._compare_f64), and save each case's float32
     outputs into the directory save; with configs, time those
-    configurations' main-path steps instead."""
+    configurations' main-path steps instead; with stages, the SPARTACUS
+    sweep arguments (time_stages)."""
     import importlib.util
 
     import torch
@@ -160,6 +264,12 @@ def worker(check, configs, names, save, planes=False):
         print(json.dumps({"ecrad_torch": os.path.dirname(
             os.path.dirname(os.path.abspath(kernels.__file__))),
             "ms": ms, "peak_memory_bytes": peak}), flush=True)
+        return
+    if stages:
+        ms, split = time_stages(chip_smoke, save if check else None)
+        print(json.dumps({"ecrad_torch": os.path.dirname(
+            os.path.dirname(os.path.abspath(kernels.__file__))),
+            "ms": ms, "stages_ms": split}), flush=True)
         return
     regs = [line.strip() for line in log.splitlines()
             if "entry function" in line or "registers" in line
@@ -216,6 +326,9 @@ def main():
                         help="time the main paths' steps, not the kernels")
     parser.add_argument("--configs", nargs="+", default=list(STEP_CONFIGS),
                         help="the configurations --steps times")
+    parser.add_argument("--stages", action="store_true",
+                        help="time the SPARTACUS sweep arguments by stage, "
+                        "not the kernels")
     parser.add_argument("--worker", action="store_true",
                         help=argparse.SUPPRESS)
     parser.add_argument("--check", action="store_true",
@@ -224,7 +337,7 @@ def main():
     args = parser.parse_args()
     if args.worker:
         worker(args.check, args.configs if args.steps else (), args.kernels,
-               args.save, args.planes)
+               args.save, args.planes, args.stages)
         return
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -235,6 +348,7 @@ def main():
     runs += [(os.path.relpath(os.path.abspath(d), ROOT), os.path.abspath(d))
              for d in args.other]
     times = {label: [] for label, _ in runs}
+    split = {label: [] for label, _ in runs}
     saved = os.path.join(ROOT, "build", "time_kernels")
     shutil.rmtree(saved, ignore_errors=True)
     save = {label: os.path.join(saved, str(i))
@@ -250,16 +364,22 @@ def main():
                  *(["--kernels", *args.kernels] if args.kernels else []),
                  *(["--planes"] if args.planes else []),
                  *(["--steps", "--configs", *args.configs]
-                   if args.steps else [])],
+                   if args.steps else []),
+                 *(["--stages"] if args.stages else [])],
                 env=env, capture_output=True, text=True, cwd=tree)
             if out.returncode != 0:
                 raise RuntimeError(f"{label}: worker failed:\n{out.stderr}")
             line = json.loads(out.stdout.strip().splitlines()[-1])
             print(json.dumps(dict(line, run=label, round=r)), flush=True)
             times[label].append(line["ms"])
+            split[label].append(line.get("stages_ms", {}))
     print(json.dumps({"card": smi, "median_ms": {
         label: {case: statistics.median(run[case] for run in rs)
                 for case in rs[0]} for label, rs in times.items()},
+        "median_stages_ms": {
+            label: {case: {k: statistics.median(run[case][k] for run in rs)
+                           for k in rs[0][case]} for case in rs[0]}
+            for label, rs in split.items()},
         "f32_outputs_vs_this": {
             label: compare_outputs(save["."], save[label], times["."][0])
             for label, _ in runs[1:]} if not args.steps else {}}))
