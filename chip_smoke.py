@@ -543,19 +543,6 @@ def reset_counts():
         k["wrapper"].launches = 0
     for name in LAYER_MATS:
         KERNELS[name]["wrapper"].refined = 0
-        KERNELS[name]["wrapper"].clear_planes = 0
-
-
-def clear_planes(launches):
-    """{kernel: count} of the layer-matrix launch sets whose build wrote
-    the clear-sky planes since the counters' reset; fail unless each equals
-    the kernel's launches."""
-    got = {name: KERNELS[name]["wrapper"].clear_planes for name in LAYER_MATS}
-    for name, n in got.items():
-        if n != launches[name]:
-            raise AssertionError(f"{name}: {n} launch sets wrote the "
-                                 f"clear-sky planes, {launches[name]} ran")
-    return got
 
 
 def refined_shares(config, ncol):
@@ -642,7 +629,7 @@ def layer_mats_args():
         def spy(*args, _name=name, _fn=fn):
             seen[_name] = args
             return _fn(*args)
-        spy.launches = spy.refined = spy.clear_planes = 0
+        spy.launches = spy.refined = 0
         setattr(cuda_spartacus, fn.__name__, spy)
     try:
         yield seen
@@ -1589,10 +1576,8 @@ def slice_phases(config_name, ref, smi):
                   **per_block(config_name, FULL_NCOL // FULL_BLOCK))
     extra = {}
     if main_counts["spartacus_sw_mats"]:
-        # the share of elements refined in one step at full size, and the
-        # launch sets whose build wrote the clear-sky planes
+        # the share of elements refined in one step at full size
         extra["refined_share"] = refined_shares(step.config, FULL_NCOL)
-        extra["clear_planes"] = clear_planes(main_counts)
     steps = check_and_time(step, args, flux, config_name)
     step_s = statistics.median(steps)
     phase(f"slice_{tag}_full", ncol=FULL_NCOL, block=FULL_BLOCK,

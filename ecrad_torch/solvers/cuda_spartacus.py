@@ -376,9 +376,8 @@ def sw_layer_mats(od, ssa, g, od_cloud_b, ssa_cloud_b, g_cloud_b,
     (csrc/spartacus_layer_mats.cu: the region optics, the two-stream build
     and the clear-sky planes, then, when any_expm, the refinement of the
     use_expm elements) or raise.  band_from_g is int32.  Counts its launch
-    sets in .launches, those whose build wrote the clear-sky planes in
-    .clear_planes (every one) and the elements it refines in .refined (an
-    int, or on the card a one-element tensor; reset all three to 0)."""
+    sets in .launches and the elements it refines in .refined (an int, or
+    on the card a one-element tensor; reset both to 0)."""
     if od.device.type == "cpu":
         out = sp._sw_layer_mats(od, ssa, g, od_cloud_b, ssa_cloud_b,
                                 g_cloud_b, band_from_g, od_scaling,
@@ -421,12 +420,10 @@ def _sw_layer_mats_kernel(od, ssa, g, od_cloud_b, ssa_cloud_b, g_cloud_b,
              *cl5, *_refine_list(sw_layer_mats, od, n, refine)),
             ncol, nlev, ng, nband, int(refine), float(max_cloud_od))
     sw_layer_mats.launches += 1
-    sw_layer_mats.clear_planes += 1
     return (*mats, cl5)
 
 
 sw_layer_mats.launches = 0
-sw_layer_mats.clear_planes = 0
 sw_layer_mats.refined = 0
 
 
@@ -444,8 +441,8 @@ def lw_layer_mats(od, ssa, g, od_cloud_b, ssa_cloud_b, g_cloud_b,
     tensors launch the kernels (csrc/spartacus_layer_mats.cu, the
     refinement in float64) or raise.  pl_top and pl_bot may be views with a
     column stride (planck_hl[:, :-1] and [:, 1:]): (ncol, nlev, ng) of
-    strides (s, ng, 1), the same s.  Counters .launches, .clear_planes and
-    .refined as sw_layer_mats'."""
+    strides (s, ng, 1), the same s.  Counters .launches and .refined as
+    sw_layer_mats'."""
     if od.device.type == "cpu":
         out = sp._lw_layer_mats(od, ssa, g, od_cloud_b, ssa_cloud_b,
                                 g_cloud_b, band_from_g, od_scaling,
@@ -501,10 +498,8 @@ def _lw_layer_mats_kernel(od, ssa, g, od_cloud_b, ssa_cloud_b, g_cloud_b,
             ncol, nlev, ng, nband, pl_top.stride(0), int(refine),
             float(max_cloud_od))
     lw_layer_mats.launches += 1
-    lw_layer_mats.clear_planes += 1
     return R9, T9, SU, SD, cl4
 
 
 lw_layer_mats.launches = 0
-lw_layer_mats.clear_planes = 0
 lw_layer_mats.refined = 0

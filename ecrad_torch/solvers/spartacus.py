@@ -71,9 +71,19 @@ SIDE_EMISS_THIN = 1.4107                    # radiation_spartacus_lw.F90:130
 LW_DIFFUSIVITY = 1.66
 NREG = 3
 _EPS = float(np.finfo(np.float64).eps)
-# The span of the layer-matrix build, one open a band set (the kernels'
-# launch set on the card, the plain build on the CPU)
+# The spans of the solvers' stages, inside ``ecrad.solvers`` with
+# ``ecrad.solvers.regions`` (``_prep``): the exponential mask, the layer-
+# matrix build (the kernels' launch set on the card, the plain build on the
+# CPU) and the sweeps, one open a band set each; the rest of the sweep
+# arguments, two opens a band set (before and after the layer matrices);
+# the LW derivatives, one a block; the flux profiles from the sweeps'
+# outputs, one a band set.  None opens inside a level loop.
+MASK = "ecrad.solvers.mask"
+SWEEP_INPUTS = "ecrad.solvers.sweep_inputs"
 LAYER_MATS = "ecrad.solvers.layer_mats"
+SWEEPS = "ecrad.solvers.sweeps"
+LW_DERIVATIVES = "ecrad.solvers.lw_derivatives"
+ASSEMBLE = "ecrad.solvers.assemble"
 # 3D-active elements per refinement chunk of the plain build: the SW
 # exponential keeps a few hundred planes of this length alive, a few GB
 _REFINE_CHUNK = 1 << 21
@@ -750,29 +760,33 @@ def sw_sweep_args(config: Config, od, ssa, g, od_cloud_b, ssa_cloud_b,
     dtype = od.dtype
     P = _prep(config, cloud_fraction, fractional_std, overlap_param,
               pressure_hl, temperature_hl, inv_cloud_size, inv_inhom_size)
+    with profiling.scope(MASK):
+        use_expm = _use_expm_mask(config, od, P["active_3d"])
     reg_fracs, u_mat, v_mat = P["reg_fracs"], P["u_mat"], P["v_mat"]
     clear_layer, edge_length = P["clear_layer"], P["edge_length"]
 
-    # Night columns are masked at the end (the reference cycles them);
-    # mu0 = 1 there keeps the 1/mu0 Gamma entries small
-    day_mask = cos_sza >= 1.0e-10
-    mu0 = torch.where(day_mask, torch.clamp(cos_sza, min=1.0e-10), 1.0)
-    one_over_mu0 = 1.0 / mu0
-    # radiation_spartacus_sw.F90:168-176
-    tan_sza = torch.where(
-        mu0 < MIN_MU0_3D, math.sqrt(1.0 / MIN_MU0_3D ** 2 - 1.0),
-        torch.where(one_over_mu0 > 1.0,
-                    torch.sqrt(torch.clamp(one_over_mu0 ** 2 - 1.0, min=0.0)
-                               + config.overhead_sun_factor),
-                    math.sqrt(config.overhead_sun_factor)))
+    with profiling.scope(SWEEP_INPUTS):
+        # Night columns are masked at the end (the reference cycles them);
+        # mu0 = 1 there keeps the 1/mu0 Gamma entries small
+        day_mask = cos_sza >= 1.0e-10
+        mu0 = torch.where(day_mask, torch.clamp(cos_sza, min=1.0e-10), 1.0)
+        one_over_mu0 = 1.0 / mu0
+        # radiation_spartacus_sw.F90:168-176
+        tan_sza = torch.where(
+            mu0 < MIN_MU0_3D, math.sqrt(1.0 / MIN_MU0_3D ** 2 - 1.0),
+            torch.where(one_over_mu0 > 1.0,
+                        torch.sqrt(torch.clamp(one_over_mu0 ** 2 - 1.0,
+                                               min=0.0)
+                                   + config.overhead_sun_factor),
+                        math.sqrt(config.overhead_sun_factor)))
 
-    use_expm = _use_expm_mask(config, od, P["active_3d"])
-    tr_diff = _transfer_rates(reg_fracs, edge_length, P["layer_depth"],
-                              TAN_DIFFUSE_ANGLE_3D,
-                              config.max_3d_transfer_rate)
-    tr_dir = _transfer_rates(reg_fracs, edge_length, P["layer_depth"],
-                             tan_sza[:, None], config.max_3d_transfer_rate)
-    band = band_from_g.to(torch.int32)
+        tr_diff = _transfer_rates(reg_fracs, edge_length, P["layer_depth"],
+                                  TAN_DIFFUSE_ANGLE_3D,
+                                  config.max_3d_transfer_rate)
+        tr_dir = _transfer_rates(reg_fracs, edge_length, P["layer_depth"],
+                                 tan_sza[:, None],
+                                 config.max_3d_transfer_rate)
+        band = band_from_g.to(torch.int32)
     # the layer matrices and the clear-sky planes, (R, T, Rd, Tdd, Tdir, cl5)
     with profiling.scope(LAYER_MATS):
         mats = cuda_spartacus.sw_layer_mats(
@@ -781,42 +795,43 @@ def sw_sweep_args(config: Config, od, ssa, g, od_cloud_b, ssa_cloud_b,
             use_expm, clear_layer,
             config.do_3d_effects or config.use_expm_everywhere)
 
-    ones = torch.ones((ncol, 1), dtype=torch.bool, device=od.device)
-    clear_pad = torch.cat([ones, clear_layer, ones], 1)
-    # "jlev >= i_cloud_top": a cloudy layer exists at or above
-    at_or_below_cloud_top = torch.cumsum(~clear_layer, 1) > 0
-
     def above(a):
         """The value of the layer above (zero above the top layer)."""
         return torch.cat([torch.zeros_like(a[:, :1]), a[:, :-1]], 1)
 
-    el_above, rf_above = above(edge_length), above(reg_fracs)
-    not_top = torch.arange(nlev, device=od.device) > 0
-    ld = P["layer_depth"]
-    x_lay_dif = ld * (TAN_DIFFUSE_ANGLE_3D / np.sqrt(2.0))
-    x_lay_dir = ld * 0.5 * torch.sqrt(tan_sza[:, None] ** 2
-                                      + TAN_DIFFUSE_ANGLE_3D ** 2)
-    lv = lambda *fs: _per_level(ncol, nlev, dtype, *fs)  # noqa: E731
-    msk_up = lv(clear_layer, clear_pad[:, :-2], at_or_below_cloud_top,
-                not_top[None, :])
-    msk_dn = lv(clear_layer, clear_pad[:, 2:])
-    # overlap parameter between the layer above and this one
-    op_above = torch.cat([torch.zeros_like(overlap_param[:, :1]),
-                          overlap_param], 1)
-    ent13 = lv(*reg_fracs.unbind(-1), *el_above.unbind(-1),
-               *rf_above.unbind(-1), above(P["inv_size"]), op_above,
-               x_lay_dif, x_lay_dir)
-
     def bc(x):
         return torch.broadcast_to(x, (ncol, ng)).to(dtype).contiguous()
 
-    alb_dir = bc(mu0[:, None] * albedo_direct)
-    ddn0 = (incoming_sw[None] * reg_fracs[:, 0].T[..., None]).contiguous()
-    args = (*mats, _iface9(u_mat[:, :-1], ncol, nlev),
-            _iface9(v_mat[:, :-1], ncol, nlev),
-            _iface9(v_mat[:, 1:], ncol, nlev), msk_up, msk_dn, ent13,
-            _diag9(bc(albedo_diffuse), ncol, ng), _diag9(alb_dir, ncol, ng),
-            bc(albedo_diffuse), alb_dir, ddn0, bc(incoming_sw))
+    lv = lambda *fs: _per_level(ncol, nlev, dtype, *fs)  # noqa: E731
+    with profiling.scope(SWEEP_INPUTS):
+        ones = torch.ones((ncol, 1), dtype=torch.bool, device=od.device)
+        clear_pad = torch.cat([ones, clear_layer, ones], 1)
+        # "jlev >= i_cloud_top": a cloudy layer exists at or above
+        at_or_below_cloud_top = torch.cumsum(~clear_layer, 1) > 0
+        el_above, rf_above = above(edge_length), above(reg_fracs)
+        not_top = torch.arange(nlev, device=od.device) > 0
+        ld = P["layer_depth"]
+        x_lay_dif = ld * (TAN_DIFFUSE_ANGLE_3D / np.sqrt(2.0))
+        x_lay_dir = ld * 0.5 * torch.sqrt(tan_sza[:, None] ** 2
+                                          + TAN_DIFFUSE_ANGLE_3D ** 2)
+        msk_up = lv(clear_layer, clear_pad[:, :-2], at_or_below_cloud_top,
+                    not_top[None, :])
+        msk_dn = lv(clear_layer, clear_pad[:, 2:])
+        # overlap parameter between the layer above and this one
+        op_above = torch.cat([torch.zeros_like(overlap_param[:, :1]),
+                              overlap_param], 1)
+        ent13 = lv(*reg_fracs.unbind(-1), *el_above.unbind(-1),
+                   *rf_above.unbind(-1), above(P["inv_size"]), op_above,
+                   x_lay_dif, x_lay_dir)
+        alb_dir = bc(mu0[:, None] * albedo_direct)
+        ddn0 = (incoming_sw[None] * reg_fracs[:, 0].T[..., None]
+                ).contiguous()
+        args = (*mats, _iface9(u_mat[:, :-1], ncol, nlev),
+                _iface9(v_mat[:, :-1], ncol, nlev),
+                _iface9(v_mat[:, 1:], ncol, nlev), msk_up, msk_dn, ent13,
+                _diag9(bc(albedo_diffuse), ncol, ng),
+                _diag9(alb_dir, ncol, ng), bc(albedo_diffuse), alb_dir, ddn0,
+                bc(incoming_sw))
     P["ddn0"] = ddn0
     return SwOpts(mode=config.sw_entrapment, do_3d=config.do_3d_effects,
                   overhang_factor=config.overhang_factor,
@@ -842,23 +857,25 @@ def solver_spartacus_sw(config: Config, od, ssa, g, od_cloud_b,
         cloud_fraction, fractional_std, overlap_param, inv_cloud_size,
         inv_inhom_size, pressure_hl, temperature_hl, incoming_sw, cos_sza,
         albedo_diffuse, albedo_direct)
-    albd_f9, _, albd_c_f, dn = cuda_spartacus.sw_sweeps(opts, *args)
-    fup_l, fdn_l, fdir_l, fup_cl, fdn_cl, fdir_cl = (x.transpose(0, 1)
-                                                     for x in dn)
-    fup_toa = _rsum(pl_matvec(_m3(albd_f9), P["ddn0"]))
-    zeros = torch.zeros((ncol, 1, ng), dtype=od.dtype, device=od.device)
-    top = lambda x, y: torch.cat([x[:, None], y], 1)  # noqa: E731
-    mu0p = torch.clamp(cos_sza, min=0.0)[:, None, None]
-    day = (cos_sza >= 1.0e-10)[:, None, None]
-    zn = lambda a: torch.where(day, a, 0.0)  # noqa: E731
-    return sw_from_g_profiles(
-        flux_up_g=zn(top(fup_toa, fup_l)),
-        flux_dn_diffuse_g=zn(torch.cat([zeros, fdn_l], 1)),
-        flux_dn_direct_g=zn(mu0p * top(incoming_sw, fdir_l)),
-        flux_up_clear_g=zn(top(incoming_sw * albd_c_f, fup_cl)),
-        flux_dn_diffuse_clear_g=zn(torch.cat([zeros, fdn_cl], 1)),
-        flux_dn_direct_clear_g=zn(mu0p * top(incoming_sw, fdir_cl)),
-        cloud_cover=P["cloud_cover"], spec_matrix=spec_matrix)
+    with profiling.scope(SWEEPS):
+        albd_f9, _, albd_c_f, dn = cuda_spartacus.sw_sweeps(opts, *args)
+    with profiling.scope(ASSEMBLE):
+        fup_l, fdn_l, fdir_l, fup_cl, fdn_cl, fdir_cl = (x.transpose(0, 1)
+                                                         for x in dn)
+        fup_toa = _rsum(pl_matvec(_m3(albd_f9), P["ddn0"]))
+        zeros = torch.zeros((ncol, 1, ng), dtype=od.dtype, device=od.device)
+        top = lambda x, y: torch.cat([x[:, None], y], 1)  # noqa: E731
+        mu0p = torch.clamp(cos_sza, min=0.0)[:, None, None]
+        day = (cos_sza >= 1.0e-10)[:, None, None]
+        zn = lambda a: torch.where(day, a, 0.0)  # noqa: E731
+        return sw_from_g_profiles(
+            flux_up_g=zn(top(fup_toa, fup_l)),
+            flux_dn_diffuse_g=zn(torch.cat([zeros, fdn_l], 1)),
+            flux_dn_direct_g=zn(mu0p * top(incoming_sw, fdir_l)),
+            flux_up_clear_g=zn(top(incoming_sw * albd_c_f, fup_cl)),
+            flux_dn_diffuse_clear_g=zn(torch.cat([zeros, fdn_cl], 1)),
+            flux_dn_direct_clear_g=zn(mu0p * top(incoming_sw, fdir_cl)),
+            cloud_cover=P["cloud_cover"], spec_matrix=spec_matrix)
 
 
 def lw_sweep_args(config: Config, od, ssa, g, od_cloud_b, ssa_cloud_b,
@@ -871,29 +888,34 @@ def lw_sweep_args(config: Config, od, ssa, g, od_cloud_b, ssa_cloud_b,
     dtype = od.dtype
     P = _prep(config, cloud_fraction, fractional_std, overlap_param,
               pressure_hl, temperature_hl, inv_cloud_size, inv_inhom_size)
+    with profiling.scope(MASK):
+        use_expm = _use_expm_mask(config, od, P["active_3d"])
     reg_fracs, u_mat, v_mat = P["reg_fracs"], P["u_mat"], P["v_mat"]
     clear_layer, edge_length = P["clear_layer"], P["edge_length"]
 
-    if not config.do_lw_aerosol_scattering:
-        ssa = g = None          # an absorbing gas
-    if not config.do_lw_cloud_scattering:
-        ssa_cloud_b = g_cloud_b = torch.zeros_like(od_cloud_b)
-    use_expm = _use_expm_mask(config, od, P["active_3d"])
-    tr = _transfer_rates(reg_fracs, edge_length, P["layer_depth"],
-                         TAN_DIFFUSE_ANGLE_3D, config.max_3d_transfer_rate)
+    with profiling.scope(SWEEP_INPUTS):
+        if not config.do_lw_aerosol_scattering:
+            ssa = g = None          # an absorbing gas
+        if not config.do_lw_cloud_scattering:
+            ssa_cloud_b = g_cloud_b = torch.zeros_like(od_cloud_b)
+        tr = _transfer_rates(reg_fracs, edge_length, P["layer_depth"],
+                             TAN_DIFFUSE_ANGLE_3D,
+                             config.max_3d_transfer_rate)
 
-    # the side emissivity's part without a g axis
-    # (radiation_spartacus_lw.F90:289-310): the clouds' aspect ratio where
-    # it applies, 0 where the side emissivity is 1 (_side_emissivity)
-    f0, f1 = reg_fracs[..., 0], reg_fracs[..., 1]
-    aspect = torch.where(
-        bool(config.do_lw_side_emissivity and config.do_3d_effects)
-        & (f0 > 0.0) & (f1 > 0.0) & (P["inv_size"] > 0.0),
-        1.0 / torch.clamp(P["inv_size"] * f0 * P["layer_depth"], min=1e-30),
-        0.0)
+        # the side emissivity's part without a g axis
+        # (radiation_spartacus_lw.F90:289-310): the clouds' aspect ratio
+        # where it applies, 0 where the side emissivity is 1
+        # (_side_emissivity)
+        f0, f1 = reg_fracs[..., 0], reg_fracs[..., 1]
+        aspect = torch.where(
+            bool(config.do_lw_side_emissivity and config.do_3d_effects)
+            & (f0 > 0.0) & (f1 > 0.0) & (P["inv_size"] > 0.0),
+            1.0 / torch.clamp(P["inv_size"] * f0 * P["layer_depth"],
+                              min=1e-30),
+            0.0)
 
-    pl_top, pl_bot = planck_hl[:, :-1], planck_hl[:, 1:]
-    band = band_from_g.to(torch.int32)
+        pl_top, pl_bot = planck_hl[:, :-1], planck_hl[:, 1:]
+        band = band_from_g.to(torch.int32)
     # the layer matrices and the clear-sky planes, (R, T, SU, SD, cl4)
     with profiling.scope(LAYER_MATS):
         mats = cuda_spartacus.lw_layer_mats(
@@ -901,20 +923,22 @@ def lw_sweep_args(config: Config, od, ssa, g, od_cloud_b, ssa_cloud_b,
             P["od_scaling"], config.max_cloud_od, tr, aspect, reg_fracs,
             clear_layer, pl_top, pl_bot, use_expm,
             config.do_3d_effects or config.use_expm_everywhere)
-    ones = torch.ones((ncol, 1), dtype=torch.bool, device=od.device)
-    clear_pad = torch.cat([ones, clear_layer, ones], 1)
     lv = lambda *fs: _per_level(ncol, nlev, dtype, *fs)  # noqa: E731
 
     def bc(x):
         return torch.broadcast_to(x, (ncol, ng)).to(dtype).contiguous()
 
-    src0 = (emission[None] * reg_fracs[:, -1].T[..., None]).contiguous()
-    args = (*mats, _iface9(u_mat[:, :-1], ncol, nlev),
-            _iface9(v_mat[:, :-1], ncol, nlev),
-            _iface9(v_mat[:, 1:], ncol, nlev),
-            lv(clear_layer, clear_pad[:, :-2]),
-            lv(clear_layer, clear_pad[:, 2:]),
-            _diag9(bc(albedo), ncol, ng), src0, bc(albedo), bc(emission))
+    with profiling.scope(SWEEP_INPUTS):
+        ones = torch.ones((ncol, 1), dtype=torch.bool, device=od.device)
+        clear_pad = torch.cat([ones, clear_layer, ones], 1)
+        src0 = (emission[None] * reg_fracs[:, -1].T[..., None]).contiguous()
+        args = (*mats, _iface9(u_mat[:, :-1], ncol, nlev),
+                _iface9(v_mat[:, :-1], ncol, nlev),
+                _iface9(v_mat[:, 1:], ncol, nlev),
+                lv(clear_layer, clear_pad[:, :-2]),
+                lv(clear_layer, clear_pad[:, 2:]),
+                _diag9(bc(albedo), ncol, ng), src0, bc(albedo),
+                bc(emission))
     return LwOpts(multilayer=config.do_3d_lw_multilayer_effects), args, P
 
 
@@ -933,33 +957,43 @@ def solver_spartacus_lw(config: Config, od, ssa, g, od_cloud_b,
         cloud_fraction, fractional_std, overlap_param, inv_cloud_size,
         inv_inhom_size, pressure_hl, temperature_hl, planck_hl, emission,
         albedo)
-    src_f3, src_c_f, dn = cuda_spartacus.lw_sweeps(opts, *args)
+    with profiling.scope(SWEEPS):
+        src_f3, src_c_f, dn = cuda_spartacus.lw_sweeps(opts, *args)
     fup_l, fdn_l, fup_cl, fdn_cl = dn
-    zeros = torch.zeros((ncol, 1, ng), dtype=od.dtype, device=od.device)
-    top = lambda x, y: torch.cat([x[:, None], y.transpose(0, 1)], 1)  # noqa
 
     lw_derivatives = None
     if config.do_lw_derivatives:
-        # calc_lw_derivatives_matrix (radiation_lw_derivatives.F90:138-193)
-        fup_surf = fup_l[-1]
-        total = fup_surf.sum(-1, keepdim=True)
-        d = torch.zeros((NREG, ncol, ng), dtype=od.dtype, device=od.device)
-        d[0] = torch.where(total > 0.0,
-                           fup_surf / torch.clamp(total, min=1e-300), 0.0)
-        Ts, u_mat = args[1], P["u_mat"]
-        dvals = [None] * nlev
-        for l in range(nlev - 1, -1, -1):
-            d = pl_matvec(u_mat[:, l + 1].permute(1, 2, 0)[..., None], d)
-            d = pl_matvec(_m3(Ts[l]), d)
-            dvals[l] = d[0].sum(-1) + d[1].sum(-1) + d[2].sum(-1)
-        lw_derivatives = torch.cat(
-            [torch.stack(dvals, 1),
-             torch.ones((ncol, 1), dtype=od.dtype, device=od.device)], 1)
+        with profiling.scope(LW_DERIVATIVES):
+            # calc_lw_derivatives_matrix
+            # (radiation_lw_derivatives.F90:138-193)
+            fup_surf = fup_l[-1]
+            total = fup_surf.sum(-1, keepdim=True)
+            d = torch.zeros((NREG, ncol, ng), dtype=od.dtype,
+                            device=od.device)
+            d[0] = torch.where(total > 0.0,
+                               fup_surf / torch.clamp(total, min=1e-300),
+                               0.0)
+            Ts, u_mat = args[1], P["u_mat"]
+            dvals = [None] * nlev
+            for l in range(nlev - 1, -1, -1):
+                d = pl_matvec(u_mat[:, l + 1].permute(1, 2, 0)[..., None], d)
+                d = pl_matvec(_m3(Ts[l]), d)
+                dvals[l] = d[0].sum(-1) + d[1].sum(-1) + d[2].sum(-1)
+            lw_derivatives = torch.cat(
+                [torch.stack(dvals, 1),
+                 torch.ones((ncol, 1), dtype=od.dtype, device=od.device)],
+                1)
 
-    return lw_from_g_profiles(
-        flux_up_g=top(_rsum(src_f3), fup_l),
-        flux_dn_g=torch.cat([zeros, fdn_l.transpose(0, 1)], 1),
-        flux_up_clear_g=top(src_c_f, fup_cl),
-        flux_dn_clear_g=torch.cat([zeros, fdn_cl.transpose(0, 1)], 1),
-        cloud_cover=P["cloud_cover"], lw_derivatives=lw_derivatives,
-        spec_matrix=spec_matrix)
+    with profiling.scope(ASSEMBLE):
+        zeros = torch.zeros((ncol, 1, ng), dtype=od.dtype, device=od.device)
+
+        def top(x, y):
+            return torch.cat([x[:, None], y.transpose(0, 1)], 1)
+
+        return lw_from_g_profiles(
+            flux_up_g=top(_rsum(src_f3), fup_l),
+            flux_dn_g=torch.cat([zeros, fdn_l.transpose(0, 1)], 1),
+            flux_up_clear_g=top(src_c_f, fup_cl),
+            flux_dn_clear_g=torch.cat([zeros, fdn_cl.transpose(0, 1)], 1),
+            cloud_cover=P["cloud_cover"], lw_derivatives=lw_derivatives,
+            spec_matrix=spec_matrix)

@@ -38,10 +38,18 @@ GENERATOR = {
 }
 # the three regions and their overlap matrices, built in each band set
 REGIONS = {"ecrad.solvers.regions": ("ecrad.solvers", 4)}
-# SPARTACUS: besides the regions, the layer matrices, built in each band
-# set, and the g permutation, into SPARTACUS order and back in each
+# SPARTACUS: besides the regions, in each band set the exponential mask,
+# the sweep arguments before and after the layer matrices, the layer
+# matrices, the sweeps and the flux profiles from their outputs, the g
+# permutation, into SPARTACUS order and back, and in the LW band set the
+# LW derivatives
 SPARTACUS = {**REGIONS,
+             "ecrad.solvers.mask": ("ecrad.solvers", 4),
+             "ecrad.solvers.sweep_inputs": ("ecrad.solvers", 8),
              "ecrad.solvers.layer_mats": ("ecrad.solvers", 4),
+             "ecrad.solvers.sweeps": ("ecrad.solvers", 4),
+             "ecrad.solvers.lw_derivatives": ("ecrad.solvers", 2),
+             "ecrad.solvers.assemble": ("ecrad.solvers", 4),
              "ecrad.solvers.reorder": ("ecrad.solvers", 8)}
 # configuration -> (its own spans, the levels its step runs on)
 CONFIGS = {"mcica_rrtmg": (GENERATOR, None),

@@ -47,12 +47,10 @@ optics) on the CPU, and the route to them.
   counts once.  With the kernel branch, the sweep arguments
   (spartacus.sw_sweep_args, lw_sweep_args) are built without the region
   merge or a two-stream call in torch, and equal the plain route's.
-* The counters: .clear_planes counts the launch sets whose build wrote the
-  clear-sky planes (every one; none on the CPU route); .refined, the
-  kernels' running total of refined elements, which the refine pass keeps
-  on the card, and the CPU route's grow by the plain build's
-  use_expm.sum(), and the kernel branch reads no tensor's value on the
-  host.
+* The counters: .refined, the kernels' running total of refined
+  elements, which the refine pass keeps on the card, and the CPU route's
+  grow by the plain build's use_expm.sum(), and the kernel branch reads
+  no tensor's value on the host.
 The build with nvcc and the runs on the card are chip_smoke.py's
 (spartacus_sw_mats, spartacus_lw_mats, equal to their plain versions bit
 for bit there too).
@@ -490,25 +488,23 @@ def test_sweep_args_take_the_kernel_route(launches_on_cpu, exact_sqrt,
                                           states, monkeypatch, case, band):
     """The sweep arguments built through the wrappers' kernel branch: no
     region merge, no region optics and no two-stream call in torch (each
-    raises here), one launch set a band set whose build writes the
-    clear-sky planes (.clear_planes counts it, as .launches), and the
+    raises here), one launch set a band set (.launches), and the
     arguments equal the plain route's (the matrices and the clear-sky
     planes as the kernels build them, the rest bit for bit).  The CPU
-    route counts no clear-sky planes."""
+    route counts no launch set."""
     inputs = states[case][2][band]
     build = getattr(sp, SWEEP_ARGS[band])
     wrapper = getattr(cuda_spartacus, NAMES[band])
     monkeypatch.setattr(wrapper, "launches", 0)
-    monkeypatch.setattr(wrapper, "clear_planes", 0)
     opts, want, _ = build(*inputs)
-    assert wrapper.clear_planes == wrapper.launches == 0
+    assert wrapper.launches == 0
     nmats = 5 if band == "sw" else 4
 
     kernel = getattr(cuda_spartacus, f"_{NAMES[band]}_kernel")
     # the spy carries the wrapper's counters: the kernel branch counts
     # through the module's name
     spy = functools.wraps(wrapper)(lambda *a: kernel(*a))
-    spy.launches = spy.clear_planes = 0
+    spy.launches = 0
     monkeypatch.setattr(cuda_spartacus, NAMES[band], spy)
     for mod, fn in ((two_stream, "sw_ref_trans"), (two_stream, "lw_ref_trans"),
                     (cuda_tripleclouds, "merge_regions"),
@@ -516,7 +512,7 @@ def test_sweep_args_take_the_kernel_route(launches_on_cpu, exact_sqrt,
                     (sp, "_side_emissivity")):
         monkeypatch.setattr(mod, fn, _refuse)
     got_opts, got, _ = build(*inputs)
-    assert spy.launches == spy.clear_planes == 1
+    assert spy.launches == 1
     assert got_opts == opts and len(got) == len(want)
     args = states[case][0][band]          # the wrapper's, for the mask
     _match_plain(band, args, got[:nmats + 1], want[:nmats + 1],
